@@ -1,0 +1,128 @@
+"""The multimodal encoder-decoder (counterpart of ``models/seq2seq.py``).
+
+``encode``, ``decode_train``, ``forward`` (loss and logits; no align head
+yet), the lazy-ancestry beam cache and ``beam_decode_step``. Module and
+parameter names follow the JAX param tree (``models/weights.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops.attention import make_attention_bias, make_causal_bias
+from ..ops.layers import Dense, LayerNorm, make_generator
+from .config import ModelConfig
+from .embedding import MultimodalEmbedding
+from .transformer import Decoder, Encoder
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over positions whose label is not -100."""
+    mask = labels != -100
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = logp.gather(-1, torch.where(mask, labels, 0).long()[..., None])[..., 0]
+    return -(picked * mask).sum() / mask.sum().clamp_min(1)
+
+
+class Seq2SeqModel(nn.Module):
+    def __init__(self, config: ModelConfig, data_config: Dict[str, Any],
+                 target_modality: str, multimodal_norm: bool = True, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        """``generator`` seeds the initialisation (default: seed 0 on ``device``)."""
+        super().__init__()
+        if config.align_config is not None:
+            raise NotImplementedError("the alignment head is not ported yet")
+        self.config = config
+        self.target_modality = target_modality
+        g = make_generator(generator, device)
+        dtype = config.compute_dtype
+        self.embedding = MultimodalEmbedding(
+            data_config, config.d_model, embedding_norm=multimodal_norm,
+            do_positional_encodings=config.use_absolute_positions,
+            positional_encodings_type=config.positional_encoding_type,
+            max_seq_len=config.max_position_embeddings,
+            unnormed=() if config.decoder_modality_norm else (target_modality,),
+            dtype=dtype, device=device, generator=g)
+        self.encoder = Encoder(config, device=device, generator=g)
+        self.decoder = Decoder(config, device=device, generator=g)
+        self.lm_head = Dense(config.d_model, config.vocab_size, bias=config.lm_head_bias,
+                             dtype=torch.float32, device=device, generator=g)
+        self.decoder_emb_norm = (LayerNorm(config.d_model, device=device)
+                                 if config.decoder_embedding_layernorm else None)
+
+    def _embed_target(self, inputs, decode_positions=None) -> torch.Tensor:
+        embeds = self.embedding(inputs, decode_positions=decode_positions,
+                                apply_norm=self.config.decoder_modality_norm)
+        if self.decoder_emb_norm is not None:
+            embeds = self.decoder_emb_norm(embeds).to(embeds.dtype)
+        return embeds
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """lm_head in fp32 (with T5's tied-embedding d**-0.5 output scaling)."""
+        hidden = hidden.float()
+        if self.config.tied_logits_scale:
+            hidden = hidden * (self.config.d_model ** -0.5)
+        return self.lm_head(hidden)
+
+    def encode(self, encoder_inputs: Dict[str, torch.Tensor],
+               encoder_mask: torch.Tensor) -> torch.Tensor:
+        embeds = self.embedding(encoder_inputs)
+        return self.encoder(embeds, make_attention_bias(encoder_mask))
+
+    def decode_train(self, decoder_ids, decoder_mask, encoder_hidden, encoder_mask):
+        """Teacher-forced logits (B, Lt, V)."""
+        embeds = self._embed_target({self.target_modality: decoder_ids})
+        self_bias = (make_causal_bias(decoder_ids.shape[1], device=decoder_ids.device)
+                     + make_attention_bias(decoder_mask))
+        hidden = self.decoder(embeds, encoder_hidden, self_bias,
+                              make_attention_bias(encoder_mask))
+        return self._logits(hidden)
+
+    def forward(self, encoder_inputs, encoder_mask, decoder_ids, decoder_mask,
+                labels) -> Dict[str, torch.Tensor]:
+        encoder_hidden = self.encode(encoder_inputs, encoder_mask)
+        logits = self.decode_train(decoder_ids, decoder_mask, encoder_hidden, encoder_mask)
+        ce = cross_entropy_loss(logits, labels)
+        return {"loss": ce, "model_only_loss": ce,
+                "alignment_loss": torch.zeros((), device=ce.device), "logits": logits}
+
+    def init_beam_cache(self, batch_size: int, num_beams: int, max_length: int,
+                        encoder_hidden: torch.Tensor, quantize: bool = False):
+        """Lazy-ancestry beam cache: {"self": per-layer (2, B, L*K, D) buffers
+        (or {"data": int8, "scale": (2, B, H, F_pad) fp32} with F_pad = L*K
+        rounded up to 128), "cross": per-layer flat (k, v)}. Flat row l*K + s
+        holds what beam slot s wrote at time l; rows are never reordered."""
+        cfg = self.config
+        device = encoder_hidden.device
+        flat = max_length * num_beams
+        shape = (2, batch_size, flat, cfg.d_model)
+        if quantize:
+            flat_pad = (flat + 127) // 128 * 128
+            selves: list = [
+                {"data": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "scale": torch.zeros((2, batch_size, cfg.decoder_attention_heads, flat_pad),
+                                      device=device)}
+                for _ in range(cfg.decoder_layers)]
+        else:
+            selves = [torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+                      for _ in range(cfg.decoder_layers)]
+        return {"self": selves, "cross": self.decoder.project_cross_kv(encoder_hidden)}
+
+    def beam_decode_step(self, token_ids: torch.Tensor, position: int, cache,
+                         ancestry: torch.Tensor, encoder_mask: torch.Tensor) -> torch.Tensor:
+        """One beam decode step: (B, K) tokens -> logits (B, K, V); appends to
+        the self caches in place."""
+        batch, beams = token_ids.shape
+        positions = torch.full((batch * beams, 1), position, dtype=torch.long,
+                               device=token_ids.device)
+        embeds = self._embed_target(
+            {self.target_modality: token_ids.reshape(batch * beams, 1)},
+            decode_positions=positions)
+        x = embeds.reshape(batch * beams, self.config.d_model)
+        hidden = self.decoder.beam_decode_step(
+            x, cache["self"], ancestry, cache["cross"], make_attention_bias(encoder_mask),
+            position)
+        return self._logits(hidden).reshape(batch, beams, -1)

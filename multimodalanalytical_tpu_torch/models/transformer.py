@@ -1,0 +1,209 @@
+"""Transformer encoder/decoder stacks (counterpart of ``models/transformer.py``).
+
+Pre- or post-LN layers with an optional gated FFN. Norms run in fp32 and
+their output is cast to the compute dtype; residual streams stay in the
+compute dtype. Inference only: dropout (training) comes with the training
+slice. LayerNorm only: RMSNorm and the T5 relative bias are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import MultiHeadAttention
+from ..ops.decode_ffn import geglu_ffn
+from ..ops.layers import Dense, LayerNorm
+
+ACTIVATIONS = {
+    "gelu": F.gelu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+def _check_norm(norm_type: str) -> None:
+    if norm_type != "layernorm":
+        raise NotImplementedError(f"norm_type {norm_type!r} is not ported yet (layernorm only)")
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, ffn_dim: int, activation: str = "gelu",
+                 gated_linear: bool = False, *, dtype=torch.float32, use_bias: bool = True,
+                 device=None, generator: torch.Generator):
+        super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"Unsupported activation {activation!r}")
+        self.activation, self.dtype, self.use_bias = activation, dtype, use_bias
+        dense = dict(bias=use_bias, dtype=dtype, device=device, generator=generator)
+        self.linear1 = Dense(d_model, ffn_dim, **dense)
+        self.gate = Dense(d_model, ffn_dim, **dense) if gated_linear else None
+        self.linear2 = Dense(ffn_dim, d_model, **dense)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hidden = ACTIVATIONS[self.activation](self.linear1(x))
+        if self.gate is not None:
+            hidden = hidden * self.gate(x)
+        return self.linear2(hidden)
+
+    def decode_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Decode-path FFN: the fused kernel (ops/decode_ffn.py) for bf16
+        GELU FFNs with biases on flat (M, D) rows; the plain path otherwise."""
+        if not (self.dtype == torch.bfloat16 and self.use_bias
+                and self.activation == "gelu" and x.ndim == 2):
+            return self(x)
+        gate = self.gate
+        return geglu_ffn(
+            x, self.linear1.weight, self.linear1.bias,
+            gate.weight if gate is not None else None,
+            gate.bias if gate is not None else None,
+            self.linear2.weight, self.linear2.bias,
+        )
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, activation: str = "gelu",
+                 gated_linear: bool = False, norm_first: bool = True, *, dtype=torch.float32,
+                 use_flash: bool = False, norm_type: str = "layernorm",
+                 attention_bias: bool = True, attention_scale: bool = True,
+                 ffn_bias: bool = True, device=None, generator: torch.Generator):
+        super().__init__()
+        _check_norm(norm_type)
+        self.norm_first, self.dtype = norm_first, dtype
+        self.self_attn = MultiHeadAttention(
+            num_heads, d_model, dtype=dtype, use_flash=use_flash, use_bias=attention_bias,
+            scale_qk=attention_scale, device=device, generator=generator)
+        self.ff = FeedForward(d_model, ffn_dim, activation, gated_linear, dtype=dtype,
+                              use_bias=ffn_bias, device=device, generator=generator)
+        self.norm1 = LayerNorm(d_model, device=device)
+        self.norm2 = LayerNorm(d_model, device=device)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        if self.norm_first:
+            normed = self.norm1(x).to(self.dtype)
+            x = x + self.self_attn(normed, normed, bias)
+            return x + self.ff(self.norm2(x).to(self.dtype))
+        x = self.norm1(x + self.self_attn(x, x, bias)).to(self.dtype)
+        return self.norm2(x + self.ff(x)).to(self.dtype)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, activation: str = "gelu",
+                 gated_linear: bool = False, norm_first: bool = True, *, dtype=torch.float32,
+                 use_flash: bool = False, use_beam_kernel: bool = True,
+                 norm_type: str = "layernorm", attention_bias: bool = True,
+                 attention_scale: bool = True, ffn_bias: bool = True, device=None,
+                 generator: torch.Generator):
+        super().__init__()
+        _check_norm(norm_type)
+        self.norm_first, self.dtype = norm_first, dtype
+        attn = dict(dtype=dtype, use_bias=attention_bias, scale_qk=attention_scale,
+                    device=device, generator=generator)
+        self.self_attn = MultiHeadAttention(num_heads, d_model, use_flash=use_flash,
+                                            use_beam_kernel=use_beam_kernel, **attn)
+        # As in the JAX package, use_beam_kernel gates the self-attention
+        # kernel only; cross-attention always takes its kernel.
+        self.cross_attn = MultiHeadAttention(num_heads, d_model, mode="cross", **attn)
+        self.ff = FeedForward(d_model, ffn_dim, activation, gated_linear, dtype=dtype,
+                              use_bias=ffn_bias, device=device, generator=generator)
+        self.norm1 = LayerNorm(d_model, device=device)
+        self.norm2 = LayerNorm(d_model, device=device)
+        self.norm3 = LayerNorm(d_model, device=device)
+
+    def beam_decode_step(self, x, self_cache, ancestry, cross_kv, cross_bias, position):
+        """Lazy-ancestry beam decode through this layer on flat (B*K, D) rows;
+        appends to ``self_cache`` in place."""
+        dt = self.dtype
+        if self.norm_first:
+            x = x + self.self_attn.beam_decode_self_attention(
+                self.norm1(x).to(dt), self_cache, ancestry, position)
+            x = x + self.cross_attn.beam_decode_cross_attention(
+                self.norm2(x).to(dt), cross_kv, cross_bias)
+            return x + self.ff.decode_fused(self.norm3(x).to(dt))
+        h = self.self_attn.beam_decode_self_attention(x, self_cache, ancestry, position)
+        x = self.norm1(x + h).to(dt)
+        x = self.norm2(x + self.cross_attn.beam_decode_cross_attention(
+            x, cross_kv, cross_bias)).to(dt)
+        return self.norm3(x + self.ff.decode_fused(x)).to(dt)
+
+    def forward(self, x, encoder_hidden, self_bias, cross_bias):
+        dt = self.dtype
+        if self.norm_first:
+            normed = self.norm1(x).to(dt)
+            x = x + self.self_attn(normed, normed, self_bias)
+            x = x + self.cross_attn(self.norm2(x).to(dt), encoder_hidden, cross_bias)
+            return x + self.ff(self.norm3(x).to(dt))
+        x = self.norm1(x + self.self_attn(x, x, self_bias)).to(dt)
+        x = self.norm2(x + self.cross_attn(x, encoder_hidden, cross_bias)).to(dt)
+        return self.norm3(x + self.ff(x)).to(dt)
+
+
+def _stack_kwargs(cfg, num_heads: int, ffn_dim: int, dtype, device, generator) -> dict:
+    return dict(
+        d_model=cfg.d_model, num_heads=num_heads, ffn_dim=ffn_dim,
+        activation=cfg.activation_function, gated_linear=cfg.gated_linear,
+        norm_first=cfg.post_layer_normalisation, dtype=dtype,
+        use_flash=cfg.use_flash_attention, norm_type=cfg.norm_type,
+        attention_bias=cfg.attention_bias, attention_scale=cfg.attention_scale,
+        ffn_bias=cfg.ffn_bias, device=device, generator=generator,
+    )
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg, *, device=None, generator: torch.Generator):
+        super().__init__()
+        if cfg.relative_position_bias:
+            raise NotImplementedError("the T5 relative attention bias is not ported yet")
+        kw = _stack_kwargs(cfg, cfg.encoder_attention_heads, cfg.encoder_ffn_dim,
+                           cfg.compute_dtype, device, generator)
+        self.dtype = cfg.compute_dtype
+        self.num_layers = cfg.encoder_layers
+        for i in range(cfg.encoder_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(**kw))
+        self.final_norm = LayerNorm(cfg.d_model, device=device) if cfg.final_layer_norm else None
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x, bias)
+        if self.final_norm is not None:
+            x = self.final_norm(x).to(self.dtype)
+        return x
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg, *, device=None, generator: torch.Generator):
+        super().__init__()
+        if cfg.relative_position_bias:
+            raise NotImplementedError("the T5 relative attention bias is not ported yet")
+        kw = _stack_kwargs(cfg, cfg.decoder_attention_heads, cfg.decoder_ffn_dim,
+                           cfg.compute_dtype, device, generator)
+        self.dtype = cfg.compute_dtype
+        for i in range(cfg.decoder_layers):
+            self.add_module(f"layer_{i}",
+                            DecoderLayer(use_beam_kernel=cfg.use_beam_kernel, **kw))
+        self.final_norm = LayerNorm(cfg.d_model, device=device) if cfg.final_layer_norm else None
+        self.num_layers = cfg.decoder_layers
+
+    @property
+    def layers(self) -> List[DecoderLayer]:
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def project_cross_kv(self, encoder_hidden: torch.Tensor):
+        """Per-layer flat (B, Ls, D) cross-attention K/V of the encoder output."""
+        return [layer.cross_attn.project_kv_flat(encoder_hidden) for layer in self.layers]
+
+    def _final(self, x: torch.Tensor) -> torch.Tensor:
+        return self.final_norm(x).to(self.dtype) if self.final_norm is not None else x
+
+    def beam_decode_step(self, x, self_caches, ancestry, cross_kvs, cross_bias, position):
+        for layer, cache, cross_kv in zip(self.layers, self_caches, cross_kvs):
+            x = layer.beam_decode_step(x, cache, ancestry, cross_kv, cross_bias, position)
+        return self._final(x)
+
+    def forward(self, x, encoder_hidden, self_bias, cross_bias):
+        for layer in self.layers:
+            x = layer(x, encoder_hidden, self_bias, cross_bias)
+        return self._final(x)

@@ -1,0 +1,63 @@
+"""Carry JAX-package parameters into the port (counterpart of ``models/torch_mapping.py``).
+
+The port names its parameters after the JAX param tree, so the mapping is
+one mechanical rule: join the tree path with dots, transpose Dense kernels
+and rename ``kernel``/``scale``/``embedding`` to ``weight``. For example
+``params["encoder"]["layer_0"]["self_attn"]["qkv_proj"]["kernel"]`` becomes
+``encoder.layer_0.self_attn.qkv_proj.weight`` (transposed). A reference
+Lightning checkpoint reaches the port through the JAX package's
+``custom_model_to_flax`` followed by :func:`load_flax_params`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_RENAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flatten a JAX param tree (nested mappings of arrays) to port names."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, prefix + (key,))
+                continue
+            array = np.asarray(value)
+            if key == "kernel":
+                array = array.T
+            name = ".".join(prefix + (_RENAMES.get(key, key),))
+            if name in out:
+                raise ValueError(f"two JAX parameters map to {name}")
+            out[name] = array
+
+    walk(params, ())
+    return out
+
+
+def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
+    """Fill ``model``'s parameters from the JAX package's param tree.
+
+    ``params`` is the tree under ``variables["params"]`` (arrays of any
+    numpy-convertible type). Every port parameter must receive exactly one
+    JAX parameter of the same shape, and every JAX parameter must be used.
+    """
+    incoming = flax_to_state_dict(params)
+    own = dict(model.named_parameters())
+    missing = sorted(set(own) - set(incoming))
+    unused = sorted(set(incoming) - set(own))
+    if missing or unused:
+        raise ValueError(f"parameter names differ: missing {missing}, unused {unused}")
+    with torch.no_grad():
+        for name, param in own.items():
+            array = incoming[name]
+            if tuple(array.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: JAX shape {array.shape} != port shape "
+                                 f"{tuple(param.shape)}")
+            param.copy_(torch.from_numpy(np.array(array, dtype=np.float32)))

@@ -1,0 +1,124 @@
+"""Build and bind the package's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens on first use and is cached under ``csrc/build/`` by a hash of the
+sources, so a checkout needs no install step; it needs ``nvcc`` (on
+``PATH`` or under ``$CUDA_HOME/bin``) and takes seconds, not minutes,
+because no source includes PyTorch's headers.
+
+Every entry point returns the ``cudaError_t`` of its launch;
+:func:`check` raises on anything but success.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+SIGNATURES = {
+    "mmt_beam_select_attention_update": [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ],
+    "mmt_beam_cross_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "mmt_geglu_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise KernelBuildError("nvcc not found on PATH or under $CUDA_HOME/bin")
+
+
+def library_path() -> Path:
+    """Compile the kernels if this exact source set has no library yet."""
+    sources = sorted(CSRC.glob("*.cu"))
+    hasher = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources + sorted(CSRC.glob("*.cuh")):
+        hasher.update(path.name.encode())
+        hasher.update(path.read_bytes())
+    so_path = BUILD_DIR / f"libmmt_kernels-{hasher.hexdigest()[:16]}.so"
+    if so_path.exists():
+        return so_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Build under a temporary name and rename, so a concurrent process never
+    # loads a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    result = subprocess.run(cmd, capture_output=True, text=True)
+    if result.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({result.returncode}):\n{' '.join(cmd)}\n{result.stderr}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(library_path()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.mmt_error_string.argtypes = [ctypes.c_int]
+            lib.mmt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        message = library().mmt_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code} ({message})")
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the pointer the launchers take."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def require(cond: bool, what: str) -> None:
+    """Wrapper argument check: the kernels take only what passes these."""
+    if not cond:
+        raise ValueError(what)

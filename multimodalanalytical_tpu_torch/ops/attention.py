@@ -1,0 +1,217 @@
+"""Multi-head attention with the beam-decode paths (counterpart of ``ops/attention.py``).
+
+Batch-first (B, L, D) throughout; masks are additive fp32 biases. Products
+that the JAX package runs with ``preferred_element_type=float32`` upcast
+their (bf16) operands to fp32 here, which is exact for the products and
+keeps fp32 accumulation on every device.
+
+Beam decode keeps the JAX package's path choices, which choose other math:
+beams > 1 with ``use_beam_kernel`` and the 1/sqrt(Dh) scale take the
+hand-written kernels of ``ops/beam_attention.py`` (for int8 or bf16 self
+caches), everything else (greedy K = 1, an fp32 cache, ``use_beam_kernel=
+False``) takes the plain formulation ported from the JAX "XLA fallback". The
+kernels' own shape limit is :func:`beam_kernel_supports`. KV caches are
+updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from .beam_attention import beam_cross_attention, beam_kernel_supports, \
+    beam_select_attention_update
+from .layers import Dense
+
+NEG_INF = -1e9  # large-negative bias (bf16-safe)
+
+# Encoder self-attention lengths at which the JAX package engages its flash
+# kernel (ops/flash_attention.py qualifies); not ported to CUDA yet.
+FLASH_MIN_LENGTH = 2048
+
+
+def quantize_kv_heads(x: torch.Tensor, num_heads: int):
+    """Per-(row, head) symmetric int8 quantization of K/V rows.
+
+    ``x``: (..., D). Returns (q int8 same shape, scales (..., H) fp32) with
+    ``x ~= q * scales`` per head block."""
+    head_dim = x.shape[-1] // num_heads
+    xh = x.reshape(*x.shape[:-1], num_heads, head_dim).float()
+    scales = xh.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(xh / scales[..., None]), -127, 127).to(torch.int8)
+    return q.reshape(x.shape), scales
+
+
+def dequantize_kv(data: torch.Tensor, scale: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``data`` (2, B, F, D) int8, ``scale`` (2, B, H, F) fp32 -> (2, B, F, D) bf16."""
+    two, b, f, d = data.shape
+    x = data.reshape(two, b, f, num_heads, d // num_heads).float()
+    s = scale.permute(0, 1, 3, 2)[..., None]
+    return (x * s).to(torch.bfloat16).reshape(two, b, f, d)
+
+
+def make_attention_bias(keep_mask: torch.Tensor) -> torch.Tensor:
+    """(B, L) keep-mask (1 = attend) -> (B, 1, 1, L) fp32 additive bias."""
+    return torch.where(keep_mask[:, None, None, :] > 0, 0.0, NEG_INF).float()
+
+
+def make_causal_bias(seq_len: int, device=None) -> torch.Tensor:
+    """(1, 1, L, L) fp32 additive causal bias."""
+    mask = torch.tril(torch.ones(seq_len, seq_len, dtype=torch.bool, device=device))
+    return torch.where(mask, 0.0, NEG_INF).float()[None, None]
+
+
+def dot_product_attention(q, k, v, bias, use_flash: bool = False,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """(B, H, Lq, Dh) attention; fp32 logits and softmax, output in v's dtype."""
+    if (use_flash and scale is None and q.is_cuda
+            and q.shape[2] >= FLASH_MIN_LENGTH and q.shape[2] == k.shape[2]
+            and q.shape[-1] % 64 == 0 and (bias is None or bias.shape[-2] == 1)):
+        raise NotImplementedError(
+            "flash attention (Lq == Lk >= 2048) has no CUDA kernel yet: see ROADMAP.md, "
+            "kernel 'flash_attention _fwd'")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        logits = logits + bias
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(weights, v)
+
+
+class MultiHeadAttention(nn.Module):
+    """Projections + attention. ``mode`` "self" fuses q/k/v into one Dense,
+    "cross" keeps q separate and fuses k/v."""
+
+    def __init__(self, num_heads: int, d_model: int, *, dtype=torch.float32,
+                 use_flash: bool = False, use_beam_kernel: bool = True,
+                 mode: str = "self", use_bias: bool = True, scale_qk: bool = True,
+                 device=None, generator: torch.Generator):
+        super().__init__()
+        self.num_heads, self.d_model, self.dtype = num_heads, d_model, dtype
+        self.head_dim = d_model // num_heads
+        self.use_flash, self.use_beam_kernel = use_flash, use_beam_kernel
+        self.mode, self.scale_qk = mode, scale_qk
+        dense = dict(bias=use_bias, dtype=dtype, device=device, generator=generator)
+        if mode == "self":
+            self.qkv_proj = Dense(d_model, 3 * d_model, blocks=3, **dense)
+        else:
+            self.q_proj = Dense(d_model, d_model, **dense)
+            self.kv_proj = Dense(d_model, 2 * d_model, blocks=2, **dense)
+        self.out_proj = Dense(d_model, d_model, **dense)
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, _ = x.shape
+        return x.reshape(b, l, self.num_heads, self.head_dim).transpose(1, 2)
+
+    def project_kv_flat(self, kv_input: torch.Tensor):
+        """Encoder K/V kept flat (B, Ls, D), projected once per sequence."""
+        k, v = self.kv_proj(kv_input).chunk(2, dim=-1)
+        return k.contiguous(), v.contiguous()
+
+    def beam_decode_self_attention(
+        self,
+        x: torch.Tensor,             # (B*K, D) flat current-token hidden
+        cache,                       # (2, B, L*K, D) | {"data": int8, "scale": (2, B, H, F_pad)}
+        ancestry: torch.Tensor,      # (B, K, L) int32 slot table (stage slice)
+        position: int,
+    ) -> torch.Tensor:
+        """Lazy-ancestry cached self-attention for beam search; appends this
+        step's K/V rows to ``cache`` in place and returns (B*K, D)."""
+        batch, beams, length = ancestry.shape
+        heads, head_dim = self.num_heads, self.head_dim
+        q_flat, k_new, v_new = self.qkv_proj(x).chunk(3, dim=-1)
+        quantized = isinstance(cache, dict)
+        if (beams > 1 and self.use_beam_kernel and self.scale_qk
+                and (quantized or cache.dtype == torch.bfloat16)
+                and beam_kernel_supports(beams, self.d_model, heads)):
+            if quantized:
+                k_q, k_s = quantize_kv_heads(k_new, heads)
+                v_q, v_s = quantize_kv_heads(v_new, heads)
+                out = beam_select_attention_update(
+                    q_flat.to(torch.bfloat16), k_q, v_q, cache["data"], ancestry,
+                    position, heads, scales=cache["scale"], k_scale=k_s, v_scale=v_s)
+            else:
+                out = beam_select_attention_update(
+                    q_flat.to(torch.bfloat16), k_new.to(cache.dtype), v_new.to(cache.dtype),
+                    cache, ancestry, position, heads)
+            return self.out_proj(out.to(x.dtype))
+
+        # Plain formulation on (B, K, D) views of the flat rows.
+        k_new = k_new.reshape(batch, beams, self.d_model)
+        v_new = v_new.reshape(batch, beams, self.d_model)
+        rows = slice(position * beams, (position + 1) * beams)
+        if quantized:
+            k_q, k_s = quantize_kv_heads(k_new, heads)
+            v_q, v_s = quantize_kv_heads(v_new, heads)
+            cache["data"][0, :, rows] = k_q
+            cache["data"][1, :, rows] = v_q
+            cache["scale"][0, :, :, rows] = k_s.transpose(1, 2)
+            cache["scale"][1, :, :, rows] = v_s.transpose(1, 2)
+            flat = length * beams
+            kv_store = dequantize_kv(cache["data"][:, :, :flat],
+                                     cache["scale"][..., :flat], heads)
+        else:
+            cache[0, :, rows] = k_new.to(cache.dtype)
+            cache[1, :, rows] = v_new.to(cache.dtype)
+            kv_store = cache[:, :, : length * beams]
+
+        q = q_flat.reshape(batch, beams, heads, head_dim)
+        anc_onehot = (ancestry[..., None].long()
+                      == torch.arange(beams, device=x.device)).float()   # (B, K, L, K')
+        kv = kv_store.reshape(2, batch, length, beams, heads, head_dim)
+        scale = head_dim ** -0.5 if self.scale_qk else 1.0
+        qk_all = torch.einsum("bnhd,blkhd->bnhkl",
+                              (q * scale).to(kv.dtype).float(), kv[0].float())
+        logits = torch.einsum("bnhkl,bnlk->bnhl", qk_all, anc_onehot)
+        slots = torch.arange(length, device=x.device)
+        logits = torch.where(slots <= position, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        pw = torch.einsum("bnhl,bnlk->bnhlk", probs.to(kv.dtype).float(), anc_onehot)
+        out = torch.einsum("bnhlk,blkhd->bnhd", pw, kv[1].float()).to(x.dtype)
+        return self.out_proj(out.reshape(batch * beams, self.d_model))
+
+    def beam_decode_cross_attention(
+        self,
+        x: torch.Tensor,                          # (B*K, D) flat
+        kv: Tuple[torch.Tensor, torch.Tensor],    # flat (B, Ls, D), beam-invariant
+        bias: Optional[torch.Tensor],             # (B, 1, 1, Ls)
+    ) -> torch.Tensor:
+        """Beam cross-attention against batch-sized encoder K/V; (B*K, D)."""
+        batch, ls = kv[0].shape[:2]
+        beams = x.shape[0] // batch
+        heads, head_dim = self.num_heads, self.head_dim
+        q_flat = self.q_proj(x)
+        if (self.use_beam_kernel and self.scale_qk
+                and beam_kernel_supports(beams, self.d_model, heads)):
+            bias2d = (torch.zeros(batch, ls, device=x.device) if bias is None
+                      else bias[:, 0, 0, :].float())
+            out = beam_cross_attention(q_flat.to(kv[0].dtype), kv[0], kv[1], bias2d,
+                                       heads, beams)
+            return self.out_proj(out.to(x.dtype))
+
+        q = q_flat.reshape(batch, beams, heads, head_dim)
+        k = kv[0].reshape(batch, ls, heads, head_dim)
+        v = kv[1].reshape(batch, ls, heads, head_dim)
+        scale = head_dim ** -0.5 if self.scale_qk else 1.0
+        logits = torch.einsum("bkhd,blhd->bkhl", (q * scale).to(k.dtype).float(), k.float())
+        if bias is not None:
+            logits = logits + bias
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkhl,blhd->bkhd", probs.to(v.dtype).float(), v.float())
+        return self.out_proj(out.to(x.dtype).reshape(batch * beams, self.d_model))
+
+    def forward(self, query_input: torch.Tensor, kv_input: Optional[torch.Tensor],
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence attention (encoder, teacher-forced decoder)."""
+        if self.mode == "self":
+            q, k, v = (self._split(t) for t in self.qkv_proj(query_input).chunk(3, dim=-1))
+        else:
+            q = self._split(self.q_proj(query_input))
+            k, v = (self._split(t) for t in self.kv_proj(kv_input).chunk(2, dim=-1))
+        out = dot_product_attention(q, k, v, bias, use_flash=self.use_flash,
+                                    scale=None if self.scale_qk else 1.0)
+        b, h, lq, dh = out.shape
+        return self.out_proj(out.transpose(1, 2).reshape(b, lq, h * dh))

@@ -1,0 +1,231 @@
+"""Beam-decode attention: hand-written CUDA kernels and their plain versions.
+
+Counterpart of ``multimodalanalytical_tpu/ops/beam_attention.py``:
+
+* :func:`beam_select_attention_update` replaces the Pallas
+  ``beam_select_attention_update`` (``_kernel_upd`` / ``_kernel_upd_q8``):
+  one lazy-ancestry decode step of self-attention for every beam, plus the
+  append of this step's K/V rows (and int8 scales) to the cache;
+* :func:`beam_cross_attention` replaces the Pallas ``beam_cross_attention``
+  (``_cross_kernel``): all K beams of a batch row against that row's
+  beam-invariant encoder K/V.
+
+The kernels are in ``csrc/beam_attention.cu``, whose source note says what
+bounds them on the H100 and how their design answers it.
+
+Layout contract (as in the JAX package, see
+``models/seq2seq.py init_beam_cache``): the cache is (2, B, L*K, D), int8 or
+bf16, and flat row ``l*K + s`` holds what beam slot ``s`` wrote at time
+``l``; int8 dequant scales are (2, B, H, F_pad) fp32 with F_pad >= L*K;
+``ancestry[b, n, l]`` is the slot that holds beam n's time-l row, and
+``ancestry[:, :, pos]`` is the identity (beam n writes slot n).
+
+Numerics (both versions): q * Dh**-0.5 is rounded to bf16 before the dot,
+dots accumulate in fp32, int8 logits are scaled by the key's per-(slot,
+head) scale and probabilities by the value's, and probabilities are rounded
+to bf16 before the value sum. The time-``pos`` term reads this step's fresh
+rows, which the update stores in place first.
+
+Dispatch: a CPU tensor takes the ``*_plain`` version; a CUDA tensor launches
+the kernel or raises. The update is IN PLACE on ``cache`` and ``scales``
+(the JAX package donated and aliased these buffers instead).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _cuda
+
+BF16 = torch.bfloat16
+
+
+def beam_kernel_supports(beams: int, d_model: int, num_heads: int) -> bool:
+    """Whether the CUDA beam kernels take this shape: head_dim a multiple of
+    8 up to 256 (16-byte row loads, 8 fp32 sums per lane), and the staged
+    (beams, head_dim) fp32 queries within 48 KB of shared memory."""
+    head_dim = d_model // num_heads
+    return (head_dim * num_heads == d_model and head_dim % 8 == 0
+            and head_dim <= 256 and beams * head_dim * 4 <= 48 * 1024)
+
+
+def _store_fresh_rows(cache, scales, k_new, v_new, k_scale, v_scale, pos, beams):
+    """Append this step's rows at flat rows pos*K .. pos*K+K-1 (in place)."""
+    batch, d_model = cache.shape[1], cache.shape[3]
+    rows = slice(pos * beams, (pos + 1) * beams)
+    cache[0, :, rows] = k_new.reshape(batch, beams, d_model)
+    cache[1, :, rows] = v_new.reshape(batch, beams, d_model)
+    if scales is not None:
+        heads = scales.shape[2]
+        scales[0, :, :, rows] = k_scale.reshape(batch, beams, heads).transpose(1, 2)
+        scales[1, :, :, rows] = v_scale.reshape(batch, beams, heads).transpose(1, 2)
+
+
+def beam_select_attention_update_plain(
+    q, k_new, v_new, cache, ancestry, position, num_heads,
+    scales=None, k_scale=None, v_scale=None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`beam_select_attention_update`."""
+    batch, beams = ancestry.shape[:2]
+    d_model = cache.shape[3]
+    head_dim = d_model // num_heads
+    pos = int(position)
+    _store_fresh_rows(cache, scales, k_new, v_new, k_scale, v_scale, pos, beams)
+
+    slot = ancestry[:, :, : pos + 1].long().clone()
+    slot[:, :, pos] = torch.arange(beams, device=slot.device)
+    times = torch.arange(pos + 1, device=slot.device)
+    flat = times * beams + slot                                  # (B, K, P)
+    b_idx = torch.arange(batch, device=slot.device)[:, None, None]
+
+    def rows(plane):                                             # (B, K, P, H, Dh)
+        return cache[plane][b_idx, flat].float().reshape(
+            batch, beams, pos + 1, num_heads, head_dim)
+
+    qh = (q.float() * head_dim ** -0.5).to(BF16).float().reshape(
+        batch, beams, num_heads, head_dim)
+    logits = torch.einsum("bnhd,bnlhd->bnhl", qh, rows(0))
+    if scales is not None:
+        # scales[plane][b, :, f] for every (b, n, l): (B, K, P, H) -> (B, K, H, P)
+        logits = logits * scales[0][b_idx, :, flat].permute(0, 1, 3, 2)
+    probs = torch.softmax(logits, dim=-1)
+    if scales is not None:
+        probs = probs * scales[1][b_idx, :, flat].permute(0, 1, 3, 2)
+    out = torch.einsum("bnhl,bnlhd->bnhd", probs.to(BF16).float(), rows(1))
+    return out.to(BF16).reshape(batch * beams, d_model)
+
+
+def beam_select_attention_update(
+    q: torch.Tensor,             # (B*K, D) bf16 queries (post q-projection)
+    k_new: torch.Tensor,         # (B*K, D) this step's K rows, cache dtype
+    v_new: torch.Tensor,         #   (int8 rows come pre-quantized)
+    cache: torch.Tensor,         # (2, B, L_max*K, D) int8 | bf16, updated in place
+    ancestry: torch.Tensor,      # (B, K, L) int32 stage slice, L <= L_max
+    position: int,               # step index, < L
+    num_heads: int,
+    scales: Optional[torch.Tensor] = None,   # (2, B, H, F_pad) fp32, int8 cache
+    k_scale: Optional[torch.Tensor] = None,  # (B*K, H) fp32 scales of k_new
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Lazy-ancestry beam self-attention with the in-place cache append.
+
+    Returns the (B*K, D) bf16 attention output (pre out-projection).
+    ``beam_select_attention_update.launches`` counts kernel launches.
+    """
+    if q.device.type == "cpu":
+        return beam_select_attention_update_plain(
+            q, k_new, v_new, cache, ancestry, position, num_heads,
+            scales, k_scale, v_scale)
+    require = _cuda.require
+    require(q.is_cuda, f"beam_select_attention_update: unsupported device {q.device}")
+    two, batch, flat, d_model = cache.shape
+    _, beams, length = ancestry.shape
+    head_dim = d_model // num_heads
+    pos = int(position)
+    quantized = scales is not None
+    require(cache.dtype == (torch.int8 if quantized else BF16),
+            "beam_select_attention_update: int8 cache needs scales, bf16 cache none")
+    require(beam_kernel_supports(beams, d_model, num_heads),
+            f"beam_select_attention_update: unsupported shape K={beams} D={d_model} "
+            f"H={num_heads}")
+    require(two == 2 and ancestry.shape[0] == batch and 0 <= pos < length
+            and (pos + 1) * beams <= flat,
+            "beam_select_attention_update: position outside the stage or cache")
+    require(q.dtype == BF16 and q.shape == (batch * beams, d_model),
+            "beam_select_attention_update: q must be (B*K, D) bf16")
+    require(k_new.dtype == cache.dtype and v_new.dtype == cache.dtype
+            and k_new.shape == q.shape and v_new.shape == q.shape,
+            "beam_select_attention_update: fresh rows must be (B*K, D) in the cache dtype")
+    require(ancestry.dtype == torch.int32 and ancestry.stride(2) == 1
+            and ancestry.stride(0) == beams * ancestry.stride(1),
+            "beam_select_attention_update: ancestry must be int32 rows with unit stride")
+    tensors = [q, k_new, v_new, cache, ancestry]
+    if quantized:
+        require(scales.dtype == torch.float32 and scales.shape[:3] == (2, batch, num_heads)
+                and scales.shape[3] >= (pos + 1) * beams,
+                "beam_select_attention_update: scales must be (2, B, H, F_pad) fp32")
+        require(k_scale is not None and v_scale is not None
+                and k_scale.shape == (batch * beams, num_heads) == v_scale.shape
+                and k_scale.dtype == torch.float32 == v_scale.dtype,
+                "beam_select_attention_update: fresh scales must be (B*K, H) fp32")
+        tensors += [scales, k_scale, v_scale]
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    if quantized:
+        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
+    require(all(t.is_cuda and t.device == q.device for t in tensors)
+            and cache.is_contiguous() and (scales is None or scales.is_contiguous())
+            and all(t.data_ptr() % 16 == 0 for t in (q, k_new, v_new, cache)),
+            "beam_select_attention_update: operands must be contiguous, 16-byte "
+            "aligned and on one device")
+    out = torch.empty_like(q)
+    lib = _cuda.library()
+    _cuda.check(lib.mmt_beam_select_attention_update(
+        int(quantized), _cuda.ptr(q), _cuda.ptr(k_new), _cuda.ptr(v_new),
+        _cuda.ptr(k_scale), _cuda.ptr(v_scale), _cuda.ptr(cache), _cuda.ptr(scales),
+        _cuda.ptr(ancestry), _cuda.ptr(out), batch, beams, num_heads, head_dim, flat,
+        scales.shape[3] if quantized else 0, ancestry.stride(1), pos,
+        head_dim ** -0.5, _cuda.stream()), "beam_select_attention_update")
+    beam_select_attention_update.launches += 1
+    return out
+
+
+beam_select_attention_update.launches = 0
+
+
+def beam_cross_attention_plain(q, k, v, bias, num_heads, beams) -> torch.Tensor:
+    """Plain PyTorch version of :func:`beam_cross_attention`."""
+    batch, ls, d_model = k.shape
+    head_dim = d_model // num_heads
+    mm = k.dtype
+    qh = (q.float() * head_dim ** -0.5).to(mm).float().reshape(
+        batch, beams, num_heads, head_dim)
+    kh = k.float().reshape(batch, ls, num_heads, head_dim)
+    vh = v.float().reshape(batch, ls, num_heads, head_dim)
+    logits = torch.einsum("bnhd,blhd->bnhl", qh, kh) + bias.float()[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1).to(mm).float()
+    out = torch.einsum("bnhl,blhd->bnhd", probs, vh)
+    return out.to(q.dtype).reshape(batch * beams, d_model)
+
+
+def beam_cross_attention(
+    q: torch.Tensor,      # (B*K, D) post q-projection, in the K/V dtype
+    k: torch.Tensor,      # (B, Ls, D) encoder K (beam-invariant)
+    v: torch.Tensor,      # (B, Ls, D) encoder V
+    bias: torch.Tensor,   # (B, Ls) fp32 additive padding bias
+    num_heads: int,
+    beams: int,
+) -> torch.Tensor:
+    """Beam cross-attention; returns (B*K, D) in q's dtype (pre out-projection).
+
+    Products run in the K/V storage dtype (bf16, or fp32 for fp32 models).
+    ``beam_cross_attention.launches`` counts kernel launches.
+    """
+    if q.device.type == "cpu":
+        return beam_cross_attention_plain(q, k, v, bias, num_heads, beams)
+    require = _cuda.require
+    require(q.is_cuda, f"beam_cross_attention: unsupported device {q.device}")
+    batch, ls, d_model = k.shape
+    require(k.dtype in (BF16, torch.float32) and q.dtype == k.dtype == v.dtype,
+            "beam_cross_attention: q, k and v must share one dtype, bf16 or fp32")
+    require(beam_kernel_supports(beams, d_model, num_heads),
+            f"beam_cross_attention: unsupported shape K={beams} D={d_model} H={num_heads}")
+    require(q.shape == (batch * beams, d_model) and v.shape == k.shape
+            and bias.shape == (batch, ls) and bias.dtype == torch.float32,
+            "beam_cross_attention: shapes must be q (B*K, D), k/v (B, Ls, D), bias (B, Ls)")
+    q, k, v, bias = q.contiguous(), k.contiguous(), v.contiguous(), bias.contiguous()
+    require(all(t.is_cuda and t.device == q.device and t.data_ptr() % 16 == 0
+                for t in (q, k, v, bias)),
+            "beam_cross_attention: operands must be 16-byte aligned on one device")
+    out = torch.empty_like(q)
+    lib = _cuda.library()
+    _cuda.check(lib.mmt_beam_cross_attention(
+        int(q.dtype == BF16), _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(bias),
+        _cuda.ptr(out), batch, beams, num_heads, d_model // num_heads, ls,
+        (d_model // num_heads) ** -0.5, _cuda.stream()), "beam_cross_attention")
+    beam_cross_attention.launches += 1
+    return out
+
+
+beam_cross_attention.launches = 0

@@ -1,0 +1,126 @@
+"""The port's beam attention (plain versions, CPU) vs the JAX Pallas kernels
+run in interpret mode, at the shapes tests/test_beam_kernel.py uses."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from multimodalanalytical_tpu.ops import attention as jax_attention  # noqa: E402
+from multimodalanalytical_tpu.ops import beam_attention as jax_beam  # noqa: E402
+from multimodalanalytical_tpu_torch.ops import attention as port_attention  # noqa: E402
+from multimodalanalytical_tpu_torch.ops import beam_attention as port_beam  # noqa: E402
+
+B, K, L, H, DH = 3, 4, 16, 2, 8
+D = H * DH
+TOL = 2e-2   # bf16 rounding of q, probabilities and outputs, as in test_beam_kernel.py
+
+
+def _bf16(x):
+    """The same bf16 values in both frameworks (both round to nearest even)."""
+    x = np.asarray(x, np.float32)
+    return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _inputs(seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B * K, D))
+    cache = rng.normal(size=(2, B, L * K, D))
+    k_new = rng.normal(size=(B * K, D))
+    v_new = rng.normal(size=(B * K, D))
+    ancestry = rng.integers(0, K, (B, K, L)).astype(np.int32)
+    return q, cache, k_new, v_new, ancestry
+
+
+def _jax_fresh_scale_operands(k_s, v_s):
+    """The lane-padded scale operands the Pallas update kernel takes
+    (built as ops/attention.py builds them)."""
+    def one(s):
+        s_bkh = s.reshape(B, K, H)
+        hk = jnp.pad(jnp.transpose(s_bkh, (0, 2, 1)), ((0, 0), (0, 0), (0, 128 - K)))
+        sel = jnp.pad(s_bkh.reshape(B, K * H), ((0, 0), (0, 128 - K * H)))
+        return hk, sel
+
+    k_hk, k_sel = one(k_s)
+    v_hk, v_sel = one(v_s)
+    return jnp.stack([k_hk, v_hk]), jnp.stack([k_sel, v_sel], axis=1)
+
+
+@pytest.mark.parametrize("position", [0, 5, L - 1])
+def test_update_bf16_matches_pallas_interpret(position):
+    q, cache, k_new, v_new, ancestry = _inputs(7)
+    ancestry[:, :, position] = np.arange(K)
+    (qj, qt), (cj, ct), (kj, kt), (vj, vt) = map(_bf16, (q, cache, k_new, v_new))
+    want, cache_want, _ = jax_beam.beam_select_attention_update(
+        qj, kj, vj, cj, jnp.asarray(ancestry), position, H)
+    got = port_beam.beam_select_attention_update(
+        qt, kt, vt, ct, torch.from_numpy(ancestry), position, H)
+    assert port_beam.beam_select_attention_update.launches == 0   # CPU: the plain version
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=TOL)
+    np.testing.assert_array_equal(ct.float().numpy(), np.asarray(cache_want, np.float32))
+
+
+@pytest.mark.parametrize("position", [0, 5, L - 1])
+def test_update_int8_matches_pallas_interpret(position):
+    q, cache, k_new, v_new, ancestry = _inputs(8)
+    ancestry[:, :, position] = np.arange(K)
+    (qj, qt), (cj, _), (kj, _), (vj, _) = map(_bf16, (q, cache, k_new, v_new))
+    data0, scale0 = jax_attention.quantize_kv_heads(cj, H)          # (2,B,F,D), (2,B,F,H)
+    scale0 = jnp.pad(scale0.transpose(0, 1, 3, 2), ((0, 0), (0, 0), (0, 0), (0, 128 - L * K)))
+    k_q, k_s = jax_attention.quantize_kv_heads(kj, H)
+    v_q, v_s = jax_attention.quantize_kv_heads(vj, H)
+    hk, sel = _jax_fresh_scale_operands(k_s, v_s)
+    want, data_want, scale_want = jax_beam.beam_select_attention_update(
+        qj, k_q, v_q, data0, jnp.asarray(ancestry), position, H,
+        scales=scale0, fresh_scales=hk, fresh_row_scales=sel)
+
+    data = torch.from_numpy(np.array(data0))
+    scales = torch.from_numpy(np.array(scale0))
+    got = port_beam.beam_select_attention_update(
+        qt, torch.from_numpy(np.array(k_q)), torch.from_numpy(np.array(v_q)), data,
+        torch.from_numpy(ancestry), position, H, scales=scales,
+        k_scale=torch.from_numpy(np.array(k_s)), v_scale=torch.from_numpy(np.array(v_s)))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=TOL)
+    np.testing.assert_array_equal(data.numpy(), np.asarray(data_want))
+    np.testing.assert_allclose(scales.numpy(), np.asarray(scale_want), rtol=1e-6)
+
+
+def test_cross_matches_pallas_interpret():
+    rng = np.random.default_rng(3)
+    ls = 11
+    (qj, qt), (kj, kt), (vj, vt) = map(_bf16, (rng.normal(size=(B * K, D)),
+                                               rng.normal(size=(B, ls, D)),
+                                               rng.normal(size=(B, ls, D))))
+    keep = rng.random((B, ls)) < 0.8
+    keep[:, 0] = True
+    keep[2] = False          # a fully padded (batch-padding) row
+    bias = np.where(keep, 0.0, -1e9).astype(np.float32)
+    want = jax_beam.beam_cross_attention(qj, kj, vj, jnp.asarray(bias), H, K)
+    got = port_beam.beam_cross_attention(qt, kt, vt, torch.from_numpy(bias), H, K)
+    assert port_beam.beam_cross_attention.launches == 0       # CPU: the plain version
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=TOL)
+
+
+def test_quantize_kv_heads_matches_jax():
+    x = np.random.default_rng(2).normal(size=(2, 3, 8, D)).astype(np.float32)
+    want_q, want_s = jax_attention.quantize_kv_heads(jnp.asarray(x), H)
+    got_q, got_s = port_attention.quantize_kv_heads(torch.from_numpy(x), H)
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-6)
+    np.testing.assert_array_equal(
+        port_attention.dequantize_kv(got_q, got_s.permute(0, 1, 3, 2), H).float().numpy(),
+        np.asarray(jax_attention.dequantize_kv(want_q, want_s.transpose(0, 1, 3, 2), H),
+                   np.float32))
+
+
+def test_kernel_gate():
+    assert port_beam.beam_kernel_supports(10, 512, 8)
+    assert not port_beam.beam_kernel_supports(10, 512, 3)      # head_dim not integral
+    assert not port_beam.beam_kernel_supports(10, 36, 3)       # head_dim 12
+    assert not port_beam.beam_kernel_supports(10, 2048, 4)     # head_dim 512 > 256
+    assert not port_beam.beam_kernel_supports(64, 1024, 4)     # staged queries > 48 KB

@@ -1,0 +1,176 @@
+"""The port's CUDA kernels against their plain versions at small and ragged
+shapes, on the card. Marked ``cuda``: each test skips where no CUDA device
+is present. On a machine without JAX run it without the JAX conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from multimodalanalytical_tpu_torch.ops import beam_attention as ba  # noqa: E402
+from multimodalanalytical_tpu_torch.ops import decode_ffn  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+TOL = 2e-2   # of max(1, max|plain|), as chip_smoke.py
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(got, want, tol=TOL):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("head_dim", [8, 64, 256])
+def test_select_attention_update_matches_plain(gen, quantized, head_dim):
+    b, k, heads, length = 3, 4, 2, 16
+    d = heads * head_dim
+    dev = "cuda"
+    q = torch.randn(b * k, d, generator=gen, device=dev).bfloat16()
+    anc_full = torch.randint(0, k, (b, k, 2 * length), generator=gen, device=dev,
+                             dtype=torch.int32)
+    if quantized:
+        cache0 = torch.randint(-127, 128, (2, b, 2 * length * k, d), generator=gen,
+                               device=dev, dtype=torch.int8)
+        scales0 = torch.rand(2, b, heads, 128, generator=gen, device=dev)
+        k_new, v_new = (torch.randint(-127, 128, (b * k, d), generator=gen, device=dev,
+                                      dtype=torch.int8) for _ in range(2))
+        k_s, v_s = (torch.rand(b * k, heads, generator=gen, device=dev) for _ in range(2))
+    else:
+        cache0 = torch.randn(2, b, 2 * length * k, d, generator=gen, device=dev).bfloat16()
+        scales0, k_s, v_s = None, None, None
+        k_new, v_new = (torch.randn(b * k, d, generator=gen, device=dev).bfloat16()
+                        for _ in range(2))
+    for pos in (0, 5, length - 1):
+        anc_full[:, :, pos] = torch.arange(k, device=dev, dtype=torch.int32)
+        anc = anc_full[:, :, :length]
+        caches = [cache0.clone() for _ in range(2)]
+        scales = [scales0.clone() if quantized else None for _ in range(2)]
+        before = ba.beam_select_attention_update.launches
+        got = ba.beam_select_attention_update(q, k_new, v_new, caches[0], anc, pos, heads,
+                                              scales[0], k_s, v_s)
+        assert ba.beam_select_attention_update.launches == before + 1
+        want = ba.beam_select_attention_update_plain(q, k_new, v_new, caches[1], anc, pos,
+                                                     heads, scales[1], k_s, v_s)
+        _close(got, want)
+        assert torch.equal(caches[0], caches[1])
+        if quantized:
+            assert torch.equal(scales[0], scales[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cross_attention_matches_plain(gen, dtype):
+    b, k, heads, head_dim, ls = 3, 4, 2, 16, 11
+    d = heads * head_dim
+    q = torch.randn(b * k, d, generator=gen, device="cuda").to(dtype)
+    kv = [torch.randn(b, ls, d, generator=gen, device="cuda").to(dtype) for _ in range(2)]
+    keep = torch.rand(b, ls, generator=gen, device="cuda") < 0.8
+    keep[:, 0] = True
+    keep[2] = False
+    bias = torch.where(keep, 0.0, -1e9).float()
+    got = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
+    assert got.dtype == dtype
+    _close(got, want, TOL if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_geglu_ffn_ragged_matches_plain(gen, gated):
+    m, d, f = 12, 16, 40     # no dimension a multiple of the 64 x 64 tile
+    dev = "cuda"
+    x = torch.randn(m, d, generator=gen, device=dev).bfloat16()
+    w1, wg = (torch.randn(f, d, generator=gen, device=dev) * d ** -0.5 for _ in range(2))
+    w2 = torch.randn(d, f, generator=gen, device=dev) * f ** -0.5
+    b1, bg, b2 = (torch.randn(n, generator=gen, device=dev) * 0.1 for n in (f, f, d))
+    args = (x, w1, b1, wg if gated else None, bg if gated else None, w2, b2)
+    got = decode_ffn.geglu_ffn(*args)
+    want = decode_ffn.geglu_ffn_plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 0.02 * want.float().abs().max().item(), err
+
+
+def test_wrappers_raise_on_unsupported_shapes(gen):
+    x = torch.randn(8, 12, device="cuda").bfloat16()       # d_model 12: not a multiple of 8
+    w = torch.randn(16, 12, device="cuda")
+    with pytest.raises(ValueError):
+        decode_ffn.geglu_ffn(x, w, torch.zeros(16, device="cuda"), None, None,
+                             torch.randn(12, 16, device="cuda"), torch.zeros(12, device="cuda"))
+    q = torch.randn(4, 12, device="cuda").bfloat16()
+    kv = torch.randn(1, 3, 12, device="cuda").bfloat16()
+    with pytest.raises(ValueError):
+        ba.beam_cross_attention(q, kv, kv, torch.zeros(1, 3, device="cuda"), 2, 4)
+
+
+def test_flash_shapes_raise_on_cuda(gen):
+    """Encoder self-attention at the JAX flash gate has no CUDA kernel yet:
+    a CUDA tensor raises instead of running plain attention silently."""
+    from multimodalanalytical_tpu_torch.ops.attention import dot_product_attention
+
+    q = torch.randn(1, 1, 2048, 64, generator=gen, device="cuda")
+    with pytest.raises(NotImplementedError, match="flash"):
+        dot_product_attention(q, q, q, None, use_flash=True)
+    assert dot_product_attention(q, q, q, None, use_flash=False).shape == q.shape
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["int8", "bfloat16"])
+def test_decode_steps_on_card_match_cpu(gen, kv_cache_dtype):
+    """A small bf16 model decoded on the card (all three kernels) against
+    the same weights on the CPU (their plain versions): teacher-forced
+    logits within bf16 tolerance, and each kernel launched once per layer
+    per step."""
+    from multimodalanalytical_tpu_torch.generation.beam_search import decode_model
+    from multimodalanalytical_tpu_torch.models.config import ModelConfig
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    data_config = {
+        "Formula": {"type": "text", "vocab_size": 32, "target": False},
+        "IR": {"type": "1D_patches", "target": False,
+               "preprocessor_arguments": {"patch_size": 125}},
+        "Smiles": {"type": "text", "vocab_size": 40, "target": True},
+    }
+    cfg = ModelConfig(d_model=128, encoder_layers=2, decoder_layers=2,
+                      encoder_attention_heads=2, decoder_attention_heads=2,
+                      encoder_ffn_dim=256, decoder_ffn_dim=256, vocab_size=40,
+                      dtype="bfloat16", kv_cache_dtype=kv_cache_dtype)
+    cpu = Seq2SeqModel(cfg, data_config, "Smiles", generator=torch.Generator().manual_seed(0))
+    card = Seq2SeqModel(cfg, data_config, "Smiles", device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    batch, beams, steps = 3, 4, 6
+    inputs = {"Formula": torch.randint(4, 32, (batch, 12), generator=g),
+              "IR": torch.rand(batch, 14, 125, generator=g)}
+    mask = torch.ones(batch, 26, dtype=torch.int32)
+    mask[0, 8:12] = 0
+    tokens = torch.randint(4, 40, (batch, beams, steps), generator=g)
+    anc = torch.randint(0, beams, (batch, beams, 16), generator=g, dtype=torch.int32)
+    counters = (ba.beam_select_attention_update, ba.beam_cross_attention,
+                decode_ffn.geglu_ffn)
+    logits = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        before = [fn.launches for fn in counters]
+        with torch.no_grad():
+            hidden = model.encode({k: v.to(dev) for k, v in inputs.items()}, mask.to(dev))
+            dm = decode_model(model)
+            cache = dm.init_beam_cache(batch, beams, 16, hidden,
+                                       quantize=kv_cache_dtype == "int8")
+            out = []
+            for t in range(steps):
+                a = anc.clone()
+                a[:, :, t] = torch.arange(beams, dtype=torch.int32)
+                out.append(dm.beam_decode_step(tokens[:, :, t].to(dev), t, cache,
+                                               a.to(dev), mask.to(dev)).float().cpu())
+        launched = [fn.launches - b for fn, b in zip(counters, before)]
+        assert launched == ([0, 0, 0] if dev == "cpu" else [cfg.decoder_layers * steps] * 3)
+        logits.append(torch.stack(out))
+    err = (logits[1] - logits[0]).abs().max().item()
+    # bf16 products rounded in other places by cuBLAS and the CPU, carried
+    # through 2 + 2 layers.
+    assert err <= 5e-2 * max(1.0, logits[0].abs().max().item()), err
