@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port's beam-10 serving path.
+"""On-card smoke run of the PyTorch port's serving and training paths.
 
     python3 chip_smoke.py
 
@@ -10,14 +10,27 @@ failure raises and exits non-zero:
 
 0. device and build: the card's name and power limit, and the time to
    compile the package's CUDA kernels from ``csrc/``;
-1. each kernel against its plain PyTorch version at the flagship decode
-   shapes (B 128, K 10, D 512, H 8, F 2048, Ls 26), with both times;
-2. the slice: the flagship CustomModel (6 + 6 layers, bf16, int8 KV cache,
+1. each kernel against its plain PyTorch version, with both times: the
+   decode kernels at the flagship decode shapes (B 128, K 10, D 512, H 8,
+   F 2048, Ls 26), the flash attention forward and backward at the long
+   RLE encoder's (B 8, H 8, L 4090 padded to 4096, head_dim 64, bf16,
+   ragged key masks);
+2. serving: the flagship CustomModel (6 + 6 layers, bf16, int8 KV cache,
    seeded random weights) answers three seeded 128-spectrum requests
    (Formula 12 tokens + IR 14 x 125) through ``InferenceEngine.decode_batch``
-   at beam 10 and max length 128. Every kernel's launch count must equal
-   6 x the decode steps run. The same requests then run with
-   ``use_beam_kernel=False`` for the time and top-1 agreement.
+   at beam 10 and max length 128. Every decode kernel's launch count must
+   equal 6 x the decode steps run. The same requests then run with
+   ``use_beam_kernel=False`` for the time and top-1 agreement;
+3. training, long sequences: the flagship-width model on one run-length-
+   encoded IR source (vocabulary 105, rows of 2173-4090 tokens padded to
+   4090) -> SMILES (vocab 320, up to 128 tokens), B 8, seeded weights and
+   batch. One dropout-0 step of the flash route against the
+   ``use_flash_attention=False`` route (loss and gradient norm), then
+   ``Trainer.fit`` takes 10 AdamW steps (dropout 0.1, clip 1.0) on the
+   repeated batch: every loss finite, the last below the first, and each
+   flash kernel launched 6 x the steps;
+4. training, the flagship IR recipe (Formula + IR patches, B 128): three
+   AdamW steps, finite losses, no flash launch.
 
 The last two lines are the per-kernel JSON record and the device record.
 """
@@ -42,6 +55,24 @@ FFN_REL_TOL = 0.02   # max|kernel - plain| / max|plain|
 # path on the same weights: the two differ only in bf16 rounding order
 # inside attention, carried through 6 layers.
 LOGIT_TOL = 5e-2
+# Flash kernels vs their plain versions: both compute in fp32 and round
+# once, so bf16 results differ by a flipped rounding (one or two bf16 ulps
+# of max(1, |value|)); lse is fp32 in both, elementwise relative.
+FLASH_TOL = 2e-2
+LSE_REL_TOL = 1e-5
+# The long-sequence training slice (phase 3).
+TRAIN_BATCH, TRAIN_STEPS, TARGET_LEN = 8, 10, 128
+TRAIN_LR = 1e-4      # configs/model/custom_model.yaml: adamw, lr 1e-4, weight decay 0
+RLE_MAX_LEN = 4090   # RunLengthEncodingPreprocessor caps sequences at 4090 tokens
+RLE_MIN_LEN = 2173   # longest RLE row of tests/test_data/ir_dataset at native resolution
+# Vocabulary of RunLengthEncodingPreprocessor fitted on tests/test_data/ir_dataset
+# (20 spectra, 1791 points) at spectrum_tokens_x 400, 1791 and 4000 alike.
+RLE_VOCAB = 105
+# Flash route vs use_flash_attention=False on one dropout-0 step: the plain
+# route rounds q*scale and the probabilities to bf16, the flash route keeps
+# fp32 (as the JAX package does), through 6 + 6 bf16 layers.
+ROUTE_LOSS_RTOL, ROUTE_GRAD_NORM_RTOL = 1e-2, 2e-2
+IR_RECIPE_BATCH, IR_RECIPE_STEPS = 128, 3
 
 DATA_CONFIG = {
     "Formula": {"type": "text", "column": "molecular_formula", "target": False,
@@ -50,6 +81,11 @@ DATA_CONFIG = {
            "preprocessor_arguments": {"patch_size": PATCH}},
     "Smiles": {"type": "text", "column": "smiles", "target": True,
                "vocab_size": VOCAB, "pad_token_id": 0, "preprocessor_arguments": {}},
+}
+RLE_DATA_CONFIG = {
+    "RLE": {"type": "run_length_encoding", "column": "ir_spectra", "target": False,
+            "vocab_size": RLE_VOCAB, "pad_token_id": 0, "preprocessor_arguments": {}},
+    "Smiles": DATA_CONFIG["Smiles"],
 }
 
 
@@ -202,6 +238,66 @@ def check_kernels() -> list:
     return records
 
 
+def check_flash_kernels() -> list:
+    """#5/#6 flash attention forward and backward vs their plain versions at
+    the long RLE encoder's shapes; returns records."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodalanalytical_tpu_torch.ops import flash_attention as flash
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, h, d = TRAIN_BATCH, HEADS, D_MODEL // HEADS
+    pad = (-RLE_MAX_LEN) % flash.BLK
+    length = RLE_MAX_LEN + pad
+    q, k, v, dout = (F.pad(torch.randn(b, h, RLE_MAX_LEN, d, generator=g, device=dev),
+                           (0, 0, 0, pad)).bfloat16() for _ in range(4))
+    valid = torch.randint(RLE_MIN_LEN, RLE_MAX_LEN + 1, (b, 1), generator=g, device=dev)
+    valid[0] = RLE_MAX_LEN
+    keep = torch.arange(length, device=dev)[None, :] < valid
+    bias = torch.where(keep, 0.0, flash.NEG_INF).float()
+    shape = f"B {b}, H {h}, L {RLE_MAX_LEN} (padded to {length}), Dh {d}, bf16"
+
+    out, lse = flash.flash_attention_fwd(q, k, v, bias)
+    want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, bias)
+    grads = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
+    want_grads = flash.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out,) + grads,
+                               (want_out,) + want_grads):
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        tol = FLASH_TOL * max(1.0, peak)
+        finite = bool(torch.isfinite(got.float()).all())
+        print(f"kernel flash {name} {shape}: max_abs_err={err:.3e} tol={tol:.3e} "
+              f"max|plain|={peak:.3e}", flush=True)
+        _require(finite and peak > 0 and err <= tol,
+                 f"flash {name} disagrees with its plain version")
+        errs[name] = err
+    lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+    print(f"kernel flash lse {shape}: max_rel_err={lse_err:.3e} tol={LSE_REL_TOL:.1e}",
+          flush=True)
+    _require(lse_err <= LSE_REL_TOL, "flash lse disagrees with its plain version")
+
+    fwd = (lambda: flash.flash_attention_fwd(q, k, v, bias),
+           lambda: flash.flash_attention_fwd_plain(q, k, v, bias))
+    bwd = (lambda: flash.flash_attention_bwd(q, k, v, bias, out, lse, dout),
+           lambda: flash.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout))
+    records = []
+    for name, fns, line, err in (
+            ("flash_attention_fwd", fwd, 115, errs["out"]),
+            ("flash_attention_bwd", bwd, 204, max(errs["dq"], errs["dk"], errs["dv"]))):
+        ms, plain_ms = _time_ms(fns[0], iters=10), _time_ms(fns[1], iters=10)
+        print(f"time {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        records.append({"name": name, "route": "cuda",
+                        "source": "multimodalanalytical_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": f"multimodalanalytical_tpu/ops/flash_attention.py:{line}",
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "timed_at": shape})
+    return records
+
+
 # ---------------------------------------------------------------- phase 2
 def _flagship(use_beam_kernel: bool = True, kv_cache_dtype: str = "int8"):
     import torch
@@ -276,10 +372,8 @@ def run_slice() -> dict:
     import torch
 
     from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
-    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
-    from multimodalanalytical_tpu_torch.ops import decode_ffn
 
-    counters = (ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn)
+    counters = _decode_counters()
     model = _flagship()
     plain_model = _flagship(use_beam_kernel=False)
     plain_model.load_state_dict(model.state_dict())
@@ -328,6 +422,176 @@ def run_slice() -> dict:
     return launches
 
 
+# ---------------------------------------------------------- phases 3 and 4
+def _flash_counters():
+    from multimodalanalytical_tpu_torch.ops import flash_attention as flash
+
+    return flash.flash_attention_fwd, flash.flash_attention_bwd
+
+
+def _decode_counters():
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+    from multimodalanalytical_tpu_torch.ops import decode_ffn
+
+    return ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn
+
+
+def _rle_model(dropout: float, use_flash: bool):
+    """The flagship-width model on one RLE source; seeded, so every call
+    builds the same weights."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.models.config import ModelConfig
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    cfg = ModelConfig(
+        d_model=D_MODEL, encoder_layers=LAYERS, decoder_layers=LAYERS,
+        encoder_attention_heads=HEADS, decoder_attention_heads=HEADS,
+        encoder_ffn_dim=FFN, decoder_ffn_dim=FFN, vocab_size=VOCAB, dtype="bfloat16",
+        dropout=dropout, max_position_embeddings=4096, max_target_length=TARGET_LEN,
+        use_flash_attention=use_flash,
+    )
+    dev = torch.device(DEVICE)
+    return Seq2SeqModel(cfg, RLE_DATA_CONFIG, "Smiles", device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def _targets(rng, batch: int) -> dict:
+    """BOS-started teacher-forcing ids, padded to TARGET_LEN, with -100 labels
+    on the padding."""
+    import numpy as np
+
+    lengths = rng.integers(20, TARGET_LEN + 1, batch)
+    lengths[0] = TARGET_LEN
+    keep = np.arange(TARGET_LEN)[None, :] < lengths[:, None]
+    tokens = rng.integers(4, VOCAB, (batch, TARGET_LEN + 1))
+    tokens[:, 0] = 2
+    return {"decoder_ids": np.where(keep, tokens[:, :-1], 0),
+            "decoder_mask": keep.astype(np.int32),
+            "labels": np.where(keep, tokens[:, 1:], -100)}
+
+
+def _rle_batch(seed: int = 7) -> dict:
+    """B rows of RLE ids, lengths drawn from RLE_MIN_LEN..RLE_MAX_LEN, tail-
+    padded to RLE_MAX_LEN, and SMILES targets."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(RLE_MIN_LEN, RLE_MAX_LEN + 1, TRAIN_BATCH)
+    lengths[0] = RLE_MAX_LEN
+    keep = np.arange(RLE_MAX_LEN)[None, :] < lengths[:, None]
+    ids = np.where(keep, rng.integers(4, RLE_VOCAB, (TRAIN_BATCH, RLE_MAX_LEN)), 0)
+    return {"encoder_inputs": {"RLE": ids}, "encoder_mask": keep.astype(np.int32),
+            **_targets(rng, TRAIN_BATCH)}
+
+
+def _step_twice(model, batch) -> tuple:
+    """(loss, grad_norm) of one dropout-0 train step, and the seconds of a
+    second step (its time only), with the peak device memory."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    metrics = trainer.train_step(batch)
+    loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return loss, grad_norm, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_training_slice() -> dict:
+    """Phase 3; returns the flash kernels' launch counts of the fit."""
+    import math
+
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    batch = _rle_batch()
+    real_tokens = int(batch["encoder_mask"].sum())
+    padded_tokens = TRAIN_BATCH * RLE_MAX_LEN
+    routes = {}
+    for use_flash in (True, False):
+        model = _rle_model(dropout=0.0, use_flash=use_flash)
+        routes[use_flash] = _step_twice(model, batch)
+        del model
+        torch.cuda.empty_cache()
+        loss, grad_norm, seconds, peak = routes[use_flash]
+        print(f"train route use_flash_attention={use_flash}: loss {loss:.6f} grad_norm "
+              f"{grad_norm:.6f}; {seconds:.4f} s/step ({real_tokens / seconds:.1f} encoder "
+              f"tokens/s real, {padded_tokens / seconds:.1f} padded); peak {peak:.2f} GiB",
+              flush=True)
+    (f_loss, f_norm, *_), (p_loss, p_norm, *_) = routes[True], routes[False]
+    loss_rel = abs(f_loss - p_loss) / abs(p_loss)
+    norm_rel = abs(f_norm - p_norm) / abs(p_norm)
+    print(f"train routes: loss rel diff {loss_rel:.3e} (tol {ROUTE_LOSS_RTOL}), grad_norm "
+          f"rel diff {norm_rel:.3e} (tol {ROUTE_GRAD_NORM_RTOL})", flush=True)
+    _require(loss_rel <= ROUTE_LOSS_RTOL and norm_rel <= ROUTE_GRAD_NORM_RTOL,
+             "the flash and plain training routes disagree")
+
+    model = _rle_model(dropout=0.1, use_flash=True)
+    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=TRAIN_STEPS,
+                      clip_grad=1.0)
+    counters = _flash_counters()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.fit([batch], max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"train fit: {TRAIN_STEPS} AdamW steps, B {TRAIN_BATCH}, dropout 0.1: "
+          f"{seconds:.4f} s/step ({real_tokens / seconds:.1f} encoder tokens/s real, "
+          f"{padded_tokens / seconds:.1f} padded); losses {[round(x, 4) for x in losses]}; "
+          f"launches {launches}", flush=True)
+    _require(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    _require(losses[-1] < losses[0], "the training loss did not fall")
+    for name, count in launches.items():
+        _require(count == LAYERS * TRAIN_STEPS,
+                 f"{name} launched {count} times, want {LAYERS * TRAIN_STEPS}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_ir_recipe() -> None:
+    """Phase 4: the flagship IR recipe's optimizer at B 128."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    inputs, mask = _request(seed=11, batch=IR_RECIPE_BATCH)
+    batch = {"encoder_inputs": inputs, "encoder_mask": mask,
+             **_targets(np.random.default_rng(12), IR_RECIPE_BATCH)}
+    model = _flagship()
+    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=IR_RECIPE_STEPS,
+                      clip_grad=1.0)
+    counters = _flash_counters() + _decode_counters()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.fit([batch], max_steps=IR_RECIPE_STEPS)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / IR_RECIPE_STEPS
+    launched = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    print(f"IR recipe: {IR_RECIPE_STEPS} AdamW steps, B {IR_RECIPE_BATCH}: {seconds:.4f} s/step "
+          f"(first step included); losses {[round(x, 4) for x in losses]}; kernel launches "
+          f"{launched or 'none'}", flush=True)
+    _require(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    _require(not launched, "a kernel ran in the IR recipe's train step")
+    del model, trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -349,8 +613,10 @@ def main() -> int:
     _cuda.library()
     print(f"build: {lib_path.name} ready in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    records = check_kernels()
+    records = check_kernels() + check_flash_kernels()
     launches = run_slice()
+    launches.update(run_training_slice())
+    run_ir_recipe()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     print(smi, flush=True)

@@ -2,8 +2,13 @@
 
 The JAX package beside it is the reference each part of this port is held
 against. Module paths mirror it (``models/``, ``ops/``, ``generation/``,
-``cli/``); parameter names follow its param tree (see ``models/weights.py``).
-This package imports ``torch`` and never ``jax``.
+``training/``, ``cli/``); parameter names follow its param tree (see
+``models/weights.py``). This package imports ``torch`` and never ``jax``.
 """
 
+from .models.config import ModelConfig
+from .models.seq2seq import Seq2SeqModel
+from .training import DataLoader, Trainer
+
+__all__ = ["DataLoader", "ModelConfig", "Seq2SeqModel", "Trainer"]
 __version__ = "0.1.0"

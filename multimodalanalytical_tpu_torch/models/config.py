@@ -68,8 +68,8 @@ class ModelConfig:
 
     # Execution knobs.
     dtype: str = "float32"         # compute dtype: float32 | bfloat16
-    # Flash attention for long encoder sequences (Lq == Lk >= 2048). The
-    # CUDA kernel is not ported yet: such shapes raise on a CUDA tensor.
+    # Flash attention for long encoder sequences (Lq == Lk >= 2048):
+    # ops/flash_attention.py, the CUDA kernels on a CUDA tensor.
     use_flash_attention: bool = True
     # Hand-written beam-decode attention kernels (ops/beam_attention.py).
     use_beam_kernel: bool = True

@@ -1,10 +1,12 @@
 """Multimodal embedding (counterpart of ``models/embedding.py``).
 
-Per-modality embedding (token table for ``text``, linear patch projection
-for ``1D_patches``), the per-modality fp32 LayerNorm (eps 1e-5) followed by
-the cast to the compute dtype, sequence-axis concatenation in data_config
-order, and sin/cos positions. Other modality types, patch encoders and the
-dict input protocol (XVal values, peak positions) are not ported yet.
+Per-modality embedding (token table for ``text`` and for the token-id
+spectrum sources ``run_length_encoding`` and ``text_spectrum``, which the
+JAX package embeds like ``text``; linear patch projection for
+``1D_patches``), the per-modality fp32 LayerNorm (eps 1e-5) followed by the
+cast to the compute dtype, sequence-axis concatenation in data_config order,
+and sin/cos positions. Other modality types, patch encoders and the dict
+input protocol (XVal values, peak positions) are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ from torch import nn
 
 from ..ops.layers import Dense, Embed, LayerNorm
 from ..ops.positional import SinCosPositionalEncoding
+
+# Modality types whose input is a (B, L) tensor of token ids.
+TOKEN_TYPES = ("text", "run_length_encoding", "text_spectrum")
 
 
 class PatchProjection(nn.Module):
@@ -46,7 +51,7 @@ class MultimodalEmbedding(nn.Module):
         self.dtype = dtype
         for modality, modality_config in data_config.items():
             mtype = modality_config["type"]
-            if mtype == "text":
+            if mtype in TOKEN_TYPES:
                 embed = Embed(modality_config["vocab_size"], d_model, dtype=dtype,
                               device=device, generator=generator)
             elif mtype == "1D_patches":

@@ -3,6 +3,9 @@
 ``encode``, ``decode_train``, ``forward`` (loss and logits; no align head
 yet), the lazy-ancestry beam cache and ``beam_decode_step``. Module and
 parameter names follow the JAX param tree (``models/weights.py``).
+
+``forward(..., deterministic=False, generator=g)`` is the training forward:
+dropout at the JAX sites, drawn from ``g``. The default is deterministic.
 """
 
 from __future__ import annotations
@@ -67,24 +70,33 @@ class Seq2SeqModel(nn.Module):
             hidden = hidden * (self.config.d_model ** -0.5)
         return self.lm_head(hidden)
 
-    def encode(self, encoder_inputs: Dict[str, torch.Tensor],
-               encoder_mask: torch.Tensor) -> torch.Tensor:
+    def encode(self, encoder_inputs: Dict[str, torch.Tensor], encoder_mask: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         embeds = self.embedding(encoder_inputs)
-        return self.encoder(embeds, make_attention_bias(encoder_mask))
+        return self.encoder(embeds, make_attention_bias(encoder_mask), generator)
 
-    def decode_train(self, decoder_ids, decoder_mask, encoder_hidden, encoder_mask):
+    def decode_train(self, decoder_ids, decoder_mask, encoder_hidden, encoder_mask,
+                     generator: Optional[torch.Generator] = None):
         """Teacher-forced logits (B, Lt, V)."""
         embeds = self._embed_target({self.target_modality: decoder_ids})
         self_bias = (make_causal_bias(decoder_ids.shape[1], device=decoder_ids.device)
                      + make_attention_bias(decoder_mask))
         hidden = self.decoder(embeds, encoder_hidden, self_bias,
-                              make_attention_bias(encoder_mask))
+                              make_attention_bias(encoder_mask), generator)
         return self._logits(hidden)
 
-    def forward(self, encoder_inputs, encoder_mask, decoder_ids, decoder_mask,
-                labels) -> Dict[str, torch.Tensor]:
-        encoder_hidden = self.encode(encoder_inputs, encoder_mask)
-        logits = self.decode_train(decoder_ids, decoder_mask, encoder_hidden, encoder_mask)
+    def forward(self, encoder_inputs, encoder_mask, decoder_ids, decoder_mask, labels,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Loss and logits. ``deterministic=False`` applies dropout, drawn
+        from ``generator`` (required then, unless the dropout rate is 0)."""
+        if deterministic:
+            generator = None
+        elif generator is None and self.config.dropout > 0:
+            raise ValueError("a training forward with dropout needs a generator")
+        encoder_hidden = self.encode(encoder_inputs, encoder_mask, generator)
+        logits = self.decode_train(decoder_ids, decoder_mask, encoder_hidden, encoder_mask,
+                                   generator)
         ce = cross_entropy_loss(logits, labels)
         return {"loss": ce, "model_only_loss": ce,
                 "alignment_loss": torch.zeros((), device=ce.device), "logits": logits}

@@ -2,8 +2,11 @@
 
 Pre- or post-LN layers with an optional gated FFN. Norms run in fp32 and
 their output is cast to the compute dtype; residual streams stay in the
-compute dtype. Inference only: dropout (training) comes with the training
-slice. LayerNorm only: RMSNorm and the T5 relative bias are not ported yet.
+compute dtype. Dropout sits where the JAX layers put it (FFN hidden and FFN
+output, every attention output before its residual add) and is drawn from
+the ``generator`` that a training forward passes down; ``generator=None``
+is the deterministic (inference) mode. LayerNorm only: RMSNorm and the T5
+relative bias are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from torch import nn
 
 from ..ops.attention import MultiHeadAttention
 from ..ops.decode_ffn import geglu_ffn
+from ..ops.dropout import dropout
 from ..ops.layers import Dense, LayerNorm
 
 ACTIVATIONS = {
@@ -33,21 +37,24 @@ def _check_norm(norm_type: str) -> None:
 class FeedForward(nn.Module):
     def __init__(self, d_model: int, ffn_dim: int, activation: str = "gelu",
                  gated_linear: bool = False, *, dtype=torch.float32, use_bias: bool = True,
-                 device=None, generator: torch.Generator):
+                 dropout: float = 0.0, device=None, generator: torch.Generator):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise ValueError(f"Unsupported activation {activation!r}")
         self.activation, self.dtype, self.use_bias = activation, dtype, use_bias
+        self.dropout = dropout
         dense = dict(bias=use_bias, dtype=dtype, device=device, generator=generator)
         self.linear1 = Dense(d_model, ffn_dim, **dense)
         self.gate = Dense(d_model, ffn_dim, **dense) if gated_linear else None
         self.linear2 = Dense(ffn_dim, d_model, **dense)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         hidden = ACTIVATIONS[self.activation](self.linear1(x))
         if self.gate is not None:
             hidden = hidden * self.gate(x)
-        return self.linear2(hidden)
+        hidden = dropout(hidden, self.dropout, generator)
+        return dropout(self.linear2(hidden), self.dropout, generator)
 
     def decode_fused(self, x: torch.Tensor) -> torch.Tensor:
         """Decode-path FFN: the fused kernel (ops/decode_ffn.py) for bf16
@@ -67,39 +74,44 @@ class FeedForward(nn.Module):
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int, activation: str = "gelu",
                  gated_linear: bool = False, norm_first: bool = True, *, dtype=torch.float32,
-                 use_flash: bool = False, norm_type: str = "layernorm",
+                 dropout: float = 0.0, use_flash: bool = False, norm_type: str = "layernorm",
                  attention_bias: bool = True, attention_scale: bool = True,
                  ffn_bias: bool = True, device=None, generator: torch.Generator):
         super().__init__()
         _check_norm(norm_type)
-        self.norm_first, self.dtype = norm_first, dtype
+        self.norm_first, self.dtype, self.dropout = norm_first, dtype, dropout
         self.self_attn = MultiHeadAttention(
             num_heads, d_model, dtype=dtype, use_flash=use_flash, use_bias=attention_bias,
             scale_qk=attention_scale, device=device, generator=generator)
         self.ff = FeedForward(d_model, ffn_dim, activation, gated_linear, dtype=dtype,
-                              use_bias=ffn_bias, device=device, generator=generator)
+                              use_bias=ffn_bias, dropout=dropout, device=device,
+                              generator=generator)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        def drop(h):
+            return dropout(h, self.dropout, generator)
+
         if self.norm_first:
             normed = self.norm1(x).to(self.dtype)
-            x = x + self.self_attn(normed, normed, bias)
-            return x + self.ff(self.norm2(x).to(self.dtype))
-        x = self.norm1(x + self.self_attn(x, x, bias)).to(self.dtype)
-        return self.norm2(x + self.ff(x)).to(self.dtype)
+            x = x + drop(self.self_attn(normed, normed, bias))
+            return x + self.ff(self.norm2(x).to(self.dtype), generator)
+        x = self.norm1(x + drop(self.self_attn(x, x, bias))).to(self.dtype)
+        return self.norm2(x + self.ff(x, generator)).to(self.dtype)
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int, activation: str = "gelu",
                  gated_linear: bool = False, norm_first: bool = True, *, dtype=torch.float32,
-                 use_flash: bool = False, use_beam_kernel: bool = True,
+                 dropout: float = 0.0, use_flash: bool = False, use_beam_kernel: bool = True,
                  norm_type: str = "layernorm", attention_bias: bool = True,
                  attention_scale: bool = True, ffn_bias: bool = True, device=None,
                  generator: torch.Generator):
         super().__init__()
         _check_norm(norm_type)
-        self.norm_first, self.dtype = norm_first, dtype
+        self.norm_first, self.dtype, self.dropout = norm_first, dtype, dropout
         attn = dict(dtype=dtype, use_bias=attention_bias, scale_qk=attention_scale,
                     device=device, generator=generator)
         self.self_attn = MultiHeadAttention(num_heads, d_model, use_flash=use_flash,
@@ -108,7 +120,8 @@ class DecoderLayer(nn.Module):
         # kernel only; cross-attention always takes its kernel.
         self.cross_attn = MultiHeadAttention(num_heads, d_model, mode="cross", **attn)
         self.ff = FeedForward(d_model, ffn_dim, activation, gated_linear, dtype=dtype,
-                              use_bias=ffn_bias, device=device, generator=generator)
+                              use_bias=ffn_bias, dropout=dropout, device=device,
+                              generator=generator)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.norm3 = LayerNorm(d_model, device=device)
@@ -129,23 +142,28 @@ class DecoderLayer(nn.Module):
             x, cross_kv, cross_bias)).to(dt)
         return self.norm3(x + self.ff.decode_fused(x)).to(dt)
 
-    def forward(self, x, encoder_hidden, self_bias, cross_bias):
+    def forward(self, x, encoder_hidden, self_bias, cross_bias,
+                generator: Optional[torch.Generator] = None):
         dt = self.dtype
+
+        def drop(h):
+            return dropout(h, self.dropout, generator)
+
         if self.norm_first:
             normed = self.norm1(x).to(dt)
-            x = x + self.self_attn(normed, normed, self_bias)
-            x = x + self.cross_attn(self.norm2(x).to(dt), encoder_hidden, cross_bias)
-            return x + self.ff(self.norm3(x).to(dt))
-        x = self.norm1(x + self.self_attn(x, x, self_bias)).to(dt)
-        x = self.norm2(x + self.cross_attn(x, encoder_hidden, cross_bias)).to(dt)
-        return self.norm3(x + self.ff(x)).to(dt)
+            x = x + drop(self.self_attn(normed, normed, self_bias))
+            x = x + drop(self.cross_attn(self.norm2(x).to(dt), encoder_hidden, cross_bias))
+            return x + self.ff(self.norm3(x).to(dt), generator)
+        x = self.norm1(x + drop(self.self_attn(x, x, self_bias))).to(dt)
+        x = self.norm2(x + drop(self.cross_attn(x, encoder_hidden, cross_bias))).to(dt)
+        return self.norm3(x + self.ff(x, generator)).to(dt)
 
 
 def _stack_kwargs(cfg, num_heads: int, ffn_dim: int, dtype, device, generator) -> dict:
     return dict(
         d_model=cfg.d_model, num_heads=num_heads, ffn_dim=ffn_dim,
         activation=cfg.activation_function, gated_linear=cfg.gated_linear,
-        norm_first=cfg.post_layer_normalisation, dtype=dtype,
+        norm_first=cfg.post_layer_normalisation, dtype=dtype, dropout=cfg.dropout,
         use_flash=cfg.use_flash_attention, norm_type=cfg.norm_type,
         attention_bias=cfg.attention_bias, attention_scale=cfg.attention_scale,
         ffn_bias=cfg.ffn_bias, device=device, generator=generator,
@@ -165,9 +183,10 @@ class Encoder(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(**kw))
         self.final_norm = LayerNorm(cfg.d_model, device=device) if cfg.final_layer_norm else None
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, bias)
+            x = getattr(self, f"layer_{i}")(x, bias, generator)
         if self.final_norm is not None:
             x = self.final_norm(x).to(self.dtype)
         return x
@@ -203,7 +222,8 @@ class Decoder(nn.Module):
             x = layer.beam_decode_step(x, cache, ancestry, cross_kv, cross_bias, position)
         return self._final(x)
 
-    def forward(self, x, encoder_hidden, self_bias, cross_bias):
+    def forward(self, x, encoder_hidden, self_bias, cross_bias,
+                generator: Optional[torch.Generator] = None):
         for layer in self.layers:
-            x = layer(x, encoder_hidden, self_bias, cross_bias)
+            x = layer(x, encoder_hidden, self_bias, cross_bias, generator)
         return self._final(x)

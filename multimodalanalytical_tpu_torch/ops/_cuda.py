@@ -1,6 +1,7 @@
 """Build and bind the package's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 happens on first use and is cached under ``csrc/build/`` by a hash of the
 sources, so a checkout needs no install step; it needs ``nvcc`` (on
@@ -28,8 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -42,6 +42,8 @@ SIGNATURES = {
     ],
     "mmt_beam_cross_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "mmt_geglu_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mmt_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "mmt_flash_attention_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_F, _P],
 }
 
 _lock = threading.Lock()
@@ -73,17 +75,32 @@ def library_path() -> Path:
     if so_path.exists():
         return so_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name and rename, so a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    result = subprocess.run(cmd, capture_output=True, text=True)
-    if result.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({result.returncode}):\n{' '.join(cmd)}\n{result.stderr}")
-    os.replace(tmp, so_path)
+    nvcc = _nvcc()
+    # Objects and the library are built under temporary names and the
+    # library is renamed into place, so a concurrent process never loads a
+    # half-written one.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objects = [Path(tmp_dir) / f"{src.stem}.o" for src in sources]
+        compiles = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources, objects))
+        ]
+        failures = []
+        for cmd, proc in compiles:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{' '.join(cmd)}\n{err}")
+        if failures:
+            raise KernelBuildError("nvcc failed:\n" + "\n".join(failures))
+        tmp_so = Path(tmp_dir) / so_path.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_so), *map(str, objects)]
+        result = subprocess.run(cmd, capture_output=True, text=True)
+        if result.returncode != 0:
+            raise KernelBuildError(f"nvcc failed ({result.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{result.stderr}")
+        os.replace(tmp_so, so_path)
     return so_path
 
 

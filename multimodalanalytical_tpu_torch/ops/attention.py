@@ -11,7 +11,8 @@ hand-written kernels of ``ops/beam_attention.py`` (for int8 or bf16 self
 caches), everything else (greedy K = 1, an fp32 cache, ``use_beam_kernel=
 False``) takes the plain formulation ported from the JAX "XLA fallback". The
 kernels' own shape limit is :func:`beam_kernel_supports`. KV caches are
-updated in place.
+updated in place. Full-sequence attention at the flash gate (encoder
+self-attention with Lq == Lk >= 2048) takes ``ops/flash_attention.py``.
 """
 
 from __future__ import annotations
@@ -23,13 +24,8 @@ from torch import nn
 
 from .beam_attention import beam_cross_attention, beam_kernel_supports, \
     beam_select_attention_update
+from .flash_attention import NEG_INF, flash_attention, flash_qualifies
 from .layers import Dense
-
-NEG_INF = -1e9  # large-negative bias (bf16-safe)
-
-# Encoder self-attention lengths at which the JAX package engages its flash
-# kernel (ops/flash_attention.py qualifies); not ported to CUDA yet.
-FLASH_MIN_LENGTH = 2048
 
 
 def quantize_kv_heads(x: torch.Tensor, num_heads: int):
@@ -65,13 +61,13 @@ def make_causal_bias(seq_len: int, device=None) -> torch.Tensor:
 
 def dot_product_attention(q, k, v, bias, use_flash: bool = False,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """(B, H, Lq, Dh) attention; fp32 logits and softmax, output in v's dtype."""
-    if (use_flash and scale is None and q.is_cuda
-            and q.shape[2] >= FLASH_MIN_LENGTH and q.shape[2] == k.shape[2]
-            and q.shape[-1] % 64 == 0 and (bias is None or bias.shape[-2] == 1)):
-        raise NotImplementedError(
-            "flash attention (Lq == Lk >= 2048) has no CUDA kernel yet: see ROADMAP.md, "
-            "kernel 'flash_attention _fwd'")
+    """(B, H, Lq, Dh) attention; fp32 logits and softmax, output in v's dtype.
+
+    With ``use_flash`` and shapes that :func:`flash_qualifies`, on any device,
+    it is :func:`flash_attention` and computes the flash kernels' math (fp32
+    throughout, one rounding of the output), as the JAX package does."""
+    if use_flash and flash_qualifies(q, k, bias, scale):
+        return flash_attention(q, k, v, bias)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))

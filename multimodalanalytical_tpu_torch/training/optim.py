@@ -1,0 +1,143 @@
+"""The optimizer of the JAX trainer, as optax computes it (counterpart of
+``training/trainer.py`` ``build_optimizer``).
+
+``clip_by_global_norm -> adam | adamw`` with ``cosine_onecycle_schedule``,
+wrapped in ``MultiSteps`` when gradients are accumulated. Three points
+where PyTorch's stock pieces compute something else:
+
+* clipping scales by exactly ``max_norm / norm``, and only when
+  ``norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` divides by
+  ``norm + 1e-6`` and always multiplies);
+* the schedule moves the learning rate only (``OneCycleLR`` also cycles
+  Adam's beta1 by default) and is a plain function of the update count;
+* AdamW decays every parameter, decoupled from the adaptive step, with
+  optax's bias correction.
+
+Updates are applied in place to the model's fp32 parameters.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+ADAM_EPS = 1e-8   # optax's adam/adamw default
+
+
+def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start: float = 0.3,
+                             div_factor: float = 25.0, final_div_factor: float = 1e4
+                             ) -> Callable[[int], float]:
+    """optax's ``cosine_onecycle_schedule``: cosine from ``peak / div`` up to
+    ``peak`` over the first ``int(pct_start * steps)`` updates, then cosine
+    down to ``peak / (div * final_div)``, constant after ``steps``."""
+    if transition_steps <= 0:
+        raise ValueError("a onecycle schedule needs a positive number of steps")
+    bounds = (0, int(pct_start * transition_steps), int(transition_steps))
+    values = [peak_value / div_factor]
+    values.append(values[0] * div_factor)
+    values.append(values[1] * (1.0 / (div_factor * final_div_factor)))
+
+    def schedule(count: int) -> float:
+        for i in range(2):
+            if bounds[i] <= count < bounds[i + 1]:
+                pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
+                return values[i + 1] + (values[i] - values[i + 1]) / 2.0 * (
+                    math.cos(math.pi * pct) + 1)
+        return values[2]
+
+    return schedule
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32 (a 0-d tensor):
+    the norm of the per-tensor norms, a few fused launches for any count."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: ``g / norm * max_norm`` for every
+    gradient when ``norm >= max_norm``, the gradients unchanged otherwise."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
+
+
+class Optimizer:
+    """``chain(clip_by_global_norm(clip_grad), adam | adamw(schedule))``,
+    in ``MultiSteps(every_k=acc_batches)`` when ``acc_batches > 1``.
+
+    ``count`` is the number of updates applied (the schedule's and the bias
+    correction's step); ``mini_step`` counts the gradients accumulated
+    towards the next update, whose mean it applies."""
+
+    def __init__(self, params: Sequence[torch.Tensor], schedule: Callable[[int], float],
+                 b1: float = 0.9, b2: float = 0.999,
+                 weight_decay: Optional[float] = None, clip_grad: float = 1.0,
+                 acc_batches: int = 1):
+        self.params = list(params)
+        self.schedule = schedule
+        self.b1, self.b2 = b1, b2
+        self.weight_decay = weight_decay
+        self.clip_grad = clip_grad
+        self.acc_batches = max(int(acc_batches), 1)
+        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.acc = ([torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+                    if self.acc_batches > 1 else None)
+        self.count = 0
+        self.mini_step = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """Take one gradient; update the parameters when it completes an
+        accumulation (every gradient without accumulation)."""
+        grads = [g.float() for g in grads]
+        if self.acc is not None:
+            # Welford running mean, as MultiSteps(use_grad_mean=True).
+            n = self.mini_step
+            for acc, g in zip(self.acc, grads):
+                acc.add_((g - acc) / (n + 1))
+            if n < self.acc_batches - 1:
+                self.mini_step += 1
+                return
+            grads = self.acc
+            self.mini_step = 0
+        self._update(clip_by_global_norm(grads, self.clip_grad))
+        if self.acc is not None:
+            for acc in self.acc:
+                acc.zero_()
+
+    def _update(self, grads: List[torch.Tensor]) -> None:
+        lr = self.schedule(self.count)
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
+        # optax forms the bias corrections 1 - b**count in float32.
+        mu_hat = torch._foreach_div(self.mu, float(1 - np.float32(b1) ** np.float32(self.count)))
+        denom = torch._foreach_div(self.nu, float(1 - np.float32(b2) ** np.float32(self.count)))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, ADAM_EPS)
+        updates = torch._foreach_div(mu_hat, denom)
+        if self.weight_decay is not None:
+            torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(self.params, updates, alpha=-lr)
+
+
+def build_optimizer(params: Sequence[torch.Tensor], optimiser: str, lr: float, num_steps: int,
+                    weight_decay: float = 0.0, adam_beta1: float = 0.9,
+                    adam_beta2: float = 0.999, clip_grad: float = 1.0,
+                    acc_batches: int = 1) -> Optimizer:
+    """clip -> adam/adamw with the OneCycle schedule -> accumulation, as the
+    JAX ``build_optimizer``; the horizon is floored at 4 updates there too
+    (its warmup segment would be empty below that)."""
+    schedule = cosine_onecycle_schedule(max(num_steps, 4), float(lr))
+    return Optimizer(params, schedule, b1=adam_beta1, b2=adam_beta2,
+                     weight_decay=float(weight_decay) if optimiser == "adamw" else None,
+                     clip_grad=clip_grad, acc_batches=acc_batches)

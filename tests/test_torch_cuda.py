@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from multimodalanalytical_tpu_torch.ops import beam_attention as ba  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import decode_ffn  # noqa: E402
+from multimodalanalytical_tpu_torch.ops import flash_attention as flash  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2   # of max(1, max|plain|), as chip_smoke.py
@@ -109,15 +110,86 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
         ba.beam_cross_attention(q, kv, kv, torch.zeros(1, 3, device="cuda"), 2, 4)
 
 
-def test_flash_shapes_raise_on_cuda(gen):
-    """Encoder self-attention at the JAX flash gate has no CUDA kernel yet:
-    a CUDA tensor raises instead of running plain attention silently."""
+def _padded_flash_inputs(gen, b, h, length, d, dtype, dead_row):
+    """q, k, v and a (B, L) bias with a masked tail, padded to the 256-row
+    blocks as ``flash_attention`` pads them; batch row ``dead_row`` has
+    every key masked."""
+    dev = "cuda"
+    pad = (-length) % flash.BLK
+    q, k, v = (torch.nn.functional.pad(
+        torch.randn(b, h, length, d, generator=gen, device=dev).to(dtype), (0, 0, 0, pad))
+        for _ in range(3))
+    bias = torch.zeros(b, length, device=dev)
+    bias[:, length - 37:] = flash.NEG_INF
+    if dead_row is not None:
+        bias[dead_row] = flash.NEG_INF
+    return q, k, v, torch.nn.functional.pad(bias, (0, pad), value=flash.NEG_INF)
+
+
+def _rel_close(got, want, rtol):
+    """Elementwise |got - want| <= rtol * max(1, |want|)."""
+    err = ((got.float() - want.float()).abs() / want.float().abs().clamp_min(1.0)).max().item()
+    assert err <= rtol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,length,dead_row", [
+    (1, 1, 2048, None), (2, 3, 2100, 1), (1, 2, 2048, 0)])
+def test_flash_kernels_match_plain(gen, dtype, b, h, length, dead_row):
+    """Forward (out, lse) and backward (dq, dk, dv) kernels vs their plain
+    versions on the same card tensors. Both compute in fp32; fp32 results
+    differ only in summation order (1e-4), bf16 ones by a flipped rounding
+    (2e-2 of max(1, |value|), about two bf16 ulps)."""
+    q, k, v, bias = _padded_flash_inputs(gen, b, h, length, 64, dtype, dead_row)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches)
+    out, lse = flash.flash_attention_fwd(q, k, v, bias)
+    want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, bias)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _close(out, want_out, tol)
+    _rel_close(lse, want_lse, 1e-5)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    grads = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
+    want = flash.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, want):
+        assert got.dtype == dtype and ref.abs().max() > 0
+        _close(got, ref, tol)
+    assert (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_flash_route_on_card_matches_cpu(gen):
+    """``dot_product_attention`` at the flash gate on a CUDA tensor launches
+    the forward kernel once and, under autograd, the backward once; output
+    and gradients match the same call on the CPU (the plain versions)."""
     from multimodalanalytical_tpu_torch.ops.attention import dot_product_attention
 
-    q = torch.randn(1, 1, 2048, 64, generator=gen, device="cuda")
-    with pytest.raises(NotImplementedError, match="flash"):
-        dot_product_attention(q, q, q, None, use_flash=True)
-    assert dot_product_attention(q, q, q, None, use_flash=False).shape == q.shape
+    q, k, v = (torch.randn(2, 2, 2100, 64, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    keep = torch.ones(2, 2100, device="cuda")
+    keep[1, 2000:] = 0
+    bias = torch.where(keep > 0, 0.0, flash.NEG_INF)[:, None, None, :]
+    weight = torch.randn(q.shape, generator=gen, device="cuda")
+    results = []
+    for dev in ("cpu", "cuda"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches)
+        out = dot_product_attention(*leaves, bias.to(dev), use_flash=True)
+        (out.float() * weight.to(dev)).sum().backward()
+        after = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches)
+        assert after == (before if dev == "cpu" else (before[0] + 1, before[1] + 1))
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, want in zip(results[1], results[0]):
+        _close(got, want, 2e-2)
+
+
+def test_flash_kernel_raises_on_unsupported_head_dim(gen):
+    """head_dim 128 passes the JAX gate (a multiple of 64), but the kernels
+    take 64 only (every shipped config): the wrapper raises."""
+    q = torch.randn(1, 1, 2048, 128, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention_fwd(q, q, q, torch.zeros(1, 2048, device="cuda"))
 
 
 @pytest.mark.parametrize("kv_cache_dtype", ["int8", "bfloat16"])
