@@ -1,22 +1,34 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port's serving and training paths.
+"""On-card smoke run of the PyTorch port's serving, training and evaluation paths.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the checks below
+    python3 chip_smoke.py --profile-eval   # phase 5's decodes under torch.profiler
 
-Needs one CUDA device (an H100: the kernels are built for sm_90a) and
-``nvcc``; it imports torch, numpy, the standard library and
-``multimodalanalytical_tpu_torch``, never JAX. Phases, one line each, any
-failure raises and exits non-zero:
+Needs one CUDA device (an H100: the kernels are built for sm_90a), ``nvcc``
+and ``g++``; it imports torch, numpy, the standard library and
+``multimodalanalytical_tpu_torch``, never JAX. (The port's scoring reaches
+the repository's framework-free chemistry engine, ``csrc/chem``, built with
+g++ at first use, as the port's CLIs do.) Phases, one line each, any failure
+raises and exits non-zero:
 
 0. device and build: the card's name and power limit, and the time to
    compile the package's CUDA kernels from ``csrc/``;
 1. each kernel against its plain PyTorch version, with both times: the
-   decode kernels at the flagship decode shapes (B 128, K 10, D 512, H 8,
-   F 2048, Ls 26), the flash attention forward and backward at the long
-   RLE encoder's (B 8, H 8, L 4090 padded to 4096, head_dim 64, bf16,
-   ragged key masks);
+   decode kernels at the flagship decode shapes (B 128, D 512, H 8, F 2048,
+   Ls 26) at each beam count an entry point runs: serving's K 10 (int8 and
+   bf16 caches), validation's K 1 (bf16) and predict's K 30 (int8), the
+   FFN at M 128, 1280 and 3840; the read-only select attention at B 128,
+   L 128, pos 127, K 10 and 30, int8 and bf16 caches; fused dropout (rate
+   0.1, bf16) at the
+   train-site shapes (128, 48, 512), (128, 48, 2048) and (8, 4090, 512),
+   bit for bit, forward and backward (also against ``ops/dropout.py``'s
+   time); the flash attention forward and backward at the long RLE
+   encoder's (B 8, H 8, L 4090 padded to 4096, head_dim 64, bf16, ragged key
+   masks);
 2. serving: the flagship CustomModel (6 + 6 layers, bf16, int8 KV cache,
-   seeded random weights) answers three seeded 128-spectrum requests
+   seeded random weights) decodes 8 teacher-forced steps through the
+   kernels and through ``use_beam_kernel=False`` at K 1, 10 and 30 (logits
+   within LOGIT_TOL), then answers three seeded 128-spectrum requests
    (Formula 12 tokens + IR 14 x 125) through ``InferenceEngine.decode_batch``
    at beam 10 and max length 128. Every decode kernel's launch count must
    equal 6 x the decode steps run. The same requests then run with
@@ -28,9 +40,21 @@ failure raises and exits non-zero:
    ``use_flash_attention=False`` route (loss and gradient norm), then
    ``Trainer.fit`` takes 10 AdamW steps (dropout 0.1, clip 1.0) on the
    repeated batch: every loss finite, the last below the first, and each
-   flash kernel launched 6 x the steps;
+   flash kernel launched 6 x the steps; then the same fit with every
+   dropout site routed through fused dropout (this script's substitution,
+   as ``benchmarks/exp_remat.py`` routes the JAX sites), with its s/step
+   and peak memory beside the default route's;
 4. training, the flagship IR recipe (Formula + IR patches, B 128): three
-   AdamW steps, finite losses, no flash launch.
+   AdamW steps, finite losses, no flash launch;
+5. evaluation: the flagship model, 640 seeded spectra (384 train, 128
+   validation, 128 test, real SMILES targets, a fixed-vocabulary stand-in
+   for the target tokenizer: the card's machine has no ``tokenizers``).
+   ``Trainer.fit`` takes 2 epochs (6 AdamW steps at B 128) with validation
+   (greedy K 1 decode) every epoch and a ``CheckpointManager``; ``best`` is
+   restored into a fresh model bit for bit; ``predict`` decodes the test
+   spectra at beam 30, scored with rejection sampling off and on (the
+   mixture paper's Table 4 recipe). Every decode kernel's launches must
+   equal 6 x the decode steps of validation and predict.
 
 The last two lines are the per-kernel JSON record and the device record.
 """
@@ -73,6 +97,18 @@ RLE_VOCAB = 105
 # fp32 (as the JAX package does), through 6 + 6 bf16 layers.
 ROUTE_LOSS_RTOL, ROUTE_GRAD_NORM_RTOL = 1e-2, 2e-2
 IR_RECIPE_BATCH, IR_RECIPE_STEPS = 128, 3
+# Fused dropout (#7): the model's rate at the JAX docstring's train-site
+# shapes (FFN output and hidden at B 128, 48 tokens) and the RLE encoder's.
+DROPOUT = 0.1
+DROPOUT_SHAPES = [(128, 48, 512), (128, 48, 2048), (TRAIN_BATCH, RLE_MAX_LEN, 512)]
+# The evaluation path (phase 5): the mixture paper's Table 4 predict recipe
+# decodes at beam 30.
+EVAL_BEAMS = 30
+# The decode kernels at every beam count an entry point runs, each with the
+# self-attention caches it takes there: serving's K 10 (int8, and bf16 as a
+# model with kv_cache_dtype bfloat16 has it), validation's greedy K 1 (bf16:
+# the int8 decision needs K >= 4) and predict's K 30 (int8).
+DECODE_BEAMS = ((BEAMS, ("int8", "bf16")), (1, ("bf16",)), (EVAL_BEAMS, ("int8",)))
 
 DATA_CONFIG = {
     "Formula": {"type": "text", "column": "molecular_formula", "target": False,
@@ -118,7 +154,9 @@ def _attn_err(got, want) -> tuple:
 
 # ---------------------------------------------------------------- phase 1
 def check_kernels() -> list:
-    """Each kernel vs its plain version at flagship shapes; returns records."""
+    """Each decode kernel vs its plain version at the flagship widths and at
+    every beam count the entry points run (DECODE_BEAMS); returns records,
+    timed at serving's K 10 as in earlier runs, the other times beside."""
     import torch
 
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
@@ -126,116 +164,245 @@ def check_kernels() -> list:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    bk, flat_max = BATCH * BEAMS, MAX_LENGTH * BEAMS
     records = []
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
-    # #1 self-attention + in-place append, int8 and bf16 caches.
-    q = randn(bk, D_MODEL)
-    anc_full = torch.randint(0, BEAMS, (BATCH, BEAMS, MAX_LENGTH), generator=g,
-                             device=dev, dtype=torch.int32)
+    def randint8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    def rand_scales(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 0.05 + 1e-3
+
+    # #1 self-attention + in-place append.
     worst, timing = 0.0, {}
-    for quantized in (True, False):
-        if quantized:
-            cache0 = torch.randint(-127, 128, (2, BATCH, flat_max, D_MODEL), generator=g,
-                                   device=dev, dtype=torch.int8)
-            scales0 = torch.rand(2, BATCH, HEADS, flat_max, generator=g, device=dev) * 0.05 + 1e-3
-            k_new = torch.randint(-127, 128, (bk, D_MODEL), generator=g, device=dev,
-                                  dtype=torch.int8)
-            v_new = torch.randint(-127, 128, (bk, D_MODEL), generator=g, device=dev,
-                                  dtype=torch.int8)
-            k_s = torch.rand(bk, HEADS, generator=g, device=dev) * 0.05 + 1e-3
-            v_s = torch.rand(bk, HEADS, generator=g, device=dev) * 0.05 + 1e-3
-        else:
-            cache0, scales0 = randn(2, BATCH, flat_max, D_MODEL), None
-            k_new, v_new, k_s, v_s = randn(bk, D_MODEL), randn(bk, D_MODEL), None, None
-        for stage in (32, 128):
-            for pos in (0, 17, stage - 1):
-                anc_full[:, :, pos] = torch.arange(BEAMS, device=dev, dtype=torch.int32)
-                anc = anc_full[:, :, :stage]
-                outs, stores = [], []
-                for fn in (ba.beam_select_attention_update, ba.beam_select_attention_update_plain):
-                    cache = cache0.clone()
-                    scales = scales0.clone() if quantized else None
-                    outs.append(fn(q, k_new, v_new, cache, anc, pos, HEADS, scales, k_s, v_s))
-                    stores.append((cache, scales))
-                torch.cuda.synchronize()
-                err, tol = _attn_err(outs[0], outs[1])
-                rows_equal = torch.equal(stores[0][0], stores[1][0]) and (
-                    not quantized or torch.equal(stores[0][1], stores[1][1]))
-                kind = "int8" if quantized else "bf16"
-                print(f"kernel beam_select_attention_update {kind} L={stage} pos={pos}: "
-                      f"max_abs_err={err:.3e} tol={tol:.3e} cache_rows_equal={rows_equal}",
-                      flush=True)
-                _require(err <= tol, "beam_select_attention_update disagrees with its plain version")
-                _require(rows_equal, "beam_select_attention_update appended other rows/scales")
-                worst = max(worst, err)
-                if pos == stage - 1:
-                    cache, scales = cache0.clone(), scales0.clone() if quantized else None
-                    args = (q, k_new, v_new, cache, anc, pos, HEADS, scales, k_s, v_s)
-                    ms = _time_ms(lambda: ba.beam_select_attention_update(*args))
-                    plain_ms = _time_ms(lambda: ba.beam_select_attention_update_plain(*args))
-                    timing[(kind, stage)] = (ms, plain_ms)
-                    print(f"time beam_select_attention_update {kind} L={stage} pos={pos}: "
-                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    ms, plain_ms = timing[("int8", 128)]
+    for beams, kinds in DECODE_BEAMS:
+        bk, flat_max = BATCH * beams, MAX_LENGTH * beams
+        q = randn(bk, D_MODEL)
+        anc_full = torch.randint(0, beams, (BATCH, beams, MAX_LENGTH), generator=g,
+                                 device=dev, dtype=torch.int32)
+        for kind in kinds:
+            quantized = kind == "int8"
+            if quantized:
+                cache0, scales0 = randint8(2, BATCH, flat_max, D_MODEL), rand_scales(
+                    2, BATCH, HEADS, flat_max)
+                k_new, v_new = randint8(bk, D_MODEL), randint8(bk, D_MODEL)
+                k_s, v_s = rand_scales(bk, HEADS), rand_scales(bk, HEADS)
+            else:
+                cache0, scales0 = randn(2, BATCH, flat_max, D_MODEL), None
+                k_new, v_new, k_s, v_s = randn(bk, D_MODEL), randn(bk, D_MODEL), None, None
+            for stage in (32, 128):
+                for pos in (0, 17, stage - 1):
+                    anc_full[:, :, pos] = torch.arange(beams, device=dev, dtype=torch.int32)
+                    anc = anc_full[:, :, :stage]
+                    outs, stores = [], []
+                    for fn in (ba.beam_select_attention_update,
+                               ba.beam_select_attention_update_plain):
+                        cache = cache0.clone()
+                        scales = scales0.clone() if quantized else None
+                        outs.append(fn(q, k_new, v_new, cache, anc, pos, HEADS, scales, k_s, v_s))
+                        stores.append((cache, scales))
+                    torch.cuda.synchronize()
+                    err, tol = _attn_err(outs[0], outs[1])
+                    rows_equal = torch.equal(stores[0][0], stores[1][0]) and (
+                        not quantized or torch.equal(stores[0][1], stores[1][1]))
+                    print(f"kernel beam_select_attention_update {kind} K={beams} L={stage} "
+                          f"pos={pos}: max_abs_err={err:.3e} tol={tol:.3e} "
+                          f"cache_rows_equal={rows_equal}", flush=True)
+                    _require(err <= tol,
+                             "beam_select_attention_update disagrees with its plain version")
+                    _require(rows_equal, "beam_select_attention_update appended other rows/scales")
+                    worst = max(worst, err)
+                    del outs, stores
+                    if pos == stage - 1:
+                        cache, scales = cache0.clone(), scales0.clone() if quantized else None
+                        args = (q, k_new, v_new, cache, anc, pos, HEADS, scales, k_s, v_s)
+                        ms = _time_ms(lambda: ba.beam_select_attention_update(*args))
+                        plain_ms = _time_ms(lambda: ba.beam_select_attention_update_plain(*args))
+                        timing[f"{kind} K={beams} L={stage}"] = (ms, plain_ms)
+                        print(f"time beam_select_attention_update {kind} K={beams} L={stage} "
+                              f"pos={pos}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+                              flush=True)
+                        del cache, scales, args
+            del cache0, scales0
+    ms, plain_ms = timing[f"int8 K={BEAMS} L=128"]
     records.append({"name": "beam_select_attention_update", "route": "cuda",
                     "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
                     "replaces": "multimodalanalytical_tpu/ops/beam_attention.py:570",
                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                    "timed_at": "int8 cache, L=128, pos=127"})
+                    "timed_at": f"int8 cache, K={BEAMS}, L=128, pos=127",
+                    "other_times_ms": {k: list(v) for k, v in timing.items()}})
 
     # #2 cross-attention with padded keys (row 0 fully masked, as batch
     # padding rows are).
     ls = FORMULA_LEN + N_PATCHES
-    qx, kx, vx = randn(bk, D_MODEL), randn(BATCH, ls, D_MODEL), randn(BATCH, ls, D_MODEL)
+    kx, vx = randn(BATCH, ls, D_MODEL), randn(BATCH, ls, D_MODEL)
     valid = torch.randint(ls - 8, ls + 1, (BATCH, 1), generator=g, device=dev)
     keep = torch.arange(ls, device=dev)[None, :] < valid
     keep[0] = False
     bias = torch.where(keep, 0.0, -1e9).float()
-    got = ba.beam_cross_attention(qx, kx, vx, bias, HEADS, BEAMS)
-    want = ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, BEAMS)
-    err, tol = _attn_err(got, want)
-    ms = _time_ms(lambda: ba.beam_cross_attention(qx, kx, vx, bias, HEADS, BEAMS))
-    plain_ms = _time_ms(lambda: ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, BEAMS))
-    print(f"kernel beam_cross_attention Ls={ls}: max_abs_err={err:.3e} tol={tol:.3e}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    _require(bool(torch.isfinite(got.float()).all()) and err <= tol,
-             "beam_cross_attention disagrees with its plain version")
+    worst, timing = 0.0, {}
+    for beams, _ in DECODE_BEAMS:
+        qx = randn(BATCH * beams, D_MODEL)
+        got = ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
+        want = ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams)
+        err, tol = _attn_err(got, want)
+        ms = _time_ms(lambda: ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams))
+        plain_ms = _time_ms(lambda: ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams))
+        timing[f"K={beams}"] = (ms, plain_ms)
+        print(f"kernel beam_cross_attention K={beams} Ls={ls}: max_abs_err={err:.3e} "
+              f"tol={tol:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        _require(bool(torch.isfinite(got.float()).all()) and err <= tol,
+                 "beam_cross_attention disagrees with its plain version")
+        worst = max(worst, err)
+    ms, plain_ms = timing[f"K={BEAMS}"]
     records.append({"name": "beam_cross_attention", "route": "cuda",
                     "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
                     "replaces": "multimodalanalytical_tpu/ops/beam_attention.py:536",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "timed_at": f"Ls={ls}"})
+                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "timed_at": f"K={BEAMS}, Ls={ls}",
+                    "other_times_ms": {k: list(v) for k, v in timing.items()}})
 
-    # #3 decode FFN, ungated (flagship) and gated.
-    x = randn(bk, D_MODEL)
+    # #3 decode FFN, ungated (flagship) and gated, at M = B x K.
     w1, wg, w2 = randn(FFN, D_MODEL, scale=0.05), randn(FFN, D_MODEL, scale=0.05), randn(
         D_MODEL, FFN, scale=0.03)
     b1, bg, b2 = randn(FFN, scale=0.1), randn(FFN, scale=0.1), randn(D_MODEL, scale=0.1)
-    worst, times = 0.0, {}
-    for gated in (False, True):
-        args = (x, w1, b1, wg if gated else None, bg if gated else None, w2, b2)
-        got = decode_ffn.geglu_ffn(*args)
-        want = decode_ffn.geglu_ffn_plain(*args)
-        err = (got.float() - want.float()).abs().max().item()
-        rel = err / max(want.float().abs().max().item(), 1e-6)
-        ms = _time_ms(lambda: decode_ffn.geglu_ffn(*args))
-        plain_ms = _time_ms(lambda: decode_ffn.geglu_ffn_plain(*args))
-        times[gated] = (ms, plain_ms)
-        print(f"kernel geglu_ffn gated={gated} M={bk} D={D_MODEL} F={FFN}: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} tol={FFN_REL_TOL}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-              flush=True)
-        _require(rel <= FFN_REL_TOL, "geglu_ffn disagrees with its plain version")
-        worst = max(worst, err)
+    worst, timing = 0.0, {}
+    for beams, _ in DECODE_BEAMS:
+        m = BATCH * beams
+        x = randn(m, D_MODEL)
+        for gated in (False, True):
+            args = (x, w1, b1, wg if gated else None, bg if gated else None, w2, b2)
+            got = decode_ffn.geglu_ffn(*args)
+            want = decode_ffn.geglu_ffn_plain(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / max(want.float().abs().max().item(), 1e-6)
+            ms = _time_ms(lambda: decode_ffn.geglu_ffn(*args))
+            plain_ms = _time_ms(lambda: decode_ffn.geglu_ffn_plain(*args))
+            timing[f"{'gated' if gated else 'ungated'} M={m}"] = (ms, plain_ms)
+            print(f"kernel geglu_ffn gated={gated} M={m} D={D_MODEL} F={FFN}: "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} tol={FFN_REL_TOL}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms", flush=True)
+            _require(bool(torch.isfinite(got.float()).all()) and rel <= FFN_REL_TOL,
+                     "geglu_ffn disagrees with its plain version")
+            worst = max(worst, err)
+    ms, plain_ms = timing[f"ungated M={BATCH * BEAMS}"]
     records.append({"name": "geglu_ffn", "route": "cuda",
                     "source": "multimodalanalytical_tpu_torch/csrc/decode_ffn.cu",
                     "replaces": "multimodalanalytical_tpu/ops/decode_ffn.py:68",
-                    "max_abs_err": worst, "ms": times[False][0], "plain_ms": times[False][1],
-                    "timed_at": f"ungated, M={bk} D={D_MODEL} F={FFN}"})
+                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "timed_at": f"ungated, M={BATCH * BEAMS} D={D_MODEL} F={FFN}",
+                    "other_times_ms": {k: list(v) for k, v in timing.items()}})
     return records
+
+
+def check_read_only_attention() -> dict:
+    """#4 the read-only select attention vs its plain version at B 128,
+    L 128, pos 127, K 10 and 30, int8 and bf16 caches, with ancestry[:, :,
+    pos] drawn at random; returns its record (launches: the checks')."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    pos = MAX_LENGTH - 1
+    worst, timing, launches = 0.0, {}, 0
+    for beams in (BEAMS, EVAL_BEAMS):
+        flat = MAX_LENGTH * beams
+        q = torch.randn(BATCH, beams, D_MODEL, generator=g, device=dev).bfloat16()
+        anc = torch.randint(0, beams, (BATCH, beams, MAX_LENGTH), generator=g, device=dev,
+                            dtype=torch.int32)
+        for kind in ("int8", "bf16"):
+            if kind == "int8":
+                cache = torch.randint(-127, 128, (2, BATCH, flat, D_MODEL), generator=g,
+                                      device=dev, dtype=torch.int8)
+                scales = torch.rand(2, BATCH, HEADS, flat, generator=g, device=dev) * 0.05 + 1e-3
+            else:
+                cache = torch.randn(2, BATCH, flat, D_MODEL, generator=g, device=dev).bfloat16()
+                scales = None
+            args = (q, cache, anc, pos, HEADS, scales)
+            before = ba.beam_select_attention.launches
+            got = ba.beam_select_attention(*args)
+            launches += ba.beam_select_attention.launches - before
+            want = ba.beam_select_attention_plain(*args)
+            torch.cuda.synchronize()
+            err, tol = _attn_err(got, want)
+            ms = _time_ms(lambda: ba.beam_select_attention(*args))
+            plain_ms = _time_ms(lambda: ba.beam_select_attention_plain(*args), iters=5)
+            timing[(kind, beams)] = (ms, plain_ms)
+            print(f"kernel beam_select_attention {kind} K={beams} L={MAX_LENGTH} pos={pos}: "
+                  f"max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms", flush=True)
+            _require(bool(torch.isfinite(got.float()).all()) and err <= tol,
+                     "beam_select_attention disagrees with its plain version")
+            worst = max(worst, err)
+            del cache, scales
+    ms, plain_ms = timing[("int8", EVAL_BEAMS)]
+    return {"name": "beam_select_attention", "route": "cuda",
+            "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
+            "replaces": "multimodalanalytical_tpu/ops/beam_attention.py:703",
+            "launches": launches, "launches_by_phase": {"1": launches},
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "timed_at": f"int8 cache, B={BATCH}, K={EVAL_BEAMS}, L={MAX_LENGTH}, pos={pos}",
+            "other_times_ms": {f"{k} K={b}": list(v) for (k, b), v in timing.items()}}
+
+
+def check_fused_dropout() -> tuple:
+    """#7 fused dropout vs its plain version at the train-site shapes, bf16,
+    rate 0.1: forward and backward bit-equal, the backward's mask the
+    forward's, the keep fraction within 5 sigma of 1 - rate. Returns (its
+    record, the phase-1 launches)."""
+    import math
+
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import dropout as plain_dropout
+    from multimodalanalytical_tpu_torch.ops import fused_dropout as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rate = DROPOUT
+    times, launches = {}, 0
+    for shape in DROPOUT_SHAPES:
+        # No exact zeros (randn draws some), so that a kept element is non-zero.
+        x = torch.randn(shape, generator=g, device=dev).bfloat16()
+        x[x == 0] = 1.0
+        seed = fd.draw_seed(g, dev)
+        leaf = x.detach().requires_grad_()
+        before = fd.fused_dropout.launches
+        out = fd.FusedDropoutFunction.apply(leaf, seed, rate)
+        out.backward(torch.ones_like(out))
+        launches += fd.fused_dropout.launches - before
+        want = fd.fused_dropout_plain(x, seed, rate)
+        want_grad = fd.fused_dropout_plain(torch.ones_like(x), seed, rate)
+        torch.cuda.synchronize()
+        kept = (out != 0).float().mean().item()
+        sigma = math.sqrt(rate * (1 - rate) / x.numel())
+        fwd_equal, bwd_equal = torch.equal(out, want), torch.equal(leaf.grad, want_grad)
+        same_mask = torch.equal(leaf.grad != 0, out != 0)
+        ms = _time_ms(lambda: fd.fused_dropout(x, seed, rate))
+        plain_ms = _time_ms(lambda: fd.fused_dropout_plain(x, seed, rate), iters=5)
+        default_ms = _time_ms(lambda: plain_dropout.dropout(x, rate, g))
+        times[shape] = (ms, plain_ms, default_ms)
+        print(f"kernel fused_dropout {tuple(shape)} bf16 rate {rate}: forward bit-equal "
+              f"{fwd_equal}, backward bit-equal {bwd_equal}, backward mask = forward mask "
+              f"{same_mask}, keep fraction {kept:.6f} (want {1 - rate} +- {5 * sigma:.2e}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, ops/dropout.py {default_ms:.4f} ms",
+              flush=True)
+        _require(fwd_equal and bwd_equal and same_mask,
+                 "fused_dropout differs from its plain version")
+        _require(abs(kept - (1 - rate)) <= 5 * sigma, "fused_dropout keep fraction off")
+    _require(launches == 2 * len(DROPOUT_SHAPES), "fused_dropout did not launch")
+    ms, plain_ms, default_ms = times[DROPOUT_SHAPES[1]]
+    return {"name": "fused_dropout", "route": "cuda",
+            "source": "multimodalanalytical_tpu_torch/csrc/fused_dropout.cu",
+            "replaces": "multimodalanalytical_tpu/ops/fused_dropout.py:59",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "ops_dropout_ms": default_ms,
+            "timed_at": f"{DROPOUT_SHAPES[1]} bf16, rate {rate}",
+            "other_times_ms": {str(s): list(v) for s, v in times.items()}}, launches
 
 
 def check_flash_kernels() -> list:
@@ -333,7 +500,7 @@ def _request(seed: int, batch: int = BATCH):
 def check_teacher_forced(model, plain_model) -> None:
     """Decode logits of the kernel path vs the use_beam_kernel=False path
     on the same weights, for 8 teacher-forced steps with permuted ancestry,
-    with a bf16 and with an int8 cache."""
+    at each beam count and cache of DECODE_BEAMS."""
     import torch
 
     from multimodalanalytical_tpu_torch.generation.beam_search import decode_model
@@ -344,27 +511,29 @@ def check_teacher_forced(model, plain_model) -> None:
     inputs = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
     mask = torch.as_tensor(mask, device=dev)
     g = torch.Generator().manual_seed(1)
-    tokens = torch.randint(4, VOCAB, (batch, BEAMS, steps), generator=g).to(dev)
-    anc = torch.randint(0, BEAMS, (batch, BEAMS, steps), generator=g, dtype=torch.int32).to(dev)
     with torch.no_grad():
         hidden = model.encode(inputs, mask)
-        for quantize in (False, True):
-            logits = []
-            for m in (model, plain_model):
-                dm = decode_model(m)
-                cache = dm.init_beam_cache(batch, BEAMS, steps, hidden, quantize)
-                out = []
-                for t in range(steps):
-                    a = anc.clone()
-                    a[:, :, t] = torch.arange(BEAMS, device=dev, dtype=torch.int32)
-                    out.append(dm.beam_decode_step(tokens[:, :, t], t, cache, a, mask))
-                logits.append(torch.stack(out).float())
-            err = (logits[0] - logits[1]).abs().max().item()
-            tol = LOGIT_TOL * max(1.0, logits[1].abs().max().item())
-            print(f"teacher-forced logits {'int8' if quantize else 'bf16'} cache, kernel vs "
-                  f"plain path: max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
-            _require(bool(torch.isfinite(logits[0]).all()) and err <= tol,
-                     "kernel path disagrees with the plain path")
+        for beams, kinds in DECODE_BEAMS:
+            tokens = torch.randint(4, VOCAB, (batch, beams, steps), generator=g).to(dev)
+            anc = torch.randint(0, beams, (batch, beams, steps), generator=g,
+                                dtype=torch.int32).to(dev)
+            for kind in kinds:
+                logits = []
+                for m in (model, plain_model):
+                    dm = decode_model(m)
+                    cache = dm.init_beam_cache(batch, beams, steps, hidden, kind == "int8")
+                    out = []
+                    for t in range(steps):
+                        a = anc.clone()
+                        a[:, :, t] = torch.arange(beams, device=dev, dtype=torch.int32)
+                        out.append(dm.beam_decode_step(tokens[:, :, t], t, cache, a, mask))
+                    logits.append(torch.stack(out).float())
+                err = (logits[0] - logits[1]).abs().max().item()
+                tol = LOGIT_TOL * max(1.0, logits[1].abs().max().item())
+                print(f"teacher-forced logits K={beams} {kind} cache, kernel vs plain path: "
+                      f"max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
+                _require(bool(torch.isfinite(logits[0]).all()) and err <= tol,
+                         "kernel path disagrees with the plain path")
 
 
 def run_slice() -> dict:
@@ -503,13 +672,44 @@ def _step_twice(model, batch) -> tuple:
     return loss, grad_norm, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
 
 
-def run_training_slice() -> dict:
-    """Phase 3; returns the flash kernels' launch counts of the fit."""
+def _fit_rle(batch, real_tokens: int, route: str) -> tuple:
+    """Ten dropout-0.1 AdamW steps of the RLE model on the repeated batch;
+    returns (losses, s/step, peak GiB) after checking the losses."""
     import math
 
     import torch
 
     from multimodalanalytical_tpu_torch.training import Trainer
+
+    model = _rle_model(dropout=DROPOUT, use_flash=True)
+    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=TRAIN_STEPS,
+                      clip_grad=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = trainer.fit([batch], epochs=TRAIN_STEPS, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train fit ({route}): {TRAIN_STEPS} AdamW steps, B {TRAIN_BATCH}, dropout "
+          f"{DROPOUT}: {seconds:.4f} s/step ({real_tokens / seconds:.1f} encoder tokens/s "
+          f"real, {TRAIN_BATCH * RLE_MAX_LEN / seconds:.1f} padded); peak {peak:.2f} GiB; "
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
+    _require(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+             "non-finite training loss")
+    _require(losses[-1] < losses[0], "the training loss did not fall")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return losses, seconds, peak
+
+
+def run_training_slice() -> tuple:
+    """Phase 3; returns the flash kernels' launch counts of the default fit
+    and fused_dropout's of the fit that routes every dropout site through it."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.models import transformer
+    from multimodalanalytical_tpu_torch.ops import fused_dropout as fd
 
     batch = _rle_batch()
     real_tokens = int(batch["encoder_mask"].sum())
@@ -533,30 +733,38 @@ def run_training_slice() -> dict:
     _require(loss_rel <= ROUTE_LOSS_RTOL and norm_rel <= ROUTE_GRAD_NORM_RTOL,
              "the flash and plain training routes disagree")
 
-    model = _rle_model(dropout=0.1, use_flash=True)
-    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=TRAIN_STEPS,
-                      clip_grad=1.0)
     counters = _flash_counters()
     for fn in counters:
         fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = trainer.fit([batch], max_steps=TRAIN_STEPS)
-    torch.cuda.synchronize()
-    seconds = (time.perf_counter() - t0) / TRAIN_STEPS
+    _, default_s, default_peak = _fit_rle(batch, real_tokens, "ops/dropout.py")
     launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"train fit: {TRAIN_STEPS} AdamW steps, B {TRAIN_BATCH}, dropout 0.1: "
-          f"{seconds:.4f} s/step ({real_tokens / seconds:.1f} encoder tokens/s real, "
-          f"{padded_tokens / seconds:.1f} padded); losses {[round(x, 4) for x in losses]}; "
-          f"launches {launches}", flush=True)
-    _require(all(math.isfinite(x) for x in losses), "non-finite training loss")
-    _require(losses[-1] < losses[0], "the training loss did not fall")
+    print(f"train fit launches {launches}", flush=True)
     for name, count in launches.items():
         _require(count == LAYERS * TRAIN_STEPS,
                  f"{name} launched {count} times, want {LAYERS * TRAIN_STEPS}")
-    del model, trainer
-    torch.cuda.empty_cache()
-    return launches
+
+    # Every dropout site through the fused kernel, as benchmarks/exp_remat.py
+    # routes the JAX sites through pallas_dropout.
+    sites = [0]
+
+    def fused_sites(x, rate, generator):
+        sites[0] += generator is not None and rate > 0.0
+        return fd.dropout(x, rate, generator)
+
+    original = transformer.dropout
+    transformer.dropout = fused_sites
+    fd.fused_dropout.launches = 0
+    try:
+        _, fused_s, fused_peak = _fit_rle(batch, real_tokens, "fused_dropout")
+    finally:
+        transformer.dropout = original
+    fused_launches = fd.fused_dropout.launches
+    print(f"train fit fused_dropout vs ops/dropout.py: {fused_s:.4f} vs {default_s:.4f} s/step, "
+          f"peak {fused_peak:.2f} vs {default_peak:.2f} GiB; {sites[0]} dropout calls, "
+          f"{fused_launches} fused_dropout launches (forward and backward)", flush=True)
+    _require(sites[0] > 0 and fused_launches == 2 * sites[0],
+             "fused_dropout did not launch at every dropout site, forward and backward")
+    return launches, fused_launches
 
 
 def run_ir_recipe() -> None:
@@ -579,7 +787,7 @@ def run_ir_recipe() -> None:
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = trainer.fit([batch], max_steps=IR_RECIPE_STEPS)
+    losses = trainer.fit([batch], epochs=IR_RECIPE_STEPS, max_steps=IR_RECIPE_STEPS)
     torch.cuda.synchronize()
     seconds = (time.perf_counter() - t0) / IR_RECIPE_STEPS
     launched = {fn.__name__: fn.launches for fn in counters if fn.launches}
@@ -590,6 +798,238 @@ def run_ir_recipe() -> None:
     _require(not launched, "a kernel ran in the IR recipe's train step")
     del model, trainer
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 5
+# Real molecules as targets, so that canonicalisation and the formula
+# filter of rejection sampling score real SMILES.
+SMILES_CORPUS = [
+    "CCO", "CC(=O)O", "c1ccccc1", "c1ccccc1O", "CC(C)O", "CCN(CC)CC", "O=C(O)c1ccccc1",
+    "CC(=O)Nc1ccc(O)cc1", "COc1ccccc1", "CCOC(C)=O", "C1CCCCC1", "CC#N", "ClCCl",
+    "Cc1ccccc1", "NCCO", "O=Cc1ccccc1", "CCCCBr", "c1ccncc1", "CC(C)(C)O", "OCC(O)CO",
+]
+SMILES_REGEX = (r"(\[[^\]]+]|Br?|Cl?|N|O|S|P|F|I|b|c|n|o|s|p|\(|\)|\.|=|#|-|\+|\\|\/|:"
+                r"|~|@|\?|>|\*|\$|\%[0-9]{2}|[0-9])")
+EVAL_TRAIN, EVAL_VAL, EVAL_TEST = 384, 128, 128
+EVAL_EPOCHS = 2
+EVAL_TARGET_LEN = 32      # longest corpus target (19 tokens) + BOS/EOS, padded
+
+
+class FixedVocabTokenizer:
+    """Stand-in for the fitted target ``RegexTokenizer`` (``data/tokenizer.py``
+    needs the ``tokenizers`` package, which the card's machine lacks): the
+    SMILES regex's tokens, then fillers up to the flagship vocabulary of 320,
+    with the same special ids (pad 0, bos 2, eos 3) and the same
+    ``batch_decode`` output (tokens joined by spaces, specials skipped)."""
+
+    def __init__(self):
+        import re
+
+        self.regex = re.compile(SMILES_REGEX)
+        atoms = sorted({t for s in SMILES_CORPUS for t in self.regex.findall(s)})
+        atoms += [t for t in ("S", "P", "F", "I", "n", "o", "s", "[nH]", "=", "#", "(", ")")
+                  if t not in atoms]
+        tokens = ["<pad>", "<unk>", "<bos>", "<eos>"] + atoms
+        self.tokens = tokens + [f"<x{i}>" for i in range(VOCAB - len(tokens))]
+        self.ids = {t: i for i, t in enumerate(self.tokens)}
+        self.pad_token_id, self.bos_token_id, self.eos_token_id = 0, 2, 3
+        self.vocab_size = VOCAB
+
+    def encode(self, smiles: str) -> list:
+        return [self.ids[t] for t in self.regex.findall(smiles)]
+
+    def batch_decode(self, ids, skip_special_tokens: bool = True) -> list:
+        specials = {self.pad_token_id, self.bos_token_id, self.eos_token_id}
+        return [" ".join(self.tokens[int(i)] for i in row
+                         if not (skip_special_tokens and int(i) in specials))
+                for row in ids]
+
+
+def _eval_loader(tokenizer, first: int, rows: int) -> list:
+    """Collated batches of B 128 (the collator's layout) for spectra
+    first .. first + rows - 1, seeded by index."""
+    import numpy as np
+
+    batches = []
+    for start in range(first, first + rows, BATCH):
+        rng = np.random.default_rng(1000 + start)
+        inputs, mask = _request(seed=2000 + start, batch=BATCH)
+        smiles = [SMILES_CORPUS[i] for i in rng.integers(0, len(SMILES_CORPUS), BATCH)]
+        dec = np.zeros((BATCH, EVAL_TARGET_LEN), np.int64)
+        labels = np.full((BATCH, EVAL_TARGET_LEN), -100, np.int64)
+        for row, s in enumerate(smiles):
+            ids = tokenizer.encode(s)
+            dec[row, : len(ids) + 1] = [tokenizer.bos_token_id] + ids
+            labels[row, : len(ids) + 1] = ids + [tokenizer.eos_token_id]
+        batches.append({"encoder_inputs": inputs, "encoder_mask": mask, "decoder_ids": dec,
+                        "decoder_mask": (labels != -100).astype(np.int32), "labels": labels,
+                        "target_strings": smiles, "n_valid": BATCH})
+    return batches
+
+
+def run_eval_path() -> dict:
+    """Phase 5: fit (2 epochs, validation each), checkpoints, restore of
+    ``best`` into a fresh model, predict at K 30 and Table 4's scoring with
+    rejection sampling off and on. Returns the decode kernels' launches."""
+    import math
+    import tempfile
+
+    import torch
+
+    from multimodalanalytical_tpu_torch.cli.common import score_predictions
+    from multimodalanalytical_tpu_torch.training import Trainer
+    from multimodalanalytical_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+        restore_params,
+    )
+
+    tokenizer = FixedVocabTokenizer()
+    train = _eval_loader(tokenizer, 0, EVAL_TRAIN)
+    val = _eval_loader(tokenizer, EVAL_TRAIN, EVAL_VAL)
+    test = _eval_loader(tokenizer, EVAL_TRAIN + EVAL_VAL, EVAL_TEST)
+    steps = EVAL_EPOCHS * len(train)
+    model = _flagship()
+    trainer = Trainer(model, tokenizer, optimiser="adamw", lr=TRAIN_LR, num_steps=steps,
+                      clip_grad=1.0, n_beams=EVAL_BEAMS)
+    counters = _decode_counters()
+    for fn in counters:
+        fn.launches = 0
+
+    spent = {"validate": [], "save": []}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoints = CheckpointManager(Path(tmp) / "checkpoints")
+        trainer.validate = timed("validate", trainer.validate)
+        checkpoints.save = timed("save", checkpoints.save)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        val_steps = trainer.decode_steps
+        step_s = (fit_s - sum(spent["validate"]) - sum(spent["save"])) / steps
+        print(f"eval path fit: {steps} AdamW steps at B {BATCH}: {step_s:.4f} s/step (train "
+              f"steps only); validation {[round(x, 4) for x in spent['validate']]} s/pass "
+              f"(K 1, {val_steps} decode steps in all); checkpoint saves "
+              f"{[round(x, 3) for x in spent['save']]} s; losses "
+              f"{[round(x, 4) for x in losses]}; best step {checkpoints.best_step}", flush=True)
+        _require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                 "non-finite training loss")
+        _require(len(spent["validate"]) == EVAL_EPOCHS, "validation did not run every epoch")
+        for name in ("last", "best"):
+            _require((checkpoints.directory / name).is_dir(), f"no {name} checkpoint")
+
+        # The best checkpoint into a fresh model: its params, bit for bit.
+        best = checkpoints.restore("best")["params"]
+        fresh = _flagship()
+        fresh.load_state_dict(restore_params(checkpoints.directory / "best"))
+        restored = fresh.state_dict()
+        identical = all(torch.equal(restored[k].cpu(), best[k]) for k in best)
+        print(f"restore best (step {checkpoints.best_step}) into a fresh model: "
+              f"{len(best)} tensors bit-identical {identical}", flush=True)
+        _require(identical and set(restored) == set(best), "restored params differ")
+
+    predictor = Trainer(fresh, tokenizer, n_beams=EVAL_BEAMS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictions = predictor.predict(test, n_beams=EVAL_BEAMS)
+    torch.cuda.synchronize()
+    predict_s = (time.perf_counter() - t0) / len(test)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    decode_steps = val_steps + predictor.decode_steps
+    cache_bytes = 2 * BATCH * MAX_LENGTH * EVAL_BEAMS * D_MODEL
+    print(f"eval path predict: K {EVAL_BEAMS}, {len(test)} batch(es) of {BATCH}: "
+          f"{predict_s:.4f} s/batch ({BATCH / predict_s:.2f} spectra/s), "
+          f"{predictor.decode_steps} decode steps, avg_loss {predictions['avg_loss']:.4f}; "
+          f"int8 KV cache {cache_bytes} B per layer ({cache_bytes / 2**30:.3f} GiB, "
+          f"{LAYERS} layers); launches {launches} over {decode_steps} decode steps",
+          flush=True)
+    _require(len(predictions["predictions"]) == EVAL_TEST
+             and all(len(p) == EVAL_BEAMS for p in predictions["predictions"])
+             and predictions["targets"] == [s for b in test for s in b["target_strings"]],
+             "predict returned other rows or beams")
+    _require(math.isfinite(predictions["avg_loss"]), "non-finite predict loss")
+    for name, count in launches.items():
+        _require(count == LAYERS * decode_steps,
+                 f"{name} launched {count} times, want {LAYERS * decode_steps}")
+    for rejection in (False, True):
+        metrics = score_predictions(predictions, molecules=True, rejection_sampling=rejection)
+        tops = {k: round(v, 4) for k, v in metrics.items()
+                if k in ("Top-1", "Top-5", "Top-10", f"Top-{EVAL_BEAMS}")}
+        print(f"eval path scoring, rejection sampling {rejection}: {tops} (random weights: "
+              f"reported, not asserted)", flush=True)
+    return launches
+
+
+# ------------------------------------------------------------- profiling
+PROFILE_TOP = 14
+
+
+def _device_time(prof) -> tuple:
+    """(seconds, rows, kernel launches) of one profiled run. Only the
+    device's own events count (kernels, copies, sets): the profiler's
+    operator rows (``aten::...``) carry their kernels' time a second time.
+    rows: (ms, calls, name) by name, largest first."""
+    from torch.autograd import DeviceType
+
+    by_name, launches = {}, 0
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            ms, calls = by_name.get(event.name, (0.0, 0))
+            by_name[event.name] = (ms + event.time_range.elapsed_us() / 1e3, calls + 1)
+        elif event.name.startswith("cudaLaunchKernel"):
+            launches += 1
+    rows = sorted(((ms, calls, name) for name, (ms, calls) in by_name.items()), reverse=True)
+    return sum(ms for ms, _, _ in rows) / 1e3, rows, launches
+
+
+def profile_eval() -> None:
+    """The evaluation path under ``torch.profiler``: one beam-30 predict
+    batch of 128 spectra and one greedy (K 1) validation pass over 128, on
+    a fresh flagship model (random weights, so every row decodes all
+    steps). Each runs once to warm up, once unprofiled for its wall time
+    and once profiled; prints device time by kernel and the busy share
+    (device time / unprofiled wall time)."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    tokenizer = FixedVocabTokenizer()
+    val = _eval_loader(tokenizer, EVAL_TRAIN, EVAL_VAL)
+    test = _eval_loader(tokenizer, EVAL_TRAIN + EVAL_VAL, BATCH)
+    trainer = Trainer(_flagship(), tokenizer, n_beams=EVAL_BEAMS)
+    runs = {f"predict K {EVAL_BEAMS}": lambda: trainer.predict(test, n_beams=EVAL_BEAMS),
+            "validate K 1": lambda: trainer.validate(val)}
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        steps = trainer.decode_steps
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = trainer.decode_steps - steps
+        with torch.profiler.profile(activities=activities) as prof:
+            run()
+            torch.cuda.synchronize()
+        device_s, rows, launches = _device_time(prof)
+        print(f"profile {name}: {steps} decode steps; wall {wall:.4f} s unprofiled; device "
+              f"time {device_s:.4f} s (kernels and copies only); busy share "
+              f"{device_s / wall:.3f}; {launches} kernel launches", flush=True)
+        for ms, calls, kernel in rows[:PROFILE_TOP]:
+            print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
+                  f"{kernel[:100]}", flush=True)
 
 
 def main() -> int:
@@ -612,13 +1052,27 @@ def main() -> int:
     lib_path = _cuda.library_path()
     _cuda.library()
     print(f"build: {lib_path.name} ready in {time.perf_counter() - t0:.2f} s", flush=True)
+    if "--profile-eval" in sys.argv[1:]:
+        print(smi, flush=True)
+        profile_eval()
+        return 0
 
-    records = check_kernels() + check_flash_kernels()
-    launches = run_slice()
-    launches.update(run_training_slice())
+    records = check_kernels()
+    read_only = check_read_only_attention()
+    dropout, dropout_phase1 = check_fused_dropout()
+    records += check_flash_kernels()
+    by_phase = {name: {"2": n} for name, n in run_slice().items()}
+    flash_launches, dropout_phase3 = run_training_slice()
+    by_phase.update({name: {"3": n} for name, n in flash_launches.items()})
     run_ir_recipe()
+    for name, n in run_eval_path().items():
+        by_phase[name]["5"] = n
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches_by_phase"] = by_phase[rec["name"]]
+        rec["launches"] = sum(by_phase[rec["name"]].values())
+    dropout["launches_by_phase"] = {"1": dropout_phase1, "3": dropout_phase3}
+    dropout["launches"] = dropout_phase1 + dropout_phase3
+    records += [read_only, dropout]
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

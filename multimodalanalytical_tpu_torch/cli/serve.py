@@ -13,8 +13,13 @@ API (as in the JAX package): ``GET /healthz`` and ``POST /predict`` with
 body ``{"records": [{<column>: <value>, ...}, ...]}``, answered with
 ``{"results": [{"smiles": [...], "scores": [...]}, ...]}``.
 
-Checkpoint restore is not ported yet: the engine takes a model whose
-weights come from ``models/weights.py:load_flax_params`` or a seeded init.
+The entry point builds the engine from a config (a checkpoint of this
+package or an ``.npz`` of a JAX param tree, plus the preprocessor artifact,
+which carries the collator's fitted lengths)::
+
+    python -m multimodalanalytical_tpu_torch.cli.serve \
+        preprocessor_path=runs/train/preprocessor.json model=custom_model \
+        model.model_checkpoint_path=runs/train/checkpoints/best serve.port=8000
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import json
 import logging
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -247,11 +253,67 @@ class _Server(ThreadingHTTPServer):
     daemon_threads = True
 
 
-def build_server(engine: InferenceEngine, host: str = "127.0.0.1", port: int = 8000,
-                 model_name: str = "CustomModel") -> ThreadingHTTPServer:
+def make_server(engine: InferenceEngine, host: str = "127.0.0.1", port: int = 8000,
+                model_name: str = "CustomModel") -> ThreadingHTTPServer:
     """Start the engine's batching worker and bind the HTTP server (without
     entering ``serve_forever``)."""
     engine.start()
     server = _Server((host, port), make_handler(engine, model_name))
     server.engine = engine
     return server
+
+
+def engine_from_config(config: Dict[str, Any]) -> InferenceEngine:
+    """The engine of a serve config: the model of ``config["model"]`` with
+    the checkpoint ``model.model_checkpoint_path``, and the collator and
+    tokenizer of the artifact ``preprocessor_path``."""
+    from ..training.checkpoint import restore_params
+    from .common import build_model, default_device, seed_everything
+
+    model_config: Dict[str, Any] = dict(config["model"])
+    if not model_config.get("model_checkpoint_path"):
+        raise ValueError("Please supply model_checkpoint_path with model.model_checkpoint_path=...")
+    if not config.get("preprocessor_path"):
+        raise ValueError("Please supply preprocessor_path=...")
+    batch_size = int((config.get("serve") or {}).get("batch_size") or model_config["batch_size"])
+    collator, tokenizer = collator_from_artifact(Path(config["preprocessor_path"]), batch_size)
+    model, _ = build_model(model_config, collator.data_config, collator.target_modality,
+                           tokenizer, default_device(), seed_everything())
+    model.load_state_dict(restore_params(model_config["model_checkpoint_path"]))
+    return InferenceEngine(model, n_beams=int(model_config.get("n_beams", 10)),
+                           batch_size=batch_size, collator=collator, tokenizer=tokenizer,
+                           max_wait_ms=float((config.get("serve") or {}).get("max_wait_ms", 20)))
+
+
+def build_server(config: Dict[str, Any]) -> ThreadingHTTPServer:
+    """The engine and HTTP server of a serve config, without entering
+    ``serve_forever`` (tests drive this directly)."""
+    serve_cfg = config.get("serve") or {}
+    return make_server(engine_from_config(config), serve_cfg.get("host", "127.0.0.1"),
+                       int(serve_cfg.get("port", 8000)),
+                       config["model"].get("model_type", "CustomModel"))
+
+
+def run(config: Dict[str, Any]) -> None:
+    from .common import setup_logging
+
+    work_dir = Path(config.get("working_dir", ".")) / config.get("job_name", "serve")
+    work_dir.mkdir(parents=True, exist_ok=True)
+    setup_logging(work_dir / "serve.log")
+    server = build_server(config)
+    host, port = server.server_address[:2]
+    logger.info("Serving on http://%s:%s (POST /predict)", host, port)
+    try:
+        server.serve_forever()
+    finally:
+        server.engine.close()
+
+
+def main(argv: List[str] | None = None) -> None:
+    from .common import compose
+
+    run(compose("config_serve", sys.argv[1:] if argv is None else argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,13 @@
 // Beam-decode attention kernels for Hopper (sm_90a): lazy-ancestry
-// self-attention with the in-place KV-cache append, and beam
+// self-attention, with the in-place KV-cache append (update mode) or over a
+// cache that already holds this step's rows (read-only mode), and beam
 // cross-attention against the beam-invariant encoder K/V.
 //
 // Replaces multimodalanalytical_tpu/ops/beam_attention.py
-// beam_select_attention_update (Pallas _kernel_upd / _kernel_upd_q8) and
-// beam_cross_attention (Pallas _cross_kernel).
+// beam_select_attention_update (Pallas _kernel_upd / _kernel_upd_q8),
+// beam_select_attention (Pallas _kernel / _kernel_q8; the same kernel
+// instantiated with kUpdate = false) and beam_cross_attention (Pallas
+// _cross_kernel).
 //
 // Bound on the H100: bytes. A decode step reads, per layer, the ancestor
 // rows of every beam from the slot-flattened cache (at most the written
@@ -75,9 +78,11 @@ __device__ __forceinline__ void attend(const Src& src, int n_keys, int lane,
   }
 }
 
-// Keys of beam n at step `pos`: time l < pos reads the cache row of slot
-// ancestry[l] (flat row l * K + slot), time pos reads this step's fresh row.
-template <typename T>
+// Keys of beam n at step `pos`: time l reads the cache row of slot
+// ancestry[l] (flat row l * K + slot), except that in update mode time pos
+// reads this step's fresh row (its beam's own slot by construction). The
+// read-only mode reads time pos through ancestry[pos] like every other.
+template <typename T, bool kUpdate>
 struct SelfSource {
   using Value = T;
   static constexpr bool kQuantized = std::is_same<T, int8_t>::value;
@@ -95,7 +100,7 @@ struct SelfSource {
 
   __device__ __forceinline__ int slot(int l) const { return l * beams + anc[l]; }
   __device__ __forceinline__ float logit(int l) const {
-    if (l == pos) {
+    if (kUpdate && l == pos) {
       const float qk = row_dot(q, k_fresh, head_dim);
       return kQuantized ? qk * k_fresh_scale : qk;
     }
@@ -104,11 +109,11 @@ struct SelfSource {
     return kQuantized ? qk * k_scales[f] : qk;
   }
   __device__ __forceinline__ const T* value_row(int l) const {
-    return l == pos ? v_fresh : v_cache + static_cast<size_t>(slot(l)) * d_model;
+    return kUpdate && l == pos ? v_fresh : v_cache + static_cast<size_t>(slot(l)) * d_model;
   }
   __device__ __forceinline__ float value_scale(int l) const {
     if (!kQuantized) return 1.f;
-    return l == pos ? v_fresh_scale : v_scales[slot(l)];
+    return kUpdate && l == pos ? v_fresh_scale : v_scales[slot(l)];
   }
   __device__ __forceinline__ float round_prob(float p) const { return round_bf16(p); }
 };
@@ -132,12 +137,13 @@ struct CrossSource {
   __device__ __forceinline__ float round_prob(float p) const { return round_to<T>(p); }
 };
 
-// Grid (heads, batch). Block (b, h) first appends head h's slice of the K
-// fresh rows (and their scales) at flat rows pos * K + n, in place: no
-// other block touches (b, h), so the append has no race. It then attends
-// every beam over l <= pos, one warp per beam.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) select_attention_update_kernel(
+// Grid (heads, batch). In update mode block (b, h) first appends head h's
+// slice of the K fresh rows (and their scales) at flat rows pos * K + n, in
+// place: no other block touches (b, h), so the append has no race. It then
+// attends every beam over l <= pos, one warp per beam. The read-only mode
+// takes no fresh operands and writes nothing but `out`.
+template <typename T, bool kUpdate>
+__global__ void __launch_bounds__(kThreads) select_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_new,
     const T* __restrict__ v_new, const float* __restrict__ k_new_scale,
     const float* __restrict__ v_new_scale, T* cache, float* scales,
@@ -157,9 +163,11 @@ __global__ void __launch_bounds__(kThreads) select_attention_update_kernel(
     const int n = i / head_dim;
     const int d = i - n * head_dim;
     const size_t src = (row0 + n) * d_model + static_cast<size_t>(h) * head_dim + d;
-    const size_t dst = static_cast<size_t>(pos * beams + n) * d_model + d;
-    k_cache[dst] = k_new[src];
-    v_cache[dst] = v_new[src];
+    if (kUpdate) {
+      const size_t dst = static_cast<size_t>(pos * beams + n) * d_model + d;
+      k_cache[dst] = k_new[src];
+      v_cache[dst] = v_new[src];
+    }
     q_s[i] = round_bf16(__bfloat162float(q[src]) * scale);
   }
   float* k_scales = nullptr;
@@ -167,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) select_attention_update_kernel(
   if (kQuantized) {
     k_scales = scales + (static_cast<size_t>(b) * heads + h) * flat_pad;
     v_scales = k_scales + static_cast<size_t>(batch) * heads * flat_pad;
-    for (int n = threadIdx.x; n < beams; n += blockDim.x) {
+    for (int n = threadIdx.x; kUpdate && n < beams; n += blockDim.x) {
       k_scales[pos * beams + n] = k_new_scale[(row0 + n) * heads + h];
       v_scales[pos * beams + n] = v_new_scale[(row0 + n) * heads + h];
     }
@@ -177,16 +185,16 @@ __global__ void __launch_bounds__(kThreads) select_attention_update_kernel(
   const int lane = threadIdx.x & 31;
   for (int n = threadIdx.x >> 5; n < beams; n += blockDim.x >> 5) {
     const size_t row = (row0 + n) * d_model + static_cast<size_t>(h) * head_dim;
-    SelfSource<T> src;
+    SelfSource<T, kUpdate> src;
     src.q = q_s + n * head_dim;
     src.k_cache = k_cache;
     src.v_cache = v_cache;
-    src.k_fresh = k_new + row;
-    src.v_fresh = v_new + row;
+    src.k_fresh = kUpdate ? k_new + row : nullptr;
+    src.v_fresh = kUpdate ? v_new + row : nullptr;
     src.k_scales = k_scales;
     src.v_scales = v_scales;
-    src.k_fresh_scale = kQuantized ? k_new_scale[(row0 + n) * heads + h] : 1.f;
-    src.v_fresh_scale = kQuantized ? v_new_scale[(row0 + n) * heads + h] : 1.f;
+    src.k_fresh_scale = kQuantized && kUpdate ? k_new_scale[(row0 + n) * heads + h] : 1.f;
+    src.v_fresh_scale = kQuantized && kUpdate ? v_new_scale[(row0 + n) * heads + h] : 1.f;
     src.anc = ancestry + (row0 + n) * anc_row_stride;
     src.beams = beams;
     src.pos = pos;
@@ -267,15 +275,44 @@ int mmt_beam_select_attention_update(int quantized, const void* q, const void* k
   const auto* anc = static_cast<const int*>(ancestry);
   auto* o = static_cast<__nv_bfloat16*>(out);
   if (quantized) {
-    select_attention_update_kernel<int8_t><<<grid, kThreads, smem, s>>>(
+    select_attention_kernel<int8_t, true><<<grid, kThreads, smem, s>>>(
         qb, static_cast<const int8_t*>(k_new), static_cast<const int8_t*>(v_new),
         static_cast<const float*>(k_new_scale), static_cast<const float*>(v_new_scale),
         static_cast<int8_t*>(cache), static_cast<float*>(scales), anc, o, batch, beams, heads,
         head_dim, flat, flat_pad, anc_row_stride, pos, scale);
   } else {
-    select_attention_update_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
+    select_attention_kernel<__nv_bfloat16, true><<<grid, kThreads, smem, s>>>(
         qb, static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
         nullptr, nullptr, static_cast<__nv_bfloat16*>(cache), nullptr, anc, o, batch, beams,
+        heads, head_dim, flat, flat_pad, anc_row_stride, pos, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Read-only mode: q (batch * beams, D) bf16 rows, the cache already holds
+// the time-pos rows. Returns the cudaError_t of the launch (0 on success).
+int mmt_beam_select_attention(int quantized, const void* q, const void* cache,
+                              const void* scales, const void* ancestry, void* out, int batch,
+                              int beams, int heads, int head_dim, int flat, int flat_pad,
+                              int anc_row_stride, int pos, float scale, void* stream) {
+  using namespace mmt;
+  if (head_dim > kMaxHeadDim || head_dim % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(heads, batch);
+  const size_t smem = static_cast<size_t>(beams) * head_dim * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* anc = static_cast<const int*>(ancestry);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (quantized) {
+    select_attention_kernel<int8_t, false><<<grid, kThreads, smem, s>>>(
+        qb, nullptr, nullptr, nullptr, nullptr,
+        static_cast<int8_t*>(const_cast<void*>(cache)),
+        static_cast<float*>(const_cast<void*>(scales)), anc, o, batch, beams, heads, head_dim,
+        flat, flat_pad, anc_row_stride, pos, scale);
+  } else {
+    select_attention_kernel<__nv_bfloat16, false><<<grid, kThreads, smem, s>>>(
+        qb, nullptr, nullptr, nullptr, nullptr,
+        static_cast<__nv_bfloat16*>(const_cast<void*>(cache)), nullptr, anc, o, batch, beams,
         heads, head_dim, flat, flat_pad, anc_row_stride, pos, scale);
   }
   return static_cast<int>(cudaGetLastError());

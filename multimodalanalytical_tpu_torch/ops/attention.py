@@ -5,11 +5,15 @@ that the JAX package runs with ``preferred_element_type=float32`` upcast
 their (bf16) operands to fp32 here, which is exact for the products and
 keeps fp32 accumulation on every device.
 
-Beam decode keeps the JAX package's path choices, which choose other math:
-beams > 1 with ``use_beam_kernel`` and the 1/sqrt(Dh) scale take the
+Beam decode keeps the JAX package's path choices, which choose other math,
+with one difference: ``use_beam_kernel`` and the 1/sqrt(Dh) scale take the
 hand-written kernels of ``ops/beam_attention.py`` (for int8 or bf16 self
-caches), everything else (greedy K = 1, an fp32 cache, ``use_beam_kernel=
-False``) takes the plain formulation ported from the JAX "XLA fallback". The
+caches) at any beam count, greedy K = 1 included, where the JAX package
+takes its XLA route below K = 2. At K = 1 with a bf16 cache the two
+therefore round q*scale and the probabilities to bf16 in different places
+(``tests/test_torch_model.py`` holds the greedy logits within the bf16
+tolerance). Everything else (an fp32 cache, ``use_beam_kernel=False``)
+takes the plain formulation ported from the JAX "XLA fallback". The
 kernels' own shape limit is :func:`beam_kernel_supports`. KV caches are
 updated in place. Full-sequence attention at the flash gate (encoder
 self-attention with Lq == Lk >= 2048) takes ``ops/flash_attention.py``.
@@ -120,7 +124,9 @@ class MultiHeadAttention(nn.Module):
         heads, head_dim = self.num_heads, self.head_dim
         q_flat, k_new, v_new = self.qkv_proj(x).chunk(3, dim=-1)
         quantized = isinstance(cache, dict)
-        if (beams > 1 and self.use_beam_kernel and self.scale_qk
+        # Unlike the Pallas kernel, the CUDA kernel takes one beam too, so
+        # greedy decoding (validation's K = 1) runs through it as well.
+        if (self.use_beam_kernel and self.scale_qk
                 and (quantized or cache.dtype == torch.bfloat16)
                 and beam_kernel_supports(beams, self.d_model, heads)):
             if quantized:

@@ -6,6 +6,12 @@ Counterpart of ``multimodalanalytical_tpu/ops/beam_attention.py``:
   ``beam_select_attention_update`` (``_kernel_upd`` / ``_kernel_upd_q8``):
   one lazy-ancestry decode step of self-attention for every beam, plus the
   append of this step's K/V rows (and int8 scales) to the cache;
+* :func:`beam_select_attention` replaces the Pallas read-only
+  ``beam_select_attention`` (``_kernel`` / ``_kernel_q8``): the same
+  attention over a cache that already holds the time-``pos`` rows, which it
+  reads through ``ancestry[:, :, pos]`` like every earlier time (the update
+  reads them from this step's fresh rows instead, each beam at its own
+  slot). The same CUDA kernel serves both, instantiated per mode;
 * :func:`beam_cross_attention` replaces the Pallas ``beam_cross_attention``
   (``_cross_kernel``): all K beams of a batch row against that row's
   beam-invariant encoder K/V.
@@ -23,8 +29,8 @@ bf16, and flat row ``l*K + s`` holds what beam slot ``s`` wrote at time
 Numerics (both versions): q * Dh**-0.5 is rounded to bf16 before the dot,
 dots accumulate in fp32, int8 logits are scaled by the key's per-(slot,
 head) scale and probabilities by the value's, and probabilities are rounded
-to bf16 before the value sum. The time-``pos`` term reads this step's fresh
-rows, which the update stores in place first.
+to bf16 before the value sum. In the update the time-``pos`` term reads
+this step's fresh rows, which it stores in place first.
 
 Dispatch: a CPU tensor takes the ``*_plain`` version; a CUDA tensor launches
 the kernel or raises. The update is IN PLACE on ``cache`` and ``scales``
@@ -68,14 +74,21 @@ def beam_select_attention_update_plain(
     scales=None, k_scale=None, v_scale=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`beam_select_attention_update`."""
-    batch, beams = ancestry.shape[:2]
-    d_model = cache.shape[3]
-    head_dim = d_model // num_heads
+    beams = ancestry.shape[1]
     pos = int(position)
     _store_fresh_rows(cache, scales, k_new, v_new, k_scale, v_scale, pos, beams)
-
     slot = ancestry[:, :, : pos + 1].long().clone()
     slot[:, :, pos] = torch.arange(beams, device=slot.device)
+    return _attend_plain(q, cache, slot, num_heads, scales)
+
+
+def _attend_plain(q, cache, slot, num_heads, scales) -> torch.Tensor:
+    """Attention of the (B*K, D) queries over the cache rows that ``slot``
+    (B, K, pos + 1) selects at every time; (B*K, D) bf16."""
+    batch, beams, steps = slot.shape
+    pos = steps - 1
+    d_model = cache.shape[3]
+    head_dim = d_model // num_heads
     times = torch.arange(pos + 1, device=slot.device)
     flat = times * beams + slot                                  # (B, K, P)
     b_idx = torch.arange(batch, device=slot.device)[:, None, None]
@@ -95,6 +108,29 @@ def beam_select_attention_update_plain(
         probs = probs * scales[1][b_idx, :, flat].permute(0, 1, 3, 2)
     out = torch.einsum("bnhl,bnlhd->bnhd", probs.to(BF16).float(), rows(1))
     return out.to(BF16).reshape(batch * beams, d_model)
+
+
+def _check_cache_operands(name, q, cache, ancestry, pos, num_heads, scales):
+    """The checks both select-attention wrappers make on the cache, the
+    ancestry slice and the int8 scales (and that q is a CUDA tensor)."""
+    require = _cuda.require
+    require(q.is_cuda, f"{name}: unsupported device {q.device}")
+    two, batch, flat, d_model = cache.shape
+    _, beams, length = ancestry.shape
+    quantized = scales is not None
+    require(cache.dtype == (torch.int8 if quantized else BF16),
+            f"{name}: int8 cache needs scales, bf16 cache none")
+    require(beam_kernel_supports(beams, d_model, num_heads),
+            f"{name}: unsupported shape K={beams} D={d_model} H={num_heads}")
+    require(two == 2 and ancestry.shape[0] == batch and 0 <= pos < length
+            and (pos + 1) * beams <= flat, f"{name}: position outside the stage or cache")
+    require(ancestry.dtype == torch.int32 and ancestry.stride(2) == 1
+            and ancestry.stride(0) == beams * ancestry.stride(1),
+            f"{name}: ancestry must be int32 rows with unit stride")
+    if quantized:
+        require(scales.dtype == torch.float32 and scales.shape[:3] == (2, batch, num_heads)
+                and scales.shape[3] >= (pos + 1) * beams and scales.is_contiguous(),
+                f"{name}: scales must be contiguous (2, B, H, F) fp32")
 
 
 def beam_select_attention_update(
@@ -119,33 +155,20 @@ def beam_select_attention_update(
             q, k_new, v_new, cache, ancestry, position, num_heads,
             scales, k_scale, v_scale)
     require = _cuda.require
-    require(q.is_cuda, f"beam_select_attention_update: unsupported device {q.device}")
-    two, batch, flat, d_model = cache.shape
-    _, beams, length = ancestry.shape
-    head_dim = d_model // num_heads
     pos = int(position)
+    _check_cache_operands("beam_select_attention_update", q, cache, ancestry, pos, num_heads,
+                          scales)
+    _, batch, flat, d_model = cache.shape
+    beams = ancestry.shape[1]
+    head_dim = d_model // num_heads
     quantized = scales is not None
-    require(cache.dtype == (torch.int8 if quantized else BF16),
-            "beam_select_attention_update: int8 cache needs scales, bf16 cache none")
-    require(beam_kernel_supports(beams, d_model, num_heads),
-            f"beam_select_attention_update: unsupported shape K={beams} D={d_model} "
-            f"H={num_heads}")
-    require(two == 2 and ancestry.shape[0] == batch and 0 <= pos < length
-            and (pos + 1) * beams <= flat,
-            "beam_select_attention_update: position outside the stage or cache")
     require(q.dtype == BF16 and q.shape == (batch * beams, d_model),
             "beam_select_attention_update: q must be (B*K, D) bf16")
     require(k_new.dtype == cache.dtype and v_new.dtype == cache.dtype
             and k_new.shape == q.shape and v_new.shape == q.shape,
             "beam_select_attention_update: fresh rows must be (B*K, D) in the cache dtype")
-    require(ancestry.dtype == torch.int32 and ancestry.stride(2) == 1
-            and ancestry.stride(0) == beams * ancestry.stride(1),
-            "beam_select_attention_update: ancestry must be int32 rows with unit stride")
     tensors = [q, k_new, v_new, cache, ancestry]
     if quantized:
-        require(scales.dtype == torch.float32 and scales.shape[:3] == (2, batch, num_heads)
-                and scales.shape[3] >= (pos + 1) * beams,
-                "beam_select_attention_update: scales must be (2, B, H, F_pad) fp32")
         require(k_scale is not None and v_scale is not None
                 and k_scale.shape == (batch * beams, num_heads) == v_scale.shape
                 and k_scale.dtype == torch.float32 == v_scale.dtype,
@@ -155,7 +178,7 @@ def beam_select_attention_update(
     if quantized:
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     require(all(t.is_cuda and t.device == q.device for t in tensors)
-            and cache.is_contiguous() and (scales is None or scales.is_contiguous())
+            and cache.is_contiguous()
             and all(t.data_ptr() % 16 == 0 for t in (q, k_new, v_new, cache)),
             "beam_select_attention_update: operands must be contiguous, 16-byte "
             "aligned and on one device")
@@ -172,6 +195,58 @@ def beam_select_attention_update(
 
 
 beam_select_attention_update.launches = 0
+
+
+def beam_select_attention_plain(q, cache, ancestry, position, num_heads,
+                                scales=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`beam_select_attention`."""
+    batch, beams = ancestry.shape[:2]
+    pos = int(position)
+    out = _attend_plain(q.reshape(batch * beams, -1), cache,
+                        ancestry[:, :, : pos + 1].long(), num_heads, scales)
+    return out.reshape(batch, beams, -1)
+
+
+def beam_select_attention(
+    q: torch.Tensor,          # (B, K, D) bf16 queries (post q-projection)
+    cache: torch.Tensor,      # (2, B, L_max*K, D) int8 | bf16, rows for `position` present
+    ancestry: torch.Tensor,   # (B, K, L) int32 stage slice, L <= L_max
+    position: int,            # step index, < L
+    num_heads: int,
+    scales: Optional[torch.Tensor] = None,   # (2, B, H, F) fp32, int8 cache, F >= (pos+1)*K
+) -> torch.Tensor:
+    """Read-only lazy-ancestry beam self-attention; returns (B, K, D) bf16
+    (pre out-projection) and writes nothing else.
+    ``beam_select_attention.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return beam_select_attention_plain(q, cache, ancestry, position, num_heads, scales)
+    require = _cuda.require
+    pos = int(position)
+    _check_cache_operands("beam_select_attention", q, cache, ancestry, pos, num_heads, scales)
+    _, batch, flat, d_model = cache.shape
+    beams = ancestry.shape[1]
+    head_dim = d_model // num_heads
+    quantized = scales is not None
+    require(q.dtype == BF16 and q.shape == (batch, beams, d_model),
+            "beam_select_attention: q must be (B, K, D) bf16")
+    q = q.contiguous()
+    require(all(t.is_cuda and t.device == q.device
+                for t in (cache, ancestry) + ((scales,) if quantized else ()))
+            and cache.is_contiguous() and q.data_ptr() % 16 == 0 and cache.data_ptr() % 16 == 0,
+            "beam_select_attention: operands must be contiguous, 16-byte aligned and on "
+            "one device")
+    out = torch.empty_like(q)
+    lib = _cuda.library()
+    _cuda.check(lib.mmt_beam_select_attention(
+        int(quantized), _cuda.ptr(q), _cuda.ptr(cache), _cuda.ptr(scales), _cuda.ptr(ancestry),
+        _cuda.ptr(out), batch, beams, num_heads, head_dim, flat,
+        scales.shape[3] if quantized else 0, ancestry.stride(1), pos, head_dim ** -0.5,
+        _cuda.stream()), "beam_select_attention")
+    beam_select_attention.launches += 1
+    return out
+
+
+beam_select_attention.launches = 0
 
 
 def beam_cross_attention_plain(q, k, v, bias, num_heads, beams) -> torch.Tensor:

@@ -27,9 +27,9 @@ weight over the real and the padded keys alike (-1e9 + x against -1e9 in
 fp32). The running max starts at ``NEG_INF`` in both versions.
 
 Dispatch: a CPU tensor takes the ``*_plain`` version; a CUDA tensor launches
-the kernels or raises. The kernels take head_dim 64, the head width of
-every shipped model config; the gate admits any multiple of 64, and the
-wrapper raises on the others.
+the kernels or raises. The kernels take head_dim 64 (every shipped model
+config) and 128: every width the gate routes here up to 128. The gate also
+admits 192, 256, ...; the wrapper raises on those.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from . import _cuda
 NEG_INF = -1e9
 BLK = 256               # the JAX wrapper's BLK_Q = BLK_K; Lq and Lk are padded to it
 FLASH_MIN_LENGTH = 2048
-KERNEL_HEAD_DIM = 64    # every shipped model config (d_model / heads)
+KERNEL_HEAD_DIMS = (64, 128)   # the gate's multiples of 64 up to 128, one instantiation each
 
 
 def flash_qualifies(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],
@@ -93,7 +93,7 @@ def _check_operands(name: str, q, k, v, bias_row, *more) -> None:
     b, h, length, d = q.shape
     require(q.dtype in (torch.bfloat16, torch.float32) and k.dtype == q.dtype == v.dtype,
             f"{name}: q, k and v must share one dtype, bf16 or fp32")
-    require(d == KERNEL_HEAD_DIM, f"{name}: head_dim {d} is not {KERNEL_HEAD_DIM}")
+    require(d in KERNEL_HEAD_DIMS, f"{name}: head_dim {d} is not one of {KERNEL_HEAD_DIMS}")
     require(length % 64 == 0 and k.shape == q.shape == v.shape,
             f"{name}: q, k and v must be (B, H, L, Dh) with L a multiple of 64")
     require(bias_row.shape == (b, length) and bias_row.dtype == torch.float32,

@@ -91,6 +91,27 @@ class Optimizer:
         self.count = 0
         self.mini_step = 0
 
+    def state_dict(self) -> dict:
+        """The moments, the accumulator and the two counts (what a
+        checkpoint's ``opt_state`` holds)."""
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "acc": list(self.acc) if self.acc is not None else None,
+                "count": self.count, "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` into this optimizer's buffers."""
+        pairs = [(self.mu, state["mu"]), (self.nu, state["nu"])]
+        if self.acc is not None:
+            pairs.append((self.acc, state["acc"]))
+        for own, saved in pairs:
+            if len(own) != len(saved):
+                raise ValueError(f"optimizer state for {len(saved)} parameters, not {len(own)}")
+            for dst, src in zip(own, saved):
+                dst.copy_(src)
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         """Take one gradient; update the parameters when it completes an

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
@@ -124,3 +125,61 @@ def test_kernel_gate():
     assert not port_beam.beam_kernel_supports(10, 36, 3)       # head_dim 12
     assert not port_beam.beam_kernel_supports(10, 2048, 4)     # head_dim 512 > 256
     assert not port_beam.beam_kernel_supports(64, 1024, 4)     # staged queries > 48 KB
+
+
+def _read_only_inputs(seed, beams, length, heads, head_dim):
+    rng = np.random.default_rng(seed)
+    d = heads * head_dim
+    q = rng.normal(size=(2, beams, d))
+    cache = rng.normal(size=(2, 2, length * beams, d))
+    ancestry = rng.integers(0, beams, (2, beams, length)).astype(np.int32)
+    return q, cache, ancestry
+
+
+@pytest.mark.parametrize("beams", [10, 30])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_read_only_matches_pallas_interpret(beams, quantized):
+    """The read-only mode (ancestry[:, :, pos] drawn at random, as
+    tests/test_beam30.py draws it) vs the Pallas ``beam_select_attention``
+    in interpret mode, at positions 0, mid and last; the int8 cache with
+    scales quantized as the decode path quantizes them."""
+    length, heads, head_dim = 16, 2, 64
+    q, cache, ancestry = _read_only_inputs(9, beams, length, heads, head_dim)
+    (qj, qt), (cj, ct) = _bf16(q), _bf16(cache)
+    if quantized:
+        data, scale = jax_attention.quantize_kv_heads(cj, heads)         # (2,B,F,D), (2,B,F,H)
+        cj, scales_j = data, scale.transpose(0, 1, 3, 2)
+        ct, scales_t = torch.from_numpy(np.array(data)), torch.from_numpy(np.array(scales_j))
+    else:
+        scales_j = scales_t = None
+    for position in (0, length // 2, length - 1):
+        want = jax_beam.beam_select_attention(qj, cj, jnp.asarray(ancestry), position, heads,
+                                              scales=scales_j)
+        got = port_beam.beam_select_attention(qt, ct, torch.from_numpy(ancestry), position,
+                                              heads, scales_t)
+        assert port_beam.beam_select_attention.launches == 0    # CPU: the plain version
+        assert got.shape == (2, beams, heads * head_dim) and got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=0, atol=TOL)
+
+
+def test_read_only_reads_time_pos_through_ancestry():
+    """Where the two modes differ: at ``pos`` the update attends each beam's
+    own fresh row, the read-only mode the row its ancestry names. With the
+    update's rows already stored and ancestry[:, :, pos] the identity, the
+    two agree; with another slot at pos, the read-only result follows it."""
+    q, cache, ancestry = _read_only_inputs(10, K, L, H, DH)
+    pos = 5
+    ancestry[:, :, pos] = np.arange(K)
+    qt, ct = torch.from_numpy(q).bfloat16(), torch.from_numpy(cache).bfloat16()
+    anc = torch.from_numpy(ancestry)
+    rows = ct[:, :, pos * K:(pos + 1) * K].clone()
+    upd = port_beam.beam_select_attention_update_plain(
+        qt.reshape(-1, D), rows[0].reshape(-1, D), rows[1].reshape(-1, D), ct.clone(), anc,
+        pos, H)
+    ro = port_beam.beam_select_attention_plain(qt, ct, anc, pos, H)
+    assert torch.equal(ro.reshape(-1, D), upd)
+    shifted = anc.clone()
+    shifted[:, :, pos] = (shifted[:, :, pos] + 1) % K
+    other = port_beam.beam_select_attention_plain(qt, ct, shifted, pos, H)
+    assert not torch.equal(other, ro)

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 

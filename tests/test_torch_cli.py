@@ -1,0 +1,169 @@
+"""The port's entry points end to end on the CPU: ``tests/test_run.py``'s
+train-then-predict through ``multimodalanalytical_tpu_torch.cli``, the port's
+predict CLI on a JAX-trained checkpoint (carried as an ``.npz`` of the JAX
+param tree) against the JAX predict CLI, and ``cli/serve.py``'s
+``build_server(config)`` round trip as ``tests/test_serve.py`` drives it.
+"""
+
+import json
+import sys
+import threading
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
+
+TEST_DATA = Path(__file__).parent / "test_data" / "ir_dataset"
+TINY_MODEL = [
+    "model.d_model=64", "model.encoder_layers=1", "model.decoder_layers=1",
+    "model.encoder_ffn_dim=128", "model.decoder_ffn_dim=128",
+    "model.encoder_attention_heads=4", "model.decoder_attention_heads=4",
+    "model.batch_size=8", "model.n_beams=2", "model.dtype=float32",
+]
+DATA = ["data=ir/patches", f"data_path={TEST_DATA}", "data.IR.preprocessor_arguments.patch_size=125",
+        "data.Formula.column=molecular_formula", "model=custom_model", "molecules=True"]
+
+
+@pytest.fixture(scope="module")
+def fixture_dataset():
+    if not (TEST_DATA / "ir_data.parquet").exists():
+        sys.path.insert(0, str(Path(__file__).parent))
+        from make_fixture import main
+
+        main(TEST_DATA)
+    return TEST_DATA
+
+
+@pytest.fixture(scope="module")
+def port_run(fixture_dataset, tmp_path_factory):
+    """The port's training CLI, as tests/test_run.py runs the JAX one."""
+    from multimodalanalytical_tpu_torch.cli import training
+
+    run_dir = tmp_path_factory.mktemp("port_runs")
+    training.main([f"working_dir={run_dir}", "job_name=train", *DATA, "trainer.epochs=2",
+                   "trainer.acc_batches=1", *TINY_MODEL])
+    return run_dir
+
+
+@pytest.mark.e2e
+def test_training_then_predict(port_run):
+    from multimodalanalytical_tpu_torch.cli import predict
+    from multimodalanalytical_tpu_torch.training.checkpoint import restore_params
+
+    metrics = json.loads((port_run / "train" / "metrics_beam_2.json").read_text())
+    assert "Top-1" in metrics and 0.0 <= metrics["Top-1"] <= 1.0
+    assert (port_run / "train" / "preprocessor.json").exists()
+    for name in ("last", "best"):
+        assert (port_run / "train" / "checkpoints" / name).exists()
+    logits = json.loads((port_run / "train" / "test_data_logits_beam_2.json").read_text())
+    assert all(len(p) == 2 for p in logits["predictions"]) and np.isfinite(logits["avg_loss"])
+    params = restore_params(port_run / "train" / "checkpoints" / "last")
+    assert all(torch.isfinite(v).all() for v in params.values())
+
+    predict.main([f"working_dir={port_run}", "job_name=predict", *DATA,
+                  f"preprocessor_path={port_run}/train/preprocessor.json",
+                  f"model.model_checkpoint_path={port_run}/train/checkpoints/last", *TINY_MODEL])
+    assert "Top-1" in json.loads((port_run / "predict" / "metrics_beam_2.json").read_text())
+
+
+@pytest.mark.e2e
+def test_guided_generation_is_refused(tmp_path):
+    from multimodalanalytical_tpu_torch.cli import training
+    from multimodalanalytical_tpu_torch.cli.common import compose
+
+    config = compose("config_train", [f"working_dir={tmp_path}", *DATA, *TINY_MODEL,
+                                      "model.guided_generation=true"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        training.run(config)
+
+
+@pytest.mark.e2e
+def test_port_predict_on_a_jax_trained_checkpoint(fixture_dataset, tmp_path):
+    """JAX training CLI -> JAX restore_params -> .npz -> the port's predict
+    CLI: the same beams (fp32, exact strings) and the same metrics as the
+    JAX predict CLI on the orbax checkpoint."""
+    from multimodalanalytical_tpu.cli import predict as jax_predict
+    from multimodalanalytical_tpu.cli import training as jax_training
+    from multimodalanalytical_tpu.training.checkpoint import restore_params as jax_restore
+    from multimodalanalytical_tpu_torch.cli import predict
+    from multimodalanalytical_tpu_torch.training.checkpoint import save_flax_npz
+
+    jax_training.main([f"working_dir={tmp_path}", "job_name=train", *DATA, "trainer.epochs=1",
+                       "trainer.acc_batches=1", *TINY_MODEL])
+    checkpoint = tmp_path / "train" / "checkpoints" / "last"
+    npz = save_flax_npz(tmp_path / "jax_params.npz", jax_restore(checkpoint))
+    common = [*DATA, f"preprocessor_path={tmp_path}/train/preprocessor.json", *TINY_MODEL]
+    jax_predict.main([f"working_dir={tmp_path}", "job_name=jax", *common,
+                      f"model.model_checkpoint_path={checkpoint}"])
+    predict.main([f"working_dir={tmp_path}", "job_name=port", *common,
+                  f"model.model_checkpoint_path={npz}"])
+    want = json.loads((tmp_path / "jax" / "test_data_logits_beam_2.json").read_text())
+    got = json.loads((tmp_path / "port" / "test_data_logits_beam_2.json").read_text())
+    assert got["predictions"] == want["predictions"] and got["targets"] == want["targets"]
+    np.testing.assert_allclose(got["avg_loss"], want["avg_loss"], rtol=1e-5)
+    assert (json.loads((tmp_path / "port" / "metrics_beam_2.json").read_text())
+            == json.loads((tmp_path / "jax" / "metrics_beam_2.json").read_text()))
+
+
+def _post(base, records):
+    req = urllib.request.Request(f"{base}/predict", data=json.dumps({"records": records}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+@pytest.mark.e2e
+def test_serve_roundtrip(port_run):
+    """``build_server(config)`` from the port's checkpoint and artifact, as
+    tests/test_serve.py drives the JAX server."""
+    import pyarrow.parquet as pq
+
+    from multimodalanalytical_tpu_torch.cli import serve
+    from multimodalanalytical_tpu_torch.cli.common import compose
+
+    config = compose("config_serve", [
+        f"working_dir={port_run}", "data=ir/patches",
+        "data.IR.preprocessor_arguments.patch_size=125", "data.Formula.column=molecular_formula",
+        f"preprocessor_path={port_run / 'train' / 'preprocessor.json'}", "model=custom_model",
+        f"model.model_checkpoint_path={port_run / 'train' / 'checkpoints' / 'last'}",
+        *TINY_MODEL, "serve.port=0", "serve.max_wait_ms=5"])
+    server = serve.build_server(config)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        assert health["status"] == "ok" and health["batch_size"] == 8 and health["n_beams"] == 2
+
+        table = pq.read_table(TEST_DATA / "ir_data.parquet")
+        row = {c: table.column(c)[0].as_py() for c in table.column_names}
+        record = {"IR": row["ir_spectra"], "Formula": row["molecular_formula"]}
+        results = _post(base, [record, record])["results"]
+        assert len(results) == 2
+        for res in results:
+            assert len(res["smiles"]) == 2 and len(res["scores"]) == 2
+            assert all(isinstance(s, str) for s in res["smiles"])
+        assert results[0]["smiles"] == results[1]["smiles"]
+
+        with pytest.raises(urllib.error.HTTPError):
+            _post(base, [record] * 9)
+        # A malformed record fails its own request; a concurrent good one
+        # still succeeds.
+        good_out = {}
+        good = threading.Thread(target=lambda: good_out.update(_post(base, [record])))
+        good.start()
+        with pytest.raises(urllib.error.HTTPError):
+            _post(base, [{"IR": "not-a-spectrum", "Formula": 42}])
+        good.join(timeout=60)
+        assert not good.is_alive()
+        assert good_out["results"][0]["smiles"] == results[0]["smiles"]
+    finally:
+        server.shutdown()
+        server.engine.close()
+        thread.join(timeout=60)

@@ -31,8 +31,9 @@ def _close(got, want, tol=TOL):
 
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("head_dim", [8, 64, 256])
-def test_select_attention_update_matches_plain(gen, quantized, head_dim):
-    b, k, heads, length = 3, 4, 2, 16
+@pytest.mark.parametrize("k", [1, 4])   # K 1: validation's greedy decode takes the kernel too
+def test_select_attention_update_matches_plain(gen, quantized, head_dim, k):
+    b, heads, length = 3, 2, 16
     d = heads * head_dim
     dev = "cuda"
     q = torch.randn(b * k, d, generator=gen, device=dev).bfloat16()
@@ -108,6 +109,10 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
     kv = torch.randn(1, 3, 12, device="cuda").bfloat16()
     with pytest.raises(ValueError):
         ba.beam_cross_attention(q, kv, kv, torch.zeros(1, 3, device="cuda"), 2, 4)
+    cache = torch.zeros(2, 1, 4 * 4, 12, device="cuda").bfloat16()
+    anc = torch.zeros(1, 4, 4, device="cuda", dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ba.beam_select_attention(q.reshape(1, 4, 12), cache, anc, 0, 2)
 
 
 def _padded_flash_inputs(gen, b, h, length, d, dtype, dead_row):
@@ -184,12 +189,118 @@ def test_flash_route_on_card_matches_cpu(gen):
         _close(got, want, 2e-2)
 
 
+@pytest.mark.parametrize("length,dead_row", [(2048, None), (2100, 1)])
+def test_flash_kernels_match_plain_head_dim_128(gen, length, dead_row):
+    """The head_dim-128 instantiation, bf16, ragged key mask: forward and
+    backward vs the plain versions, as the head_dim-64 cases."""
+    q, k, v, bias = _padded_flash_inputs(gen, 2, 2, length, 128, torch.bfloat16, dead_row)
+    out, lse = flash.flash_attention_fwd(q, k, v, bias)
+    want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, bias)
+    _close(out, want_out)
+    _rel_close(lse, want_lse, 1e-5)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    grads = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
+    want = flash.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, want):
+        assert ref.abs().max() > 0
+        _close(got, ref)
+
+
 def test_flash_kernel_raises_on_unsupported_head_dim(gen):
-    """head_dim 128 passes the JAX gate (a multiple of 64), but the kernels
-    take 64 only (every shipped config): the wrapper raises."""
-    q = torch.randn(1, 1, 2048, 128, generator=gen, device="cuda")
+    """head_dim 192 passes the JAX gate (a multiple of 64), but the kernels
+    take 64 and 128 only: the wrapper raises."""
+    q = torch.randn(1, 1, 2048, 192, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_attention_fwd(q, q, q, torch.zeros(1, 2048, device="cuda"))
+
+
+def _select_inputs(gen, b, k, heads, head_dim, length, quantized):
+    dev = "cuda"
+    d = heads * head_dim
+    q = torch.randn(b, k, d, generator=gen, device=dev).bfloat16()
+    anc = torch.randint(0, k, (b, k, length), generator=gen, device=dev, dtype=torch.int32)
+    if quantized:
+        cache = torch.randint(-127, 128, (2, b, length * k, d), generator=gen, device=dev,
+                              dtype=torch.int8)
+        scales = torch.rand(2, b, heads, length * k, generator=gen, device=dev) * 0.05 + 1e-3
+    else:
+        cache = torch.randn(2, b, length * k, d, generator=gen, device=dev).bfloat16()
+        scales = None
+    return q, cache, anc, scales
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("b,k,heads,head_dim,length", [
+    (3, 4, 2, 8, 16), (2, 30, 2, 64, 16), (4, 30, 8, 64, 128)])
+def test_select_attention_read_only_matches_plain(gen, quantized, b, k, heads, head_dim,
+                                                  length):
+    """The read-only mode (ancestry[:, :, pos] drawn at random, as
+    tests/test_beam30.py draws it) vs its plain version, K 4 and 30, the
+    last case at the flagship decode widths (D 512, H 8, L 128); the cache
+    and scales are left as they were."""
+    q, cache, anc, scales = _select_inputs(gen, b, k, heads, head_dim, length, quantized)
+    cache0 = cache.clone()
+    for pos in (0, length // 2, length - 1):
+        before = ba.beam_select_attention.launches
+        got = ba.beam_select_attention(q, cache, anc, pos, heads, scales)
+        assert ba.beam_select_attention.launches == before + 1
+        want = ba.beam_select_attention_plain(q, cache, anc, pos, heads, scales)
+        assert got.shape == (b, k, heads * head_dim)
+        _close(got, want)
+    assert torch.equal(cache, cache0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_select_attention_update_at_beam30(gen, quantized):
+    """The update kernel at K 30 and the flagship decode widths (D 512, H 8,
+    L 128): output, appended rows and scales vs the plain version."""
+    b, k, heads, length = 4, 30, 8, 128
+    q, cache0, anc, scales0 = _select_inputs(gen, b, k, heads, 64, length, quantized)
+    q = q.reshape(b * k, -1)
+    if quantized:
+        k_new, v_new = (torch.randint(-127, 128, q.shape, generator=gen, device="cuda",
+                                      dtype=torch.int8) for _ in range(2))
+        k_s, v_s = (torch.rand(b * k, heads, generator=gen, device="cuda") for _ in range(2))
+    else:
+        k_new, v_new = (torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+                        for _ in range(2))
+        k_s = v_s = None
+    for pos in (0, 77, length - 1):
+        anc[:, :, pos] = torch.arange(k, device="cuda", dtype=torch.int32)
+        caches = [cache0.clone() for _ in range(2)]
+        scales = [scales0.clone() if quantized else None for _ in range(2)]
+        got = ba.beam_select_attention_update(q, k_new, v_new, caches[0], anc, pos, heads,
+                                              scales[0], k_s, v_s)
+        want = ba.beam_select_attention_update_plain(q, k_new, v_new, caches[1], anc, pos,
+                                                     heads, scales[1], k_s, v_s)
+        _close(got, want)
+        assert torch.equal(caches[0], caches[1])
+        if quantized:
+            assert torch.equal(scales[0], scales[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,rate", [((1001,), 0.1), ((3, 37, 129), 0.5), ((64, 512), 0.0)])
+def test_fused_dropout_bit_equal_to_plain(gen, dtype, shape, rate):
+    """Kernel vs plain version, forward and (through autograd) backward: bit
+    for bit, on ragged element counts (not a multiple of 4) too; the
+    gradient's mask is the forward's."""
+    from multimodalanalytical_tpu_torch.ops import fused_dropout as fd
+
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    x[x == 0] = 1.0          # a kept element is then non-zero
+    seed = fd.draw_seed(gen, "cuda")
+    before = fd.fused_dropout.launches
+    got = fd.fused_dropout(x, seed, rate)
+    assert fd.fused_dropout.launches == before + 1
+    assert torch.equal(got, fd.fused_dropout_plain(x, seed, rate))
+    leaf = x.detach().requires_grad_()
+    out = fd.FusedDropoutFunction.apply(leaf, seed, rate)
+    out.backward(torch.ones_like(out))
+    assert torch.equal(out, got)
+    assert torch.equal(leaf.grad != 0, got != 0) or rate == 0.0
+    assert torch.equal(leaf.grad, fd.fused_dropout_plain(torch.ones_like(x), seed, rate))
 
 
 @pytest.mark.parametrize("kv_cache_dtype", ["int8", "bfloat16"])

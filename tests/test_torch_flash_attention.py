@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
@@ -129,6 +130,17 @@ def test_qualifies_is_the_jax_gate():
     assert not flash.flash_qualifies(x, x[:, :, :1024], None, None)      # cross-attention
     assert not flash.flash_qualifies(x, x, torch.zeros(1, 1, 2048, 2048), None)  # causal
     assert not flash.flash_qualifies(x[..., :32], x[..., :32], None, None)
+
+
+def test_kernel_head_dims_are_what_the_gate_routes_up_to_128():
+    """The CUDA wrapper declares exactly the head widths up to 128 that the
+    gate sends to flash attention; wider ones the gate admits (192, 256)
+    are outside the set, where the wrapper raises on the card."""
+    routed = [d for d in range(1, 257)
+              if flash.flash_qualifies(torch.zeros(1, 1, 2048, d), torch.zeros(1, 1, 2048, d),
+                                       None, None)]
+    assert tuple(d for d in routed if d <= 128) == flash.KERNEL_HEAD_DIMS
+    assert [d for d in routed if d > 128] == [192, 256]
 
 
 def test_dot_product_attention_takes_flash_math_at_the_gate():

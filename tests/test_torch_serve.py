@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
 
 TEST_DATA = Path(__file__).parent / "test_data" / "ir_dataset"
 BATCH_SIZE, BEAMS = 8, 2
@@ -81,7 +82,7 @@ def server(records, tmp_path_factory):
                          generator=torch.Generator().manual_seed(0))
     engine = serve.InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH_SIZE,
                                    collator=collator, tokenizer=tokenizer, max_wait_ms=5)
-    httpd = serve.build_server(engine, port=0)
+    httpd = serve.make_server(engine, port=0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     yield httpd

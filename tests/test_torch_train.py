@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
 jax = pytest.importorskip("jax")
 optax = pytest.importorskip("optax")
 
@@ -270,7 +271,7 @@ def test_fit_takes_max_steps_and_returns_losses():
     model = Seq2SeqModel(cfg, data_config, "Smiles")
     trainer = Trainer(model, optimiser="adamw", lr=1e-3, num_steps=5, seed=0,
                       modality_dropout=["Formula", "IR"])
-    losses = trainer.fit(_batches(make_inputs, 2), max_steps=5, log_every=2)
+    losses = trainer.fit(_batches(make_inputs, 2), epochs=3, max_steps=5, log_every=2)
     assert len(losses) == 5 and trainer.global_step == 5 and trainer.optimizer.count == 5
     assert np.isfinite(losses).all()
     with pytest.raises(ValueError, match="generator"):

@@ -11,6 +11,7 @@ fp32, dropout 0, held as ``tests/test_torch_train.py`` holds the patch case.
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
 pytest.importorskip("jax")
 
 from multimodalanalytical_tpu_torch.ops import flash_attention  # noqa: E402
