@@ -3,28 +3,35 @@
 
     python3 chip_smoke.py                  # the checks below
     python3 chip_smoke.py --profile-eval   # phase 5's decodes under torch.profiler
+    python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a), ``nvcc``
 and ``g++``; it imports torch, numpy, the standard library and
 ``multimodalanalytical_tpu_torch``, never JAX. (The port's scoring reaches
-the repository's framework-free chemistry engine, ``csrc/chem``, built with
-g++ at first use, as the port's CLIs do.) Phases, one line each, any failure
-raises and exits non-zero:
+its copy of the chemistry binding, which builds the repository's
+framework-free engine, ``csrc/chem``, with g++ at first use.) Phases, one
+line each, any failure raises and exits non-zero:
 
 0. device and build: the card's name and power limit, and the time to
    compile the package's CUDA kernels from ``csrc/``;
-1. each kernel against its plain PyTorch version, with both times: the
+1. each kernel against its plain PyTorch version, with both times, its
+   bound (the larger of its operations over the bf16 tensor-core peak and
+   its bytes over the HBM rate, from this run's inputs) and, where one
+   PyTorch call computes the same function, that call's time: the
    decode kernels at the flagship decode shapes (B 128, D 512, H 8, F 2048,
    Ls 26) at each beam count an entry point runs: serving's K 10 (int8 and
    bf16 caches), validation's K 1 (bf16) and predict's K 30 (int8), the
    FFN at M 128, 1280 and 3840; the read-only select attention at B 128,
    L 128, pos 127, K 10 and 30, int8 and bf16 caches; fused dropout (rate
-   0.1, bf16) at the
-   train-site shapes (128, 48, 512), (128, 48, 2048) and (8, 4090, 512),
-   bit for bit, forward and backward (also against ``ops/dropout.py``'s
-   time); the flash attention forward and backward at the long RLE
-   encoder's (B 8, H 8, L 4090 padded to 4096, head_dim 64, bf16, ragged key
-   masks);
+   0.1, bf16) at the train-site shapes (128, 48, 512), (128, 48, 2048) and
+   (8, 4090, 512), bit for bit, forward and backward (also against
+   ``ops/dropout.py``'s time); the flash attention forward and backward at
+   the long RLE encoder's (B 8, H 8, L 4090 padded to 4096, head_dim 64,
+   bf16, ragged key masks) and at head_dim 128 (B 8, H 4), two backward
+   calls bit-equal, the check shown to reject the kernels with one key
+   stage left out, timed in turns with
+   ``scaled_dot_product_attention`` (the yardstick; the port never calls
+   it), whose backend's kernels are printed;
 2. serving: the flagship CustomModel (6 + 6 layers, bf16, int8 KV cache,
    seeded random weights) decodes 8 teacher-forced steps through the
    kernels and through ``use_beam_kernel=False`` at K 1, 10 and 30 (logits
@@ -61,6 +68,7 @@ The last two lines are the per-kernel JSON record and the device record.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -79,11 +87,19 @@ FFN_REL_TOL = 0.02   # max|kernel - plain| / max|plain|
 # path on the same weights: the two differ only in bf16 rounding order
 # inside attention, carried through 6 layers.
 LOGIT_TOL = 5e-2
-# Flash kernels vs their plain versions: both compute in fp32 and round
-# once, so bf16 results differ by a flipped rounding (one or two bf16 ulps
-# of max(1, |value|)); lse is fp32 in both, elementwise relative.
+# Flash kernels vs their plain versions (fp32 math, one rounding): the bf16
+# kernels also round P and dS to bf16 as tensor-core operands, which
+# tests/test_torch_flash_numerics.py holds within these limits against the
+# Pallas kernels. Each of out, dq, dk, dv: max|kernel - plain| <= FLASH_TOL *
+# max|plain| and |kernel - plain|_2 <= FLASH_RMS_TOL * |plain|_2 (a typical
+# value is ~10x below the peak, so the norm is what catches a skipped or
+# misweighted key stage); lse is fp32 in both, elementwise relative.
 FLASH_TOL = 2e-2
+FLASH_RMS_TOL = 1e-2
 LSE_REL_TOL = 1e-5
+# Keys per stage of the bf16 forward kernel, by head_dim (Layout<HD>::kKeys
+# in csrc/flash_attention.cu).
+FLASH_KEY_STAGE = {64: 128, 128: 64}
 # The long-sequence training slice (phase 3).
 TRAIN_BATCH, TRAIN_STEPS, TARGET_LEN = 8, 10, 128
 TRAIN_LR = 1e-4      # configs/model/custom_model.yaml: adamw, lr 1e-4, weight decay 0
@@ -146,6 +162,39 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Published H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores
+# and HBM3. A kernel's bound is the larger of its operations over the first
+# and its bytes (each input read once, each output written once) over the
+# second.
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+
+
+def _bound_ms(flops: float, nbytes: float) -> tuple:
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _select_bytes(anc, pos: int, quantized: bool, update: bool) -> int:
+    """Bytes the select attention must move at this ancestry: the distinct
+    cache rows (K and V planes, with their int8 scales) that the beams'
+    slots select at times 0..pos, q, the ancestry, the output, and for the
+    update the appended rows (and scales) of time pos."""
+    import torch
+
+    batch, beams, _ = anc.shape
+    slot = anc[:, :, : pos + 1].long().clone()
+    if update:
+        slot[:, :, pos] = torch.arange(beams, device=anc.device)
+    # distinct beams selected at each (row, time)
+    present = torch.zeros(batch, pos + 1, beams, dtype=torch.bool, device=anc.device)
+    present.scatter_(2, slot.permute(0, 2, 1), True)
+    rows = int(present.sum())
+    row_bytes = D_MODEL * (1 if quantized else 2) + (HEADS * 4 if quantized else 0)
+    qo = 2 * batch * beams * D_MODEL * 2
+    fresh = 2 * batch * beams * row_bytes if update else 0
+    return 2 * rows * row_bytes + qo + anc[:, :, : pos + 1].numel() * 4 + fresh
+
+
 def _attn_err(got, want) -> tuple:
     err = (got.float() - want.float()).abs().max().item()
     tol = ATTN_TOL * max(1.0, want.float().abs().max().item())
@@ -158,6 +207,7 @@ def check_kernels() -> list:
     every beam count the entry points run (DECODE_BEAMS); returns records,
     timed at serving's K 10 as in earlier runs, the other times beside."""
     import torch
+    import torch.nn.functional as F
 
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
     from multimodalanalytical_tpu_torch.ops import decode_ffn
@@ -176,7 +226,7 @@ def check_kernels() -> list:
         return torch.rand(*shape, generator=g, device=dev) * 0.05 + 1e-3
 
     # #1 self-attention + in-place append.
-    worst, timing = 0.0, {}
+    worst, timing, bounds = 0.0, {}, {}
     for beams, kinds in DECODE_BEAMS:
         bk, flat_max = BATCH * beams, MAX_LENGTH * beams
         q = randn(bk, D_MODEL)
@@ -221,16 +271,22 @@ def check_kernels() -> list:
                         ms = _time_ms(lambda: ba.beam_select_attention_update(*args))
                         plain_ms = _time_ms(lambda: ba.beam_select_attention_update_plain(*args))
                         timing[f"{kind} K={beams} L={stage}"] = (ms, plain_ms)
+                        bound = _bound_ms(4 * BATCH * beams * (pos + 1) * D_MODEL,
+                                          _select_bytes(anc, pos, quantized, update=True))
+                        bounds[f"{kind} K={beams} L={stage}"] = bound
                         print(f"time beam_select_attention_update {kind} K={beams} L={stage} "
-                              f"pos={pos}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-                              flush=True)
+                              f"pos={pos}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
                         del cache, scales, args
             del cache0, scales0
     ms, plain_ms = timing[f"int8 K={BEAMS} L=128"]
+    bound, bound_by = bounds[f"int8 K={BEAMS} L=128"]
     records.append({"name": "beam_select_attention_update", "route": "cuda",
                     "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
                     "replaces": "multimodalanalytical_tpu/ops/beam_attention.py:570",
                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                    "other_bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "timed_at": f"int8 cache, K={BEAMS}, L=128, pos=127",
                     "other_times_ms": {k: list(v) for k, v in timing.items()}})
 
@@ -242,7 +298,7 @@ def check_kernels() -> list:
     keep = torch.arange(ls, device=dev)[None, :] < valid
     keep[0] = False
     bias = torch.where(keep, 0.0, -1e9).float()
-    worst, timing = 0.0, {}
+    worst, timing, bounds = 0.0, {}, {}
     for beams, _ in DECODE_BEAMS:
         qx = randn(BATCH * beams, D_MODEL)
         got = ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
@@ -250,17 +306,31 @@ def check_kernels() -> list:
         err, tol = _attn_err(got, want)
         ms = _time_ms(lambda: ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams))
         plain_ms = _time_ms(lambda: ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams))
-        timing[f"K={beams}"] = (ms, plain_ms)
+        # SDPA on the same inputs (yardstick only): beams as query rows of
+        # their batch row, the key bias as an additive mask.
+        qh = qx.reshape(BATCH, beams, HEADS, -1).transpose(1, 2)
+        kh, vh = (t.reshape(BATCH, ls, HEADS, -1).transpose(1, 2) for t in (kx, vx))
+        mask = bias[:, None, None, :].to(qx.dtype)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+        bounds[f"K={beams}"] = _bound_ms(
+            4 * BATCH * beams * ls * D_MODEL,
+            (2 * BATCH * beams + 2 * BATCH * ls) * D_MODEL * 2 + bias.numel() * 4)
+        timing[f"K={beams}"] = (ms, plain_ms, library_ms)
         print(f"kernel beam_cross_attention K={beams} Ls={ls}: max_abs_err={err:.3e} "
-              f"tol={tol:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"tol={tol:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound {bounds[f'K={beams}'][0]:.5f} ms "
+              f"({bounds[f'K={beams}'][1]})", flush=True)
         _require(bool(torch.isfinite(got.float()).all()) and err <= tol,
                  "beam_cross_attention disagrees with its plain version")
         worst = max(worst, err)
-    ms, plain_ms = timing[f"K={BEAMS}"]
+    ms, plain_ms, library_ms = timing[f"K={BEAMS}"]
     records.append({"name": "beam_cross_attention", "route": "cuda",
                     "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
                     "replaces": "multimodalanalytical_tpu/ops/beam_attention.py:536",
                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bounds[f"K={BEAMS}"][0], "bound_by": bounds[f"K={BEAMS}"][1],
+                    "library_ms": library_ms,
+                    "library": "torch.nn.functional.scaled_dot_product_attention, additive mask",
                     "timed_at": f"K={BEAMS}, Ls={ls}",
                     "other_times_ms": {k: list(v) for k, v in timing.items()}})
 
@@ -268,7 +338,7 @@ def check_kernels() -> list:
     w1, wg, w2 = randn(FFN, D_MODEL, scale=0.05), randn(FFN, D_MODEL, scale=0.05), randn(
         D_MODEL, FFN, scale=0.03)
     b1, bg, b2 = randn(FFN, scale=0.1), randn(FFN, scale=0.1), randn(D_MODEL, scale=0.1)
-    worst, timing = 0.0, {}
+    worst, timing, bounds = 0.0, {}, {}
     for beams, _ in DECODE_BEAMS:
         m = BATCH * beams
         x = randn(m, D_MODEL)
@@ -280,7 +350,12 @@ def check_kernels() -> list:
             rel = err / max(want.float().abs().max().item(), 1e-6)
             ms = _time_ms(lambda: decode_ffn.geglu_ffn(*args))
             plain_ms = _time_ms(lambda: decode_ffn.geglu_ffn_plain(*args))
-            timing[f"{'gated' if gated else 'ungated'} M={m}"] = (ms, plain_ms)
+            key = f"{'gated' if gated else 'ungated'} M={m}"
+            timing[key] = (ms, plain_ms)
+            weights = (3 if gated else 2) * FFN * D_MODEL
+            bounds[key] = _bound_ms(2 * m * weights,
+                                    (weights + (3 if gated else 2) * FFN + D_MODEL) * 2
+                                    + 2 * m * D_MODEL * 2)
             print(f"kernel geglu_ffn gated={gated} M={m} D={D_MODEL} F={FFN}: "
                   f"max_abs_err={err:.3e} rel={rel:.3e} tol={FFN_REL_TOL}; kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms", flush=True)
@@ -288,10 +363,13 @@ def check_kernels() -> list:
                      "geglu_ffn disagrees with its plain version")
             worst = max(worst, err)
     ms, plain_ms = timing[f"ungated M={BATCH * BEAMS}"]
+    bound, bound_by = bounds[f"ungated M={BATCH * BEAMS}"]
     records.append({"name": "geglu_ffn", "route": "cuda",
                     "source": "multimodalanalytical_tpu_torch/csrc/decode_ffn.cu",
                     "replaces": "multimodalanalytical_tpu/ops/decode_ffn.py:68",
                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                    "other_bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "timed_at": f"ungated, M={BATCH * BEAMS} D={D_MODEL} F={FFN}",
                     "other_times_ms": {k: list(v) for k, v in timing.items()}})
     return records
@@ -308,7 +386,7 @@ def check_read_only_attention() -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     pos = MAX_LENGTH - 1
-    worst, timing, launches = 0.0, {}, 0
+    worst, timing, bounds, launches = 0.0, {}, {}, 0
     for beams in (BEAMS, EVAL_BEAMS):
         flat = MAX_LENGTH * beams
         q = torch.randn(BATCH, beams, D_MODEL, generator=g, device=dev).bfloat16()
@@ -332,19 +410,25 @@ def check_read_only_attention() -> dict:
             ms = _time_ms(lambda: ba.beam_select_attention(*args))
             plain_ms = _time_ms(lambda: ba.beam_select_attention_plain(*args), iters=5)
             timing[(kind, beams)] = (ms, plain_ms)
+            bounds[(kind, beams)] = _bound_ms(4 * BATCH * beams * (pos + 1) * D_MODEL,
+                                              _select_bytes(anc, pos, kind == "int8", False))
             print(f"kernel beam_select_attention {kind} K={beams} L={MAX_LENGTH} pos={pos}: "
                   f"max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms", flush=True)
+                  f"{plain_ms:.4f} ms, bound {bounds[(kind, beams)][0]:.4f} ms "
+                  f"({bounds[(kind, beams)][1]})", flush=True)
             _require(bool(torch.isfinite(got.float()).all()) and err <= tol,
                      "beam_select_attention disagrees with its plain version")
             worst = max(worst, err)
             del cache, scales
     ms, plain_ms = timing[("int8", EVAL_BEAMS)]
+    bound, bound_by = bounds[("int8", EVAL_BEAMS)]
     return {"name": "beam_select_attention", "route": "cuda",
             "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
             "replaces": "multimodalanalytical_tpu/ops/beam_attention.py:703",
             "launches": launches, "launches_by_phase": {"1": launches},
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "other_bounds_ms": {f"{k} K={b}": v[0] for (k, b), v in bounds.items()},
             "timed_at": f"int8 cache, B={BATCH}, K={EVAL_BEAMS}, L={MAX_LENGTH}, pos={pos}",
             "other_times_ms": {f"{k} K={b}": list(v) for (k, b), v in timing.items()}}
 
@@ -396,26 +480,28 @@ def check_fused_dropout() -> tuple:
         _require(abs(kept - (1 - rate)) <= 5 * sigma, "fused_dropout keep fraction off")
     _require(launches == 2 * len(DROPOUT_SHAPES), "fused_dropout did not launch")
     ms, plain_ms, default_ms = times[DROPOUT_SHAPES[1]]
+    numel = math.prod(DROPOUT_SHAPES[1])
+    bound, bound_by = _bound_ms(numel, 2 * numel * 2)   # bf16 in and out
     return {"name": "fused_dropout", "route": "cuda",
             "source": "multimodalanalytical_tpu_torch/csrc/fused_dropout.cu",
             "replaces": "multimodalanalytical_tpu/ops/fused_dropout.py:59",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "ops_dropout_ms": default_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": default_ms,
+            "library": "ops/dropout.py (torch.rand mask, then a multiply)",
             "timed_at": f"{DROPOUT_SHAPES[1]} bf16, rate {rate}",
             "other_times_ms": {str(s): list(v) for s, v in times.items()}}, launches
 
 
-def check_flash_kernels() -> list:
-    """#5/#6 flash attention forward and backward vs their plain versions at
-    the long RLE encoder's shapes; returns records."""
+def _flash_inputs(g, b, h, d):
+    """bf16 q, k, v, dout (B, H, L, Dh) of the long RLE encoder, L 4090
+    padded to 4096 with zero rows, ragged key masks; the (B, L) keep mask
+    and its additive bias."""
     import torch
     import torch.nn.functional as F
 
     from multimodalanalytical_tpu_torch.ops import flash_attention as flash
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(5)
-    b, h, d = TRAIN_BATCH, HEADS, D_MODEL // HEADS
     pad = (-RLE_MAX_LEN) % flash.BLK
     length = RLE_MAX_LEN + pad
     q, k, v, dout = (F.pad(torch.randn(b, h, RLE_MAX_LEN, d, generator=g, device=dev),
@@ -424,44 +510,184 @@ def check_flash_kernels() -> list:
     valid[0] = RLE_MAX_LEN
     keep = torch.arange(length, device=dev)[None, :] < valid
     bias = torch.where(keep, 0.0, flash.NEG_INF).float()
-    shape = f"B {b}, H {h}, L {RLE_MAX_LEN} (padded to {length}), Dh {d}, bf16"
+    return q, k, v, dout, keep, bias
 
+
+def _sdpa_backends(fn) -> str:
+    """The device kernels one call of ``fn`` launches, by name: which SDPA
+    backend ran."""
+    import torch
+
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and ("attention" in e.name.lower() or "fmha" in e.name.lower()
+                         or "flash" in e.name.lower() or "cudnn" in e.name.lower())})
+    return "; ".join(n[:90] for n in names) or "no attention kernel found"
+
+
+def _flash_errors(got, want) -> tuple:
+    """(max|got - want|, max|want|, |got - want|_2 / |want|_2) and whether
+    they are within FLASH_TOL and FLASH_RMS_TOL."""
+    import torch
+
+    diff = got.float() - want.float()
+    err, peak = diff.abs().max().item(), want.float().abs().max().item()
+    rms = (diff.norm() / want.float().norm()).item()
+    finite = bool(torch.isfinite(got.float()).all())
+    return err, peak, rms, finite and peak > 0 and err <= FLASH_TOL * peak and rms <= FLASH_RMS_TOL
+
+
+def _check_flash_shape(g, b, h, d) -> dict:
+    """Kernels vs plain versions at (B, H, L 4090 -> 4096, Dh), bf16: out,
+    dq, dk, dv within FLASH_TOL / FLASH_RMS_TOL, lse within LSE_REL_TOL, two
+    backward calls bit-equal; the same check fails the kernels run with the
+    second key stage masked (a kernel that skipped it); then kernel, plain
+    and SDPA times, the kernel and SDPA in turns."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import flash_attention as flash
+
+    q, k, v, dout, keep, bias = _flash_inputs(g, b, h, d)
+    length = q.shape[2]
+    shape = f"B {b}, H {h}, L {RLE_MAX_LEN} (padded to {length}), Dh {d}, bf16"
     out, lse = flash.flash_attention_fwd(q, k, v, bias)
     want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, bias)
     grads = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
+    rerun = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
     want_grads = flash.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
     torch.cuda.synchronize()
+    names, wants = ("out", "dq", "dk", "dv"), (want_out,) + want_grads
     errs = {}
-    for name, got, want in zip(("out", "dq", "dk", "dv"), (out,) + grads,
-                               (want_out,) + want_grads):
-        err = (got.float() - want.float()).abs().max().item()
-        peak = want.float().abs().max().item()
-        tol = FLASH_TOL * max(1.0, peak)
-        finite = bool(torch.isfinite(got.float()).all())
-        print(f"kernel flash {name} {shape}: max_abs_err={err:.3e} tol={tol:.3e} "
-              f"max|plain|={peak:.3e}", flush=True)
-        _require(finite and peak > 0 and err <= tol,
-                 f"flash {name} disagrees with its plain version")
+    for name, got, want in zip(names, (out,) + grads, wants):
+        err, peak, rms, ok = _flash_errors(got, want)
+        print(f"kernel flash {name} {shape}: max_abs_err={err:.3e} tol={FLASH_TOL * peak:.3e} "
+              f"(of max|plain|={peak:.3e}), rel_rms_err={rms:.3e} tol={FLASH_RMS_TOL:.1e}",
+              flush=True)
+        _require(ok, f"flash {name} disagrees with its plain version")
         errs[name] = err
     lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
-    print(f"kernel flash lse {shape}: max_rel_err={lse_err:.3e} tol={LSE_REL_TOL:.1e}",
-          flush=True)
+    same_bits = all(torch.equal(a, c) for a, c in zip(grads, rerun))
+    print(f"kernel flash lse {shape}: max_rel_err={lse_err:.3e} tol={LSE_REL_TOL:.1e}; "
+          f"two backward calls bit-equal {same_bits}", flush=True)
     _require(lse_err <= LSE_REL_TOL, "flash lse disagrees with its plain version")
+    _require(same_bits, "two flash backward calls differ")
+    del grads, rerun
+
+    # A planted fault: the kernels with the second key stage masked are a
+    # kernel that skipped that stage; the check above must reject it.
+    stage = FLASH_KEY_STAGE[d]
+    skipped = bias.clone()
+    skipped[:, stage:2 * stage] = flash.NEG_INF
+    bad_out, bad_lse = flash.flash_attention_fwd(q, k, v, skipped)
+    bad = (bad_out,) + flash.flash_attention_bwd(q, k, v, skipped, bad_out, bad_lse, dout)
+    caught = {}
+    for name, got, want in zip(names, bad, wants):
+        err, peak, rms, ok = _flash_errors(got, want)
+        caught[name] = (not ok, round(err / peak, 4), round(rms, 4))
+    print(f"kernel flash {shape}, key stage {stage}-{2 * stage - 1} skipped: rejected "
+          f"(max_err/max|plain|, rel_rms_err) {caught}", flush=True)
+    _require(all(c[0] for c in caught.values()),
+             "the flash check passes a kernel that skips a key stage")
+    del want_out, want_lse, want_grads, wants, bad, bad_lse, skipped
+
+    # SDPA on the same inputs, as a yardstick only: the key mask as a bool
+    # (B, 1, 1, L) mask; its backward is forward + backward minus forward.
+    mask = keep[:, None, None, :]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    def sdpa_fwd_grad():
+        return torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+    def sdpa_fwd_bwd():
+        sdpa_fwd_grad().backward(dout)
 
     fwd = (lambda: flash.flash_attention_fwd(q, k, v, bias),
            lambda: flash.flash_attention_fwd_plain(q, k, v, bias))
     bwd = (lambda: flash.flash_attention_bwd(q, k, v, bias, out, lse, dout),
            lambda: flash.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout))
+    times = {"fwd": [], "bwd": [], "sdpa_fwd": [], "sdpa_fwd_grad": [], "sdpa_fwd_bwd": []}
+    for _ in range(2):   # in turns: kernel, SDPA, kernel, SDPA
+        times["fwd"].append(_time_ms(fwd[0], iters=10))
+        times["sdpa_fwd"].append(_time_ms(sdpa_fwd, iters=10))
+        times["bwd"].append(_time_ms(bwd[0], iters=10))
+        times["sdpa_fwd_grad"].append(_time_ms(sdpa_fwd_grad, iters=10))
+        times["sdpa_fwd_bwd"].append(_time_ms(sdpa_fwd_bwd, iters=10))
+    mean = {key: sum(val) / len(val) for key, val in times.items()}
+    valid_keys = int(keep.sum())
+    result = {
+        "shape": shape, "errs": errs,
+        "ms": {"fwd": mean["fwd"], "bwd": mean["bwd"]},
+        "plain_ms": {"fwd": _time_ms(fwd[1], iters=3), "bwd": _time_ms(bwd[1], iters=3)},
+        "library_ms": {"fwd": mean["sdpa_fwd"],
+                       "bwd": mean["sdpa_fwd_bwd"] - mean["sdpa_fwd_grad"]},
+        # 2 Dh per (query, valid key) pair, product and head: 2 products
+        # forward, 5 backward. Masked keys (bias -1e9) add exactly 0 to out,
+        # dq, dk and dv of a row with a valid key, so the work this data needs
+        # counts the RLE_MAX_LEN queries against each row's valid keys only.
+        "valid_keys": valid_keys,
+        "flops": {"fwd": 4 * h * d * RLE_MAX_LEN * valid_keys,
+                  "bwd": 10 * h * d * RLE_MAX_LEN * valid_keys},
+        # each input read once, each output written once (bf16; bias, lse fp32)
+        "bytes": {"fwd": 4 * q.numel() * 2 + bias.numel() * 4 + lse.numel() * 4,
+                  "bwd": 8 * q.numel() * 2 + bias.numel() * 4 + lse.numel() * 4},
+        "sdpa_kernels": {"fwd": _sdpa_backends(sdpa_fwd), "bwd": _sdpa_backends(sdpa_fwd_bwd)},
+    }
+    for part in ("fwd", "bwd"):
+        bound, by = _bound_ms(result["flops"][part], result["bytes"][part])
+        result.setdefault("bound_ms", {})[part] = bound
+        result.setdefault("bound_by", {})[part] = by
+        ms = result["ms"][part]
+        print(f"time flash_attention_{part} {shape}: kernel {ms:.4f} ms "
+              f"({result['flops'][part] / ms / 1e9:.1f} TFLOP/s of the {valid_keys} valid "
+              f"keys' work; in turns "
+              f"{[round(x, 4) for x in times[part]]}), plain {result['plain_ms'][part]:.4f} ms, "
+              f"SDPA {result['library_ms'][part]:.4f} ms, bound {bound:.4f} ms ({by}); SDPA "
+              f"kernels: {result['sdpa_kernels'][part]}", flush=True)
+    del leaves
+    torch.cuda.empty_cache()
+    return result
+
+
+def check_flash_kernels() -> list:
+    """#5/#6 flash attention forward and backward vs their plain versions at
+    the long RLE encoder's shapes, head_dim 64 (B 8, H 8: the records) and
+    128 (B 8, H 4: the same d_model 512); returns records."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    main = _check_flash_shape(g, TRAIN_BATCH, HEADS, D_MODEL // HEADS)
+    wide = _check_flash_shape(g, TRAIN_BATCH, HEADS // 2, 2 * D_MODEL // HEADS)
     records = []
-    for name, fns, line, err in (
-            ("flash_attention_fwd", fwd, 115, errs["out"]),
-            ("flash_attention_bwd", bwd, 204, max(errs["dq"], errs["dk"], errs["dv"]))):
-        ms, plain_ms = _time_ms(fns[0], iters=10), _time_ms(fns[1], iters=10)
-        print(f"time {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        records.append({"name": name, "route": "cuda",
-                        "source": "multimodalanalytical_tpu_torch/csrc/flash_attention.cu",
-                        "replaces": f"multimodalanalytical_tpu/ops/flash_attention.py:{line}",
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "timed_at": shape})
+    for name, part, line, err in (
+            ("flash_attention_fwd", "fwd", 115, main["errs"]["out"]),
+            ("flash_attention_bwd", "bwd", 204,
+             max(main["errs"][x] for x in ("dq", "dk", "dv")))):
+        ms = main["ms"][part]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "multimodalanalytical_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"multimodalanalytical_tpu/ops/flash_attention.py:{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": main["plain_ms"][part],
+            "bound_ms": main["bound_ms"][part], "bound_by": main["bound_by"][part],
+            "library_ms": main["library_ms"][part], "tflops": main["flops"][part] / ms / 1e9,
+            "library": "torch.nn.functional.scaled_dot_product_attention, bool key mask"
+                       + (" (forward + backward minus forward)" if part == "bwd" else ""),
+            "library_kernels": main["sdpa_kernels"][part], "timed_at": main["shape"],
+            "valid_keys": main["valid_keys"],
+            "head_dim_128": {"timed_at": wide["shape"], "ms": wide["ms"][part],
+                             "plain_ms": wide["plain_ms"][part],
+                             "library_ms": wide["library_ms"][part],
+                             "bound_ms": wide["bound_ms"][part],
+                             "valid_keys": wide["valid_keys"],
+                             "tflops": wide["flops"][part] / wide["ms"][part] / 1e9}})
     return records
 
 
@@ -703,12 +929,31 @@ def _fit_rle(batch, real_tokens: int, route: str) -> tuple:
     return losses, seconds, peak
 
 
+@contextlib.contextmanager
+def _fused_dropout_sites(sites: list):
+    """Every dropout site of the model through fused dropout, as
+    benchmarks/exp_remat.py routes the JAX sites through pallas_dropout;
+    counts the sites that drop in ``sites[0]``."""
+    from multimodalanalytical_tpu_torch.models import transformer
+    from multimodalanalytical_tpu_torch.ops import fused_dropout as fd
+
+    def fused_sites(x, rate, generator):
+        sites[0] += generator is not None and rate > 0.0
+        return fd.dropout(x, rate, generator)
+
+    original = transformer.dropout
+    transformer.dropout = fused_sites
+    try:
+        yield
+    finally:
+        transformer.dropout = original
+
+
 def run_training_slice() -> tuple:
     """Phase 3; returns the flash kernels' launch counts of the default fit
     and fused_dropout's of the fit that routes every dropout site through it."""
     import torch
 
-    from multimodalanalytical_tpu_torch.models import transformer
     from multimodalanalytical_tpu_torch.ops import fused_dropout as fd
 
     batch = _rle_batch()
@@ -743,21 +988,10 @@ def run_training_slice() -> tuple:
         _require(count == LAYERS * TRAIN_STEPS,
                  f"{name} launched {count} times, want {LAYERS * TRAIN_STEPS}")
 
-    # Every dropout site through the fused kernel, as benchmarks/exp_remat.py
-    # routes the JAX sites through pallas_dropout.
     sites = [0]
-
-    def fused_sites(x, rate, generator):
-        sites[0] += generator is not None and rate > 0.0
-        return fd.dropout(x, rate, generator)
-
-    original = transformer.dropout
-    transformer.dropout = fused_sites
     fd.fused_dropout.launches = 0
-    try:
+    with _fused_dropout_sites(sites):
         _, fused_s, fused_peak = _fit_rle(batch, real_tokens, "fused_dropout")
-    finally:
-        transformer.dropout = original
     fused_launches = fd.fused_dropout.launches
     print(f"train fit fused_dropout vs ops/dropout.py: {fused_s:.4f} vs {default_s:.4f} s/step, "
           f"peak {fused_peak:.2f} vs {default_peak:.2f} GiB; {sites[0]} dropout calls, "
@@ -1032,6 +1266,57 @@ def profile_eval() -> None:
                   f"{kernel[:100]}", flush=True)
 
 
+def profile_train() -> None:
+    """Phase 3's train step under ``torch.profiler``: the flagship-width RLE
+    model (B 8, L 4090, dropout 0.1, flash route), with ``ops/dropout.py``
+    and then with every dropout site through fused dropout, as phase 3's
+    two fits. Each takes two warm-up steps, four unprofiled steps for the
+    wall time and two profiled ones; prints device time per step by kernel
+    (device events only, as ``--profile-eval``), host time per step in the
+    dropout calls, the busy share and the peak memory."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    batch = _rle_batch()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for route in ("ops/dropout.py", "fused_dropout"):
+        trainer = Trainer(_rle_model(dropout=DROPOUT, use_flash=True), optimiser="adamw",
+                          lr=TRAIN_LR, num_steps=100, clip_grad=1.0)
+        steps = 2
+        with _fused_dropout_sites([0]) if route == "fused_dropout" else contextlib.nullcontext():
+            for _ in range(steps):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(2 * steps):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / (2 * steps)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with torch.profiler.profile(activities=activities) as prof:
+                for _ in range(steps):
+                    trainer.train_step(batch)
+                torch.cuda.synchronize()
+        device_s, rows, launches = _device_time(prof)
+        device_s /= steps
+        host_ms = {}
+        for row in prof.key_averages():
+            if "dropout" in row.key.lower() and row.cpu_time_total > 0:
+                host_ms[row.key] = round(row.cpu_time_total / 1e3 / steps, 3)
+        print(f"profile train step (RLE, B {TRAIN_BATCH}, L {RLE_MAX_LEN}, dropout {DROPOUT}, "
+              f"{route}): wall {wall:.4f} s/step unprofiled; device time {device_s:.4f} s/step "
+              f"(kernels and copies only); busy share {device_s / wall:.3f}; "
+              f"{launches // steps} kernel launches per step; peak {peak:.2f} GiB; host ms per "
+              f"step in dropout calls {host_ms}", flush=True)
+        for ms, calls, kernel in rows[:PROFILE_TOP]:
+            print(f"  {100 * ms / (device_s * steps * 1e3):5.1f}% {ms / steps:10.2f} ms x "
+                  f"{calls // steps:6d} per step  {kernel[:100]}", flush=True)
+        del trainer, prof
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1055,6 +1340,10 @@ def main() -> int:
     if "--profile-eval" in sys.argv[1:]:
         print(smi, flush=True)
         profile_eval()
+        return 0
+    if "--profile-train" in sys.argv[1:]:
+        print(smi, flush=True)
+        profile_train()
         return 0
 
     records = check_kernels()

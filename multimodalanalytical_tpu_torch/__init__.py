@@ -3,7 +3,10 @@
 The JAX package beside it is the reference each part of this port is held
 against. Module paths mirror it (``models/``, ``ops/``, ``generation/``,
 ``training/``, ``cli/``); parameter names follow its param tree (see
-``models/weights.py``). This package imports ``torch`` and never ``jax``.
+``models/weights.py``). This package imports ``torch`` and never ``jax``,
+nor anything of the JAX package: it keeps its own copies of the
+framework-free layers it needs (``configuration.py``, ``chem/``, ``data/``,
+``config/``, ``evaluation/``).
 """
 
 from .models.config import ModelConfig

@@ -1,12 +1,10 @@
 """Shared CLI pipeline pieces: dataset -> preprocessors -> loaders -> model (counterpart of ``cli/common.py``).
 
-The data pieces come from the JAX package's framework-free ``data/``,
-``config/`` and ``configuration`` layers, imported inside the functions
-that need them (they pull in pyyaml, pyarrow and ``tokenizers``, which the
-decode core never needs). The JAX ``cli/common.py`` itself cannot be
-imported: it imports the flax model and, through ``training/``, the JAX
-trainer. For the same reason this module keeps its own ``setup_logging``
-and ``seed_everything`` (the JAX ``utils.py`` imports jax).
+The data pieces come from this package's copies of the framework-free
+``data/``, ``config/`` and ``configuration`` layers, imported inside the
+functions that need them (they pull in pyyaml, pyarrow and ``tokenizers``,
+which the decode core never needs). This module also keeps its own
+``setup_logging`` and ``seed_everything``.
 """
 
 from __future__ import annotations
@@ -32,8 +30,8 @@ def default_configs_dir() -> Path:
 
 
 def compose(config_name: str, overrides) -> Dict[str, Any]:
-    """The shared config composer on the repository's ``configs/`` tree."""
-    from multimodalanalytical_tpu.config import compose_config
+    """The config composer (``config/loader.py``) on the repository's ``configs/`` tree."""
+    from ..config import compose_config
 
     return compose_config(default_configs_dir(), config_name, list(overrides))
 
@@ -52,7 +50,7 @@ def seed_everything(seed: Optional[int] = None) -> int:
     """Seed Python's, numpy's and torch's generators (reference
     utils.py:175-179); the default is the shared settings' seed."""
     if seed is None:
-        from multimodalanalytical_tpu.configuration import DEFAULT_SETTINGS
+        from ..configuration import DEFAULT_SETTINGS
 
         seed = DEFAULT_SETTINGS.default_seed
     random.seed(seed)
@@ -68,9 +66,9 @@ def default_device() -> torch.device:
 def sample_train_columns(train_set) -> Dict[str, Any]:
     """<=10k-row sample used for preprocessor/length fitting
     (reference data_utils.py:49-59)."""
-    from multimodalanalytical_tpu.configuration import DEFAULT_SETTINGS
-    from multimodalanalytical_tpu.data.data_utils import sample_rows
-    from multimodalanalytical_tpu.data.datasets import IterableDatasetWithLength, TableDataset
+    from ..configuration import DEFAULT_SETTINGS
+    from ..data.data_utils import sample_rows
+    from ..data.datasets import IterableDatasetWithLength, TableDataset
 
     if isinstance(train_set, IterableDatasetWithLength):
         return train_set.take(min(DEFAULT_SETTINGS.default_samples, len(train_set))).columns
@@ -82,7 +80,7 @@ def sample_train_columns(train_set) -> Dict[str, Any]:
 def build_preprocessors(config: Dict[str, Any], data_config: Dict[str, Any], train_set
                         ) -> Tuple[Dict[str, Any], Dict[str, Any], Path]:
     """Load the preprocessor artifact if present, else fit and save it."""
-    from multimodalanalytical_tpu.data.data_utils import (
+    from ..data.data_utils import (
         fit_preprocessors,
         load_preprocessors_artifact,
         save_preprocessors,
@@ -108,8 +106,8 @@ def build_collator(data_config: Dict[str, Any], preprocessors: Dict[str, Any], t
     """A collator padded to ``batch_size`` with lengths fitted on a sample of
     the training set; the lengths are written into the artifact so that it
     alone can serve."""
-    from multimodalanalytical_tpu.data.collator import MultiModalCollator
-    from multimodalanalytical_tpu.data.data_utils import save_collator_lengths
+    from ..data.collator import MultiModalCollator
+    from ..data.data_utils import save_collator_lengths
 
     collator = MultiModalCollator(preprocessors=preprocessors, data_config=data_config,
                                   extra_columns=extra_columns, pad_to_batch_size=batch_size)
@@ -126,7 +124,7 @@ def build_loaders(dataset_dict: Dict[str, Any], collator, batch_size: int, seed:
     process; validation and test are capped at 10k random rows, or the test
     rows are the ``test_idx`` .npy index file (reference
     datamodules.py:441-491)."""
-    from multimodalanalytical_tpu.data.datasets import TableDataset
+    from ..data.datasets import TableDataset
 
     loaders = {}
     if "train" in dataset_dict:
@@ -164,12 +162,12 @@ def build_model(model_config_dict: Dict[str, Any], data_config: Dict[str, Any],
 def score_predictions(predictions: Dict[str, Any], molecules: bool = True,
                       rejection_sampling: bool = False,
                       predict_class: Optional[str] = None) -> Dict[str, Any]:
-    """Top-1..Top-K of ``predict``'s output by the shared
-    ``evaluation/metrics.py``, optionally after rejection sampling (beams
+    """Top-1..Top-K of ``predict``'s output by ``evaluation/metrics.py``,
+    optionally after rejection sampling (beams
     whose formula differs from the target's dropped), which rewrites
     ``predictions["predictions"]`` in place as the JAX predict CLI does;
     per class when ``predict_class`` names a returned column."""
-    from multimodalanalytical_tpu.evaluation.metrics import calc_sampling_metrics, reject_sample
+    from ..evaluation.metrics import calc_sampling_metrics, reject_sample
 
     if rejection_sampling:
         reject_sample(predictions, molecules=molecules)

@@ -41,8 +41,8 @@ logger = logging.getLogger(__name__)
 
 
 def run(config: Dict[str, Any]) -> Dict[str, Any]:
-    from multimodalanalytical_tpu.data.data_utils import load_preprocessors_artifact
-    from multimodalanalytical_tpu.data.datasets import build_dataset_multimodal
+    from ..data.data_utils import load_preprocessors_artifact
+    from ..data.datasets import build_dataset_multimodal
 
     work_dir = Path(config["working_dir"]) / config["job_name"]
     work_dir.mkdir(parents=True, exist_ok=True)

@@ -46,8 +46,8 @@ logger = logging.getLogger(__name__)
 def collator_from_artifact(artifact: Path, batch_size: int):
     """(collator, tokenizer) from a preprocessor artifact that embeds the
     collator's fitted lengths."""
-    from multimodalanalytical_tpu.data.collator import MultiModalCollator
-    from multimodalanalytical_tpu.data.data_utils import (
+    from ..data.collator import MultiModalCollator
+    from ..data.data_utils import (
         load_collator_lengths,
         load_preprocessors_artifact,
     )

@@ -46,7 +46,7 @@ GUIDED_NOT_PORTED = ("guided_generation is not ported to the PyTorch package yet
 
 
 def run(config: Dict[str, Any]) -> Dict[str, Any]:
-    from multimodalanalytical_tpu.data.datasets import build_dataset_multimodal
+    from ..data.datasets import build_dataset_multimodal
 
     work_dir = Path(config["working_dir"]) / config["job_name"]
     work_dir.mkdir(parents=True, exist_ok=True)

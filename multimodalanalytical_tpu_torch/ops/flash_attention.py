@@ -12,13 +12,22 @@ Counterpart of ``multimodalanalytical_tpu/ops/flash_attention.py``:
 The kernels are in ``csrc/flash_attention.cu``, whose source note says what
 bounds them on the H100 and how their design answers it.
 
-Numerics (both versions, as the Pallas kernels compute on every backend,
-interpret mode included): q, k and v are upcast to fp32 and the
+Numerics of the plain versions, as the Pallas kernels compute on every
+backend, interpret mode included: q, k and v are upcast to fp32 and the
 ``head_dim**-0.5`` scale is applied to q in fp32; logits, probabilities and
 every sum stay in fp32; the output is rounded once to q's dtype. The
 backward takes ``delta = rowsum(dO * O)`` from the SAVED output in the
 compute dtype (not a re-computed fp32 one), and dk / dv are summed in fp32
-and cast once.
+and cast once. The plain versions are the fp32-faithful reference.
+
+The bf16 CUDA kernels run their products on the tensor cores: bf16 products
+are exact in fp32, the scale is applied to S in fp32 (at head_dim 64,
+2**-3, equal to scaling q), the bias is added in fp32, and the running max
+and the denominator are summed from the fp32 probabilities, so lse stays
+fp32-faithful. P (forward, dV) and dS (dQ, dK) are rounded to bf16 only as
+tensor-core operands; every sum stays in fp32 and outputs are rounded once.
+``tests/test_torch_flash_numerics.py`` models those roundings against the
+Pallas kernels. The fp32 kernels compute as the plain versions do.
 
 Padding is part of the function's meaning: :func:`flash_attention` pads Lq
 and Lk to multiples of 256 (``BLK``) with zero rows and ``NEG_INF`` key bias,

@@ -1,10 +1,8 @@
 """Host-side batching with background prefetch (a copy of ``training/loader.py``).
 
-The JAX package's loader is numpy-only, but its ``training/__init__`` imports
-the JAX trainer, so this package keeps its own copy. The dataset classes
-come from the shared ``data`` layer and are imported where they are needed,
-so importing this module needs numpy only. A thread prefetcher overlaps host
-preprocessing with device steps.
+The dataset classes come from this package's ``data`` layer and are
+imported where they are needed, so importing this module needs numpy only.
+A thread prefetcher overlaps host preprocessing with device steps.
 """
 
 from __future__ import annotations
@@ -17,7 +15,7 @@ import numpy as np
 
 
 def _dataset_classes():
-    from multimodalanalytical_tpu.data.datasets import IterableDatasetWithLength, TableDataset
+    from ..data.datasets import IterableDatasetWithLength, TableDataset
 
     return IterableDatasetWithLength, TableDataset
 

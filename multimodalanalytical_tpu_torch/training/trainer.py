@@ -352,7 +352,7 @@ class Trainer:
         batch losses weighted by their real rows, token accuracy over
         non-padding labels, and greedy (K = 1) molecular accuracy scored by
         ``evaluation/metrics.py:calc_sampling_metrics``."""
-        from multimodalanalytical_tpu.evaluation.metrics import calc_sampling_metrics
+        from ..evaluation.metrics import calc_sampling_metrics
 
         losses: List[float] = []
         stats: List[List[float]] = []     # per batch: n_valid, tok_correct, tok_total, mol_correct

@@ -12,9 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
 
-from multimodalanalytical_tpu.data.collator import MultiModalCollator  # noqa: E402
-from multimodalanalytical_tpu.data.data_utils import fit_preprocessors  # noqa: E402
-from multimodalanalytical_tpu.data.datasets import TableDataset  # noqa: E402
+from multimodalanalytical_tpu_torch.data.collator import MultiModalCollator  # noqa: E402
+from multimodalanalytical_tpu_torch.data.data_utils import fit_preprocessors  # noqa: E402
+from multimodalanalytical_tpu_torch.data.datasets import TableDataset  # noqa: E402
 from multimodalanalytical_tpu_torch.models.config import ModelConfig  # noqa: E402
 from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel  # noqa: E402
 from multimodalanalytical_tpu_torch.training import DataLoader, Trainer  # noqa: E402

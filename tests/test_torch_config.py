@@ -47,20 +47,31 @@ def test_hf_derived_dimensions_are_not_ported_yet():
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port, and chip_smoke.py, import with torch, numpy
-    and the standard library only (as on a machine without JAX)."""
+    and the standard library only (as on a machine without JAX), except the
+    port's copies of the record-path layers (``data/``, ``config/``), which
+    need pyyaml, pyarrow or ``tokenizers`` as their originals do
+    (``tests/test_torch_shared_layers.py`` checks that no module of the port
+    imports JAX or the JAX package)."""
     code = """
-import importlib, pkgutil, sys
+import importlib, sys
+from pathlib import Path
 before = set(sys.modules)
 import multimodalanalytical_tpu_torch as pkg
-names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names:
+root = Path(pkg.__file__).parent
+# module names from the files (pkgutil.walk_packages would import packages)
+names = sorted(".".join((pkg.__name__,) + p.relative_to(root).with_suffix("").parts)
+               .removesuffix(".__init__") for p in root.rglob("*.py")
+               if p.relative_to(root).parts != ("__init__.py",))
+record_path = tuple(pkg.__name__ + "." + layer for layer in ("data", "config"))
+core = [n for n in names if not n.startswith(record_path)]
+for name in core:
     importlib.import_module(name)
 import chip_smoke
 banned = ("jax", "flax", "tokenizers", "yaml", "pyarrow", "multimodalanalytical_tpu")
 loaded = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in banned)
 assert not loaded, loaded
 assert not any(m.split(".")[0] in banned for m in before), "preloaded at startup"
-print(len(names))
+print(len(core))
 """
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                             text=True, timeout=300)

@@ -15,6 +15,7 @@ from multimodalanalytical_tpu_torch.ops import flash_attention as flash  # noqa:
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2   # of max(1, max|plain|), as chip_smoke.py
+FLASH_TOL, FLASH_RMS_TOL = 2e-2, 1e-2   # chip_smoke.py's: of max|plain|; in norm
 
 
 @pytest.fixture
@@ -131,6 +132,15 @@ def _padded_flash_inputs(gen, b, h, length, d, dtype, dead_row):
     return q, k, v, torch.nn.functional.pad(bias, (0, pad), value=flash.NEG_INF)
 
 
+def _flash_close(got, want):
+    """A bf16 flash result: max|got - want| within FLASH_TOL of max|want|
+    and |got - want|_2 within FLASH_RMS_TOL of |want|_2, as chip_smoke.py."""
+    diff = got.float() - want.float()
+    err, peak = diff.abs().max().item(), want.float().abs().max().item()
+    rms = (diff.norm() / want.float().norm()).item()
+    assert err <= FLASH_TOL * peak and rms <= FLASH_RMS_TOL, (err, peak, rms)
+
+
 def _rel_close(got, want, rtol):
     """Elementwise |got - want| <= rtol * max(1, |want|)."""
     err = ((got.float() - want.float()).abs() / want.float().abs().clamp_min(1.0)).max().item()
@@ -142,16 +152,18 @@ def _rel_close(got, want, rtol):
     (1, 1, 2048, None), (2, 3, 2100, 1), (1, 2, 2048, 0)])
 def test_flash_kernels_match_plain(gen, dtype, b, h, length, dead_row):
     """Forward (out, lse) and backward (dq, dk, dv) kernels vs their plain
-    versions on the same card tensors. Both compute in fp32; fp32 results
-    differ only in summation order (1e-4), bf16 ones by a flipped rounding
-    (2e-2 of max(1, |value|), about two bf16 ulps)."""
+    versions on the same card tensors. fp32 results differ only in
+    summation order (1e-4 of max(1, |value|)); bf16 ones also by the
+    tensor cores' bf16 operands P and dS (``_flash_close``, as chip_smoke.py)."""
     q, k, v, bias = _padded_flash_inputs(gen, b, h, length, 64, dtype, dead_row)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
+
+    def close(got, want):
+        return _close(got, want, 1e-4) if dtype == torch.float32 else _flash_close(got, want)
     before = (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches)
     out, lse = flash.flash_attention_fwd(q, k, v, bias)
     want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, bias)
     assert out.dtype == dtype and lse.dtype == torch.float32
-    _close(out, want_out, tol)
+    close(out, want_out)
     _rel_close(lse, want_lse, 1e-5)
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     grads = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
@@ -159,7 +171,7 @@ def test_flash_kernels_match_plain(gen, dtype, b, h, length, dead_row):
     torch.cuda.synchronize()
     for got, ref in zip(grads, want):
         assert got.dtype == dtype and ref.abs().max() > 0
-        _close(got, ref, tol)
+        close(got, ref)
     assert (flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
 
@@ -196,7 +208,7 @@ def test_flash_kernels_match_plain_head_dim_128(gen, length, dead_row):
     q, k, v, bias = _padded_flash_inputs(gen, 2, 2, length, 128, torch.bfloat16, dead_row)
     out, lse = flash.flash_attention_fwd(q, k, v, bias)
     want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, bias)
-    _close(out, want_out)
+    _flash_close(out, want_out)
     _rel_close(lse, want_lse, 1e-5)
     dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
     grads = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
@@ -204,7 +216,31 @@ def test_flash_kernels_match_plain_head_dim_128(gen, length, dead_row):
     torch.cuda.synchronize()
     for got, ref in zip(grads, want):
         assert ref.abs().max() > 0
-        _close(got, ref)
+        _flash_close(got, ref)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_flash_bf16_kernels_at_a_64_row_tail(gen, head_dim):
+    """bf16 at L 2112, a multiple of 64 but not of 128, called directly (no
+    256-row padding): the last 128-row block of every kernel has a 64-row
+    tail. Forward and backward vs the plain versions; two backward calls
+    give the same bits (no atomics)."""
+    b, h, length = 2, 2, 2112
+    q, k, v, dout = (torch.randn(b, h, length, head_dim, generator=gen, device="cuda").bfloat16()
+                     for _ in range(4))
+    bias = torch.zeros(b, length, device="cuda")
+    bias[1, 2000:] = flash.NEG_INF
+    out, lse = flash.flash_attention_fwd(q, k, v, bias)
+    want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, bias)
+    _flash_close(out, want_out)
+    _rel_close(lse, want_lse, 1e-5)
+    grads = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
+    again = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
+    want = flash.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+    torch.cuda.synchronize()
+    for got, rerun, ref in zip(grads, again, want):
+        assert torch.equal(got, rerun)
+        _flash_close(got, ref)
 
 
 def test_flash_kernel_raises_on_unsupported_head_dim(gen):

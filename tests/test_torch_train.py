@@ -286,11 +286,13 @@ def test_loader_copy_yields_the_jax_loaders_batches(shuffle, num_shards, prefetc
     """The port's numpy-only DataLoader copy against the JAX package's, on
     the same table: same batches in the same order, shards and dummy rows
     included, over two epochs."""
-    from multimodalanalytical_tpu.data.datasets import TableDataset
+    from multimodalanalytical_tpu.data.datasets import TableDataset as JaxTable
     from multimodalanalytical_tpu.training.loader import DataLoader as JaxLoader
+    from multimodalanalytical_tpu_torch.data.datasets import TableDataset
     from multimodalanalytical_tpu_torch.training import DataLoader
 
-    table = TableDataset({"x": list(range(11)), "y": [f"s{i}" for i in range(11)]})
+    columns = {"x": list(range(11)), "y": [f"s{i}" for i in range(11)]}
+    table, jax_table = TableDataset(dict(columns)), JaxTable(dict(columns))
 
     def collate(columns):
         return {"x": np.asarray(columns["x"]), "y": list(columns["y"]),
@@ -299,7 +301,7 @@ def test_loader_copy_yields_the_jax_loaders_batches(shuffle, num_shards, prefetc
     for shard in range(num_shards):
         kw = dict(batch_size=4, shuffle=shuffle, seed=3, prefetch=prefetch,
                   num_shards=num_shards, shard_index=shard)
-        ours, theirs = DataLoader(table, collate, **kw), JaxLoader(table, collate, **kw)
+        ours, theirs = DataLoader(table, collate, **kw), JaxLoader(jax_table, collate, **kw)
         assert len(ours) == len(theirs)
         for _ in range(2):
             got, want = list(ours), list(theirs)
