@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch port's serving, training and evaluation paths.
 
     python3 chip_smoke.py                  # the checks below
-    python3 chip_smoke.py --profile-eval   # phase 5's decodes under torch.profiler
+    python3 chip_smoke.py --profile-eval   # phase 5's decodes and a serving request, profiled
     python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a), ``nvcc``
@@ -22,7 +22,16 @@ line each, any failure raises and exits non-zero:
    Ls 26) at each beam count an entry point runs: serving's K 10 (int8 and
    bf16 caches), validation's K 1 (bf16) and predict's K 30 (int8), the
    FFN at M 128, 1280 and 3840; the read-only select attention at B 128,
-   L 128, pos 127, K 10 and 30, int8 and bf16 caches; fused dropout (rate
+   L 128, pos 127, K 10 and 30, int8 and bf16 caches. Decode attention is
+   held to ATTN_TOL in max error and ATTN_RMS_TOL in error norm, the
+   update's appended int8 rows and scales bit for bit to
+   ``quantize_kv_heads`` of the same bf16 rows, and the check is shown to
+   reject planted faults at pos 17 of a 32-time stage and pos 127 of the
+   128-time one (a time's rows left out, the fresh row left out, slot n
+   read in place of the ancestry's, a valid key dropped); every kernel's
+   "ms" is its eager per-call time, and the decode attention kernels also
+   carry their device time ("device_ms", CUDA-graph replays), cross
+   attention timed both ways in turns with SDPA; fused dropout (rate
    0.1, bf16) at the train-site shapes (128, 48, 512), (128, 48, 2048) and
    (8, 4090, 512), bit for bit, forward and backward (also against
    ``ops/dropout.py``'s time); the flash attention forward and backward at
@@ -81,7 +90,22 @@ BATCH, BEAMS, D_MODEL, HEADS, FFN, LAYERS = 128, 10, 512, 8, 2048, 6
 MAX_LENGTH = 128
 FORMULA_LEN, N_PATCHES, PATCH = 12, 14, 125
 VOCAB = 320
-ATTN_TOL = 2e-2      # max|kernel - plain| <= ATTN_TOL * max(1, max|plain|)
+# Decode attention (#1, #2, #4) vs its plain version: max|kernel - plain| <=
+# ATTN_TOL * max(1, max|plain|) and |kernel - plain|_2 <= ATTN_RMS_TOL *
+# |plain|_2. A correct kernel differs by bf16 rounding (probabilities and
+# outputs rounded after fp32 sums taken in another order), 1e-5 to 5e-5 in
+# norm; the norm is what catches a kernel that drops or misreads one time's
+# rows (phase 1 plants such faults at pos 17 of a 32-time stage and at pos
+# 127 of the 128-time stage, where one row weighs ~1/128 of the softmax, and
+# requires the check to reject them).
+ATTN_TOL = 2e-2
+ATTN_RMS_TOL = 1e-3
+FAULT_POSITIONS = {32: 17, 128: 127}   # stage -> pos
+# "ms" of every kernel is the eager back-to-back time of its wrapper, as the
+# decode path calls it (CUDA events; the wrappers' host dispatch paces it
+# wherever the kernel is shorter). The decode attention kernels also carry
+# "device_ms", their device time alone:
+DEVICE_MS_IS = "device time: 20 calls in one CUDA graph, replayed 5 times between CUDA events"
 FFN_REL_TOL = 0.02   # max|kernel - plain| / max|plain|
 # Teacher-forced decode logits, kernel path vs the use_beam_kernel=False
 # path on the same weights: the two differ only in bf16 rounding order
@@ -162,6 +186,36 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph,
+    replayed ``reps`` times between CUDA events, so that the host's dispatch
+    (the wrappers' Python and ctypes time) does not pace the launches, as
+    it does in :func:`_time_ms` for a kernel shorter than its dispatch."""
+    import torch
+
+    fn()                                       # build, shared-memory limit, allocator
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores
 # and HBM3. A kernel's bound is the larger of its operations over the first
 # and its bytes (each input read once, each output written once) over the
@@ -177,28 +231,74 @@ def _bound_ms(flops: float, nbytes: float) -> tuple:
 def _select_bytes(anc, pos: int, quantized: bool, update: bool) -> int:
     """Bytes the select attention must move at this ancestry: the distinct
     cache rows (K and V planes, with their int8 scales) that the beams'
-    slots select at times 0..pos, q, the ancestry, the output, and for the
-    update the appended rows (and scales) of time pos."""
+    slots select at times 0..pos (0..pos-1 for the update, whose time-pos
+    rows are this step's), q, the ancestry, the output, and for the update
+    this step's bf16 K/V rows read and appended to the cache (int8 rows and
+    scales, or bf16 rows)."""
     import torch
 
     batch, beams, _ = anc.shape
-    slot = anc[:, :, : pos + 1].long().clone()
-    if update:
-        slot[:, :, pos] = torch.arange(beams, device=anc.device)
+    times = pos if update else pos + 1
+    slot = anc[:, :, :times].long()
     # distinct beams selected at each (row, time)
-    present = torch.zeros(batch, pos + 1, beams, dtype=torch.bool, device=anc.device)
+    present = torch.zeros(batch, times, beams, dtype=torch.bool, device=anc.device)
     present.scatter_(2, slot.permute(0, 2, 1), True)
     rows = int(present.sum())
     row_bytes = D_MODEL * (1 if quantized else 2) + (HEADS * 4 if quantized else 0)
     qo = 2 * batch * beams * D_MODEL * 2
-    fresh = 2 * batch * beams * row_bytes if update else 0
+    fresh = 2 * batch * beams * (D_MODEL * 2 + row_bytes) if update else 0
     return 2 * rows * row_bytes + qo + anc[:, :, : pos + 1].numel() * 4 + fresh
 
 
 def _attn_err(got, want) -> tuple:
-    err = (got.float() - want.float()).abs().max().item()
+    """(max|got - want|, its limit, |got - want|_2 / |want|_2, whether both
+    are within ATTN_TOL / ATTN_RMS_TOL and got is finite)."""
+    import torch
+
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
     tol = ATTN_TOL * max(1.0, want.float().abs().max().item())
-    return err, tol
+    rms = (diff.norm() / want.float().norm()).item()
+    ok = bool(torch.isfinite(got.float()).all()) and err <= tol and rms <= ATTN_RMS_TOL
+    return err, tol, rms, ok
+
+
+def _rejected(name: str, faults: dict, want) -> None:
+    """Each planted fault's output must fail the check against ``want``;
+    prints (max_err / its limit, relative error norm) of each."""
+    caught = {}
+    for fault, got in faults.items():
+        err, tol, rms, ok = _attn_err(got, want)
+        caught[fault] = (not ok, round(err / tol, 3), round(rms, 4))
+    print(f"kernel {name} planted faults: rejected (max_err / limit, rel_rms_err) {caught}",
+          flush=True)
+    _require(all(c[0] for c in caught.values()), f"the {name} check passes a planted fault")
+
+
+def _select_faults(q, cache, scales, anc, pos: int) -> dict:
+    """Outputs of select attention with one time's rows dropped or misread,
+    from the plain math on the cache after this step's append: time 0 left
+    out of every beam, the fresh row at pos left out, and (K > 1) slot n
+    read in place of ancestry[b, n, 3]."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+
+    beams = anc.shape[1]
+    slot = anc[:, :, : pos + 1].long().clone()
+    slot[:, :, pos] = torch.arange(beams, device=anc.device)
+    shifted_scales = None if scales is None else scales[..., beams:]
+    faults = {
+        "time 0 left out": ba._attend_plain(q, cache[:, :, beams:], slot[:, :, 1:], HEADS,
+                                            shifted_scales),
+        f"fresh row at pos {pos} left out": ba._attend_plain(q, cache, slot[:, :, :pos], HEADS,
+                                                            scales),
+    }
+    if beams > 1:
+        misread = slot.clone()
+        misread[:, :, 3] = torch.arange(beams, device=anc.device)
+        faults["slot n read at time 3"] = ba._attend_plain(q, cache, misread, HEADS, scales)
+    return faults
 
 
 # ---------------------------------------------------------------- phase 1
@@ -225,25 +325,25 @@ def check_kernels() -> list:
     def rand_scales(*shape):
         return torch.rand(*shape, generator=g, device=dev) * 0.05 + 1e-3
 
-    # #1 self-attention + in-place append.
+    # #1 self-attention + in-place append. An int8 cache takes this step's
+    # rows as bf16, as the projection gives them: the kernel quantizes them,
+    # and its appended rows and scales must equal quantize_kv_heads' bits.
     worst, timing, bounds = 0.0, {}, {}
     for beams, kinds in DECODE_BEAMS:
         bk, flat_max = BATCH * beams, MAX_LENGTH * beams
         q = randn(bk, D_MODEL)
         anc_full = torch.randint(0, beams, (BATCH, beams, MAX_LENGTH), generator=g,
                                  device=dev, dtype=torch.int32)
+        k_new, v_new = randn(bk, D_MODEL), randn(bk, D_MODEL)
         for kind in kinds:
             quantized = kind == "int8"
             if quantized:
                 cache0, scales0 = randint8(2, BATCH, flat_max, D_MODEL), rand_scales(
                     2, BATCH, HEADS, flat_max)
-                k_new, v_new = randint8(bk, D_MODEL), randint8(bk, D_MODEL)
-                k_s, v_s = rand_scales(bk, HEADS), rand_scales(bk, HEADS)
             else:
                 cache0, scales0 = randn(2, BATCH, flat_max, D_MODEL), None
-                k_new, v_new, k_s, v_s = randn(bk, D_MODEL), randn(bk, D_MODEL), None, None
             for stage in (32, 128):
-                for pos in (0, 17, stage - 1):
+                for pos in sorted({0, FAULT_POSITIONS[32], stage - 1}):
                     anc_full[:, :, pos] = torch.arange(beams, device=dev, dtype=torch.int32)
                     anc = anc_full[:, :, :stage]
                     outs, stores = [], []
@@ -251,43 +351,52 @@ def check_kernels() -> list:
                                ba.beam_select_attention_update_plain):
                         cache = cache0.clone()
                         scales = scales0.clone() if quantized else None
-                        outs.append(fn(q, k_new, v_new, cache, anc, pos, HEADS, scales, k_s, v_s))
+                        outs.append(fn(q, k_new, v_new, cache, anc, pos, HEADS, scales))
                         stores.append((cache, scales))
                     torch.cuda.synchronize()
-                    err, tol = _attn_err(outs[0], outs[1])
+                    err, tol, rms, ok = _attn_err(outs[0], outs[1])
                     rows_equal = torch.equal(stores[0][0], stores[1][0]) and (
                         not quantized or torch.equal(stores[0][1], stores[1][1]))
                     print(f"kernel beam_select_attention_update {kind} K={beams} L={stage} "
-                          f"pos={pos}: max_abs_err={err:.3e} tol={tol:.3e} "
-                          f"cache_rows_equal={rows_equal}", flush=True)
-                    _require(err <= tol,
-                             "beam_select_attention_update disagrees with its plain version")
+                          f"pos={pos}: max_abs_err={err:.3e} tol={tol:.3e} rel_rms_err="
+                          f"{rms:.3e} tol={ATTN_RMS_TOL:.0e} appended_rows_and_scales_equal="
+                          f"{rows_equal}", flush=True)
+                    _require(ok, "beam_select_attention_update disagrees with its plain version")
                     _require(rows_equal, "beam_select_attention_update appended other rows/scales")
                     worst = max(worst, err)
+                    if pos == FAULT_POSITIONS[stage]:
+                        _rejected(f"beam_select_attention_update {kind} K={beams} L={stage} "
+                                  f"pos={pos}", _select_faults(q, *stores[1], anc, pos), outs[1])
                     del outs, stores
                     if pos == stage - 1:
                         cache, scales = cache0.clone(), scales0.clone() if quantized else None
-                        args = (q, k_new, v_new, cache, anc, pos, HEADS, scales, k_s, v_s)
+                        args = (q, k_new, v_new, cache, anc, pos, HEADS, scales)
                         ms = _time_ms(lambda: ba.beam_select_attention_update(*args))
+                        device_ms = _device_ms(lambda: ba.beam_select_attention_update(*args))
                         plain_ms = _time_ms(lambda: ba.beam_select_attention_update_plain(*args))
-                        timing[f"{kind} K={beams} L={stage}"] = (ms, plain_ms)
+                        timing[f"{kind} K={beams} L={stage}"] = (ms, plain_ms, device_ms)
                         bound = _bound_ms(4 * BATCH * beams * (pos + 1) * D_MODEL,
                                           _select_bytes(anc, pos, quantized, update=True))
                         bounds[f"{kind} K={beams} L={stage}"] = bound
                         print(f"time beam_select_attention_update {kind} K={beams} L={stage} "
-                              f"pos={pos}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+                              f"pos={pos}: kernel {ms:.4f} ms a call eagerly ({device_ms:.4f} "
+                              f"ms device, CUDA graph), plain {plain_ms:.4f} ms, bound "
+                              f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}% of "
+                              f"bound eagerly, {100 * bound[0] / device_ms:.1f}% in device time",
+                              flush=True)
                         del cache, scales, args
             del cache0, scales0
-    ms, plain_ms = timing[f"int8 K={BEAMS} L=128"]
+    ms, plain_ms, device_ms = timing[f"int8 K={BEAMS} L=128"]
     bound, bound_by = bounds[f"int8 K={BEAMS} L=128"]
     records.append({"name": "beam_select_attention_update", "route": "cuda",
                     "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
                     "replaces": "multimodalanalytical_tpu/ops/beam_attention.py:570",
                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                    "device_ms": device_ms, "device_ms_is": DEVICE_MS_IS,
                     "other_bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "timed_at": f"int8 cache, K={BEAMS}, L=128, pos=127",
+                    "other_times_ms_is": "(ms, plain_ms, device_ms)",
                     "other_times_ms": {k: list(v) for k, v in timing.items()}})
 
     # #2 cross-attention with padded keys (row 0 fully masked, as batch
@@ -303,35 +412,62 @@ def check_kernels() -> list:
         qx = randn(BATCH * beams, D_MODEL)
         got = ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
         want = ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams)
-        err, tol = _attn_err(got, want)
-        ms = _time_ms(lambda: ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams))
-        plain_ms = _time_ms(lambda: ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams))
+        err, tol, rms, ok = _attn_err(got, want)
+        print(f"kernel beam_cross_attention K={beams} Ls={ls}: max_abs_err={err:.3e} "
+              f"tol={tol:.3e} rel_rms_err={rms:.3e} tol={ATTN_RMS_TOL:.0e}", flush=True)
+        _require(ok, "beam_cross_attention disagrees with its plain version")
+        # A planted fault: key 0 (valid in every row but the masked one)
+        # dropped, as a kernel that skipped it would.
+        dropped = bias.clone()
+        dropped[:, 0] = -1e9
+        _rejected(f"beam_cross_attention K={beams}",
+                  {"key 0 dropped": ba.beam_cross_attention_plain(qx, kx, vx, dropped, HEADS,
+                                                                  beams)}, want)
+        worst = max(worst, err)
         # SDPA on the same inputs (yardstick only): beams as query rows of
-        # their batch row, the key bias as an additive mask.
+        # their batch row, the key bias as an additive mask; timed in turns
+        # with the kernel.
         qh = qx.reshape(BATCH, beams, HEADS, -1).transpose(1, 2)
         kh, vh = (t.reshape(BATCH, ls, HEADS, -1).transpose(1, 2) for t in (kx, vx))
         mask = bias[:, None, None, :].to(qx.dtype)
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+        def kernel():
+            return ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+        turns = {"kernel": [], "sdpa": [], "kernel_device": [], "sdpa_device": []}
+        for _ in range(2):
+            for name, fn in (("kernel", kernel), ("sdpa", sdpa)):
+                turns[name].append(_time_ms(fn, iters=50))
+                turns[f"{name}_device"].append(_device_ms(fn, iters=50))
+        ms, library_ms, device_ms, library_device_ms = (
+            sum(turns[x]) / 2 for x in ("kernel", "sdpa", "kernel_device", "sdpa_device"))
+        plain_ms = _time_ms(lambda: ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams))
         bounds[f"K={beams}"] = _bound_ms(
             4 * BATCH * beams * ls * D_MODEL,
             (2 * BATCH * beams + 2 * BATCH * ls) * D_MODEL * 2 + bias.numel() * 4)
-        timing[f"K={beams}"] = (ms, plain_ms, library_ms)
-        print(f"kernel beam_cross_attention K={beams} Ls={ls}: max_abs_err={err:.3e} "
-              f"tol={tol:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-              f"{library_ms:.4f} ms, bound {bounds[f'K={beams}'][0]:.5f} ms "
-              f"({bounds[f'K={beams}'][1]})", flush=True)
-        _require(bool(torch.isfinite(got.float()).all()) and err <= tol,
-                 "beam_cross_attention disagrees with its plain version")
-        worst = max(worst, err)
-    ms, plain_ms, library_ms = timing[f"K={BEAMS}"]
+        timing[f"K={beams}"] = (ms, plain_ms, library_ms, device_ms, library_device_ms)
+        print(f"time beam_cross_attention K={beams} Ls={ls}: a call eagerly, in turns: kernel "
+              f"{ms:.4f} ms {[round(x, 4) for x in turns['kernel']]}, SDPA {library_ms:.4f} ms "
+              f"{[round(x, 4) for x in turns['sdpa']]} (no slower than SDPA: "
+              f"{ms <= library_ms}); device, CUDA graphs, in turns: kernel {device_ms:.4f} ms "
+              f"{[round(x, 4) for x in turns['kernel_device']]}, SDPA {library_device_ms:.4f} ms "
+              f"{[round(x, 4) for x in turns['sdpa_device']]} (no slower than SDPA: "
+              f"{device_ms <= library_device_ms}); plain {plain_ms:.4f} ms; bound "
+              f"{bounds[f'K={beams}'][0]:.5f} ms ({bounds[f'K={beams}'][1]})", flush=True)
+    ms, plain_ms, library_ms, device_ms, library_device_ms = timing[f"K={BEAMS}"]
     records.append({"name": "beam_cross_attention", "route": "cuda",
                     "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
                     "replaces": "multimodalanalytical_tpu/ops/beam_attention.py:536",
                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bounds[f"K={BEAMS}"][0], "bound_by": bounds[f"K={BEAMS}"][1],
-                    "library_ms": library_ms,
+                    "library_ms": library_ms, "device_ms": device_ms,
+                    "library_device_ms": library_device_ms, "device_ms_is": DEVICE_MS_IS,
                     "library": "torch.nn.functional.scaled_dot_product_attention, additive mask",
                     "timed_at": f"K={BEAMS}, Ls={ls}",
+                    "other_times_ms_is": "(ms, plain_ms, library_ms, device_ms, "
+                                         "library_device_ms)",
                     "other_times_ms": {k: list(v) for k, v in timing.items()}})
 
     # #3 decode FFN, ungated (flagship) and gated, at M = B x K.
@@ -406,21 +542,24 @@ def check_read_only_attention() -> dict:
             launches += ba.beam_select_attention.launches - before
             want = ba.beam_select_attention_plain(*args)
             torch.cuda.synchronize()
-            err, tol = _attn_err(got, want)
+            err, tol, rms, ok = _attn_err(got, want)
             ms = _time_ms(lambda: ba.beam_select_attention(*args))
+            device_ms = _device_ms(lambda: ba.beam_select_attention(*args))
             plain_ms = _time_ms(lambda: ba.beam_select_attention_plain(*args), iters=5)
-            timing[(kind, beams)] = (ms, plain_ms)
+            timing[(kind, beams)] = (ms, plain_ms, device_ms)
             bounds[(kind, beams)] = _bound_ms(4 * BATCH * beams * (pos + 1) * D_MODEL,
                                               _select_bytes(anc, pos, kind == "int8", False))
             print(f"kernel beam_select_attention {kind} K={beams} L={MAX_LENGTH} pos={pos}: "
-                  f"max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bounds[(kind, beams)][0]:.4f} ms "
-                  f"({bounds[(kind, beams)][1]})", flush=True)
-            _require(bool(torch.isfinite(got.float()).all()) and err <= tol,
-                     "beam_select_attention disagrees with its plain version")
+                  f"max_abs_err={err:.3e} tol={tol:.3e} rel_rms_err={rms:.3e} tol="
+                  f"{ATTN_RMS_TOL:.0e}; kernel {ms:.4f} ms a call eagerly ({device_ms:.4f} ms "
+                  f"device, CUDA graph), plain {plain_ms:.4f} ms, bound "
+                  f"{bounds[(kind, beams)][0]:.4f} ms ({bounds[(kind, beams)][1]}), "
+                  f"{100 * bounds[(kind, beams)][0] / ms:.1f}% of bound eagerly, "
+                  f"{100 * bounds[(kind, beams)][0] / device_ms:.1f}% in device time", flush=True)
+            _require(ok, "beam_select_attention disagrees with its plain version")
             worst = max(worst, err)
             del cache, scales
-    ms, plain_ms = timing[("int8", EVAL_BEAMS)]
+    ms, plain_ms, device_ms = timing[("int8", EVAL_BEAMS)]
     bound, bound_by = bounds[("int8", EVAL_BEAMS)]
     return {"name": "beam_select_attention", "route": "cuda",
             "source": "multimodalanalytical_tpu_torch/csrc/beam_attention.cu",
@@ -428,8 +567,10 @@ def check_read_only_attention() -> dict:
             "launches": launches, "launches_by_phase": {"1": launches},
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "device_ms": device_ms, "device_ms_is": DEVICE_MS_IS,
             "other_bounds_ms": {f"{k} K={b}": v[0] for (k, b), v in bounds.items()},
             "timed_at": f"int8 cache, B={BATCH}, K={EVAL_BEAMS}, L={MAX_LENGTH}, pos={pos}",
+            "other_times_ms_is": "(ms, plain_ms, device_ms)",
             "other_times_ms": {f"{k} K={b}": list(v) for (k, b), v in timing.items()}}
 
 
@@ -747,12 +888,13 @@ def check_teacher_forced(model, plain_model) -> None:
                 logits = []
                 for m in (model, plain_model):
                     dm = decode_model(m)
-                    cache = dm.init_beam_cache(batch, beams, steps, hidden, kind == "int8")
+                    cache = dm.init_beam_cache(batch, beams, steps, hidden, mask,
+                                               kind == "int8")
                     out = []
                     for t in range(steps):
                         a = anc.clone()
                         a[:, :, t] = torch.arange(beams, device=dev, dtype=torch.int32)
-                        out.append(dm.beam_decode_step(tokens[:, :, t], t, cache, a, mask))
+                        out.append(dm.beam_decode_step(tokens[:, :, t], t, cache, a))
                     logits.append(torch.stack(out).float())
                 err = (logits[0] - logits[1]).abs().max().item()
                 tol = LOGIT_TOL * max(1.0, logits[1].abs().max().item())
@@ -1228,39 +1370,52 @@ def _device_time(prof) -> tuple:
 
 
 def profile_eval() -> None:
-    """The evaluation path under ``torch.profiler``: one beam-30 predict
-    batch of 128 spectra and one greedy (K 1) validation pass over 128, on
-    a fresh flagship model (random weights, so every row decodes all
-    steps). Each runs once to warm up, once unprofiled for its wall time
-    and once profiled; prints device time by kernel and the busy share
-    (device time / unprofiled wall time)."""
+    """The decode paths under ``torch.profiler``: one beam-30 predict batch
+    of 128 spectra, one greedy (K 1) validation pass over 128, and one
+    128-spectrum serving request at beam 10 (phase 2's), on a fresh
+    flagship model (random weights, so every row decodes all steps). Each
+    runs once to warm up, once unprofiled for its wall time and once
+    profiled; prints device time by kernel, the busy share (device time /
+    unprofiled wall time) and the launches per decode step."""
     import torch
 
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
     from multimodalanalytical_tpu_torch.training import Trainer
 
     tokenizer = FixedVocabTokenizer()
     val = _eval_loader(tokenizer, EVAL_TRAIN, EVAL_VAL)
     test = _eval_loader(tokenizer, EVAL_TRAIN + EVAL_VAL, BATCH)
     trainer = Trainer(_flagship(), tokenizer, n_beams=EVAL_BEAMS)
-    runs = {f"predict K {EVAL_BEAMS}": lambda: trainer.predict(test, n_beams=EVAL_BEAMS),
-            "validate K 1": lambda: trainer.validate(val)}
+    engine = InferenceEngine(trainer.model, n_beams=BEAMS, batch_size=BATCH)
+    request = _request(seed=1)
+
+    def counted(fn):
+        """``fn`` returning the decode steps it ran."""
+        def run():
+            before = trainer.decode_steps
+            fn()
+            return trainer.decode_steps - before
+        return run
+
+    runs = {f"predict K {EVAL_BEAMS}": counted(lambda: trainer.predict(test, n_beams=EVAL_BEAMS)),
+            "validate K 1": counted(lambda: trainer.validate(val)),
+            f"serve K {BEAMS}": lambda: (engine.decode_batch(*request), engine.last_steps)[1]}
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for name, run in runs.items():
         run()
         torch.cuda.synchronize()
-        steps = trainer.decode_steps
         t0 = time.perf_counter()
-        run()
+        steps = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        steps = trainer.decode_steps - steps
         with torch.profiler.profile(activities=activities) as prof:
             run()
             torch.cuda.synchronize()
         device_s, rows, launches = _device_time(prof)
         print(f"profile {name}: {steps} decode steps; wall {wall:.4f} s unprofiled; device "
               f"time {device_s:.4f} s (kernels and copies only); busy share "
-              f"{device_s / wall:.3f}; {launches} kernel launches", flush=True)
+              f"{device_s / wall:.3f}; {launches} kernel launches ({launches / steps:.1f} per "
+              f"decode step)", flush=True)
         for ms, calls, kernel in rows[:PROFILE_TOP]:
             print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
                   f"{kernel[:100]}", flush=True)

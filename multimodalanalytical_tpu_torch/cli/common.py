@@ -59,8 +59,19 @@ def seed_everything(seed: Optional[int] = None) -> int:
     return seed
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+CPU_OVERRIDE = "+device=cpu"
+
+
+def config_device(config: Dict[str, Any]) -> torch.device:
+    """The device an entry point runs on: ``config["device"]``, which is
+    ``cuda`` unless the caller asks for the CPU with the override
+    ``+device=cpu``. Raises when a CUDA device is asked for and there is
+    none: an entry point never carries on on the CPU by itself."""
+    device = torch.device(config.get("device", "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} was asked for but torch.cuda.is_available() "
+                           f"is False; pass {CPU_OVERRIDE} to run on the CPU")
+    return device
 
 
 def sample_train_columns(train_set) -> Dict[str, Any]:

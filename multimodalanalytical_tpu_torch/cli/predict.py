@@ -13,6 +13,8 @@ at ``model.n_beams`` and scores, with rejection sampling when
 
 ``model.model_checkpoint_path`` is a checkpoint directory of this package or
 an ``.npz`` of a JAX param tree (``training/checkpoint.py``).
+It runs on the CUDA device unless the override ``+device=cpu`` asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from .common import (
     build_loaders,
     build_model,
     compose,
-    default_device,
+    config_device,
     score_predictions,
     seed_everything,
     setup_logging,
@@ -44,6 +46,7 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
     from ..data.data_utils import load_preprocessors_artifact
     from ..data.datasets import build_dataset_multimodal
 
+    device = config_device(config)
     work_dir = Path(config["working_dir"]) / config["job_name"]
     work_dir.mkdir(parents=True, exist_ok=True)
     setup_logging(work_dir / "predict.log")
@@ -72,8 +75,7 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
     loaders = build_loaders(dataset, collator, batch_size, seed, test_idx=config.get("test_idx"))
     target_modality = collator.target_modality
     tokenizer = preprocessors[target_modality]
-    model, _ = build_model(model_config, data_config, target_modality, tokenizer,
-                           default_device(), seed)
+    model, _ = build_model(model_config, data_config, target_modality, tokenizer, device, seed)
     model.load_state_dict(restore_params(model_config["model_checkpoint_path"]))
     logger.info("Restored checkpoint from %s", model_config["model_checkpoint_path"])
 

@@ -20,6 +20,9 @@ which carries the collator's fitted lengths)::
     python -m multimodalanalytical_tpu_torch.cli.serve \
         preprocessor_path=runs/train/preprocessor.json model=custom_model \
         model.model_checkpoint_path=runs/train/checkpoints/best serve.port=8000
+
+It serves from the CUDA device unless the override ``+device=cpu`` asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -268,8 +271,9 @@ def engine_from_config(config: Dict[str, Any]) -> InferenceEngine:
     the checkpoint ``model.model_checkpoint_path``, and the collator and
     tokenizer of the artifact ``preprocessor_path``."""
     from ..training.checkpoint import restore_params
-    from .common import build_model, default_device, seed_everything
+    from .common import build_model, config_device, seed_everything
 
+    device = config_device(config)
     model_config: Dict[str, Any] = dict(config["model"])
     if not model_config.get("model_checkpoint_path"):
         raise ValueError("Please supply model_checkpoint_path with model.model_checkpoint_path=...")
@@ -278,7 +282,7 @@ def engine_from_config(config: Dict[str, Any]) -> InferenceEngine:
     batch_size = int((config.get("serve") or {}).get("batch_size") or model_config["batch_size"])
     collator, tokenizer = collator_from_artifact(Path(config["preprocessor_path"]), batch_size)
     model, _ = build_model(model_config, collator.data_config, collator.target_modality,
-                           tokenizer, default_device(), seed_everything())
+                           tokenizer, device, seed_everything())
     model.load_state_dict(restore_params(model_config["model_checkpoint_path"]))
     return InferenceEngine(model, n_beams=int(model_config.get("n_beams", 10)),
                            batch_size=batch_size, collator=collator, tokenizer=tokenizer,

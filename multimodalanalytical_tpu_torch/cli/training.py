@@ -8,9 +8,10 @@ finetune load -> fit -> reload ``best`` -> beam-search predict at
     python -m multimodalanalytical_tpu_torch.cli.training \\
         working_dir=runs job_name=train data=ir/patches data_path=... model=custom_model
 
-The model runs on the CUDA device when there is one (its kernels then carry
-decode and long encoders), else on the CPU. Config composition and the
-datasets need pyyaml, pyarrow and ``tokenizers``.
+The model runs on the CUDA device (its kernels carry decode and long
+encoders); the override ``+device=cpu`` asks for the CPU, and without it a
+machine with no CUDA device raises before any data is loaded. Config
+composition and the datasets need pyyaml, pyarrow and ``tokenizers``.
 
 A ``mixture`` config trains on the host generator: the JAX package's
 ``device_mixing=False`` route, its parity reference (device-side mixing is
@@ -32,7 +33,7 @@ from .common import (
     build_model,
     build_preprocessors,
     compose,
-    default_device,
+    config_device,
     score_predictions,
     seed_everything,
     setup_logging,
@@ -48,11 +49,11 @@ GUIDED_NOT_PORTED = ("guided_generation is not ported to the PyTorch package yet
 def run(config: Dict[str, Any]) -> Dict[str, Any]:
     from ..data.datasets import build_dataset_multimodal
 
+    device = config_device(config)
     work_dir = Path(config["working_dir"]) / config["job_name"]
     work_dir.mkdir(parents=True, exist_ok=True)
     setup_logging(work_dir / "training.log")
     seed = seed_everything()
-    device = default_device()
 
     data_config = dict(config["data"])
     model_config: Dict[str, Any] = dict(config["model"])

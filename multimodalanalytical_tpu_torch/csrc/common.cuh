@@ -60,11 +60,22 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {
   }
 }
 
+// int8 to float without the quarter-rate conversion unit: x + 128 (the
+// byte with its sign bit flipped) becomes the low mantissa bits of 2^23,
+// and subtracting 2^23 + 128 leaves x exactly.
+__device__ __forceinline__ float byte_to_f32(uint32_t word, uint32_t selector) {
+  return __int_as_float(__byte_perm(word, 0x4B000000u, selector)) - 8388736.f;
+}
+
 __device__ __forceinline__ void load8(const int8_t* p, float out[8]) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  const uint32_t lo = raw.x ^ 0x80808080u;
+  const uint32_t hi = raw.y ^ 0x80808080u;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+  for (int i = 0; i < 4; ++i) {
+    out[i] = byte_to_f32(lo, 0x7540u + i);
+    out[4 + i] = byte_to_f32(hi, 0x7540u + i);
+  }
 }
 
 __device__ __forceinline__ void load8(const float* p, float out[8]) {
@@ -72,20 +83,6 @@ __device__ __forceinline__ void load8(const float* p, float out[8]) {
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-// fp32 dot product of a query slice (float, in shared memory) with one
-// stored key row of `head_dim` elements, summed in index order.
-template <typename T>
-__device__ __forceinline__ float row_dot(const float* q, const T* row, int head_dim) {
-  float acc = 0.f;
-  for (int d = 0; d < head_dim; d += 8) {
-    float k[8];
-    load8(row + d, k);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc = fmaf(q[d + i], k[i], acc);
-  }
-  return acc;
 }
 
 }  // namespace mmt

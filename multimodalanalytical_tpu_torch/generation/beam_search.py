@@ -96,7 +96,8 @@ def beam_search(
 
     encoder_hidden = model.encode(encoder_inputs, encoder_mask)
     dmodel = decode_model(model)
-    cache = dmodel.init_beam_cache(batch, num_beams, max_length, encoder_hidden, quantize)
+    cache = dmodel.init_beam_cache(batch, num_beams, max_length, encoder_hidden, encoder_mask,
+                                   quantize)
 
     live_seqs = torch.full((batch, num_beams, max_length), pad, dtype=torch.long, device=device)
     live_seqs[:, :, 0] = bos
@@ -116,8 +117,8 @@ def beam_search(
             break
         stage_len = next(b for b in bounds if t < b - 1)
         ancestry[:, :, t] = beam_ids
-        logits = dmodel.beam_decode_step(
-            live_seqs[:, :, t], t, cache, ancestry[:, :, :stage_len], encoder_mask)
+        logits = dmodel.beam_decode_step(live_seqs[:, :, t], t, cache,
+                                         ancestry[:, :, :stage_len])
         logprobs = torch.log_softmax(logits.float(), dim=-1)
         vocab = logprobs.shape[-1]
         if t == max_length - 2:

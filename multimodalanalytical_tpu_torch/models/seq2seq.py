@@ -102,11 +102,14 @@ class Seq2SeqModel(nn.Module):
                 "alignment_loss": torch.zeros((), device=ce.device), "logits": logits}
 
     def init_beam_cache(self, batch_size: int, num_beams: int, max_length: int,
-                        encoder_hidden: torch.Tensor, quantize: bool = False):
+                        encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor,
+                        quantize: bool = False):
         """Lazy-ancestry beam cache: {"self": per-layer (2, B, L*K, D) buffers
         (or {"data": int8, "scale": (2, B, H, F_pad) fp32} with F_pad = L*K
-        rounded up to 128), "cross": per-layer flat (k, v)}. Flat row l*K + s
-        holds what beam slot s wrote at time l; rows are never reordered."""
+        rounded up to 128), "cross": per-layer flat (k, v), "cross_bias":
+        the (B, Ls) fp32 padding bias of ``encoder_mask``, built once for
+        every step and layer}. Flat row l*K + s holds what beam slot s wrote
+        at time l; rows are never reordered."""
         cfg = self.config
         device = encoder_hidden.device
         flat = max_length * num_beams
@@ -121,10 +124,11 @@ class Seq2SeqModel(nn.Module):
         else:
             selves = [torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
                       for _ in range(cfg.decoder_layers)]
-        return {"self": selves, "cross": self.decoder.project_cross_kv(encoder_hidden)}
+        return {"self": selves, "cross": self.decoder.project_cross_kv(encoder_hidden),
+                "cross_bias": make_attention_bias(encoder_mask)[:, 0, 0]}
 
     def beam_decode_step(self, token_ids: torch.Tensor, position: int, cache,
-                         ancestry: torch.Tensor, encoder_mask: torch.Tensor) -> torch.Tensor:
+                         ancestry: torch.Tensor) -> torch.Tensor:
         """One beam decode step: (B, K) tokens -> logits (B, K, V); appends to
         the self caches in place."""
         batch, beams = token_ids.shape
@@ -135,6 +139,5 @@ class Seq2SeqModel(nn.Module):
             decode_positions=positions)
         x = embeds.reshape(batch * beams, self.config.d_model)
         hidden = self.decoder.beam_decode_step(
-            x, cache["self"], ancestry, cache["cross"], make_attention_bias(encoder_mask),
-            position)
+            x, cache["self"], ancestry, cache["cross"], cache["cross_bias"], position)
         return self._logits(hidden).reshape(batch, beams, -1)

@@ -36,10 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "mmt_beam_select_attention_update": [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-    ],
+    "mmt_beam_select_attention_update": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
     "mmt_beam_select_attention": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
     "mmt_beam_cross_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "mmt_geglu_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

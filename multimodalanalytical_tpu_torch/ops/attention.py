@@ -13,8 +13,11 @@ takes its XLA route below K = 2. At K = 1 with a bf16 cache the two
 therefore round q*scale and the probabilities to bf16 in different places
 (``tests/test_torch_model.py`` holds the greedy logits within the bf16
 tolerance). Everything else (an fp32 cache, ``use_beam_kernel=False``)
-takes the plain formulation ported from the JAX "XLA fallback". The
-kernels' own shape limit is :func:`beam_kernel_supports`. KV caches are
+takes the plain formulation ported from the JAX "XLA fallback". On a CUDA
+tensor the kernel route is taken whatever the shape, and its wrapper
+raises on a shape the kernels do not take; on the CPU the route follows
+the kernels' shape limit, :func:`beam_kernel_supports`, so that both
+devices compute the same math. KV caches are
 updated in place. Full-sequence attention at the flash gate (encoder
 self-attention with Lq == Lk >= 2048) takes ``ops/flash_attention.py``.
 """
@@ -27,21 +30,9 @@ import torch
 from torch import nn
 
 from .beam_attention import beam_cross_attention, beam_kernel_supports, \
-    beam_select_attention_update
+    beam_select_attention_update, quantize_kv_heads
 from .flash_attention import NEG_INF, flash_attention, flash_qualifies
 from .layers import Dense
-
-
-def quantize_kv_heads(x: torch.Tensor, num_heads: int):
-    """Per-(row, head) symmetric int8 quantization of K/V rows.
-
-    ``x``: (..., D). Returns (q int8 same shape, scales (..., H) fp32) with
-    ``x ~= q * scales`` per head block."""
-    head_dim = x.shape[-1] // num_heads
-    xh = x.reshape(*x.shape[:-1], num_heads, head_dim).float()
-    scales = xh.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
-    q = torch.clamp(torch.round(xh / scales[..., None]), -127, 127).to(torch.int8)
-    return q.reshape(x.shape), scales
 
 
 def dequantize_kv(data: torch.Tensor, scale: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -128,13 +119,13 @@ class MultiHeadAttention(nn.Module):
         # greedy decoding (validation's K = 1) runs through it as well.
         if (self.use_beam_kernel and self.scale_qk
                 and (quantized or cache.dtype == torch.bfloat16)
-                and beam_kernel_supports(beams, self.d_model, heads)):
+                and (x.is_cuda or beam_kernel_supports(beams, self.d_model, heads))):
+            # An int8 cache takes the projection's rows as they are: the
+            # update quantizes them itself.
             if quantized:
-                k_q, k_s = quantize_kv_heads(k_new, heads)
-                v_q, v_s = quantize_kv_heads(v_new, heads)
                 out = beam_select_attention_update(
-                    q_flat.to(torch.bfloat16), k_q, v_q, cache["data"], ancestry,
-                    position, heads, scales=cache["scale"], k_scale=k_s, v_scale=v_s)
+                    q_flat.to(torch.bfloat16), k_new, v_new, cache["data"], ancestry,
+                    position, heads, scales=cache["scale"])
             else:
                 out = beam_select_attention_update(
                     q_flat.to(torch.bfloat16), k_new.to(cache.dtype), v_new.to(cache.dtype),
@@ -179,7 +170,7 @@ class MultiHeadAttention(nn.Module):
         self,
         x: torch.Tensor,                          # (B*K, D) flat
         kv: Tuple[torch.Tensor, torch.Tensor],    # flat (B, Ls, D), beam-invariant
-        bias: Optional[torch.Tensor],             # (B, 1, 1, Ls)
+        bias: torch.Tensor,                       # (B, Ls) fp32, built once per request
     ) -> torch.Tensor:
         """Beam cross-attention against batch-sized encoder K/V; (B*K, D)."""
         batch, ls = kv[0].shape[:2]
@@ -187,10 +178,8 @@ class MultiHeadAttention(nn.Module):
         heads, head_dim = self.num_heads, self.head_dim
         q_flat = self.q_proj(x)
         if (self.use_beam_kernel and self.scale_qk
-                and beam_kernel_supports(beams, self.d_model, heads)):
-            bias2d = (torch.zeros(batch, ls, device=x.device) if bias is None
-                      else bias[:, 0, 0, :].float())
-            out = beam_cross_attention(q_flat.to(kv[0].dtype), kv[0], kv[1], bias2d,
+                and (x.is_cuda or beam_kernel_supports(beams, self.d_model, heads))):
+            out = beam_cross_attention(q_flat.to(kv[0].dtype), kv[0], kv[1], bias,
                                        heads, beams)
             return self.out_proj(out.to(x.dtype))
 
@@ -199,8 +188,7 @@ class MultiHeadAttention(nn.Module):
         v = kv[1].reshape(batch, ls, heads, head_dim)
         scale = head_dim ** -0.5 if self.scale_qk else 1.0
         logits = torch.einsum("bkhd,blhd->bkhl", (q * scale).to(k.dtype).float(), k.float())
-        if bias is not None:
-            logits = logits + bias
+        logits = logits + bias[:, None, None, :]
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bkhl,blhd->bkhd", probs.to(v.dtype).float(), v.float())
         return self.out_proj(out.to(x.dtype).reshape(batch * beams, self.d_model))

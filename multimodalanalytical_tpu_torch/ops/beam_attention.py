@@ -30,7 +30,9 @@ Numerics (both versions): q * Dh**-0.5 is rounded to bf16 before the dot,
 dots accumulate in fp32, int8 logits are scaled by the key's per-(slot,
 head) scale and probabilities by the value's, and probabilities are rounded
 to bf16 before the value sum. In the update the time-``pos`` term reads
-this step's fresh rows, which it stores in place first.
+this step's fresh rows, which it stores in place first; an int8 cache
+takes them un-quantized and quantizes them with :func:`quantize_kv_heads`'
+arithmetic (the kernel bit for bit).
 
 Dispatch: a CPU tensor takes the ``*_plain`` version; a CUDA tensor launches
 the kernel or raises. The update is IN PLACE on ``cache`` and ``scales``
@@ -50,33 +52,55 @@ BF16 = torch.bfloat16
 
 def beam_kernel_supports(beams: int, d_model: int, num_heads: int) -> bool:
     """Whether the CUDA beam kernels take this shape: head_dim a multiple of
-    8 up to 256 (16-byte row loads, 8 fp32 sums per lane), and the staged
-    (beams, head_dim) fp32 queries within 48 KB of shared memory."""
+    8 up to 256 (8-element row pieces), 1 to 256 beams, and K x head_dim at
+    most 8192, within which both kernels' shared-memory plans fit the
+    H100's 227 KB at any stage length and any encoder length (the select
+    kernel moves its per-time tables to global memory when they outgrow
+    shared memory; the cross kernel takes the keys in chunks). The launchers
+    refuse a plan they cannot make, and stages beyond 65536 (time, slot)
+    rows."""
     head_dim = d_model // num_heads
-    return (head_dim * num_heads == d_model and head_dim % 8 == 0
-            and head_dim <= 256 and beams * head_dim * 4 <= 48 * 1024)
+    return (head_dim * num_heads == d_model and head_dim % 8 == 0 and head_dim <= 256
+            and 1 <= beams <= 256 and beams * head_dim <= 8192)
 
 
-def _store_fresh_rows(cache, scales, k_new, v_new, k_scale, v_scale, pos, beams):
-    """Append this step's rows at flat rows pos*K .. pos*K+K-1 (in place)."""
+def quantize_kv_heads(x: torch.Tensor, num_heads: int):
+    """Per-(row, head) symmetric int8 quantization of K/V rows.
+
+    ``x``: (..., D). Returns (q int8 same shape, scales (..., H) fp32) with
+    ``x ~= q * scales`` per head block. The scale is an IEEE division by
+    127 on every device: the divisor is a tensor on ``x``'s device, since
+    PyTorch's CUDA division by a Python number multiplies by its reciprocal
+    instead, which may differ in the last bit (the update kernel divides)."""
+    head_dim = x.shape[-1] // num_heads
+    xh = x.reshape(*x.shape[:-1], num_heads, head_dim).float()
+    amax = xh.abs().amax(dim=-1).clamp_min(1e-8)
+    scales = amax / torch.full((), 127.0, device=x.device)
+    q = torch.clamp(torch.round(xh / scales[..., None]), -127, 127).to(torch.int8)
+    return q.reshape(x.shape), scales
+
+
+def _store_fresh_rows(cache, scales, k_new, v_new, pos, beams, num_heads):
+    """Append this step's rows at flat rows pos*K .. pos*K+K-1 (in place),
+    quantized by :func:`quantize_kv_heads` for an int8 cache."""
     batch, d_model = cache.shape[1], cache.shape[3]
     rows = slice(pos * beams, (pos + 1) * beams)
+    if scales is not None:
+        (k_new, k_scale), (v_new, v_scale) = (quantize_kv_heads(t, num_heads)
+                                              for t in (k_new, v_new))
+        scales[0, :, :, rows] = k_scale.reshape(batch, beams, num_heads).transpose(1, 2)
+        scales[1, :, :, rows] = v_scale.reshape(batch, beams, num_heads).transpose(1, 2)
     cache[0, :, rows] = k_new.reshape(batch, beams, d_model)
     cache[1, :, rows] = v_new.reshape(batch, beams, d_model)
-    if scales is not None:
-        heads = scales.shape[2]
-        scales[0, :, :, rows] = k_scale.reshape(batch, beams, heads).transpose(1, 2)
-        scales[1, :, :, rows] = v_scale.reshape(batch, beams, heads).transpose(1, 2)
 
 
 def beam_select_attention_update_plain(
-    q, k_new, v_new, cache, ancestry, position, num_heads,
-    scales=None, k_scale=None, v_scale=None,
+    q, k_new, v_new, cache, ancestry, position, num_heads, scales=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`beam_select_attention_update`."""
     beams = ancestry.shape[1]
     pos = int(position)
-    _store_fresh_rows(cache, scales, k_new, v_new, k_scale, v_scale, pos, beams)
+    _store_fresh_rows(cache, scales, k_new, v_new, pos, beams, num_heads)
     slot = ancestry[:, :, : pos + 1].long().clone()
     slot[:, :, pos] = torch.arange(beams, device=slot.device)
     return _attend_plain(q, cache, slot, num_heads, scales)
@@ -135,25 +159,24 @@ def _check_cache_operands(name, q, cache, ancestry, pos, num_heads, scales):
 
 def beam_select_attention_update(
     q: torch.Tensor,             # (B*K, D) bf16 queries (post q-projection)
-    k_new: torch.Tensor,         # (B*K, D) this step's K rows, cache dtype
-    v_new: torch.Tensor,         #   (int8 rows come pre-quantized)
+    k_new: torch.Tensor,         # (B*K, D) this step's K rows: bf16 for a bf16 cache;
+    v_new: torch.Tensor,         #   bf16 or fp32 for an int8 cache (quantized here)
     cache: torch.Tensor,         # (2, B, L_max*K, D) int8 | bf16, updated in place
     ancestry: torch.Tensor,      # (B, K, L) int32 stage slice, L <= L_max
     position: int,               # step index, < L
     num_heads: int,
     scales: Optional[torch.Tensor] = None,   # (2, B, H, F_pad) fp32, int8 cache
-    k_scale: Optional[torch.Tensor] = None,  # (B*K, H) fp32 scales of k_new
-    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Lazy-ancestry beam self-attention with the in-place cache append.
+    """Lazy-ancestry beam self-attention with the in-place cache append;
+    with an int8 cache the fresh rows are quantized per (row, head) as
+    :func:`quantize_kv_heads` does, and rows and scales stored in place.
 
     Returns the (B*K, D) bf16 attention output (pre out-projection).
     ``beam_select_attention_update.launches`` counts kernel launches.
     """
     if q.device.type == "cpu":
         return beam_select_attention_update_plain(
-            q, k_new, v_new, cache, ancestry, position, num_heads,
-            scales, k_scale, v_scale)
+            q, k_new, v_new, cache, ancestry, position, num_heads, scales)
     require = _cuda.require
     pos = int(position)
     _check_cache_operands("beam_select_attention_update", q, cache, ancestry, pos, num_heads,
@@ -164,31 +187,25 @@ def beam_select_attention_update(
     quantized = scales is not None
     require(q.dtype == BF16 and q.shape == (batch * beams, d_model),
             "beam_select_attention_update: q must be (B*K, D) bf16")
-    require(k_new.dtype == cache.dtype and v_new.dtype == cache.dtype
+    fresh_types = (BF16, torch.float32) if quantized else (BF16,)
+    require(k_new.dtype in fresh_types and v_new.dtype == k_new.dtype
             and k_new.shape == q.shape and v_new.shape == q.shape,
-            "beam_select_attention_update: fresh rows must be (B*K, D) in the cache dtype")
-    tensors = [q, k_new, v_new, cache, ancestry]
-    if quantized:
-        require(k_scale is not None and v_scale is not None
-                and k_scale.shape == (batch * beams, num_heads) == v_scale.shape
-                and k_scale.dtype == torch.float32 == v_scale.dtype,
-                "beam_select_attention_update: fresh scales must be (B*K, H) fp32")
-        tensors += [scales, k_scale, v_scale]
+            "beam_select_attention_update: fresh rows must be (B*K, D) bf16 (or fp32 for an "
+            "int8 cache)")
+    tensors = [q, k_new, v_new, cache, ancestry] + ([scales] if quantized else [])
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
-    if quantized:
-        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     require(all(t.is_cuda and t.device == q.device for t in tensors)
             and cache.is_contiguous()
             and all(t.data_ptr() % 16 == 0 for t in (q, k_new, v_new, cache)),
             "beam_select_attention_update: operands must be contiguous, 16-byte "
             "aligned and on one device")
+    kind = 0 if not quantized else 1 if k_new.dtype == BF16 else 2
     out = torch.empty_like(q)
     lib = _cuda.library()
     _cuda.check(lib.mmt_beam_select_attention_update(
-        int(quantized), _cuda.ptr(q), _cuda.ptr(k_new), _cuda.ptr(v_new),
-        _cuda.ptr(k_scale), _cuda.ptr(v_scale), _cuda.ptr(cache), _cuda.ptr(scales),
-        _cuda.ptr(ancestry), _cuda.ptr(out), batch, beams, num_heads, head_dim, flat,
-        scales.shape[3] if quantized else 0, ancestry.stride(1), pos,
+        kind, _cuda.ptr(q), _cuda.ptr(k_new), _cuda.ptr(v_new), _cuda.ptr(cache),
+        _cuda.ptr(scales), _cuda.ptr(ancestry), _cuda.ptr(out), batch, beams, num_heads,
+        head_dim, flat, scales.shape[3] if quantized else 0, ancestry.stride(1), pos,
         head_dim ** -0.5, _cuda.stream()), "beam_select_attention_update")
     beam_select_attention_update.launches += 1
     return out

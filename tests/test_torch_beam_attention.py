@@ -68,7 +68,7 @@ def test_update_bf16_matches_pallas_interpret(position):
 def test_update_int8_matches_pallas_interpret(position):
     q, cache, k_new, v_new, ancestry = _inputs(8)
     ancestry[:, :, position] = np.arange(K)
-    (qj, qt), (cj, _), (kj, _), (vj, _) = map(_bf16, (q, cache, k_new, v_new))
+    (qj, qt), (cj, _), (kj, kt), (vj, vt) = map(_bf16, (q, cache, k_new, v_new))
     data0, scale0 = jax_attention.quantize_kv_heads(cj, H)          # (2,B,F,D), (2,B,F,H)
     scale0 = jnp.pad(scale0.transpose(0, 1, 3, 2), ((0, 0), (0, 0), (0, 0), (0, 128 - L * K)))
     k_q, k_s = jax_attention.quantize_kv_heads(kj, H)
@@ -78,12 +78,12 @@ def test_update_int8_matches_pallas_interpret(position):
         qj, k_q, v_q, data0, jnp.asarray(ancestry), position, H,
         scales=scale0, fresh_scales=hk, fresh_row_scales=sel)
 
+    # The port's update takes the same bf16 rows un-quantized and quantizes
+    # them itself (the fused form of JAX's quantize_kv_heads + update).
     data = torch.from_numpy(np.array(data0))
     scales = torch.from_numpy(np.array(scale0))
     got = port_beam.beam_select_attention_update(
-        qt, torch.from_numpy(np.array(k_q)), torch.from_numpy(np.array(v_q)), data,
-        torch.from_numpy(ancestry), position, H, scales=scales,
-        k_scale=torch.from_numpy(np.array(k_s)), v_scale=torch.from_numpy(np.array(v_s)))
+        qt, kt, vt, data, torch.from_numpy(ancestry), position, H, scales=scales)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=0, atol=TOL)
     np.testing.assert_array_equal(data.numpy(), np.asarray(data_want))
@@ -119,12 +119,27 @@ def test_quantize_kv_heads_matches_jax():
                    np.float32))
 
 
-def test_kernel_gate():
-    assert port_beam.beam_kernel_supports(10, 512, 8)
-    assert not port_beam.beam_kernel_supports(10, 512, 3)      # head_dim not integral
-    assert not port_beam.beam_kernel_supports(10, 36, 3)       # head_dim 12
-    assert not port_beam.beam_kernel_supports(10, 2048, 4)     # head_dim 512 > 256
-    assert not port_beam.beam_kernel_supports(64, 1024, 4)     # staged queries > 48 KB
+@pytest.mark.parametrize("beams,d_model,heads,want", [
+    (10, 512, 8, True),        # serving
+    (30, 512, 8, True),        # predict
+    (1, 512, 8, True),         # validation
+    (79, 512, 8, True),        # beyond the select kernel's all-in-shared-memory plan at L 128
+    (128, 512, 8, True),       # K x head_dim 8192: the largest K at head_dim 64
+    (129, 512, 8, False),
+    (32, 1024, 4, True),       # the largest K at head_dim 256
+    (33, 1024, 4, False),
+    (256, 256, 8, True),       # 256 beams at head_dim 32
+    (0, 512, 8, False),
+    (10, 512, 3, False),       # head_dim not integral
+    (10, 36, 3, False),        # head_dim 12
+    (10, 2048, 4, False),      # head_dim 512 > 256
+    (300, 64, 8, False),       # more than 256 beams
+])
+def test_kernel_gate(beams, d_model, heads, want):
+    """The gate is static: K x head_dim <= 8192 fits both kernels' plans at
+    any stage and encoder length (tests/test_torch_cuda.py launches its
+    largest plans on the card)."""
+    assert port_beam.beam_kernel_supports(beams, d_model, heads) is want
 
 
 def _read_only_inputs(seed, beams, length, heads, head_dim):

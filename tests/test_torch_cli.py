@@ -25,6 +25,8 @@ TINY_MODEL = [
     "model.encoder_attention_heads=4", "model.decoder_attention_heads=4",
     "model.batch_size=8", "model.n_beams=2", "model.dtype=float32",
 ]
+# The port's entry points run on the card unless asked for the CPU.
+CPU = "+device=cpu"
 DATA = ["data=ir/patches", f"data_path={TEST_DATA}", "data.IR.preprocessor_arguments.patch_size=125",
         "data.Formula.column=molecular_formula", "model=custom_model", "molecules=True"]
 
@@ -46,7 +48,7 @@ def port_run(fixture_dataset, tmp_path_factory):
 
     run_dir = tmp_path_factory.mktemp("port_runs")
     training.main([f"working_dir={run_dir}", "job_name=train", *DATA, "trainer.epochs=2",
-                   "trainer.acc_batches=1", *TINY_MODEL])
+                   "trainer.acc_batches=1", *TINY_MODEL, CPU])
     return run_dir
 
 
@@ -67,7 +69,8 @@ def test_training_then_predict(port_run):
 
     predict.main([f"working_dir={port_run}", "job_name=predict", *DATA,
                   f"preprocessor_path={port_run}/train/preprocessor.json",
-                  f"model.model_checkpoint_path={port_run}/train/checkpoints/last", *TINY_MODEL])
+                  f"model.model_checkpoint_path={port_run}/train/checkpoints/last", *TINY_MODEL,
+                  CPU])
     assert "Top-1" in json.loads((port_run / "predict" / "metrics_beam_2.json").read_text())
 
 
@@ -77,7 +80,7 @@ def test_guided_generation_is_refused(tmp_path):
     from multimodalanalytical_tpu_torch.cli.common import compose
 
     config = compose("config_train", [f"working_dir={tmp_path}", *DATA, *TINY_MODEL,
-                                      "model.guided_generation=true"])
+                                      "model.guided_generation=true", CPU])
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         training.run(config)
 
@@ -101,7 +104,7 @@ def test_port_predict_on_a_jax_trained_checkpoint(fixture_dataset, tmp_path):
     jax_predict.main([f"working_dir={tmp_path}", "job_name=jax", *common,
                       f"model.model_checkpoint_path={checkpoint}"])
     predict.main([f"working_dir={tmp_path}", "job_name=port", *common,
-                  f"model.model_checkpoint_path={npz}"])
+                  f"model.model_checkpoint_path={npz}", CPU])
     want = json.loads((tmp_path / "jax" / "test_data_logits_beam_2.json").read_text())
     got = json.loads((tmp_path / "port" / "test_data_logits_beam_2.json").read_text())
     assert got["predictions"] == want["predictions"] and got["targets"] == want["targets"]
@@ -131,7 +134,7 @@ def test_serve_roundtrip(port_run):
         "data.IR.preprocessor_arguments.patch_size=125", "data.Formula.column=molecular_formula",
         f"preprocessor_path={port_run / 'train' / 'preprocessor.json'}", "model=custom_model",
         f"model.model_checkpoint_path={port_run / 'train' / 'checkpoints' / 'last'}",
-        *TINY_MODEL, "serve.port=0", "serve.max_wait_ms=5"])
+        *TINY_MODEL, "serve.port=0", "serve.max_wait_ms=5", CPU])
     server = serve.build_server(config)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -167,3 +170,32 @@ def test_serve_roundtrip(port_run):
         server.shutdown()
         server.engine.close()
         thread.join(timeout=60)
+
+
+@pytest.mark.parametrize("entry", ["training", "predict", "serve"])
+def test_entry_points_refuse_to_fall_back_to_the_cpu(entry, tmp_path, monkeypatch):
+    """With no CUDA device and no ``+device=cpu``, each entry point raises
+    an error that names the override, before it reads any data: every path
+    below is missing, so a read would fail otherwise."""
+    import importlib
+
+    from multimodalanalytical_tpu_torch.cli.common import compose
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = tmp_path / "missing"
+    args = [f"working_dir={tmp_path}", "data=ir/patches", f"data_path={missing}",
+            "model=custom_model", *TINY_MODEL, f"preprocessor_path={missing}/preprocessor.json",
+            f"model.model_checkpoint_path={missing}/checkpoints/last"]
+    if entry == "serve":
+        args = [a for a in args if not a.startswith("data_path=")]
+    config = compose({"training": "config_train", "predict": "config_predict",
+                      "serve": "config_serve"}[entry], args)
+    module = importlib.import_module(f"multimodalanalytical_tpu_torch.cli.{entry}")
+    run = module.build_server if entry == "serve" else module.run
+    with pytest.raises(RuntimeError, match=r"\+device=cpu"):
+        run(config)
+    assert not missing.exists()
+    cpu = compose({"training": "config_train", "predict": "config_predict",
+                   "serve": "config_serve"}[entry], args + [CPU])
+    with pytest.raises((FileNotFoundError, OSError, ValueError)):
+        run(cpu)   # with the override it goes on to the (missing) data

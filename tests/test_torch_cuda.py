@@ -30,48 +30,69 @@ def _close(got, want, tol=TOL):
     assert err <= tol * max(1.0, want.float().abs().max().item()), err
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("head_dim", [8, 64, 256])
-@pytest.mark.parametrize("k", [1, 4])   # K 1: validation's greedy decode takes the kernel too
-def test_select_attention_update_matches_plain(gen, quantized, head_dim, k):
-    b, heads, length = 3, 2, 16
+def _fresh_rows(gen, shape, rows):
+    """This step's K/V rows as the projection gives them: bf16, or fp32 in
+    an fp32 model (an int8 cache takes either; the update quantizes)."""
+    dtype = torch.float32 if rows == "int8-fp32" else torch.bfloat16
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(2)]
+
+
+def _check_update(q, cache0, scales0, anc_full, k_new, v_new, heads, length, positions):
+    """Update kernel vs plain version at each position: output within TOL,
+    the appended rows and scales bit-equal (the plain version quantizes
+    with quantize_kv_heads on the card)."""
+    beams = anc_full.shape[1]
+    for pos in positions:
+        anc_full[:, :, pos] = torch.arange(beams, device="cuda", dtype=torch.int32)
+        anc = anc_full[:, :, :length]
+        caches = [cache0.clone() for _ in range(2)]
+        scales = [None if scales0 is None else scales0.clone() for _ in range(2)]
+        before = ba.beam_select_attention_update.launches
+        got = ba.beam_select_attention_update(q, k_new, v_new, caches[0], anc, pos, heads,
+                                              scales[0])
+        assert ba.beam_select_attention_update.launches == before + 1
+        want = ba.beam_select_attention_update_plain(q, k_new, v_new, caches[1], anc, pos,
+                                                     heads, scales[1])
+        _close(got, want)
+        assert torch.equal(caches[0], caches[1]), pos
+        if scales0 is not None:
+            assert torch.equal(scales[0], scales[1]), pos
+
+
+@pytest.mark.parametrize("rows", ["bf16", "int8-bf16", "int8-fp32"])
+@pytest.mark.parametrize("head_dim", [8, 64, 128, 256])
+@pytest.mark.parametrize("k", [1, 4, 10, 30])   # K 1: validation's greedy decode takes it too
+def test_select_attention_update_matches_plain(gen, rows, head_dim, k):
+    """Stages of 16 and 37 times; positions 0, 5, 13 and the stage's last,
+    most of them not a multiple of the kernel's times per tile."""
+    b, heads = 3, 2
     d = heads * head_dim
     dev = "cuda"
     q = torch.randn(b * k, d, generator=gen, device=dev).bfloat16()
-    anc_full = torch.randint(0, k, (b, k, 2 * length), generator=gen, device=dev,
-                             dtype=torch.int32)
-    if quantized:
-        cache0 = torch.randint(-127, 128, (2, b, 2 * length * k, d), generator=gen,
-                               device=dev, dtype=torch.int8)
-        scales0 = torch.rand(2, b, heads, 128, generator=gen, device=dev)
-        k_new, v_new = (torch.randint(-127, 128, (b * k, d), generator=gen, device=dev,
-                                      dtype=torch.int8) for _ in range(2))
-        k_s, v_s = (torch.rand(b * k, heads, generator=gen, device=dev) for _ in range(2))
+    anc_full = torch.randint(0, k, (b, k, 40), generator=gen, device=dev, dtype=torch.int32)
+    if rows == "bf16":
+        cache0 = torch.randn(2, b, 40 * k, d, generator=gen, device=dev).bfloat16()
+        scales0 = None
     else:
-        cache0 = torch.randn(2, b, 2 * length * k, d, generator=gen, device=dev).bfloat16()
-        scales0, k_s, v_s = None, None, None
-        k_new, v_new = (torch.randn(b * k, d, generator=gen, device=dev).bfloat16()
-                        for _ in range(2))
-    for pos in (0, 5, length - 1):
-        anc_full[:, :, pos] = torch.arange(k, device=dev, dtype=torch.int32)
-        anc = anc_full[:, :, :length]
-        caches = [cache0.clone() for _ in range(2)]
-        scales = [scales0.clone() if quantized else None for _ in range(2)]
-        before = ba.beam_select_attention_update.launches
-        got = ba.beam_select_attention_update(q, k_new, v_new, caches[0], anc, pos, heads,
-                                              scales[0], k_s, v_s)
-        assert ba.beam_select_attention_update.launches == before + 1
-        want = ba.beam_select_attention_update_plain(q, k_new, v_new, caches[1], anc, pos,
-                                                     heads, scales[1], k_s, v_s)
-        _close(got, want)
-        assert torch.equal(caches[0], caches[1])
-        if quantized:
-            assert torch.equal(scales[0], scales[1])
+        cache0 = torch.randint(-127, 128, (2, b, 40 * k, d), generator=gen, device=dev,
+                               dtype=torch.int8)
+        scales0 = torch.rand(2, b, heads, -(-40 * k // 128) * 128, generator=gen, device=dev)
+    k_new, v_new = _fresh_rows(gen, (b * k, d), rows)
+    assert ba.beam_kernel_supports(k, d, heads)
+    for length in (16, 37):
+        _check_update(q, cache0, scales0, anc_full, k_new, v_new, heads, length,
+                      (0, 5, 13, length - 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cross_attention_matches_plain(gen, dtype):
-    b, k, heads, head_dim, ls = 3, 4, 2, 16, 11
+@pytest.mark.parametrize("k,heads,head_dim,ls", [
+    (4, 2, 16, 11), (1, 8, 64, 26), (10, 8, 64, 26), (30, 8, 64, 26), (10, 2, 8, 300),
+    (10, 2, 64, 2100), (30, 2, 128, 2048)])
+def test_cross_attention_matches_plain(gen, dtype, k, heads, head_dim, ls):
+    """One pass up to 256 keys (the flagship's Ls 26), two passes beyond
+    (an RLE encoder's 2048-4090); batch row 2 is fully masked (the uniform
+    average, as the plain version gives)."""
+    b = 3
     d = heads * head_dim
     q = torch.randn(b * k, d, generator=gen, device="cuda").to(dtype)
     kv = [torch.randn(b, ls, d, generator=gen, device="cuda").to(dtype) for _ in range(2)]
@@ -79,7 +100,9 @@ def test_cross_attention_matches_plain(gen, dtype):
     keep[:, 0] = True
     keep[2] = False
     bias = torch.where(keep, 0.0, -1e9).float()
+    before = ba.beam_cross_attention.launches
     got = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    assert ba.beam_cross_attention.launches == before + 1
     want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
     assert got.dtype == dtype
     _close(got, want, TOL if dtype == torch.bfloat16 else 1e-5)
@@ -268,7 +291,8 @@ def _select_inputs(gen, b, k, heads, head_dim, length, quantized):
 
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("b,k,heads,head_dim,length", [
-    (3, 4, 2, 8, 16), (2, 30, 2, 64, 16), (4, 30, 8, 64, 128)])
+    (3, 4, 2, 8, 16), (2, 30, 2, 64, 16), (4, 30, 8, 64, 128), (3, 1, 2, 64, 37),
+    (3, 10, 2, 128, 37)])
 def test_select_attention_read_only_matches_plain(gen, quantized, b, k, heads, head_dim,
                                                   length):
     """The read-only mode (ancestry[:, :, pos] drawn at random, as
@@ -287,33 +311,82 @@ def test_select_attention_read_only_matches_plain(gen, quantized, b, k, heads, h
     assert torch.equal(cache, cache0)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-def test_select_attention_update_at_beam30(gen, quantized):
+@pytest.mark.parametrize("rows", ["bf16", "int8-bf16"])
+def test_select_attention_update_at_beam30(gen, rows):
     """The update kernel at K 30 and the flagship decode widths (D 512, H 8,
     L 128): output, appended rows and scales vs the plain version."""
     b, k, heads, length = 4, 30, 8, 128
-    q, cache0, anc, scales0 = _select_inputs(gen, b, k, heads, 64, length, quantized)
+    q, cache0, anc, scales0 = _select_inputs(gen, b, k, heads, 64, length, rows != "bf16")
     q = q.reshape(b * k, -1)
-    if quantized:
-        k_new, v_new = (torch.randint(-127, 128, q.shape, generator=gen, device="cuda",
-                                      dtype=torch.int8) for _ in range(2))
-        k_s, v_s = (torch.rand(b * k, heads, generator=gen, device="cuda") for _ in range(2))
-    else:
-        k_new, v_new = (torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
-                        for _ in range(2))
-        k_s = v_s = None
-    for pos in (0, 77, length - 1):
-        anc[:, :, pos] = torch.arange(k, device="cuda", dtype=torch.int32)
-        caches = [cache0.clone() for _ in range(2)]
-        scales = [scales0.clone() if quantized else None for _ in range(2)]
-        got = ba.beam_select_attention_update(q, k_new, v_new, caches[0], anc, pos, heads,
-                                              scales[0], k_s, v_s)
-        want = ba.beam_select_attention_update_plain(q, k_new, v_new, caches[1], anc, pos,
-                                                     heads, scales[1], k_s, v_s)
-        _close(got, want)
-        assert torch.equal(caches[0], caches[1])
-        if quantized:
-            assert torch.equal(scales[0], scales[1])
+    k_new, v_new = _fresh_rows(gen, q.shape, rows)
+    _check_update(q, cache0, scales0, anc, k_new, v_new, heads, length, (0, 77, length - 1))
+
+
+@pytest.mark.parametrize("rows", ["bf16", "int8-fp32"])
+@pytest.mark.parametrize("head_dim,length", [(64, 300), (256, 600), (32, 200)])
+def test_select_attention_at_the_gates_largest_plan(gen, rows, head_dim, length):
+    """The largest K the gate admits at head_dim 64, 256 and 32 (K x
+    head_dim 8192), at stages long enough that the per-time tables leave
+    shared memory for the global workspace: update and read-only modes vs
+    their plain versions at a middle and the last position; one beam more
+    is refused."""
+    heads = 2
+    d = heads * head_dim
+    k = max(n for n in range(1, 257) if ba.beam_kernel_supports(n, d, heads))
+    assert k * head_dim == 8192 and not ba.beam_kernel_supports(k + 1, d, heads)
+    q, cache0, anc, scales0 = _select_inputs(gen, 2, k, heads, head_dim, length, rows != "bf16")
+    k_new, v_new = _fresh_rows(gen, (2 * k, d), rows)
+    _check_update(q.reshape(2 * k, -1), cache0, scales0, anc, k_new, v_new, heads, length,
+                  (length // 2, length - 1))
+    got = ba.beam_select_attention(q, cache0, anc, length - 1, heads, scales0)
+    _close(got, ba.beam_select_attention_plain(q, cache0, anc, length - 1, heads, scales0))
+    big = torch.zeros(2, 1, length * (k + 1), d, device="cuda", dtype=cache0.dtype)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        ba.beam_select_attention(torch.zeros(1, k + 1, d, device="cuda").bfloat16(), big,
+                                 torch.zeros(1, k + 1, length, device="cuda", dtype=torch.int32),
+                                 0, heads, None if scales0 is None else torch.zeros(
+                                     2, 1, heads, length * (k + 1), device="cuda"))
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_decode_self_attention_beyond_the_shared_memory_stage(gen, kind):
+    """A decode layer at K 30, D 512, H 8 on a 640-time stage, past the
+    ~520 times whose tables fit in shared memory: on the card the layer
+    launches the update kernel (which moves its tables to global memory)
+    and agrees with the same layer on the CPU. A stage beyond the kernel's
+    65536 (time, slot) rows raises rather than leaving the kernel."""
+    import copy
+
+    from multimodalanalytical_tpu_torch.ops.attention import MultiHeadAttention
+
+    b, k, d, heads, length, pos = 2, 30, 512, 8, 640, 600
+    cpu = MultiHeadAttention(heads, d, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    x = torch.randn(b * k, d, generator=gen, device="cuda").bfloat16()
+    anc = torch.randint(0, k, (b, k, length), generator=gen, device="cuda", dtype=torch.int32)
+    anc[:, :, pos] = torch.arange(k, device="cuda", dtype=torch.int32)
+
+    def cache(dev, steps):
+        if kind == "bf16":
+            return torch.randn(2, b, steps * k, d, generator=gen, device="cuda").bfloat16().to(dev)
+        return {"data": torch.randint(-127, 128, (2, b, steps * k, d), generator=gen,
+                                      device="cuda", dtype=torch.int8).to(dev),
+                "scale": (torch.rand(2, b, heads, steps * k, generator=gen, device="cuda")
+                          * 0.05 + 1e-3).to(dev)}
+
+    store = cache("cuda", length)
+    store_cpu = ({n: t.cpu() for n, t in store.items()} if kind == "int8" else store.cpu())
+    before = ba.beam_select_attention_update.launches
+    got = card.beam_decode_self_attention(x, store, anc, pos)
+    assert ba.beam_select_attention_update.launches == before + 1
+    want = cpu.beam_decode_self_attention(x.cpu(), store_cpu, anc.cpu(), pos)
+    _close(got.cpu(), want, 5e-2)   # bf16 projections rounded by cuBLAS and by the CPU
+    steps = 65536 // k + 1
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        card.beam_decode_self_attention(
+            x, cache("cuda", steps),
+            torch.zeros(b, k, steps, device="cuda", dtype=torch.int32), steps - 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -378,14 +451,14 @@ def test_decode_steps_on_card_match_cpu(gen, kv_cache_dtype):
         with torch.no_grad():
             hidden = model.encode({k: v.to(dev) for k, v in inputs.items()}, mask.to(dev))
             dm = decode_model(model)
-            cache = dm.init_beam_cache(batch, beams, 16, hidden,
+            cache = dm.init_beam_cache(batch, beams, 16, hidden, mask.to(dev),
                                        quantize=kv_cache_dtype == "int8")
             out = []
             for t in range(steps):
                 a = anc.clone()
                 a[:, :, t] = torch.arange(beams, dtype=torch.int32)
                 out.append(dm.beam_decode_step(tokens[:, :, t].to(dev), t, cache,
-                                               a.to(dev), mask.to(dev)).float().cpu())
+                                               a.to(dev)).float().cpu())
         launched = [fn.launches - b for fn, b in zip(counters, before)]
         assert launched == ([0, 0, 0] if dev == "cpu" else [cfg.decoder_layers * steps] * 3)
         logits.append(torch.stack(out))

@@ -157,10 +157,11 @@ def _decode_steps_torch(model, batch, tokens, anc, beams, length, quantize):
     out = []
     with torch.no_grad():
         hidden = model.encode(b["encoder_inputs"], b["encoder_mask"])
-        cache = model.init_beam_cache(hidden.shape[0], beams, length, hidden, quantize)
+        cache = model.init_beam_cache(hidden.shape[0], beams, length, hidden,
+                                      b["encoder_mask"], quantize)
         for t in range(tokens.shape[2]):
             logits = model.beam_decode_step(torch.as_tensor(tokens[:, :, t]), t, cache,
-                                            torch.as_tensor(anc[t]), b["encoder_mask"])
+                                            torch.as_tensor(anc[t]))
             out.append(logits.float().numpy())
     return np.stack(out)
 
