@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # the checks below
     python3 chip_smoke.py --profile-eval   # phase 5's decodes and a serving request, profiled
     python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
+    python3 chip_smoke.py --time-ffn       # the decode FFN's times alone (one JSON line)
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a), ``nvcc``
 and ``g++``; it imports torch, numpy, the standard library and
@@ -21,7 +22,10 @@ line each, any failure raises and exits non-zero:
    decode kernels at the flagship decode shapes (B 128, D 512, H 8, F 2048,
    Ls 26) at each beam count an entry point runs: serving's K 10 (int8 and
    bf16 caches), validation's K 1 (bf16) and predict's K 30 (int8), the
-   FFN at M 128, 1280 and 3840; the read-only select attention at B 128,
+   FFN at M 128, 1280 and 3840, gated and ungated (held to FFN_REL_TOL and
+   FFN_RMS_TOL, two calls bit-equal, a planted fault that skips one 64-deep
+   stage of F rejected, eager and device times in turns with the cuBLAS
+   route); the read-only select attention at B 128,
    L 128, pos 127, K 10 and 30, int8 and bf16 caches. Decode attention is
    held to ATTN_TOL in max error and ATTN_RMS_TOL in error norm, the
    update's appended int8 rows and scales bit for bit to
@@ -106,7 +110,15 @@ FAULT_POSITIONS = {32: 17, 128: 127}   # stage -> pos
 # wherever the kernel is shorter). The decode attention kernels also carry
 # "device_ms", their device time alone:
 DEVICE_MS_IS = "device time: 20 calls in one CUDA graph, replayed 5 times between CUDA events"
-FFN_REL_TOL = 0.02   # max|kernel - plain| / max|plain|
+# Decode FFN (#3) vs its plain version: max|kernel - plain| <= FFN_REL_TOL *
+# max|plain| and |kernel - plain|_2 <= FFN_RMS_TOL * |plain|_2. A correct
+# kernel differs by bf16 roundings of the activation and the output after
+# fp32 sums taken in another order; the norm is what catches a down product
+# that leaves out one 64-deep stage of F (FFN_FAULT_STAGE, planted in phase 1
+# and required to be rejected).
+FFN_REL_TOL = 0.02
+FFN_RMS_TOL = 1e-2
+FFN_FAULT_STAGE = 17
 # Teacher-forced decode logits, kernel path vs the use_beam_kernel=False
 # path on the same weights: the two differ only in bf16 rounding order
 # inside attention, carried through 6 layers.
@@ -310,7 +322,6 @@ def check_kernels() -> list:
     import torch.nn.functional as F
 
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
-    from multimodalanalytical_tpu_torch.ops import decode_ffn
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -470,45 +481,165 @@ def check_kernels() -> list:
                                          "library_device_ms)",
                     "other_times_ms": {k: list(v) for k, v in timing.items()}})
 
-    # #3 decode FFN, ungated (flagship) and gated, at M = B x K.
-    w1, wg, w2 = randn(FFN, D_MODEL, scale=0.05), randn(FFN, D_MODEL, scale=0.05), randn(
-        D_MODEL, FFN, scale=0.03)
-    b1, bg, b2 = randn(FFN, scale=0.1), randn(FFN, scale=0.1), randn(D_MODEL, scale=0.1)
-    worst, timing, bounds = 0.0, {}, {}
-    for beams, _ in DECODE_BEAMS:
-        m = BATCH * beams
-        x = randn(m, D_MODEL)
+    return records
+
+
+def _ffn_err(got, want) -> tuple:
+    """(max|got - want| / max|want|, |got - want|_2 / |want|_2, whether both
+    are within FFN_REL_TOL / FFN_RMS_TOL and got is finite)."""
+    import torch
+
+    diff = got.float() - want.float()
+    rel = diff.abs().max().item() / max(want.float().abs().max().item(), 1e-6)
+    rms = (diff.norm() / want.float().norm()).item()
+    ok = bool(torch.isfinite(got.float()).all()) and rel <= FFN_REL_TOL and rms <= FFN_RMS_TOL
+    return rel, rms, ok
+
+
+def _ffn_library(x, w1, b1, wg, bg, w2, b2):
+    """The cuBLAS route of the decode FFN: ``F.linear`` -> fp32 ``F.gelu`` ->
+    ``F.linear`` (and the gate's ``F.linear``). A yardstick of time only,
+    never called by the port: it adds each bias inside the GEMM before
+    rounding, so its roundings differ from flax's."""
+    import torch.nn.functional as F
+
+    act = F.gelu(F.linear(x, w1, b1).float()).to(x.dtype)
+    if wg is not None:
+        act = act * F.linear(x, wg, bg)
+    return F.linear(act, w2, b2)
+
+
+def _ffn_times(decode_ffn, args) -> dict:
+    """``geglu_ffn`` and the cuBLAS route on ``args``, in turns (kernel,
+    cuBLAS, kernel, cuBLAS), each eagerly and as device time; the plain
+    version eagerly. Uses only what every version of ``ops/decode_ffn.py``
+    has, so ``--time-ffn`` can time an earlier tree's kernel the same way."""
+    turns = {"ms": [], "library_ms": [], "device_ms": [], "library_device_ms": []}
+    for _ in range(2):
+        for prefix, fn in (("", lambda: decode_ffn.geglu_ffn(*args)),
+                           ("library_", lambda: _ffn_library(*args))):
+            turns[f"{prefix}ms"].append(_time_ms(fn, iters=50))
+            turns[f"{prefix}device_ms"].append(_device_ms(fn, iters=50))
+    times = {key: sum(val) / len(val) for key, val in turns.items()}
+    times["plain_ms"] = _time_ms(lambda: decode_ffn.geglu_ffn_plain(*args))
+    times["turns"] = turns
+    return times
+
+
+def _ffn_inputs(g):
+    """Seeded bf16 decode-FFN weights (F, D) / (D, F) and biases, and the
+    (M, D) input rows at each M = B x K of DECODE_BEAMS."""
+    import torch
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    weights = (randn(FFN, D_MODEL, scale=0.05), randn(FFN, scale=0.1),
+               randn(FFN, D_MODEL, scale=0.05), randn(FFN, scale=0.1),
+               randn(D_MODEL, FFN, scale=0.03), randn(D_MODEL, scale=0.1))
+    rows = {BATCH * beams: randn(BATCH * beams, D_MODEL) for beams, _ in DECODE_BEAMS}
+    return weights, rows
+
+
+def _ffn_bound(m: int, gated: bool) -> tuple:
+    weights = (3 if gated else 2) * FFN * D_MODEL
+    return _bound_ms(2 * m * weights,
+                     (weights + (3 if gated else 2) * FFN + D_MODEL) * 2 + 2 * m * D_MODEL * 2)
+
+
+def check_ffn() -> dict:
+    """#3 the decode FFN vs its plain version, ungated (flagship) and gated,
+    at M = B x K of every beam count an entry point runs: max error and
+    error norm, two calls bit-equal, a planted fault (one 64-deep stage of
+    F left out of the down product) that the check must reject; then eager
+    and device times in turns with the cuBLAS route. Returns its record."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import decode_ffn
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    (w1, b1, wg, bg, w2, b2), rows = _ffn_inputs(g)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w2_fault = w2.clone()
+    w2_fault[:, 64 * FFN_FAULT_STAGE: 64 * (FFN_FAULT_STAGE + 1)] = 0
+    worst, worst_rms, timing, bounds = 0.0, 0.0, {}, {}
+    for m, x in rows.items():
         for gated in (False, True):
             args = (x, w1, b1, wg if gated else None, bg if gated else None, w2, b2)
             got = decode_ffn.geglu_ffn(*args)
+            again = decode_ffn.geglu_ffn(*args)
             want = decode_ffn.geglu_ffn_plain(*args)
-            err = (got.float() - want.float()).abs().max().item()
-            rel = err / max(want.float().abs().max().item(), 1e-6)
-            ms = _time_ms(lambda: decode_ffn.geglu_ffn(*args))
-            plain_ms = _time_ms(lambda: decode_ffn.geglu_ffn_plain(*args))
+            fault = decode_ffn.geglu_ffn_plain(*args[:5], w2_fault, b2)
+            torch.cuda.synchronize()
+            rel, rms, ok = _ffn_err(got, want)
+            fault_rel, fault_rms, fault_ok = _ffn_err(fault, want)
+            same = torch.equal(got, again)
             key = f"{'gated' if gated else 'ungated'} M={m}"
-            timing[key] = (ms, plain_ms)
-            weights = (3 if gated else 2) * FFN * D_MODEL
-            bounds[key] = _bound_ms(2 * m * weights,
-                                    (weights + (3 if gated else 2) * FFN + D_MODEL) * 2
-                                    + 2 * m * D_MODEL * 2)
-            print(f"kernel geglu_ffn gated={gated} M={m} D={D_MODEL} F={FFN}: "
-                  f"max_abs_err={err:.3e} rel={rel:.3e} tol={FFN_REL_TOL}; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms", flush=True)
-            _require(bool(torch.isfinite(got.float()).all()) and rel <= FFN_REL_TOL,
-                     "geglu_ffn disagrees with its plain version")
-            worst = max(worst, err)
-    ms, plain_ms = timing[f"ungated M={BATCH * BEAMS}"]
-    bound, bound_by = bounds[f"ungated M={BATCH * BEAMS}"]
-    records.append({"name": "geglu_ffn", "route": "cuda",
-                    "source": "multimodalanalytical_tpu_torch/csrc/decode_ffn.cu",
-                    "replaces": "multimodalanalytical_tpu/ops/decode_ffn.py:68",
-                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-                    "other_bounds_ms": {k: v[0] for k, v in bounds.items()},
-                    "timed_at": f"ungated, M={BATCH * BEAMS} D={D_MODEL} F={FFN}",
-                    "other_times_ms": {k: list(v) for k, v in timing.items()}})
-    return records
+            print(f"kernel geglu_ffn {key} D={D_MODEL} F={FFN}, "
+                  f"{decode_ffn.ffn_plan(m, D_MODEL, FFN, sms)}: max_rel_err="
+                  f"{rel:.3e} tol={FFN_REL_TOL} rel_rms_err={rms:.3e} tol={FFN_RMS_TOL:.0e}; two "
+                  f"calls bit-equal {same}; planted fault (stage {FFN_FAULT_STAGE} of F left out "
+                  f"of the down product): max_rel_err={fault_rel:.3e} rel_rms_err="
+                  f"{fault_rms:.3e}, rejected {not fault_ok}", flush=True)
+            _require(ok, "geglu_ffn disagrees with its plain version")
+            _require(same, "two geglu_ffn calls differ")
+            _require(not fault_ok, "the geglu_ffn check passes a down product that skips a stage")
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            worst_rms = max(worst_rms, rms)
+            t = _ffn_times(decode_ffn, args)
+            bounds[key] = _ffn_bound(m, gated)
+            timing[key] = tuple(t[k] for k in ("ms", "plain_ms", "library_ms", "device_ms",
+                                               "library_device_ms"))
+            bound = bounds[key][0]
+            print(f"time geglu_ffn {key}: in turns with the cuBLAS route, eagerly: kernel "
+                  f"{t['ms']:.4f} ms {[round(v, 4) for v in t['turns']['ms']]}, cuBLAS "
+                  f"{t['library_ms']:.4f} ms {[round(v, 4) for v in t['turns']['library_ms']]}; "
+                  f"device, CUDA graphs: kernel {t['device_ms']:.4f} ms "
+                  f"{[round(v, 4) for v in t['turns']['device_ms']]}, cuBLAS "
+                  f"{t['library_device_ms']:.4f} ms "
+                  f"{[round(v, 4) for v in t['turns']['library_device_ms']]} (no slower than "
+                  f"cuBLAS: {t['device_ms'] <= t['library_device_ms']}); plain "
+                  f"{t['plain_ms']:.4f} ms; bound {bound:.4f} ms ({bounds[key][1]}), "
+                  f"{100 * bound / t['ms']:.1f}% of bound eagerly, "
+                  f"{100 * bound / t['device_ms']:.1f}% in device time", flush=True)
+    key = f"ungated M={BATCH * BEAMS}"
+    ms, plain_ms, library_ms, device_ms, library_device_ms = timing[key]
+    return {"name": "geglu_ffn", "route": "cuda",
+            "source": "multimodalanalytical_tpu_torch/csrc/decode_ffn.cu",
+            "replaces": "multimodalanalytical_tpu/ops/decode_ffn.py:68",
+            "max_abs_err": worst, "rel_rms_err": worst_rms, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": library_ms, "device_ms": device_ms,
+            "library_device_ms": library_device_ms, "device_ms_is": DEVICE_MS_IS,
+            "library": "cuBLAS route, three PyTorch calls (four gated): F.linear, fp32 F.gelu, "
+                       "F.linear",
+            "other_bounds_ms": {k: v[0] for k, v in bounds.items()},
+            "timed_at": f"{key} D={D_MODEL} F={FFN}",
+            "other_times_ms_is": "(ms, plain_ms, library_ms, device_ms, library_device_ms)",
+            "other_times_ms": {k: list(v) for k, v in timing.items()}}
+
+
+def time_ffn() -> None:
+    """``--time-ffn``: #3's times alone, as ``check_ffn`` takes them, on
+    whatever ``multimodalanalytical_tpu_torch`` sits beside this script (so
+    a copy of the script in an earlier tree times that tree's kernel); one
+    JSON line."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import decode_ffn
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    (w1, b1, wg, bg, w2, b2), rows = _ffn_inputs(g)
+    times = {}
+    for m, x in rows.items():
+        for gated in (False, True):
+            args = (x, w1, b1, wg if gated else None, bg if gated else None, w2, b2)
+            t = _ffn_times(decode_ffn, args)
+            key = f"{'gated' if gated else 'ungated'} M={m}"
+            times[key] = {k: t[k] for k in ("ms", "device_ms", "library_ms",
+                                            "library_device_ms", "plain_ms")}
+            times[key]["bound_ms"] = _ffn_bound(m, gated)[0]
+    print(json.dumps({"ffn_times": times, "tree": str(REPO)}), flush=True)
 
 
 def check_read_only_attention() -> dict:
@@ -1416,6 +1547,11 @@ def profile_eval() -> None:
               f"time {device_s:.4f} s (kernels and copies only); busy share "
               f"{device_s / wall:.3f}; {launches} kernel launches ({launches / steps:.1f} per "
               f"decode step)", flush=True)
+        ffn = [(ms, calls) for ms, calls, kernel in rows if "ffn_" in kernel]
+        ffn_ms = sum(ms for ms, _ in ffn)
+        print(f"profile {name}: decode FFN (#3) kernels {ffn_ms:.2f} ms "
+              f"({100 * ffn_ms / (device_s * 1e3):.1f}% of device time) in "
+              f"{sum(calls for _, calls in ffn)} launches", flush=True)
         for ms, calls, kernel in rows[:PROFILE_TOP]:
             print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
                   f"{kernel[:100]}", flush=True)
@@ -1500,8 +1636,12 @@ def main() -> int:
         print(smi, flush=True)
         profile_train()
         return 0
+    if "--time-ffn" in sys.argv[1:]:
+        print(smi, flush=True)
+        time_ffn()
+        return 0
 
-    records = check_kernels()
+    records = check_kernels() + [check_ffn()]
     read_only = check_read_only_attention()
     dropout, dropout_phase1 = check_fused_dropout()
     records += check_flash_kernels()

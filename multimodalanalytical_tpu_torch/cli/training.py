@@ -131,7 +131,8 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
         early_stopping_patience=trainer_config.get("early_stopping_patience"),
         limit_val_batches=trainer_config.get("limit_val_batches", 1.0) or 1.0,
         val_check_interval=trainer_config.get("val_check_interval"),
-        metrics_writer=metrics_writer, resume=resume, max_steps=trainer_config.get("max_steps"))
+        metrics_writer=metrics_writer, resume=resume, max_steps=trainer_config.get("max_steps"),
+        profile_dir=config.get("profile_dir"))
 
     # Reload the best checkpoint for the final evaluation (reference
     # cli/training.py:167-187); the final state when there is none.

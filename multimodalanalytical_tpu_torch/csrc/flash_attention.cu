@@ -60,6 +60,7 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace mmt {
@@ -417,10 +418,6 @@ constexpr int kRowBytes = 128;     // 64 bf16: one swizzle span
 constexpr int kBoxRows = 64;       // rows of one TMA box
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -479,51 +476,15 @@ struct Layout {
   static constexpr size_t kSmem = 1024 + kBarrierOffset + 8 * (1 + 4 * kStages);
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One 64 x 64 box of a (rows, HD) bf16 tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int row,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
-      : "memory");
-}
-
-// Shared-matrix descriptor, 128-byte swizzle: start address, leading and
-// stride byte offsets.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
 // A K-major operand: 64 rows from row0 of a [HD / 64][rows][64] swizzled
 // block, head_dim columns 16 kk..16 kk + 15.
 __device__ __forceinline__ uint64_t k_major(uint32_t block, int rows, int row0, int kk) {
-  return desc(block + ((kk / 4) * rows + row0) * kRowBytes + (kk % 4) * 32, 16, 1024);
+  return smem_desc(block + ((kk / 4) * rows + row0) * kRowBytes + (kk % 4) * 32, 16, 1024);
 }
 // A transposed (MN-major) B operand: rows 16 kk..16 kk + 15 of such a
 // block, every head_dim column (the halves `rows` rows apart).
 __device__ __forceinline__ uint64_t mn_major(uint32_t block, int rows, int kk) {
-  return desc(block + 16 * kk * kRowBytes, rows * kRowBytes, 1024);
+  return smem_desc(block + 16 * kk * kRowBytes, rows * kRowBytes, 1024);
 }
 
 // Producer: `rows` rows from `row` of a (rows, HD) tensor map into a
@@ -534,21 +495,6 @@ __device__ __forceinline__ void load_block(uint32_t dst, const CUtensorMap* map,
   for (int h = 0; h < HD / 64; ++h)
     for (int r = 0; r < rows; r += kBoxRows)
       tma_load(dst + (h * rows + r) * kRowBytes, map, 64 * h, row + r, bar);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving accumulator reads and writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x N) (+)= a . b^T, both K-major in shared memory.
@@ -974,44 +920,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_wgmma_kernel(
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
 // A (rows, HD) bf16 tensor as 64 x 64 boxes, 128-byte swizzle.
 template <int HD>
 bool make_map(CUtensorMap* map, const void* ptr, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(HD) * sizeof(bf16)};
-  cuuint32_t box[2] = {64, 64};
-  cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_2d(map, ptr, HD, rows);
 }
 
 }  // namespace wg
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
 
 template <int HD, typename T>
 int run_fwd(const void* q, const void* k, const void* v, const void* bias, void* out, void* lse,

@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..models.seq2seq import Seq2SeqModel
+from ..ops.layers import Dense
 
 NEG_INF = -1.0e7
 
@@ -38,11 +39,17 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def decode_model(model: Seq2SeqModel) -> Seq2SeqModel:
     """The model to decode with: for bf16 models, a copy whose float32
     weights with ndim >= 2 (Dense kernels, embedding tables, the lm_head)
-    are pre-cast to bf16 once, as the JAX package does before its loop.
-    Norm parameters stay fp32, and the lm_head then runs in fp32 on
-    bf16-rounded weights. A model with no such weight left is returned as is.
+    are pre-cast to bf16 once, as the JAX package does before its loop, and
+    so are the biases of the Dense layers that compute in bf16 (each call
+    would cast them to bf16 again: the same values, bit for bit). Norm
+    parameters stay fp32, and the lm_head then runs in fp32 on
+    bf16-rounded weights and its fp32 bias. A model with no such parameter
+    left is returned as is.
     """
     cast = [p for p in model.parameters() if p.dtype == torch.float32 and p.ndim >= 2]
+    cast += [m.bias for m in model.modules()
+             if isinstance(m, Dense) and m.dtype == torch.bfloat16 and m.bias is not None
+             and m.bias.dtype == torch.float32]
     if model.config.compute_dtype != torch.bfloat16 or not cast:
         return model
     memo = {id(p): torch.nn.Parameter(p.detach().to(torch.bfloat16), requires_grad=False)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import logging
 import time
+from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -88,6 +89,49 @@ def calculate_training_steps(train_len: int, batch_size: int, acc_batches: int,
     """Optimizer updates over the run (reference utils.py:156-172)."""
     batches = -(-train_len // batch_size)
     return -(-batches // acc_batches) * epochs
+
+
+class _StepProfiler:
+    """``torch.profiler`` over the train steps at global steps FIRST..LAST
+    (the JAX trainer's ``profile_dir`` window, ``training/trainer.py``
+    there): started before step FIRST, stopped after step LAST once the
+    device has finished it, and written to ``directory`` as a Chrome trace.
+    ``stop`` also ends a window that the fit did not reach the end of."""
+
+    FIRST, LAST = 2, 6
+
+    def __init__(self, directory: str, device: torch.device):
+        self.directory = Path(directory)
+        self.device = device
+        self.profile: Optional[torch.profiler.profile] = None
+        self.first = self.last = None
+
+    def before_step(self, step: int) -> None:
+        if step == self.FIRST and self.profile is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.profile = torch.profiler.profile(activities=activities)
+            self.profile.start()
+            self.first = step
+
+    def after_step(self, step: int) -> None:
+        if self.profile is not None:
+            self.last = step
+            if step == self.LAST:
+                self.stop()
+
+    def stop(self) -> None:
+        if self.profile is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profile, self.profile = self.profile, None
+        profile.stop()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        path = self.directory / f"train_steps_{self.first}-{self.last}.pt.trace.json"
+        profile.export_chrome_trace(str(path))
+        logger.info("Profiler trace written to %s", path)
 
 
 class Trainer:
@@ -190,13 +234,28 @@ class Trainer:
             checkpoints=None, early_stopping_patience: Optional[int] = None,
             limit_val_batches: float = 1.0, val_check_interval: Optional[int] = None,
             log_every: int = 10, metrics_writer=None, resume: bool = False,
-            max_steps: Optional[int] = None) -> List[float]:
+            max_steps: Optional[int] = None, profile_dir: Optional[str] = None) -> List[float]:
         """Epoch loop with per-epoch (or per-``val_check_interval`` steps)
         validation, checkpointing, early stopping and an optional resume from
         the ``last`` checkpoint, as the JAX ``Trainer.fit``. ``max_steps``
         bounds the global step count; at the bound a final validation runs
-        and the state is saved, so a resume there trains nothing. Returns
-        the loss of every step this call took."""
+        and the state is saved, so a resume there trains nothing.
+        ``profile_dir`` records a ``torch.profiler`` trace of the train steps
+        at global steps 2-6, as the JAX trainer traces them, into
+        ``profile_dir`` (a fit that ends earlier writes the steps it took).
+        Returns the loss of every step this call took."""
+        profiler = _StepProfiler(profile_dir, self.device) if profile_dir else None
+        try:
+            return self._fit(train_loader, val_loader, epochs, checkpoints,
+                             early_stopping_patience, limit_val_batches, val_check_interval,
+                             log_every, metrics_writer, resume, max_steps, profiler)
+        finally:
+            if profiler is not None:
+                profiler.stop()
+
+    def _fit(self, train_loader, val_loader, epochs, checkpoints, early_stopping_patience,
+             limit_val_batches, val_check_interval, log_every, metrics_writer, resume,
+             max_steps, profiler) -> List[float]:
         best_monitor = -float("inf")
         patience_left = early_stopping_patience
         start_epoch = 0
@@ -224,7 +283,11 @@ class Trainer:
             epoch_start = time.time()
             n_samples = 0
             for batch in train_loader:
+                if profiler is not None:
+                    profiler.before_step(self.global_step)
                 metrics = self.train_step(batch)
+                if profiler is not None:
+                    profiler.after_step(self.global_step - 1)
                 losses.append(metrics["loss"])
                 n_samples += batch.get("n_valid", len(batch["encoder_mask"]))
                 if (self.global_step - 1) % log_every == 0:

@@ -68,3 +68,28 @@ def test_top_k_breaks_ties_toward_lower_index():
     want_values, want_indices = jax.lax.top_k(jnp.asarray(x.numpy()), 3)
     np.testing.assert_array_equal(indices.numpy(), np.asarray(want_indices))
     np.testing.assert_array_equal(values.numpy(), np.asarray(want_values))
+
+
+def test_decode_model_pre_casts_the_bf16_dense_biases():
+    """``decode_model`` pre-casts the bias of every Dense layer that computes
+    in bf16 (each call would cast it to the same bf16 values), so no such
+    bias is fp32 in the decode model; LayerNorm parameters and the fp32
+    lm_head keep fp32, and the trained model is left as it was."""
+    from multimodalanalytical_tpu_torch.ops.layers import Dense, LayerNorm
+
+    _, _, model, _ = build_pair(dtype="bfloat16")
+    decoding = port_beam.decode_model(model)
+    original = dict(model.named_modules())
+    cast = 0
+    for name, module in decoding.named_modules():
+        if isinstance(module, Dense) and module.bias is not None:
+            if module.dtype == torch.bfloat16:
+                assert module.bias.dtype == torch.bfloat16, name
+                assert torch.equal(module.bias, original[name].bias.to(torch.bfloat16)), name
+                cast += 1
+            else:
+                assert name == "lm_head" and module.bias.dtype == torch.float32
+        if isinstance(module, LayerNorm):
+            assert module.weight.dtype == module.bias.dtype == torch.float32, name
+    assert cast >= 4 * 2 + 2 * 2      # attention and FFN Dense layers of the decoder
+    assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -48,7 +48,8 @@ def port_run(fixture_dataset, tmp_path_factory):
 
     run_dir = tmp_path_factory.mktemp("port_runs")
     training.main([f"working_dir={run_dir}", "job_name=train", *DATA, "trainer.epochs=2",
-                   "trainer.acc_batches=1", *TINY_MODEL, CPU])
+                   "trainer.acc_batches=1", f"profile_dir={run_dir / 'profile'}", *TINY_MODEL,
+                   CPU])
     return run_dir
 
 
@@ -72,6 +73,15 @@ def test_training_then_predict(port_run):
                   f"model.model_checkpoint_path={port_run}/train/checkpoints/last", *TINY_MODEL,
                   CPU])
     assert "Top-1" in json.loads((port_run / "predict" / "metrics_beam_2.json").read_text())
+
+
+@pytest.mark.e2e
+def test_training_cli_forwards_profile_dir(port_run):
+    """``profile_dir=...`` reaches ``Trainer.fit``: the run's train steps
+    from global step 2 are traced there (the JAX trainer's window is 2-6;
+    this run is shorter)."""
+    traces = list((port_run / "profile").glob("train_steps_2-*.pt.trace.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
 
 
 @pytest.mark.e2e

@@ -108,19 +108,99 @@ def test_cross_attention_matches_plain(gen, dtype, k, heads, head_dim, ls):
     _close(got, want, TOL if dtype == torch.bfloat16 else 1e-5)
 
 
-@pytest.mark.parametrize("gated", [False, True])
-def test_geglu_ffn_ragged_matches_plain(gen, gated):
-    m, d, f = 12, 16, 40     # no dimension a multiple of the 64 x 64 tile
+def _ffn_args(gen, m, d, f, gated, dtype=torch.float32):
     dev = "cuda"
     x = torch.randn(m, d, generator=gen, device=dev).bfloat16()
-    w1, wg = (torch.randn(f, d, generator=gen, device=dev) * d ** -0.5 for _ in range(2))
-    w2 = torch.randn(d, f, generator=gen, device=dev) * f ** -0.5
-    b1, bg, b2 = (torch.randn(n, generator=gen, device=dev) * 0.1 for n in (f, f, d))
-    args = (x, w1, b1, wg if gated else None, bg if gated else None, w2, b2)
+    w1, wg = ((torch.randn(f, d, generator=gen, device=dev) * d ** -0.5).to(dtype)
+              for _ in range(2))
+    w2 = (torch.randn(d, f, generator=gen, device=dev) * f ** -0.5).to(dtype)
+    b1, bg, b2 = ((torch.randn(n, generator=gen, device=dev) * 0.1).to(dtype) for n in (f, f, d))
+    return x, w1, b1, wg if gated else None, bg if gated else None, w2, b2
+
+
+def _ffn_close(got, want):
+    """chip_smoke.py's FFN_REL_TOL (of max|plain|) and FFN_RMS_TOL (in norm)."""
+    diff = got.float() - want.float()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    rel = diff.abs().max().item() / want.float().abs().max().item()
+    rms = (diff.norm() / want.float().norm()).item()
+    assert rel <= 0.02 and rms <= 1e-2, (rel, rms)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("m,d,f", [
+    (12, 16, 40),           # no dimension a multiple of the 64 x 128 tile or 64-deep stage
+    (1, 136, 200), (129, 520, 2056), (1281, 520, 2056), (3841, 136, 200)])
+def test_geglu_ffn_ragged_matches_plain(gen, gated, m, d, f):
+    """Ragged M (one row; a tail past each 64-row tile), D and F multiples of
+    8 but not of 64, at the split count the plan picks."""
+    args = _ffn_args(gen, m, d, f, gated)
+    before = decode_ffn.geglu_ffn.launches
     got = decode_ffn.geglu_ffn(*args)
-    want = decode_ffn.geglu_ffn_plain(*args)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= 0.02 * want.float().abs().max().item(), err
+    assert decode_ffn.geglu_ffn.launches == before + 1
+    _ffn_close(got, decode_ffn.geglu_ffn_plain(*args))
+
+
+@pytest.mark.parametrize("splits", range(1, 33))
+def test_geglu_ffn_every_split_count(gen, splits):
+    """Each split count the plan can pick at the flagship widths (D 512, F
+    2048: 1 to 32 splits of F), with either down-tile width, at M 128 and a
+    ragged M of 200."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    picks = {decode_ffn.ffn_plan(m, 512, 2048, s).splits for m in range(1, 5000, 37)
+             for s in (sms, 132)}
+    assert picks <= set(range(1, 33))
+    for m in (128, 200):
+        args = _ffn_args(gen, m, 512, 2048, gated=False, dtype=torch.bfloat16)
+        want = decode_ffn.geglu_ffn_plain(*args)
+        for down_tile_n in (64, 128):
+            plan = decode_ffn.FfnPlan(1, down_tile_n, splits)
+            _ffn_close(decode_ffn._launch(*args, plan=plan), want)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("up_groups,down_tile_n", [(1, 64), (1, 128), (2, 64), (2, 128)])
+def test_geglu_ffn_every_plan_layout(gen, gated, up_groups, down_tile_n):
+    """Both up-GEMM schedules (one group; two taking turns) and both
+    down-tile widths, at ragged M (a lone tile, a tail past a 64-row tile,
+    more tiles than SMs) and ragged D / F, one split and several."""
+    for m, d, f in ((1, 136, 200), (129, 520, 2056), (1281, 520, 2056)):
+        args = _ffn_args(gen, m, d, f, gated)
+        want = decode_ffn.geglu_ffn_plain(*args)
+        for splits in (1, 3):
+            plan = decode_ffn.FfnPlan(up_groups, down_tile_n, splits)
+            _ffn_close(decode_ffn._launch(*args, plan=plan), want)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("m", [128, 1280, 3840])
+def test_geglu_ffn_reruns_are_bit_identical(gen, gated, m):
+    """At the decode M (9, 2 and 1 split(s) of F on an H100): the split
+    partials are added in a fixed order, so two calls give the same bits."""
+    args = _ffn_args(gen, m, 512, 2048, gated, dtype=torch.bfloat16)
+    first = decode_ffn.geglu_ffn(*args)
+    assert torch.equal(first, decode_ffn.geglu_ffn(*args))
+    _ffn_close(first, decode_ffn.geglu_ffn_plain(*args))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("m", [128, 1280])
+def test_geglu_ffn_graph_capture_equals_eager(gen, gated, m):
+    """A call captured in a CUDA graph (as a captured decode step would take
+    it) and replayed gives the eager call's bits."""
+    args = _ffn_args(gen, m, 512, 2048, gated, dtype=torch.bfloat16)
+    eager = decode_ffn.geglu_ffn(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_ffn.geglu_ffn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_ffn.geglu_ffn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 def test_wrappers_raise_on_unsupported_shapes(gen):

@@ -281,6 +281,42 @@ def test_fit_takes_max_steps_and_returns_losses():
                                                   "labels")), deterministic=False)
 
 
+def _tiny_trainer():
+    data_config, model_kw, make_inputs = _patch_case()
+    cfg = ModelConfig(encoder_layers=1, decoder_layers=1, vocab_size=TARGET_VOCAB, **model_kw)
+    trainer = Trainer(Seq2SeqModel(cfg, data_config, "Smiles"), optimiser="adamw", lr=1e-3,
+                      num_steps=7, seed=0)
+    return trainer, _batches(make_inputs, 1)
+
+
+@pytest.mark.parametrize("steps,window", [(7, "2-6"), (8, "2-6"), (3, "2-2"), (4, "2-3")])
+def test_fit_profile_dir_traces_steps_2_to_6(tmp_path, steps, window):
+    """``profile_dir`` traces the steps at global steps 2-6, as the JAX
+    trainer does; a shorter fit writes the steps it took and leaves no
+    profiler running."""
+    import json
+
+    trainer, batches = _tiny_trainer()
+    losses = trainer.fit(batches, epochs=steps, profile_dir=str(tmp_path / "profile"))
+    assert len(losses) == steps
+    assert not torch.autograd._profiler_enabled()
+    traces = sorted((tmp_path / "profile").iterdir())
+    assert [t.name for t in traces] == [f"train_steps_{window}.pt.trace.json"]
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_fit_without_profile_dir_starts_no_profiler(tmp_path, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a profiler was started without profile_dir")
+
+    monkeypatch.setattr(torch.profiler, "profile", refuse)
+    monkeypatch.chdir(tmp_path)
+    trainer, batches = _tiny_trainer()
+    assert len(trainer.fit(batches, epochs=7, profile_dir=None)) == 7
+    assert not list(tmp_path.iterdir())
+
+
 @pytest.mark.parametrize("shuffle,num_shards,prefetch", [(False, 1, 0), (True, 2, 2)])
 def test_loader_copy_yields_the_jax_loaders_batches(shuffle, num_shards, prefetch):
     """The port's numpy-only DataLoader copy against the JAX package's, on
