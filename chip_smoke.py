@@ -50,8 +50,13 @@ line each, any failure raises and exits non-zero:
    kernels and through ``use_beam_kernel=False`` at K 1, 10 and 30 (logits
    within LOGIT_TOL), then answers three seeded 128-spectrum requests
    (Formula 12 tokens + IR 14 x 125) through ``InferenceEngine.decode_batch``
-   at beam 10 and max length 128. Every decode kernel's launch count must
-   equal 6 x the decode steps run. The same requests then run with
+   at beam 10 and max length 128, each decode stage a replayed CUDA graph
+   (captured by an earlier request, whose capture time is printed apart).
+   Every decode kernel's launch count must equal 6 x the graph replays
+   (each replay adds what its capture recorded). The same requests then run
+   through the eager loop (``cuda_graph=False``: the same step, launched
+   eagerly), bit-equal and timed; a model whose lm_head bias favours EOS
+   (EXIT_EOS_BIAS) must exit early, graphs and eager loop bit-equal; then
    ``use_beam_kernel=False`` for the time and top-1 agreement;
 3. training, long sequences: the flagship-width model on one run-length-
    encoded IR source (vocabulary 105, rows of 2173-4090 tokens padded to
@@ -74,7 +79,19 @@ line each, any failure raises and exits non-zero:
    restored into a fresh model bit for bit; ``predict`` decodes the test
    spectra at beam 30, scored with rejection sampling off and on (the
    mixture paper's Table 4 recipe). Every decode kernel's launches must
-   equal 6 x the decode steps of validation and predict.
+   equal 6 x the graph replays and capture warm-up steps of validation and
+   predict; one batch of each also through the eager loop, bit-equal;
+6. guided decoding: phase 5's restored model predicts at beam 10 with the
+   surrogate formula guide (inside the captured step) on the corpus
+   targets, graphs against the eager loop bit for bit, every finished beam
+   within rule 3's heavy-atom bound; the exact guide (one host call per
+   step, eager by design) on one batch.
+
+Phase 1 also times #1 at positions 33, 96 and 127 of a 128-time stage,
+planned for the stage (as the decode loop launches it) and for pos + 1
+times. ``--profile-eval`` prints, per decode path, the wall and device
+time, the busy share, the host's ms per decode step and the launches per
+step as the host makes them, beside the eager loop's (EAGER_LOOP_PROFILE).
 
 The last two lines are the per-kernel JSON record and the device record.
 """
@@ -313,6 +330,49 @@ def _select_faults(q, cache, scales, anc, pos: int) -> dict:
     return faults
 
 
+def _device_pos(pos: int):
+    """A step index as the decode loop hands it to the kernels: a 0-d int32
+    tensor on the card."""
+    import torch
+
+    return torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+
+
+# The select kernel reads the step index from device memory and plans its
+# shared memory and grid for the whole stage, so that one captured decode
+# step serves every step of a stage; a plan for pos + 1 times is what a
+# launch that knows pos on the host would take.
+SELECT_POSITIONS = (33, 96, 127)
+SELECT_BY_POS_IS = ("device ms (CUDA-graph replay) of the update at pos p of a 128-time "
+                    "stage (the decode loop's plan) and of a (p + 1)-time stage (the plan "
+                    "sized for p + 1, as a launch that knew p on the host would size it)")
+
+
+def _select_device_ms_by_pos(q, k_new, v_new, cache0, scales0, anc_full, kind, beams) -> dict:
+    """#1's device time at SELECT_POSITIONS of a 128-time stage, beside the
+    same launch planned for pos + 1 times (SELECT_BY_POS_IS)."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+
+    out = {}
+    for pos in SELECT_POSITIONS:
+        anc_full[:, :, pos] = torch.arange(beams, device=anc_full.device, dtype=torch.int32)
+        times = {}
+        for plan, length in (("stage_128", 128), ("stage_pos+1", pos + 1)):
+            cache = cache0.clone()
+            scales = None if scales0 is None else scales0.clone()
+            args = (q, k_new, v_new, cache, anc_full[:, :, :length], _device_pos(pos), HEADS,
+                    scales)
+            times[plan] = _device_ms(lambda: ba.beam_select_attention_update(*args))
+            del cache, scales, args
+        out[f"{kind} K={beams} pos={pos}"] = times
+        print(f"time beam_select_attention_update {kind} K={beams} pos={pos}: device "
+              f"{times['stage_128']:.4f} ms planned for the 128-time stage, "
+              f"{times['stage_pos+1']:.4f} ms planned for {pos + 1} times", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- phase 1
 def check_kernels() -> list:
     """Each decode kernel vs its plain version at the flagship widths and at
@@ -339,7 +399,7 @@ def check_kernels() -> list:
     # #1 self-attention + in-place append. An int8 cache takes this step's
     # rows as bf16, as the projection gives them: the kernel quantizes them,
     # and its appended rows and scales must equal quantize_kv_heads' bits.
-    worst, timing, bounds = 0.0, {}, {}
+    worst, timing, bounds, by_pos = 0.0, {}, {}, {}
     for beams, kinds in DECODE_BEAMS:
         bk, flat_max = BATCH * beams, MAX_LENGTH * beams
         q = randn(bk, D_MODEL)
@@ -381,10 +441,13 @@ def check_kernels() -> list:
                     del outs, stores
                     if pos == stage - 1:
                         cache, scales = cache0.clone(), scales0.clone() if quantized else None
-                        args = (q, k_new, v_new, cache, anc, pos, HEADS, scales)
+                        # The step index in device memory, as the decode loop passes it.
+                        args = (q, k_new, v_new, cache, anc, _device_pos(pos), HEADS, scales)
+                        plain_args = args[:5] + (pos,) + args[6:]
                         ms = _time_ms(lambda: ba.beam_select_attention_update(*args))
                         device_ms = _device_ms(lambda: ba.beam_select_attention_update(*args))
-                        plain_ms = _time_ms(lambda: ba.beam_select_attention_update_plain(*args))
+                        plain_ms = _time_ms(
+                            lambda: ba.beam_select_attention_update_plain(*plain_args))
                         timing[f"{kind} K={beams} L={stage}"] = (ms, plain_ms, device_ms)
                         bound = _bound_ms(4 * BATCH * beams * (pos + 1) * D_MODEL,
                                           _select_bytes(anc, pos, quantized, update=True))
@@ -396,6 +459,8 @@ def check_kernels() -> list:
                               f"bound eagerly, {100 * bound[0] / device_ms:.1f}% in device time",
                               flush=True)
                         del cache, scales, args
+            by_pos.update(_select_device_ms_by_pos(q, k_new, v_new, cache0, scales0, anc_full,
+                                                   kind, beams))
             del cache0, scales0
     ms, plain_ms, device_ms = timing[f"int8 K={BEAMS} L=128"]
     bound, bound_by = bounds[f"int8 K={BEAMS} L=128"]
@@ -408,7 +473,8 @@ def check_kernels() -> list:
                     "other_bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "timed_at": f"int8 cache, K={BEAMS}, L=128, pos=127",
                     "other_times_ms_is": "(ms, plain_ms, device_ms)",
-                    "other_times_ms": {k: list(v) for k, v in timing.items()}})
+                    "other_times_ms": {k: list(v) for k, v in timing.items()},
+                    "device_ms_by_pos_is": SELECT_BY_POS_IS, "device_ms_by_pos": by_pos})
 
     # #2 cross-attention with padded keys (row 0 fully masked, as batch
     # padding rows are).
@@ -674,8 +740,9 @@ def check_read_only_attention() -> dict:
             want = ba.beam_select_attention_plain(*args)
             torch.cuda.synchronize()
             err, tol, rms, ok = _attn_err(got, want)
-            ms = _time_ms(lambda: ba.beam_select_attention(*args))
-            device_ms = _device_ms(lambda: ba.beam_select_attention(*args))
+            kernel_args = args[:3] + (_device_pos(pos),) + args[4:]
+            ms = _time_ms(lambda: ba.beam_select_attention(*kernel_args))
+            device_ms = _device_ms(lambda: ba.beam_select_attention(*kernel_args))
             plain_ms = _time_ms(lambda: ba.beam_select_attention_plain(*args), iters=5)
             timing[(kind, beams)] = (ms, plain_ms, device_ms)
             bounds[(kind, beams)] = _bound_ms(4 * BATCH * beams * (pos + 1) * D_MODEL,
@@ -1035,6 +1102,79 @@ def check_teacher_forced(model, plain_model) -> None:
                          "kernel path disagrees with the plain path")
 
 
+def _eager_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
+    """One decode through ``decoder`` with ``cuda_graph=False``: the same
+    step as the graphs, launched eagerly. Returns (seqs, scores, stats, s)."""
+    import torch
+
+    inputs = {m: torch.as_tensor(v, device=DEVICE) for m, v in inputs.items()}
+    mask = torch.as_tensor(mask, device=DEVICE)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, scores = decoder.search(inputs, mask, beams, max_length=MAX_LENGTH, cuda_graph=False,
+                                  stats=stats, **kwargs)
+    seqs, scores = seqs.cpu().numpy(), scores.cpu().numpy()
+    return seqs, scores, stats, time.perf_counter() - t0
+
+
+def _graph_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
+    """As :func:`_eager_decode`, through the decoder's CUDA graphs."""
+    import torch
+
+    inputs = {m: torch.as_tensor(v, device=DEVICE) for m, v in inputs.items()}
+    mask = torch.as_tensor(mask, device=DEVICE)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, scores = decoder.search(inputs, mask, beams, max_length=MAX_LENGTH, stats=stats,
+                                  **kwargs)
+    seqs, scores = seqs.cpu().numpy(), scores.cpu().numpy()
+    _require(stats["graph"], "the decode did not run through its CUDA graphs")
+    return seqs, scores, stats, time.perf_counter() - t0
+
+
+def _require_bit_equal(what: str, graph: tuple, eager: tuple) -> None:
+    import numpy as np
+
+    equal = (np.array_equal(graph[0], eager[0]) and np.array_equal(graph[1], eager[1])
+             and graph[2]["steps"] == eager[2]["steps"])
+    print(f"{what}: graphs vs eager loop: sequences and scores bit-equal {equal}; steps "
+          f"{graph[2]['steps']} / {eager[2]['steps']}, replays {graph[2]['replays']} / "
+          f"{eager[2]['replays']}; {graph[3]:.4f} s / {eager[3]:.4f} s", flush=True)
+    _require(equal, f"{what}: the graph decode differs from the eager decode")
+
+
+# A planted early exit: random weights decode all 127 steps, so an lm_head
+# bias that favours EOS this much makes the decode exit early (finished
+# hypotheses ~ -EXIT_EOS_BIAS / 2, live sums falling ~EXIT_EOS_BIAS a step:
+# the exit near step 64), which is what the device loop's freeze serves.
+EXIT_EOS_BIAS = 20.0
+
+
+def check_early_exit(model) -> None:
+    """One K 10 batch through graphs and through the eager loop on the
+    serving model with EOS favoured: bit-equal, and an exit before the last
+    step, seen within ``check_every`` replays."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+
+    exit_model = _flagship()
+    exit_model.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        exit_model.lm_head.bias[exit_model.config.eos_token_id] += EXIT_EOS_BIAS
+    decoder = BeamDecoder(exit_model)
+    inputs, mask = _request(seed=4)
+    _graph_decode(decoder, inputs, mask, BEAMS)            # captures
+    graph = _graph_decode(decoder, inputs, mask, BEAMS)
+    eager = _eager_decode(decoder, inputs, mask, BEAMS)
+    _require_bit_equal(f"planted early exit (EOS bias {EXIT_EOS_BIAS}), K {BEAMS}", graph, eager)
+    steps, replays = graph[2]["steps"], graph[2]["replays"]
+    _require(steps < MAX_LENGTH - 1 and replays <= steps + 8,
+             f"no early exit ({steps} steps, {replays} replays)")
+
+
 def run_slice() -> dict:
     import numpy as np
     import torch
@@ -1048,23 +1188,34 @@ def run_slice() -> dict:
     check_teacher_forced(model, plain_model)
 
     engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH)
-    engine.decode_batch(*_request(seed=100))          # warm-up, not counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.decode_batch(*_request(seed=100))          # captures the graphs; not counted
+    first_s = time.perf_counter() - t0
+    capture = engine.last_stats
     requests = [_request(seed) for seed in (1, 2, 3)]
     for fn in counters:
         fn.launches = 0
-    results, seconds, steps = [], [], 0
+    results, seconds, steps, replays = [], [], 0, 0
     for inputs, mask in requests:
         t0 = time.perf_counter()
         seqs, scores = engine.decode_batch(inputs, mask)
         seconds.append(time.perf_counter() - t0)
-        steps += engine.last_steps
-        results.append((seqs, scores))
+        stats = engine.last_stats
+        _require(stats["graph"] and stats["warmup_steps"] == 0,
+                 "a serving request did not replay the engine's graphs")
+        steps += stats["steps"]
+        replays += stats["replays"]
+        results.append((seqs, scores, dict(stats), seconds[-1]))
     launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"slice: 3 requests x {BATCH} spectra, beam {BEAMS}, {steps} decode steps, "
-          f"launches {launches}", flush=True)
+    print(f"slice: 3 requests x {BATCH} spectra, beam {BEAMS}, {steps} decode steps in "
+          f"{replays} graph replays, launches {launches}; graph capture (first request): "
+          f"{capture['capture_s']:.4f} s for {capture['warmup_steps']} stages, first request "
+          f"{first_s:.4f} s in all", flush=True)
     for name, count in launches.items():
-        _require(count == LAYERS * steps, f"{name} launched {count} times, want {LAYERS * steps}")
-    for seqs, scores in results:
+        _require(count == LAYERS * replays, f"{name} launched {count} times, want "
+                                            f"{LAYERS * replays} ({LAYERS} x the replays)")
+    for seqs, scores, _, _ in results:
         _require(seqs.shape == (BATCH, BEAMS, MAX_LENGTH) and scores.shape == (BATCH, BEAMS),
                  "unexpected output shapes")
         _require(bool(np.isfinite(scores).all()), "non-finite scores")
@@ -1072,19 +1223,35 @@ def run_slice() -> dict:
         _require(bool((seqs[:, :, 0] == model.config.bos_token_id).all()),
                  "a sequence does not start with BOS")
     per_batch = sum(seconds) / len(seconds)
-    print(f"slice kernel path: {per_batch:.4f} s/batch ({BATCH / per_batch:.2f} spectra/s), "
-          f"per request {[round(s, 4) for s in seconds]}", flush=True)
+    host_ms = 1e3 * sum(r[2]["dispatch_s"] for r in results) / replays
+    print(f"slice kernel path, CUDA graphs: {per_batch:.4f} s/batch ({BATCH / per_batch:.2f} "
+          f"spectra/s), per request {[round(x, 4) for x in seconds]}; host {host_ms:.4f} ms "
+          f"per step launching replays", flush=True)
+
+    # The same requests through the eager loop (the same step, launched
+    # eagerly): bit-equal, timed.
+    eager_seconds = []
+    for (inputs, mask), graph in zip(requests, results):
+        eager = _eager_decode(engine.decoder, inputs, mask, BEAMS)
+        eager_seconds.append(eager[3])
+        _require_bit_equal("slice request", graph, eager)
+    eager_per_batch = sum(eager_seconds) / len(eager_seconds)
+    print(f"slice kernel path, eager loop (cuda_graph=False): {eager_per_batch:.4f} s/batch "
+          f"({BATCH / eager_per_batch:.2f} spectra/s), per request "
+          f"{[round(x, 4) for x in eager_seconds]}; graphs / eager "
+          f"{per_batch / eager_per_batch:.3f}", flush=True)
+    check_early_exit(model)
 
     plain_engine = InferenceEngine(plain_model, n_beams=BEAMS, batch_size=BATCH)
     plain_engine.decode_batch(*_request(seed=100))
     plain_seconds, agree = [], []
-    for (inputs, mask), (seqs, _) in zip(requests, results):
+    for (inputs, mask), (seqs, *_) in zip(requests, results):
         t0 = time.perf_counter()
         plain_seqs, _ = plain_engine.decode_batch(inputs, mask)
         plain_seconds.append(time.perf_counter() - t0)
         agree.append(float((plain_seqs[:, 0] == seqs[:, 0]).all(axis=1).mean()))
     plain_per_batch = sum(plain_seconds) / len(plain_seconds)
-    print(f"slice use_beam_kernel=False: {plain_per_batch:.4f} s/batch "
+    print(f"slice use_beam_kernel=False (graphs too): {plain_per_batch:.4f} s/batch "
           f"({BATCH / plain_per_batch:.2f} spectra/s); top-1 agreement with the kernel "
           f"path {np.mean(agree):.4f} (random weights: reported, not asserted)", flush=True)
     return launches
@@ -1326,8 +1493,10 @@ class FixedVocabTokenizer:
     """Stand-in for the fitted target ``RegexTokenizer`` (``data/tokenizer.py``
     needs the ``tokenizers`` package, which the card's machine lacks): the
     SMILES regex's tokens, then fillers up to the flagship vocabulary of 320,
-    with the same special ids (pad 0, bos 2, eos 3) and the same
-    ``batch_decode`` output (tokens joined by spaces, specials skipped)."""
+    with the same special tokens and ids (pad 0, bos 2, eos 3), the same
+    ``vocab`` and the same ``batch_decode`` output (tokens joined by spaces,
+    specials skipped), whose strings the chemistry engine parses as it
+    parses the fitted tokenizer's (guided decoding's exact mode)."""
 
     def __init__(self):
         import re
@@ -1336,11 +1505,18 @@ class FixedVocabTokenizer:
         atoms = sorted({t for s in SMILES_CORPUS for t in self.regex.findall(s)})
         atoms += [t for t in ("S", "P", "F", "I", "n", "o", "s", "[nH]", "=", "#", "(", ")")
                   if t not in atoms]
-        tokens = ["<pad>", "<unk>", "<bos>", "<eos>"] + atoms
+        self.pad_token, self.unk_token, self.bos_token, self.eos_token = (
+            "<pad>", "<unk>", "<bos>", "<eos>")
+        tokens = [self.pad_token, self.unk_token, self.bos_token, self.eos_token] + atoms
         self.tokens = tokens + [f"<x{i}>" for i in range(VOCAB - len(tokens))]
         self.ids = {t: i for i, t in enumerate(self.tokens)}
         self.pad_token_id, self.bos_token_id, self.eos_token_id = 0, 2, 3
         self.vocab_size = VOCAB
+
+    @property
+    def vocab(self) -> dict:
+        """token -> id, as the fitted tokenizer's (``GuidedDecoder`` reads it)."""
+        return self.ids
 
     def encode(self, smiles: str) -> list:
         return [self.ids[t] for t in self.regex.findall(smiles)]
@@ -1377,7 +1553,8 @@ def _eval_loader(tokenizer, first: int, rows: int) -> list:
 def run_eval_path() -> dict:
     """Phase 5: fit (2 epochs, validation each), checkpoints, restore of
     ``best`` into a fresh model, predict at K 30 and Table 4's scoring with
-    rejection sampling off and on. Returns the decode kernels' launches."""
+    rejection sampling off and on. Returns (the decode kernels' launches,
+    the predicting trainer, the test batches) for the guided phase."""
     import math
     import tempfile
 
@@ -1454,27 +1631,117 @@ def run_eval_path() -> dict:
     predict_s = (time.perf_counter() - t0) / len(test)
     launches = {fn.__name__: fn.launches for fn in counters}
     decode_steps = val_steps + predictor.decode_steps
+    replays = trainer.decode_replays + predictor.decode_replays
+    warmups = trainer.decode_warmups + predictor.decode_warmups
     cache_bytes = 2 * BATCH * MAX_LENGTH * EVAL_BEAMS * D_MODEL
     print(f"eval path predict: K {EVAL_BEAMS}, {len(test)} batch(es) of {BATCH}: "
-          f"{predict_s:.4f} s/batch ({BATCH / predict_s:.2f} spectra/s), "
+          f"{predict_s:.4f} s/batch ({BATCH / predict_s:.2f} spectra/s, graph capture "
+          f"included: {predictor.last_decode_stats['capture_s']:.4f} s), "
           f"{predictor.decode_steps} decode steps, avg_loss {predictions['avg_loss']:.4f}; "
           f"int8 KV cache {cache_bytes} B per layer ({cache_bytes / 2**30:.3f} GiB, "
-          f"{LAYERS} layers); launches {launches} over {decode_steps} decode steps",
-          flush=True)
+          f"{LAYERS} layers); launches {launches} over {decode_steps} decode steps in "
+          f"{replays} graph replays and {warmups} eager steps of graph captures "
+          f"(validation and predict)", flush=True)
     _require(len(predictions["predictions"]) == EVAL_TEST
              and all(len(p) == EVAL_BEAMS for p in predictions["predictions"])
              and predictions["targets"] == [s for b in test for s in b["target_strings"]],
              "predict returned other rows or beams")
     _require(math.isfinite(predictions["avg_loss"]), "non-finite predict loss")
     for name, count in launches.items():
-        _require(count == LAYERS * decode_steps,
-                 f"{name} launched {count} times, want {LAYERS * decode_steps}")
+        _require(count == LAYERS * (replays + warmups),
+                 f"{name} launched {count} times, want {LAYERS * (replays + warmups)}")
+    # One batch of each decode through its graphs and through the eager loop.
+    for what, owner, loader, beams in (("validation K 1", trainer, val, 1),
+                                       (f"predict K {EVAL_BEAMS}", predictor, test,
+                                        EVAL_BEAMS)):
+        batch = loader[0]
+        decoder = owner.beam_decoder()
+        args = (decoder, batch["encoder_inputs"], batch["encoder_mask"], beams)
+        _require_bit_equal(f"eval path {what}", _graph_decode(*args), _eager_decode(*args))
     for rejection in (False, True):
         metrics = score_predictions(predictions, molecules=True, rejection_sampling=rejection)
         tops = {k: round(v, 4) for k, v in metrics.items()
                 if k in ("Top-1", "Top-5", "Top-10", f"Top-{EVAL_BEAMS}")}
         print(f"eval path scoring, rejection sampling {rejection}: {tops} (random weights: "
               f"reported, not asserted)", flush=True)
+    return launches, predictor, test
+
+
+# ---------------------------------------------------------------- phase 6
+def run_guided_path(predictor, tokenizer, test) -> dict:
+    """Formula-guided predict at K 10 on phase 5's restored model with the
+    corpus targets: the surrogate hook inside the captured step, the decode
+    graph against the eager loop bit for bit, every finished beam within
+    rule 3's heavy-atom bound of its target; then the exact hook (one host
+    call per step, so its steps run eagerly) on one batch. Returns the
+    decode kernels' launches in the surrogate predict."""
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.generation import guided_hook_builder
+    from multimodalanalytical_tpu_torch.generation.guided import (
+        N_LOOKAHEAD,
+        build_token_atom_table,
+    )
+
+    counters = _decode_counters()
+    surrogate = guided_hook_builder(tokenizer, "surrogate")
+    for fn in counters:
+        fn.launches = 0
+    before = (predictor.decode_replays, predictor.decode_warmups)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictions = predictor.predict(test, n_beams=BEAMS, guided=surrogate)
+    torch.cuda.synchronize()
+    guided_s = (time.perf_counter() - t0) / len(test)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    replays = predictor.decode_replays - before[0]
+    warmups = predictor.decode_warmups - before[1]
+    stats = predictor.last_decode_stats
+    print(f"guided predict (surrogate): K {BEAMS}, {len(test)} batch(es): {guided_s:.4f} "
+          f"s/batch (graph capture included: {stats['capture_s']:.4f} s), {stats['steps']} "
+          f"decode steps, {replays} replays, {warmups} eager steps of captures; launches "
+          f"{launches}", flush=True)
+    _require(stats["graph"], "the surrogate-guided decode did not run through its graphs")
+    _require(len(predictions["predictions"]) == EVAL_TEST
+             and all(len(p) == BEAMS for p in predictions["predictions"]),
+             "guided predict returned other rows or beams")
+    for name, count in launches.items():
+        _require(count == LAYERS * (replays + warmups),
+                 f"{name} launched {count} times, want {LAYERS * (replays + warmups)}")
+
+    batch = test[0]
+    hook = {"logits_hook": surrogate.hook,
+            "hook_init": surrogate.state_for(batch, BEAMS, device=DEVICE)}
+    args = (predictor.beam_decoder(), batch["encoder_inputs"], batch["encoder_mask"], BEAMS)
+    graph = _graph_decode(*args, **hook)
+    _require_bit_equal(f"guided predict (surrogate) K {BEAMS}", graph, _eager_decode(*args, **hook))
+    # Rule 3 on every finished beam (an EOS and a finite score): its heavy
+    # atoms, by the guide's own token table, within its target's.
+    table = build_token_atom_table(tokenizer.vocab, [tokenizer.pad_token, tokenizer.unk_token,
+                                                     tokenizer.bos_token, tokenizer.eos_token])
+    seqs, scores = graph[0], graph[1]
+    counts = table[seqs].sum(axis=2)[..., :N_LOOKAHEAD]
+    target = hook["hook_init"]["target"].cpu().numpy()[..., :N_LOOKAHEAD]
+    finished = (seqs == tokenizer.eos_token_id).any(axis=2) & np.isfinite(scores)
+    within = (counts <= target).all(axis=2)
+    print(f"guided predict (surrogate): {int(finished.sum())} finished beams of "
+          f"{finished.size}, all within rule 3's heavy-atom bound "
+          f"{bool(within[finished].all())}", flush=True)
+    _require(finished.any() and bool(within[finished].all()),
+             "a finished guided beam exceeds its target's heavy atoms")
+
+    exact = guided_hook_builder(tokenizer, "exact")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact_predictions = predictor.predict(test[:1], n_beams=BEAMS, guided=exact)
+    exact_s = time.perf_counter() - t0
+    stats = predictor.last_decode_stats
+    print(f"guided predict (exact, one host call per step, eager by design): 1 batch of "
+          f"{BATCH}: {exact_s:.4f} s, {stats['steps']} decode steps, graph {stats['graph']}",
+          flush=True)
+    _require(not stats["graph"] and len(exact_predictions["predictions"]) == BATCH,
+             "the exact-guided predict did not run as designed")
     return launches
 
 
@@ -1483,31 +1750,45 @@ PROFILE_TOP = 14
 
 
 def _device_time(prof) -> tuple:
-    """(seconds, rows, kernel launches) of one profiled run. Only the
-    device's own events count (kernels, copies, sets): the profiler's
-    operator rows (``aten::...``) carry their kernels' time a second time.
-    rows: (ms, calls, name) by name, largest first."""
+    """(seconds, rows, kernel launches, graph launches) of one profiled run.
+    Only the device's own events count (kernels, copies, sets): the
+    profiler's operator rows (``aten::...``) carry their kernels' time a
+    second time. rows: (ms, calls, name) by name, largest first. Launches
+    are the host's calls: ``cudaLaunchKernel`` and ``cudaGraphLaunch``."""
     from torch.autograd import DeviceType
 
-    by_name, launches = {}, 0
+    by_name, launches, graphs = {}, 0, 0
     for event in prof.events():
         if event.device_type == DeviceType.CUDA:
             ms, calls = by_name.get(event.name, (0.0, 0))
             by_name[event.name] = (ms + event.time_range.elapsed_us() / 1e3, calls + 1)
         elif event.name.startswith("cudaLaunchKernel"):
             launches += 1
+        elif event.name.startswith("cudaGraphLaunch"):
+            graphs += 1
     rows = sorted(((ms, calls, name) for name, (ms, calls) in by_name.items()), reverse=True)
-    return sum(ms for ms, _, _ in rows) / 1e3, rows, launches
+    return sum(ms for ms, _, _ in rows) / 1e3, rows, launches, graphs
+
+
+# --profile-eval of the last tree with the host-side decode loop (48c0f37;
+# H100 80GB HBM3, 700 W): wall s, device s, busy share, kernel launches per
+# decode step.
+EAGER_LOOP_PROFILE = {f"predict K {EVAL_BEAMS}": (1.4533, 0.3732, 0.257, 199.5),
+               f"serve K {BEAMS}": (1.3963, 0.1707, 0.122, 195.7),
+               "validate K 1": (1.5311, 0.1100, 0.072, 201.4)}
 
 
 def profile_eval() -> None:
     """The decode paths under ``torch.profiler``: one beam-30 predict batch
     of 128 spectra, one greedy (K 1) validation pass over 128, and one
     128-spectrum serving request at beam 10 (phase 2's), on a fresh
-    flagship model (random weights, so every row decodes all steps). Each
-    runs once to warm up, once unprofiled for its wall time and once
-    profiled; prints device time by kernel, the busy share (device time /
-    unprofiled wall time) and the launches per decode step."""
+    flagship model (random weights, so every row decodes all steps), each
+    through its CUDA graphs. Each runs once to capture and warm up, once
+    unprofiled for its wall time and once profiled; prints device time by
+    kernel, the busy share (device time / unprofiled wall time), the host's
+    ms per decode step launching it and the launches per step as the host
+    makes them (graph launches plus eager kernel launches), beside the
+    host-side loop's (EAGER_LOOP_PROFILE)."""
     import torch
 
     from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
@@ -1521,32 +1802,39 @@ def profile_eval() -> None:
     request = _request(seed=1)
 
     def counted(fn):
-        """``fn`` returning the decode steps it ran."""
+        """``fn`` returning the stats of its (last) decode."""
         def run():
-            before = trainer.decode_steps
             fn()
-            return trainer.decode_steps - before
+            return trainer.last_decode_stats
         return run
 
     runs = {f"predict K {EVAL_BEAMS}": counted(lambda: trainer.predict(test, n_beams=EVAL_BEAMS)),
             "validate K 1": counted(lambda: trainer.validate(val)),
-            f"serve K {BEAMS}": lambda: (engine.decode_batch(*request), engine.last_steps)[1]}
+            f"serve K {BEAMS}": lambda: (engine.decode_batch(*request), engine.last_stats)[1]}
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for name, run in runs.items():
         run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        steps = run()
+        stats = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         with torch.profiler.profile(activities=activities) as prof:
             run()
             torch.cuda.synchronize()
-        device_s, rows, launches = _device_time(prof)
-        print(f"profile {name}: {steps} decode steps; wall {wall:.4f} s unprofiled; device "
-              f"time {device_s:.4f} s (kernels and copies only); busy share "
-              f"{device_s / wall:.3f}; {launches} kernel launches ({launches / steps:.1f} per "
-              f"decode step)", flush=True)
+        device_s, rows, launches, graphs = _device_time(prof)
+        steps, replays = stats["steps"], stats["replays"]
+        host_ms = 1e3 * stats["dispatch_s"] / replays
+        old_wall, old_device, old_busy, old_launches = EAGER_LOOP_PROFILE[name]
+        print(f"profile {name}: {steps} decode steps in {replays} graph replays; wall "
+              f"{wall:.4f} s unprofiled (host-side loop: {old_wall}); device time "
+              f"{device_s:.4f} s (kernels and copies only; host-side loop: {old_device}); busy "
+              f"share {device_s / wall:.3f} (host-side loop: {old_busy}); host {host_ms:.4f} ms "
+              f"per decode step launching it; launches as the host makes them: {graphs} graph "
+              f"launches + {launches} kernel launches = {(graphs + launches) / replays:.2f} per "
+              f"step (host-side loop: {old_launches} kernel launches per step)", flush=True)
+        _require(stats["graph"] and graphs >= replays,
+                 f"profile {name}: the decode did not replay its graphs")
         ffn = [(ms, calls) for ms, calls, kernel in rows if "ffn_" in kernel]
         ffn_ms = sum(ms for ms, _ in ffn)
         print(f"profile {name}: decode FFN (#3) kernels {ffn_ms:.2f} ms "
@@ -1590,7 +1878,7 @@ def profile_train() -> None:
                 for _ in range(steps):
                     trainer.train_step(batch)
                 torch.cuda.synchronize()
-        device_s, rows, launches = _device_time(prof)
+        device_s, rows, launches, _ = _device_time(prof)
         device_s /= steps
         host_ms = {}
         for row in prof.key_averages():
@@ -1649,8 +1937,11 @@ def main() -> int:
     flash_launches, dropout_phase3 = run_training_slice()
     by_phase.update({name: {"3": n} for name, n in flash_launches.items()})
     run_ir_recipe()
-    for name, n in run_eval_path().items():
+    eval_launches, predictor, test = run_eval_path()
+    for name, n in eval_launches.items():
         by_phase[name]["5"] = n
+    for name, n in run_guided_path(predictor, predictor.tokenizer, test).items():
+        by_phase[name]["6"] = n
     for rec in records:
         rec["launches_by_phase"] = by_phase[rec["name"]]
         rec["launches"] = sum(by_phase[rec["name"]].values())

@@ -13,6 +13,8 @@ at ``model.n_beams`` and scores, with rejection sampling when
 
 ``model.model_checkpoint_path`` is a checkpoint directory of this package or
 an ``.npz`` of a JAX param tree (``training/checkpoint.py``).
+``model.guided_generation`` (``true``, ``surrogate`` or ``exact``) guides
+the beams by each target's formula, as the training CLI's predict does.
 It runs on the CUDA device unless the override ``+device=cpu`` asks for
 the CPU.
 """
@@ -37,7 +39,7 @@ from .common import (
     setup_logging,
     write_json,
 )
-from .training import GUIDED_NOT_PORTED
+from .training import build_guided
 
 logger = logging.getLogger(__name__)
 
@@ -57,8 +59,6 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError("Please supply model_checkpoint_path with model.model_checkpoint_path=...")
     if not config.get("preprocessor_path"):
         raise ValueError("Please supply preprocessor_path=...")
-    if model_config.get("guided_generation"):
-        raise NotImplementedError(GUIDED_NOT_PORTED)
 
     data_config = dict(config["data"])
     data_config, dataset = build_dataset_multimodal(
@@ -81,7 +81,8 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
 
     n_beams = model_config.get("n_beams", 10)
     trainer = Trainer(model, tokenizer, num_steps=100, seed=seed, n_beams=n_beams)
-    predictions = trainer.predict(loaders["test"], n_beams=n_beams)
+    predictions = trainer.predict(loaders["test"], n_beams=n_beams,
+                                  guided=build_guided(model_config, tokenizer))
     metrics = score_predictions(predictions, molecules=config.get("molecules", True),
                                 rejection_sampling=bool(model_config.get("rejection_sampling")),
                                 predict_class=predict_class)

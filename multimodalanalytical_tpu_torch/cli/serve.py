@@ -40,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..generation.beam_search import beam_search, decode_model
+from ..generation.beam_search import BeamDecoder
 from ..models.seq2seq import Seq2SeqModel
 
 logger = logging.getLogger(__name__)
@@ -87,7 +87,10 @@ class InferenceEngine:
                  collator=None, tokenizer=None, max_wait_ms: float = 20.0):
         # bf16 models keep their decode weights pre-cast for every request
         # (encoding with them gives the same results: Dense casts anyway).
-        self.model = decode_model(model.eval())
+        # On a CUDA device the decoder captures each request shape's decode
+        # steps once, for the engine's life.
+        self.decoder = BeamDecoder(model.eval())
+        self.model = self.decoder.dmodel
         self.device = next(model.parameters()).device
         self.n_beams = n_beams
         self.batch_size = batch_size
@@ -96,6 +99,7 @@ class InferenceEngine:
         self.tokenizer = tokenizer
         self.max_wait_s = max_wait_ms / 1e3
         self.last_steps = 0
+        self.last_stats: Dict[str, Any] = {}
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._worker: Optional[threading.Thread] = None
 
@@ -103,13 +107,15 @@ class InferenceEngine:
     def decode_batch(self, encoder_inputs: Dict[str, Any],
                      encoder_mask) -> Tuple[np.ndarray, np.ndarray]:
         """Beam-decode one collated batch; returns (sequences (B, K, L) int64,
-        scores (B, K) fp32) as numpy. ``last_steps`` records the steps run."""
+        scores (B, K) fp32) as numpy. ``last_steps`` records the decode steps
+        that counted, ``last_stats`` the beam search's ``stats``."""
         inputs = {m: torch.as_tensor(v, device=self.device) for m, v in encoder_inputs.items()}
         mask = torch.as_tensor(encoder_mask, device=self.device)
         stats: Dict[str, Any] = {}
-        seqs, scores = beam_search(self.model, inputs, mask, num_beams=self.n_beams,
-                                   max_length=self.max_length, stats=stats)
+        seqs, scores = self.decoder.search(inputs, mask, self.n_beams,
+                                           max_length=self.max_length, stats=stats)
         self.last_steps = stats["steps"]
+        self.last_stats = stats
         return seqs.cpu().numpy(), scores.cpu().numpy()
 
     # --------------------------------------------------------- record path

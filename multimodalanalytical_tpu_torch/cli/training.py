@@ -15,7 +15,9 @@ composition and the datasets need pyyaml, pyarrow and ``tokenizers``.
 
 A ``mixture`` config trains on the host generator: the JAX package's
 ``device_mixing=False`` route, its parity reference (device-side mixing is
-not ported yet). Guided generation is not ported yet and raises.
+not ported yet). ``model.guided_generation`` guides the final predict by
+each target's formula: ``true`` (or ``surrogate``) in the decode step's
+graph, ``exact`` with one host call per step (``generation/guided.py``).
 """
 
 from __future__ import annotations
@@ -42,8 +44,18 @@ from .common import (
 
 logger = logging.getLogger(__name__)
 
-GUIDED_NOT_PORTED = ("guided_generation is not ported to the PyTorch package yet "
-                     "(ROADMAP Queue 1 item 9); run without it or use the JAX package")
+
+
+def build_guided(model_config: Dict[str, Any], tokenizer):
+    """The guided decoder of ``model.guided_generation`` (true -> the
+    surrogate, or the named mode), or None when it is off."""
+    guided_mode = model_config.get("guided_generation")
+    if not guided_mode:
+        return None
+    from ..generation import guided_hook_builder
+
+    mode = guided_mode if isinstance(guided_mode, str) else "surrogate"
+    return guided_hook_builder(tokenizer, mode=mode)
 
 
 def run(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -57,8 +69,6 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
 
     data_config = dict(config["data"])
     model_config: Dict[str, Any] = dict(config["model"])
-    if model_config.get("guided_generation"):
-        raise NotImplementedError(GUIDED_NOT_PORTED)
     if config.get("mixture"):
         logger.info("Mixture synthesis runs on the host generator (device-side mixing is "
                     "ROADMAP Queue 1 item 10)")
@@ -144,7 +154,8 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
         logger.info("No best checkpoint; evaluating final state")
 
     n_beams = model_config.get("n_beams", 10)
-    predictions = trainer.predict(loaders["test"], n_beams=n_beams)
+    predictions = trainer.predict(loaders["test"], n_beams=n_beams,
+                                  guided=build_guided(model_config, tokenizer))
     metrics = score_predictions(predictions, molecules=config.get("molecules", True),
                                 predict_class=predict_class)
     write_json(work_dir / f"test_data_logits_beam_{n_beams}.json", predictions)

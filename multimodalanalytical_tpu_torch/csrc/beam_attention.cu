@@ -43,15 +43,30 @@
 // (the build has no --use_fast_math, so '/' is the IEEE division). Those
 // rows are read from shared memory, never from the cache being written.
 //
+// The step index `pos` is read from device memory at the kernel's start, as
+// the Pallas kernel takes it by scalar prefetch, so that one captured CUDA
+// graph of a decode step serves every step of a stage: the launcher sizes
+// the shared-memory plan and the grid from the stage length L (the
+// ancestry slice's time axis), never from pos, and the kernel bounds every
+// per-time loop, mask and table by pos + 1 inside that plan. The tile of
+// times is min(pos + 1, the plan's), as a plan sized for pos + 1 would
+// take, so results at each pos are those of a launch planned for it. A pos
+// outside [0, L) writes NaN to the block's output and nothing else.
+//
 // The kernel takes any stage length up to 65536 (time, slot) rows (its
 // staged-row tables are 16-bit). The per-time tables (slot masks, prefix
-// sums, K x (pos + 1) logits, row tables) grow with the stage: at the
-// decode shapes (L 128) they sit in shared memory; when they would take
-// the plan past 227 KB (K 30, Dh 64 beyond ~520 times) the launcher moves
-// them to a stream-ordered global workspace, and the ancestry is read in
-// place. What then stays in shared memory depends on K and head_dim only,
-// and fits for every K x head_dim <= 8192 (ops/beam_attention.py
-// beam_kernel_supports).
+// sums, K x L logits, row tables) grow with the stage: at the decode
+// shapes (L 128) they sit in shared memory; when they would take the plan
+// past 227 KB (K 30, Dh 64 beyond ~520 times) they move to a global
+// workspace that the caller allocates (mmt_beam_select_workspace_bytes
+// says how large; the wrapper takes a torch.empty, so a captured graph
+// holds no allocation of its own), and the ancestry is read in place. What
+// then stays in shared memory depends on K and head_dim only, and fits for
+// every K x head_dim <= 8192 (ops/beam_attention.py beam_kernel_supports).
+// The launcher raises the kernel's shared-memory limit at the first launch
+// of a plan (cudaFuncSetAttribute, not a stream operation); a decode step
+// is run eagerly once per stage before its graph is captured, which does
+// that before capture.
 //
 // What is left: on the card the kernel is limited by its instruction
 // stream, not by bytes (its time hardly changes when every beam shares one
@@ -101,12 +116,12 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Shared-memory plan of the select kernel for `steps` = pos + 1 attended
-// times. The per-time tables (slot masks, prefix sums, the K x steps
-// logits, the staged-row tables) grow with the stage; when they would take
-// the plan past kMaxSmem they `spill` to a global workspace of `workspace`
-// bytes per block (the ancestry is then read in place), and what stays in
-// shared memory depends on K and head_dim only.
+// Shared-memory plan of the select kernel for up to `steps` attended times
+// (the stage length). The per-time tables (slot masks, prefix sums, the K x
+// steps logits, the staged-row tables) grow with the stage; when they would
+// take the plan past kMaxSmem they `spill` to a global workspace of
+// `workspace` bytes per block (the ancestry is then read in place), and
+// what stays in shared memory depends on K and head_dim only.
 struct SelectLayout {
   int row_bytes;    // head slice of one cache row
   int row_stride;   // staged row pitch: row_bytes + kRowPad
@@ -274,14 +289,16 @@ __device__ __forceinline__ float staged_dot(const float* q, const T* row, int he
 // cache in an fp32 model).
 // kBlocks: the blocks per SM the registers are budgeted for (the launcher
 // picks 3 where the shared-memory plan lets 3 blocks share an SM, else 2).
-// `workspace`: null, or the spilled per-time tables of every block
-// (select_layout's `workspace` bytes each).
+// `spill`: the per-time tables of every block are in `workspace`
+// (select_layout's `workspace` bytes each). `pos_ptr`: the step index in
+// device memory; `length`: the stage length the plan is sized for.
 template <typename T, typename TNew, bool kUpdate, int kBlocks>
 __global__ void __launch_bounds__(kSelectThreads, kBlocks) select_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const TNew* __restrict__ k_new,
     const TNew* __restrict__ v_new, T* cache, float* scales, const int* __restrict__ ancestry,
     __nv_bfloat16* __restrict__ out, unsigned char* workspace, int batch, int beams, int heads,
-    int head_dim, int flat, int flat_pad, int anc_row_stride, int pos, float scale) {
+    int head_dim, int flat, int flat_pad, int anc_row_stride, const int* __restrict__ pos_ptr,
+    int length, bool spill, float scale) {
   constexpr bool kQuantized = std::is_same<T, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x;
@@ -289,12 +306,20 @@ __global__ void __launch_bounds__(kSelectThreads, kBlocks) select_attention_kern
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
+  const int pos = *pos_ptr;
   const int steps = pos + 1;
   const int d_model = heads * head_dim;
-  const SelectLayout lay = select_layout(beams, head_dim, steps, sizeof(T), sizeof(TNew),
-                                         kQuantized, kUpdate, workspace != nullptr);
   const size_t row0 = static_cast<size_t>(b) * beams;
   const size_t head_off = static_cast<size_t>(h) * head_dim;
+  if (pos < 0 || pos >= length) {
+    const __nv_bfloat16 nan = __float2bfloat16_rn(__int_as_float(0x7fc00000));
+    for (int i = tid; i < beams * head_dim; i += nthreads) {
+      out[(row0 + i / head_dim) * d_model + head_off + i % head_dim] = nan;
+    }
+    return;
+  }
+  const SelectLayout lay = select_layout(beams, head_dim, length, sizeof(T), sizeof(TNew),
+                                         kQuantized, kUpdate, spill);
   const size_t plane = static_cast<size_t>(batch) * flat * d_model;  // K -> V plane, elements
   T* kv = cache + static_cast<size_t>(b) * flat * d_model + head_off;
   const size_t scale_plane = static_cast<size_t>(batch) * heads * flat_pad;
@@ -446,7 +471,7 @@ __global__ void __launch_bounds__(kSelectThreads, kBlocks) select_attention_kern
 
   // 4. The tiles: K rows of times [c * T, c * T + T) for c < C, then V rows;
   // tile c stages the selected rows prefix[c * T] .. prefix[c * T + T) - 1.
-  const int per = lay.times;
+  const int per = imin(steps, lay.times);
   const int chunks = (steps + per - 1) / per;
   const int n_tiles = 2 * chunks;
   const int wide = lay.row_bytes % 16 == 0;
@@ -832,49 +857,47 @@ cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* reserved) {
   return err;
 }
 
+// The select kernel's plan for a stage of `length` times: in shared memory,
+// or with the per-time tables spilled when they do not fit.
+template <typename T, typename TNew, bool kUpdate>
+SelectLayout select_plan(int beams, int head_dim, int length) {
+  constexpr bool kQuantized = std::is_same<T, int8_t>::value;
+  const SelectLayout lay = select_layout(beams, head_dim, length, sizeof(T), sizeof(TNew),
+                                         kQuantized, kUpdate, false);
+  if (lay.total <= kMaxSmem) return lay;
+  return select_layout(beams, head_dim, length, sizeof(T), sizeof(TNew), kQuantized, kUpdate,
+                       true);
+}
+
+bool select_shape_ok(int beams, int head_dim, int length) {
+  // The staged-row tables are 16-bit: at most 65536 (time, slot) rows.
+  return head_dim <= kMaxHeadDim && head_dim % 8 == 0 && beams >= 1 && beams <= 256 &&
+         length >= 1 && static_cast<long long>(length) * beams <= 65536;
+}
+
 template <typename T, typename TNew, bool kUpdate>
 int launch_select(const void* q, const void* k_new, const void* v_new, void* cache,
-                  void* scales, const void* ancestry, void* out, int batch, int beams,
-                  int heads, int head_dim, int flat, int flat_pad, int anc_row_stride, int pos,
-                  float scale, cudaStream_t s) {
-  constexpr bool kQuantized = std::is_same<T, int8_t>::value;
-  // The staged-row tables are 16-bit: at most 65536 (time, slot) rows.
-  if (head_dim > kMaxHeadDim || head_dim % 8 != 0 || beams < 1 || beams > 256 ||
-      static_cast<long long>(pos + 1) * beams > 65536) {
+                  void* scales, const void* ancestry, void* out, void* workspace, int batch,
+                  int beams, int heads, int head_dim, int flat, int flat_pad,
+                  int anc_row_stride, const int* pos, int length, float scale, cudaStream_t s) {
+  if (!select_shape_ok(beams, head_dim, length)) return static_cast<int>(cudaErrorInvalidValue);
+  const SelectLayout lay = select_plan<T, TNew, kUpdate>(beams, head_dim, length);
+  if (lay.total > kMaxSmem || (lay.spill && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  SelectLayout lay = select_layout(beams, head_dim, pos + 1, sizeof(T), sizeof(TNew),
-                                   kQuantized, kUpdate, false);
-  if (lay.total > kMaxSmem) {
-    lay = select_layout(beams, head_dim, pos + 1, sizeof(T), sizeof(TNew), kQuantized, kUpdate,
-                        true);
-  }
-  if (lay.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const bool three = 3 * (lay.total + 1024) <= kSmemPerSm;   // 1 KB reserved per block
   auto kernel = three ? select_attention_kernel<T, TNew, kUpdate, 3>
                       : select_attention_kernel<T, TNew, kUpdate, 2>;
   static size_t reserved[2] = {0, 0};
-  cudaError_t err = reserve_smem(kernel, lay.total, &reserved[three]);
+  const cudaError_t err = reserve_smem(kernel, lay.total, &reserved[three]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // The spilled tables' workspace, stream-ordered: allocated before the
-  // launch and freed after it on the same stream.
-  void* workspace = nullptr;
-  if (lay.spill) {
-    err = cudaMallocAsync(&workspace, lay.workspace * batch * heads, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   kernel<<<dim3(heads, batch), kSelectThreads, lay.total, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TNew*>(k_new),
       static_cast<const TNew*>(v_new), static_cast<T*>(cache), static_cast<float*>(scales),
       static_cast<const int*>(ancestry), static_cast<__nv_bfloat16*>(out),
-      static_cast<unsigned char*>(workspace), batch, beams, heads, head_dim, flat, flat_pad,
-      anc_row_stride, pos, scale);
-  err = cudaGetLastError();
-  if (lay.spill) {
-    const cudaError_t freed = cudaFreeAsync(workspace, s);
-    if (err == cudaSuccess) err = freed;
-  }
-  return static_cast<int>(err);
+      lay.spill ? static_cast<unsigned char*>(workspace) : nullptr, batch, beams, heads,
+      head_dim, flat, flat_pad, anc_row_stride, pos, length, lay.spill, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -913,50 +936,78 @@ const char* mmt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Bytes of global workspace a select launch needs for a stage of `length`
+// times (0 when its per-time tables fit in shared memory): kind as
+// mmt_beam_select_attention_update's, or 3 / 4 for the read-only mode on a
+// bf16 / int8 cache; -1 for a shape the kernel does not take.
+long long mmt_beam_select_workspace_bytes(int kind, int batch, int beams, int heads,
+                                          int head_dim, int length) {
+  using namespace mmt;
+  if (!select_shape_ok(beams, head_dim, length)) return -1;
+  SelectLayout lay;
+  switch (kind) {
+    case 0: lay = select_plan<__nv_bfloat16, __nv_bfloat16, true>(beams, head_dim, length); break;
+    case 1: lay = select_plan<int8_t, __nv_bfloat16, true>(beams, head_dim, length); break;
+    case 2: lay = select_plan<int8_t, float, true>(beams, head_dim, length); break;
+    case 3: lay = select_plan<__nv_bfloat16, __nv_bfloat16, false>(beams, head_dim, length); break;
+    case 4: lay = select_plan<int8_t, __nv_bfloat16, false>(beams, head_dim, length); break;
+    default: return -1;
+  }
+  if (lay.total > kMaxSmem) return -1;
+  return lay.spill ? static_cast<long long>(lay.workspace) * batch * heads : 0;
+}
+
 // kind: 0 bf16 cache and bf16 fresh rows; 1 int8 cache, bf16 fresh rows;
-// 2 int8 cache, fp32 fresh rows (quantized in the kernel). Returns the
-// cudaError_t of the launch (0 on success).
+// 2 int8 cache, fp32 fresh rows (quantized in the kernel). `pos` points to
+// the step index (one int32 in device memory), `length` is the stage's
+// time axis, `workspace` holds mmt_beam_select_workspace_bytes bytes (or
+// is null when that is 0). Returns the cudaError_t of the launch (0 on
+// success).
 int mmt_beam_select_attention_update(int kind, const void* q, const void* k_new,
                                      const void* v_new, void* cache, void* scales,
-                                     const void* ancestry, void* out, int batch, int beams,
-                                     int heads, int head_dim, int flat, int flat_pad,
-                                     int anc_row_stride, int pos, float scale, void* stream) {
+                                     const void* ancestry, void* out, void* workspace,
+                                     int batch, int beams, int heads, int head_dim, int flat,
+                                     int flat_pad, int anc_row_stride, const int* pos,
+                                     int length, float scale, void* stream) {
   using namespace mmt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0:
       return launch_select<__nv_bfloat16, __nv_bfloat16, true>(
-          q, k_new, v_new, cache, nullptr, ancestry, out, batch, beams, heads, head_dim, flat,
-          flat_pad, anc_row_stride, pos, scale, s);
+          q, k_new, v_new, cache, nullptr, ancestry, out, workspace, batch, beams, heads,
+          head_dim, flat, flat_pad, anc_row_stride, pos, length, scale, s);
     case 1:
       return launch_select<int8_t, __nv_bfloat16, true>(
-          q, k_new, v_new, cache, scales, ancestry, out, batch, beams, heads, head_dim, flat,
-          flat_pad, anc_row_stride, pos, scale, s);
+          q, k_new, v_new, cache, scales, ancestry, out, workspace, batch, beams, heads,
+          head_dim, flat, flat_pad, anc_row_stride, pos, length, scale, s);
     case 2:
       return launch_select<int8_t, float, true>(
-          q, k_new, v_new, cache, scales, ancestry, out, batch, beams, heads, head_dim, flat,
-          flat_pad, anc_row_stride, pos, scale, s);
+          q, k_new, v_new, cache, scales, ancestry, out, workspace, batch, beams, heads,
+          head_dim, flat, flat_pad, anc_row_stride, pos, length, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Read-only mode: q (batch * beams, D) bf16 rows, the cache already holds
-// the time-pos rows. Returns the cudaError_t of the launch (0 on success).
+// the time-pos rows; the other arguments as the update's. Returns the
+// cudaError_t of the launch (0 on success).
 int mmt_beam_select_attention(int quantized, const void* q, const void* cache,
-                              const void* scales, const void* ancestry, void* out, int batch,
-                              int beams, int heads, int head_dim, int flat, int flat_pad,
-                              int anc_row_stride, int pos, float scale, void* stream) {
+                              const void* scales, const void* ancestry, void* out,
+                              void* workspace, int batch, int beams, int heads, int head_dim,
+                              int flat, int flat_pad, int anc_row_stride, const int* pos,
+                              int length, float scale, void* stream) {
   using namespace mmt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (quantized) {
     return launch_select<int8_t, __nv_bfloat16, false>(
         q, nullptr, nullptr, const_cast<void*>(cache), const_cast<void*>(scales), ancestry, out,
-        batch, beams, heads, head_dim, flat, flat_pad, anc_row_stride, pos, scale, s);
+        workspace, batch, beams, heads, head_dim, flat, flat_pad, anc_row_stride, pos, length,
+        scale, s);
   }
   return launch_select<__nv_bfloat16, __nv_bfloat16, false>(
-      q, nullptr, nullptr, const_cast<void*>(cache), nullptr, ancestry, out, batch, beams, heads,
-      head_dim, flat, flat_pad, anc_row_stride, pos, scale, s);
+      q, nullptr, nullptr, const_cast<void*>(cache), nullptr, ancestry, out, workspace, batch,
+      beams, heads, head_dim, flat, flat_pad, anc_row_stride, pos, length, scale, s);
 }
 
 // is_bf16: 1 for bf16 q/k/v/out, 0 for float32.

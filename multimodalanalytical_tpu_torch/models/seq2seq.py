@@ -127,13 +127,18 @@ class Seq2SeqModel(nn.Module):
         return {"self": selves, "cross": self.decoder.project_cross_kv(encoder_hidden),
                 "cross_bias": make_attention_bias(encoder_mask)[:, 0, 0]}
 
-    def beam_decode_step(self, token_ids: torch.Tensor, position: int, cache,
+    def beam_decode_step(self, token_ids: torch.Tensor, position, cache,
                          ancestry: torch.Tensor) -> torch.Tensor:
         """One beam decode step: (B, K) tokens -> logits (B, K, V); appends to
-        the self caches in place."""
+        the self caches in place. ``position`` is the step index: a 0-d
+        tensor on the tokens' device (the decode loop's, which a CUDA graph
+        of the step reads at every replay) or an int; it is never read on
+        the host here."""
         batch, beams = token_ids.shape
-        positions = torch.full((batch * beams, 1), position, dtype=torch.long,
-                               device=token_ids.device)
+        if not isinstance(position, torch.Tensor):
+            position = torch.full((), position, device=token_ids.device)
+        position = position.to(torch.int32)
+        positions = position.reshape(1, 1).expand(batch * beams, 1)
         embeds = self._embed_target(
             {self.target_modality: token_ids.reshape(batch * beams, 1)},
             decode_positions=positions)

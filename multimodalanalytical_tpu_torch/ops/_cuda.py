@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -36,8 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "mmt_beam_select_attention_update": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
-    "mmt_beam_select_attention": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
+    "mmt_beam_select_attention_update": [_I] + [_P] * 8 + [_I] * 7 + [_P, _I, _F, _P],
+    "mmt_beam_select_attention": [_I] + [_P] * 6 + [_I] * 7 + [_P, _I, _F, _P],
     "mmt_beam_cross_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "mmt_geglu_ffn": [_P] * 10 + [_I] * 7 + [_P],
     "mmt_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -47,6 +47,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# The kernel wrappers, each with its ``launches`` count (see count_launches).
+COUNTED: List[Callable] = []
 
 
 class KernelBuildError(RuntimeError):
@@ -115,6 +117,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.mmt_error_string.argtypes = [ctypes.c_int]
             lib.mmt_error_string.restype = ctypes.c_char_p
+            lib.mmt_beam_select_workspace_bytes.argtypes = [_I] * 6
+            lib.mmt_beam_select_workspace_bytes.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 
@@ -138,3 +142,17 @@ def require(cond: bool, what: str) -> None:
     """Wrapper argument check: the kernels take only what passes these."""
     if not cond:
         raise ValueError(what)
+
+
+def count_launches(*wrappers: Callable) -> None:
+    """Give each kernel wrapper a ``launches`` count, which it raises by one
+    where it launches its kernel, and register it, so that a CUDA graph can
+    record what its capture launched (:func:`launch_counts`) and add that at
+    every replay."""
+    for fn in wrappers:
+        fn.launches = 0
+        COUNTED.append(fn)
+
+
+def launch_counts() -> Dict[Callable, int]:
+    return {fn: fn.launches for fn in COUNTED}

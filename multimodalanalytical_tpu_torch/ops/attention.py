@@ -107,11 +107,14 @@ class MultiHeadAttention(nn.Module):
         x: torch.Tensor,             # (B*K, D) flat current-token hidden
         cache,                       # (2, B, L*K, D) | {"data": int8, "scale": (2, B, H, F_pad)}
         ancestry: torch.Tensor,      # (B, K, L) int32 slot table (stage slice)
-        position: int,
+        position,                    # step index: 0-d int32 tensor on x's device, or int
     ) -> torch.Tensor:
         """Lazy-ancestry cached self-attention for beam search; appends this
-        step's K/V rows to ``cache`` in place and returns (B*K, D)."""
+        step's K/V rows to ``cache`` in place and returns (B*K, D). Neither
+        route reads a tensor ``position`` on the host."""
         batch, beams, length = ancestry.shape
+        if not isinstance(position, torch.Tensor):
+            position = torch.full((), position, dtype=torch.int32, device=x.device)
         heads, head_dim = self.num_heads, self.head_dim
         q_flat, k_new, v_new = self.qkv_proj(x).chunk(3, dim=-1)
         quantized = isinstance(cache, dict)
@@ -135,20 +138,21 @@ class MultiHeadAttention(nn.Module):
         # Plain formulation on (B, K, D) views of the flat rows.
         k_new = k_new.reshape(batch, beams, self.d_model)
         v_new = v_new.reshape(batch, beams, self.d_model)
-        rows = slice(position * beams, (position + 1) * beams)
+        # This step's flat rows position*K .. position*K + K - 1.
+        rows = position.long() * beams + torch.arange(beams, device=x.device)
         if quantized:
             k_q, k_s = quantize_kv_heads(k_new, heads)
             v_q, v_s = quantize_kv_heads(v_new, heads)
-            cache["data"][0, :, rows] = k_q
-            cache["data"][1, :, rows] = v_q
-            cache["scale"][0, :, :, rows] = k_s.transpose(1, 2)
-            cache["scale"][1, :, :, rows] = v_s.transpose(1, 2)
+            cache["data"][0].index_copy_(1, rows, k_q)
+            cache["data"][1].index_copy_(1, rows, v_q)
+            cache["scale"][0].index_copy_(2, rows, k_s.transpose(1, 2))
+            cache["scale"][1].index_copy_(2, rows, v_s.transpose(1, 2))
             flat = length * beams
             kv_store = dequantize_kv(cache["data"][:, :, :flat],
                                      cache["scale"][..., :flat], heads)
         else:
-            cache[0, :, rows] = k_new.to(cache.dtype)
-            cache[1, :, rows] = v_new.to(cache.dtype)
+            cache[0].index_copy_(1, rows, k_new.to(cache.dtype))
+            cache[1].index_copy_(1, rows, v_new.to(cache.dtype))
             kv_store = cache[:, :, : length * beams]
 
         q = q_flat.reshape(batch, beams, heads, head_dim)

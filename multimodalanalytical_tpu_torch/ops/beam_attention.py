@@ -41,6 +41,7 @@ the kernel or raises. The update is IN PLACE on ``cache`` and ``scales``
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -134,9 +135,10 @@ def _attend_plain(q, cache, slot, num_heads, scales) -> torch.Tensor:
     return out.to(BF16).reshape(batch * beams, d_model)
 
 
-def _check_cache_operands(name, q, cache, ancestry, pos, num_heads, scales):
+def _check_cache_operands(name, q, cache, ancestry, num_heads, scales):
     """The checks both select-attention wrappers make on the cache, the
-    ancestry slice and the int8 scales (and that q is a CUDA tensor)."""
+    ancestry slice (the stage) and the int8 scales (and that q is a CUDA
+    tensor)."""
     require = _cuda.require
     require(q.is_cuda, f"{name}: unsupported device {q.device}")
     two, batch, flat, d_model = cache.shape
@@ -146,15 +148,44 @@ def _check_cache_operands(name, q, cache, ancestry, pos, num_heads, scales):
             f"{name}: int8 cache needs scales, bf16 cache none")
     require(beam_kernel_supports(beams, d_model, num_heads),
             f"{name}: unsupported shape K={beams} D={d_model} H={num_heads}")
-    require(two == 2 and ancestry.shape[0] == batch and 0 <= pos < length
-            and (pos + 1) * beams <= flat, f"{name}: position outside the stage or cache")
+    require(two == 2 and ancestry.shape[0] == batch and 1 <= length
+            and length * beams <= min(flat, 65536), f"{name}: stage longer than the cache")
     require(ancestry.dtype == torch.int32 and ancestry.stride(2) == 1
             and ancestry.stride(0) == beams * ancestry.stride(1),
             f"{name}: ancestry must be int32 rows with unit stride")
     if quantized:
         require(scales.dtype == torch.float32 and scales.shape[:3] == (2, batch, num_heads)
-                and scales.shape[3] >= (pos + 1) * beams and scales.is_contiguous(),
+                and scales.shape[3] >= length * beams and scales.is_contiguous(),
                 f"{name}: scales must be contiguous (2, B, H, F) fp32")
+
+
+def _device_position(name, position, device) -> torch.Tensor:
+    """The step index as the kernel reads it: a 0-d int32 tensor on the
+    operands' device (an int becomes one, by a fill on the device, which a
+    CUDA graph can capture). The kernel checks it against the stage."""
+    if isinstance(position, torch.Tensor):
+        _cuda.require(position.dim() == 0 and position.dtype == torch.int32
+                      and position.device == device,
+                      f"{name}: position must be an int or a 0-d int32 tensor on {device}")
+        return position
+    return torch.full((), int(position), dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_bytes(kind: int, batch: int, beams: int, heads: int, head_dim: int,
+                     length: int) -> int:
+    """Bytes of global workspace the select kernel's plan needs for this
+    stage (0 unless its per-time tables spill out of shared memory)."""
+    nbytes = _cuda.library().mmt_beam_select_workspace_bytes(kind, batch, beams, heads,
+                                                             head_dim, length)
+    _cuda.require(nbytes >= 0, f"beam select attention: no plan for K={beams} "
+                               f"head_dim={head_dim} L={length}")
+    return nbytes
+
+
+def _workspace(kind, batch, beams, heads, head_dim, length, device) -> Optional[torch.Tensor]:
+    nbytes = _workspace_bytes(kind, batch, beams, heads, head_dim, length)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
 
 
 def beam_select_attention_update(
@@ -163,7 +194,7 @@ def beam_select_attention_update(
     v_new: torch.Tensor,         #   bf16 or fp32 for an int8 cache (quantized here)
     cache: torch.Tensor,         # (2, B, L_max*K, D) int8 | bf16, updated in place
     ancestry: torch.Tensor,      # (B, K, L) int32 stage slice, L <= L_max
-    position: int,               # step index, < L
+    position,                    # step index < L: int, or 0-d int32 tensor on q's device
     num_heads: int,
     scales: Optional[torch.Tensor] = None,   # (2, B, H, F_pad) fp32, int8 cache
 ) -> torch.Tensor:
@@ -171,47 +202,49 @@ def beam_select_attention_update(
     with an int8 cache the fresh rows are quantized per (row, head) as
     :func:`quantize_kv_heads` does, and rows and scales stored in place.
 
-    Returns the (B*K, D) bf16 attention output (pre out-projection).
-    ``beam_select_attention_update.launches`` counts kernel launches.
+    The kernel reads ``position`` from device memory and is planned for the
+    stage (``ancestry.shape[2]``), so a CUDA graph of a decode step serves
+    every step of its stage. Returns the (B*K, D) bf16 attention output
+    (pre out-projection). ``beam_select_attention_update.launches`` counts
+    kernel launches.
     """
     if q.device.type == "cpu":
         return beam_select_attention_update_plain(
             q, k_new, v_new, cache, ancestry, position, num_heads, scales)
     require = _cuda.require
-    pos = int(position)
-    _check_cache_operands("beam_select_attention_update", q, cache, ancestry, pos, num_heads,
-                          scales)
+    name = "beam_select_attention_update"
+    _check_cache_operands(name, q, cache, ancestry, num_heads, scales)
     _, batch, flat, d_model = cache.shape
-    beams = ancestry.shape[1]
+    beams, length = ancestry.shape[1:]
     head_dim = d_model // num_heads
     quantized = scales is not None
     require(q.dtype == BF16 and q.shape == (batch * beams, d_model),
-            "beam_select_attention_update: q must be (B*K, D) bf16")
+            f"{name}: q must be (B*K, D) bf16")
     fresh_types = (BF16, torch.float32) if quantized else (BF16,)
     require(k_new.dtype in fresh_types and v_new.dtype == k_new.dtype
             and k_new.shape == q.shape and v_new.shape == q.shape,
-            "beam_select_attention_update: fresh rows must be (B*K, D) bf16 (or fp32 for an "
-            "int8 cache)")
+            f"{name}: fresh rows must be (B*K, D) bf16 (or fp32 for an int8 cache)")
     tensors = [q, k_new, v_new, cache, ancestry] + ([scales] if quantized else [])
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     require(all(t.is_cuda and t.device == q.device for t in tensors)
             and cache.is_contiguous()
             and all(t.data_ptr() % 16 == 0 for t in (q, k_new, v_new, cache)),
-            "beam_select_attention_update: operands must be contiguous, 16-byte "
-            "aligned and on one device")
+            f"{name}: operands must be contiguous, 16-byte aligned and on one device")
+    pos = _device_position(name, position, q.device)
     kind = 0 if not quantized else 1 if k_new.dtype == BF16 else 2
+    workspace = _workspace(kind, batch, beams, num_heads, head_dim, length, q.device)
     out = torch.empty_like(q)
     lib = _cuda.library()
     _cuda.check(lib.mmt_beam_select_attention_update(
         kind, _cuda.ptr(q), _cuda.ptr(k_new), _cuda.ptr(v_new), _cuda.ptr(cache),
-        _cuda.ptr(scales), _cuda.ptr(ancestry), _cuda.ptr(out), batch, beams, num_heads,
-        head_dim, flat, scales.shape[3] if quantized else 0, ancestry.stride(1), pos,
-        head_dim ** -0.5, _cuda.stream()), "beam_select_attention_update")
+        _cuda.ptr(scales), _cuda.ptr(ancestry), _cuda.ptr(out), _cuda.ptr(workspace), batch,
+        beams, num_heads, head_dim, flat, scales.shape[3] if quantized else 0,
+        ancestry.stride(1), _cuda.ptr(pos), length, head_dim ** -0.5, _cuda.stream()), name)
     beam_select_attention_update.launches += 1
     return out
 
 
-beam_select_attention_update.launches = 0
+_cuda.count_launches(beam_select_attention_update)
 
 
 def beam_select_attention_plain(q, cache, ancestry, position, num_heads,
@@ -228,42 +261,45 @@ def beam_select_attention(
     q: torch.Tensor,          # (B, K, D) bf16 queries (post q-projection)
     cache: torch.Tensor,      # (2, B, L_max*K, D) int8 | bf16, rows for `position` present
     ancestry: torch.Tensor,   # (B, K, L) int32 stage slice, L <= L_max
-    position: int,            # step index, < L
+    position,                 # step index < L: int, or 0-d int32 tensor on q's device
     num_heads: int,
-    scales: Optional[torch.Tensor] = None,   # (2, B, H, F) fp32, int8 cache, F >= (pos+1)*K
+    scales: Optional[torch.Tensor] = None,   # (2, B, H, F) fp32, int8 cache, F >= L*K
 ) -> torch.Tensor:
     """Read-only lazy-ancestry beam self-attention; returns (B, K, D) bf16
-    (pre out-projection) and writes nothing else.
+    (pre out-projection) and writes nothing else. ``position`` and the
+    stage as :func:`beam_select_attention_update` takes them.
     ``beam_select_attention.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return beam_select_attention_plain(q, cache, ancestry, position, num_heads, scales)
     require = _cuda.require
-    pos = int(position)
-    _check_cache_operands("beam_select_attention", q, cache, ancestry, pos, num_heads, scales)
+    name = "beam_select_attention"
+    _check_cache_operands(name, q, cache, ancestry, num_heads, scales)
     _, batch, flat, d_model = cache.shape
-    beams = ancestry.shape[1]
+    beams, length = ancestry.shape[1:]
     head_dim = d_model // num_heads
     quantized = scales is not None
     require(q.dtype == BF16 and q.shape == (batch, beams, d_model),
-            "beam_select_attention: q must be (B, K, D) bf16")
+            f"{name}: q must be (B, K, D) bf16")
     q = q.contiguous()
     require(all(t.is_cuda and t.device == q.device
                 for t in (cache, ancestry) + ((scales,) if quantized else ()))
             and cache.is_contiguous() and q.data_ptr() % 16 == 0 and cache.data_ptr() % 16 == 0,
-            "beam_select_attention: operands must be contiguous, 16-byte aligned and on "
-            "one device")
+            f"{name}: operands must be contiguous, 16-byte aligned and on one device")
+    pos = _device_position(name, position, q.device)
+    workspace = _workspace(4 if quantized else 3, batch, beams, num_heads, head_dim, length,
+                           q.device)
     out = torch.empty_like(q)
     lib = _cuda.library()
     _cuda.check(lib.mmt_beam_select_attention(
         int(quantized), _cuda.ptr(q), _cuda.ptr(cache), _cuda.ptr(scales), _cuda.ptr(ancestry),
-        _cuda.ptr(out), batch, beams, num_heads, head_dim, flat,
-        scales.shape[3] if quantized else 0, ancestry.stride(1), pos, head_dim ** -0.5,
-        _cuda.stream()), "beam_select_attention")
+        _cuda.ptr(out), _cuda.ptr(workspace), batch, beams, num_heads, head_dim, flat,
+        scales.shape[3] if quantized else 0, ancestry.stride(1), _cuda.ptr(pos), length,
+        head_dim ** -0.5, _cuda.stream()), name)
     beam_select_attention.launches += 1
     return out
 
 
-beam_select_attention.launches = 0
+_cuda.count_launches(beam_select_attention)
 
 
 def beam_cross_attention_plain(q, k, v, bias, num_heads, beams) -> torch.Tensor:
@@ -320,4 +356,4 @@ def beam_cross_attention(
     return out
 
 
-beam_cross_attention.launches = 0
+_cuda.count_launches(beam_cross_attention)

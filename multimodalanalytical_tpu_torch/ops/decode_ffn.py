@@ -146,4 +146,4 @@ def _launch(x, w1, b1, wg, bg, w2, b2, plan: Optional[FfnPlan] = None) -> torch.
     return out
 
 
-geglu_ffn.launches = 0
+_cuda.count_launches(geglu_ffn)

@@ -137,7 +137,7 @@ def flash_attention_fwd(q: torch.Tensor,          # (B, H, L, Dh), L padded to 6
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+_cuda.count_launches(flash_attention_fwd)
 
 
 def flash_attention_bwd(q, k, v, bias_row, out, lse, do
@@ -167,7 +167,7 @@ def flash_attention_bwd(q, k, v, bias_row, out, lse, do
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+_cuda.count_launches(flash_attention_bwd)
 
 
 class FlashAttentionFunction(torch.autograd.Function):

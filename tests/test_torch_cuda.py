@@ -432,9 +432,10 @@ def test_select_attention_at_the_gates_largest_plan(gen, rows, head_dim, length)
 def test_decode_self_attention_beyond_the_shared_memory_stage(gen, kind):
     """A decode layer at K 30, D 512, H 8 on a 640-time stage, past the
     ~520 times whose tables fit in shared memory: on the card the layer
-    launches the update kernel (which moves its tables to global memory)
-    and agrees with the same layer on the CPU. A stage beyond the kernel's
-    65536 (time, slot) rows raises rather than leaving the kernel."""
+    launches the update kernel (which moves its tables to a workspace that
+    the wrapper allocates) and agrees with the same layer on the CPU. A
+    stage beyond the kernel's 65536 (time, slot) rows is refused by the
+    wrapper's check of the stage, before any launch."""
     import copy
 
     from multimodalanalytical_tpu_torch.ops.attention import MultiHeadAttention
@@ -463,7 +464,7 @@ def test_decode_self_attention_beyond_the_shared_memory_stage(gen, kind):
     want = cpu.beam_decode_self_attention(x.cpu(), store_cpu, anc.cpu(), pos)
     _close(got.cpu(), want, 5e-2)   # bf16 projections rounded by cuBLAS and by the CPU
     steps = 65536 // k + 1
-    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+    with pytest.raises(ValueError, match="stage longer than the cache"):
         card.beam_decode_self_attention(
             x, cache("cuda", steps),
             torch.zeros(b, k, steps, device="cuda", dtype=torch.int32), steps - 1)
@@ -546,3 +547,179 @@ def test_decode_steps_on_card_match_cpu(gen, kv_cache_dtype):
     # bf16 products rounded in other places by cuBLAS and the CPU, carried
     # through 2 + 2 layers.
     assert err <= 5e-2 * max(1.0, logits[0].abs().max().item()), err
+
+
+@pytest.mark.parametrize("rows", ["bf16", "int8-bf16"])
+@pytest.mark.parametrize("k", [1, 10, 30])
+def test_select_kernel_reads_the_position_from_the_device(gen, rows, k):
+    """One 128-time stage, positions 0, 33, 96 and 127 given as a 0-d int32
+    tensor on the card: the update and the read-only kernels give the bits
+    of the int-position call (the same launch, its position filled on the
+    card) and agree with their plain versions."""
+    b, heads, length = 3, 8, 128
+    q, cache0, anc, scales0 = _select_inputs(gen, b, k, heads, 64, length, rows != "bf16")
+    k_new, v_new = _fresh_rows(gen, (b * k, heads * 64), rows)
+    for pos in (0, 33, 96, 127):
+        anc[:, :, pos] = torch.arange(k, device="cuda", dtype=torch.int32)
+        device_pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        outs, stores = [], []
+        for position in (device_pos, pos):
+            cache = cache0.clone()
+            scales = None if scales0 is None else scales0.clone()
+            outs.append(ba.beam_select_attention_update(q.reshape(b * k, -1), k_new, v_new,
+                                                        cache, anc, position, heads, scales))
+            stores.append((cache, scales))
+        assert torch.equal(outs[0], outs[1]) and torch.equal(stores[0][0], stores[1][0])
+        cache = cache0.clone()
+        scales = None if scales0 is None else scales0.clone()
+        want = ba.beam_select_attention_update_plain(q.reshape(b * k, -1), k_new, v_new, cache,
+                                                     anc, pos, heads, scales)
+        _close(outs[0], want)
+        read = ba.beam_select_attention(q, cache0, anc, device_pos, heads, scales0)
+        assert torch.equal(read, ba.beam_select_attention(q, cache0, anc, pos, heads, scales0))
+        _close(read, ba.beam_select_attention_plain(q, cache0, anc, pos, heads, scales0))
+    bad = torch.tensor(length, dtype=torch.int32, device="cuda")   # outside the stage
+    assert torch.isnan(ba.beam_select_attention(q, cache0, anc, bad, heads, scales0)).all()
+    with pytest.raises(ValueError, match="0-d int32"):
+        ba.beam_select_attention(q, cache0, anc, bad.long(), heads, scales0)
+
+
+def _small_decode_model(kv_cache_dtype="int8", max_length=32, eos_bias=0.0):
+    from multimodalanalytical_tpu_torch.models.config import ModelConfig
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    data_config = {
+        "Formula": {"type": "text", "vocab_size": 32, "target": False},
+        "IR": {"type": "1D_patches", "target": False,
+               "preprocessor_arguments": {"patch_size": 125}},
+        "Smiles": {"type": "text", "vocab_size": 64, "target": True},
+    }
+    cfg = ModelConfig(d_model=128, encoder_layers=2, decoder_layers=2,
+                      encoder_attention_heads=2, decoder_attention_heads=2,
+                      encoder_ffn_dim=256, decoder_ffn_dim=256, vocab_size=64,
+                      dtype="bfloat16", kv_cache_dtype=kv_cache_dtype,
+                      max_target_length=max_length)
+    model = Seq2SeqModel(cfg, data_config, "Smiles", device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        model.lm_head.bias[cfg.eos_token_id] += eos_bias
+    return model
+
+
+def _request(batch, seed):
+    g = torch.Generator().manual_seed(seed)
+    inputs = {"Formula": torch.randint(4, 32, (batch, 12), generator=g).cuda(),
+              "IR": torch.rand(batch, 14, 125, generator=g).cuda()}
+    mask = torch.ones(batch, 26, dtype=torch.int32, device="cuda")
+    mask[0, 8:12] = 0
+    return inputs, mask
+
+
+def test_replayed_step_equals_eager_steps(gen):
+    """One stage's captured decode step replayed 8 times and the same step
+    run eagerly 8 times from the same state: every state tensor bit-equal,
+    and each replay adds to the launch counts what an eager step launches."""
+    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+
+    model = _small_decode_model()
+    decoder = BeamDecoder(model)
+    inputs, mask = _request(3, 0)
+    decoder.search(inputs, mask, 4, max_length=32, stage_size=None)
+    (decode,) = decoder._decodes.values()
+    graph, launches = decode.graphs[32]
+    counters = (ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn)
+    assert {fn: launches.get(fn) for fn in counters} == {fn: 2 for fn in counters}
+    hidden = decoder.dmodel.encode(inputs, mask)
+    states = []
+    for replay in (True, False):
+        decode.load(decoder.dmodel, hidden, mask, None)
+        before = [fn.launches for fn in counters]
+        for _ in range(8):
+            if replay:
+                graph.replay()
+                for fn, count in launches.items():
+                    fn.launches += count
+            else:
+                decoder._step(decode, 32, 32, 1.0, None)
+        torch.cuda.synchronize()
+        assert [fn.launches - n for fn, n in zip(counters, before)] == [16, 16, 16]
+        states.append({k: v.clone() for k, v in decode.state.items() if k != "hook"})
+    assert int(states[0]["t"]) == 8
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+
+
+@pytest.mark.parametrize("eos_bias", [0.0, 20.0])
+def test_graph_decode_equals_eager_decode(gen, eos_bias):
+    """Two requests through one decoder's graphs (captured once) against the
+    same decoder with ``cuda_graph=False``: sequences and scores bit-equal,
+    the same steps; with EOS favoured the decode exits early and the graphs
+    stop within ``check_every`` replays of the exit."""
+    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+
+    decoder = BeamDecoder(_small_decode_model(eos_bias=eos_bias))
+    for seed in (1, 2):
+        inputs, mask = _request(3, seed)
+        got, want = {}, {}
+        seqs, scores = decoder.search(inputs, mask, 4, max_length=32, stage_size=8, stats=got)
+        eager_seqs, eager_scores = decoder.search(inputs, mask, 4, max_length=32, stage_size=8,
+                                                  cuda_graph=False, stats=want)
+        assert torch.equal(seqs, eager_seqs) and torch.equal(scores, eager_scores)
+        assert got["graph"] and not want["graph"] and got["steps"] == want["steps"]
+        assert got["warmup_steps"] == (4 if seed == 1 else 0)     # 4 stages of 8
+        if eos_bias:
+            assert got["steps"] < 31 and got["replays"] <= got["steps"] + 8
+    assert len(decoder._decodes) == 1
+
+
+def test_spilled_stage_decodes_under_capture(gen):
+    """K 30 on a 576-time stage, past the ~520 times whose select tables fit
+    in shared memory: the captured decode (the workspace a torch.empty of
+    the step, no allocation of the kernel's own) equals the eager one."""
+    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+
+    assert ba._workspace_bytes(1, 2, 30, 2, 64, 576) > 0
+    decoder = BeamDecoder(_small_decode_model(max_length=576))
+    inputs, mask = _request(2, 3)
+    got, want = {}, {}
+    seqs, scores = decoder.search(inputs, mask, 30, max_length=576, stage_size=None, stats=got)
+    eager = decoder.search(inputs, mask, 30, max_length=576, stage_size=None, cuda_graph=False,
+                           stats=want)
+    assert got["graph"] and got["steps"] == want["steps"]
+    assert torch.equal(seqs, eager[0]) and torch.equal(scores, eager[1])
+
+
+def test_validate_after_a_step_decodes_the_new_weights(gen):
+    """Trainer: validate (captures the K 1 graphs), one optimizer step,
+    validate again through the same graphs: the greedy decode equals an
+    eager decode of the new weights, never the old ones."""
+    import numpy as np
+
+    from multimodalanalytical_tpu_torch.generation.beam_search import beam_search
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    class Tokenizer:
+        pad_token_id, bos_token_id, eos_token_id = 0, 2, 3
+
+        def batch_decode(self, ids, skip_special_tokens=True):
+            return [" ".join(str(int(i)) for i in row) for row in np.asarray(ids)]
+
+    model = _small_decode_model()
+    inputs, mask = _request(4, 4)
+    rng = np.random.default_rng(0)
+    dec = rng.integers(4, 64, (4, 10))
+    batch = {"encoder_inputs": {k: v.cpu().numpy() for k, v in inputs.items()},
+             "encoder_mask": mask.cpu().numpy(), "decoder_ids": dec,
+             "decoder_mask": np.ones_like(dec), "labels": dec, "target_strings": ["x"] * 4,
+             "n_valid": 4}
+    trainer = Trainer(model, Tokenizer(), optimiser="adamw", lr=5e-2, num_steps=10)
+    decoded = []
+    trainer._decode = lambda *a, _orig=trainer._decode, **kw: decoded.append(
+        _orig(*a, **kw)) or decoded[-1]
+    trainer.validate([batch])
+    old, _ = beam_search(model, inputs, mask, 1, max_length=32, cuda_graph=False)
+    trainer.train_step(batch)
+    trainer.validate([batch])
+    new, _ = beam_search(model, inputs, mask, 1, max_length=32, cuda_graph=False)
+    assert trainer.decode_warmups == 1        # the K 1 graph was captured once
+    assert np.array_equal(decoded[1], new.cpu().numpy())
+    assert not np.array_equal(decoded[1], old.cpu().numpy())
