@@ -85,9 +85,30 @@ line each, any failure raises and exits non-zero:
    surrogate formula guide (inside the captured step) on the corpus
    targets, graphs against the eager loop bit for bit, every finished beam
    within rule 3's heavy-atom bound; the exact guide (one host call per
-   step, eager by design) on one batch.
+   step, eager by design) on one batch;
+7. the multimodal recipe (configs/data/multimodal/multimodal.yaml on
+   configs/model/custom_model.yaml): Formula 12 + multiplets 189 + carbon
+   54 + IR 24 x 75 = Ls 279 -> SMILES, seeded token ids at the widths the
+   preprocessors' fit rules give (MM_DATA_CONFIG). Three seeded 128-spectrum
+   requests through ``InferenceEngine.decode_batch`` at beam 10 through the
+   decode graphs (capture apart), every decode kernel launched 6 x the
+   replays, bit-equal to the eager loop, with s/batch, device time, busy
+   share and the kernel split; one dropout-0 train step of the bf16 model
+   against its fp32 twin, three AdamW steps at B 128 with modality dropout
+   over the dict-aware segments; the multiplets as XVal dicts through the
+   forward and a train step;
+8. the align recipe (configs/model/custom_model_align.yaml on
+   configs/data/ir/patches_mixture_text_align.yaml): ``Trainer.fit`` takes
+   6 AdamW steps at B 128 with one validation (K 1) and checkpoints; loss =
+   ce + 50 x alignment_loss at every step, the alignment loss above 0 and
+   falling, ``best`` restored bit for bit with the align network, dummy
+   rows leaving the align loss unchanged.
 
-Phase 1 also times #1 at positions 33, 96 and 127 of a 128-time stage,
+Phase 1 also holds #2 at the multimodal encoder's Ls 279 (two passes over
+chunks of 256 and 23 keys, rows with a fully masked chunk) against its
+plain version, rejects either chunk left out, and times it at K 1, 10 and
+30 beside SDPA; and times fused dropout beside
+``torch.nn.functional.dropout``. It also times #1 at positions 33, 96 and 127 of a 128-time stage,
 planned for the stage (as the decode loop launches it) and for pos + 1
 times. ``--profile-eval`` prints, per decode path, the wall and device
 time, the busy share, the host's ms per decode step and the launches per
@@ -192,6 +213,60 @@ RLE_DATA_CONFIG = {
             "vocab_size": RLE_VOCAB, "pad_token_id": 0, "preprocessor_arguments": {}},
     "Smiles": DATA_CONFIG["Smiles"],
 }
+
+# The multimodal recipe (phases 1 and 7): configs/data/multimodal/multimodal.yaml,
+# Formula + 1H-NMR multiplets + 13C-NMR peaks + IR -> SMILES. Token ids come
+# from seeded numpy (the card's machine has no ``tokenizers``), at the widths
+# the preprocessors' fit rules give the recipe's data: multiplets (encoding
+# text) hold 4-32 multiplets of 5 tokens each, padded to the longest row's
+# spaces + 30 (data/preprocessing/multiplets.py: 159 + 30 = 189); carbon rows
+# hold 5-40 peaks, padded to spaces + 15 (data/preprocessing/carbon.py: 39 +
+# 15 = 54); the IR spectrum's 1791 points are 24 patches of 75. Vocabularies:
+# multiplets 1400 (the ppm grid 0.00-13.00 by 0.01, the categories, the nH
+# tokens, the specials), carbon 2310 (the ppm grid 0.0-230.0 by 0.1 and the
+# specials).
+MM_FORMULA, MM_MULTIPLETS, MM_CARBON, MM_PATCHES, MM_PATCH = 12, 189, 54, 24, 75
+MM_MULTIPLETS_PER_ROW, MM_PEAKS_PER_ROW = (4, 32), (5, 40)
+MM_LS = MM_FORMULA + MM_MULTIPLETS + MM_CARBON + MM_PATCHES     # 279 encoder tokens
+MM_DATA_CONFIG = {
+    "Formula": DATA_CONFIG["Formula"],
+    "Multiplets": {"type": "multiplets", "column": "h_nmr_peaks", "target": False,
+                   "vocab_size": 1400, "pad_token_id": 0,
+                   "preprocessor_arguments": {"encoding": "text"}},
+    "Carbon": {"type": "carbon", "column": "c_nmr_peaks", "target": False,
+               "vocab_size": 2310, "pad_token_id": 0, "preprocessor_arguments": {}},
+    "IR": {"type": "1D_patches", "column": "ir_spectra", "target": False,
+           "preprocessor_arguments": {"patch_size": MM_PATCH}},
+    "Smiles": DATA_CONFIG["Smiles"],
+}
+MM_ORDER = list(MM_DATA_CONFIG)
+MM_TRAIN_STEPS = 3
+MM_MODALITY_DROPOUT = ["Multiplets", "Carbon", "IR"]
+# Keys per chunk of the cross-attention kernel's two-pass form
+# (kCrossMaxChunk in csrc/beam_attention.cu): Ls 279 is 256 + 23 keys.
+CROSS_CHUNK = 256
+# The multimodal model's dropout-0 train step, bf16 against the same weights
+# in fp32: bf16 rounding of every product through 6 + 6 layers.
+MM_LOSS_RTOL, MM_GRAD_NORM_RTOL = 1e-2, 5e-2
+# The align recipe (phase 8): configs/model/custom_model_align.yaml (the
+# convolutional head: hidden 256, 512 channels, kernel 5, output 1800, loss
+# lambda 50, mae) on configs/data/ir/patches_mixture_text_align.yaml (Formula
+# + IR 24 x 75 -> SMILES, the pure component's 1800-point spectrum as the
+# align target), B 128.
+ALIGN_CONFIG = {"align_network": "convolutional", "hidden_dimension": 256,
+                "conv_channels": 512, "kernel_size": 5, "output_dimension": 1800,
+                "loss_lambda": 50.0, "loss_function": "mae"}
+ALIGN_DATA_CONFIG = {"Formula": DATA_CONFIG["Formula"], "IR": MM_DATA_CONFIG["IR"],
+                     "Smiles": DATA_CONFIG["Smiles"]}
+ALIGN_STEPS, ALIGN_DUMMIES = 6, 28
+# loss = ce + lambda * alignment_loss, all three fp32 scalars.
+ALIGN_IDENTITY_RTOL = 1e-6
+# The align loss of a batch with dummy rows against the batch without them:
+# the encoder runs at another batch size (other cuBLAS tiles, bf16 roundings
+# in another order), so the two agree to bf16 rounding averaged over the
+# rows, not bit for bit; dummies whose contents differ at the same size must
+# give the same bits.
+ALIGN_DUMMY_RTOL = 1e-3
 
 
 def _require(cond: bool, what: str) -> None:
@@ -374,12 +449,39 @@ def _select_device_ms_by_pos(q, k_new, v_new, cache0, scales0, anc_full, kind, b
 
 
 # ---------------------------------------------------------------- phase 1
+def _cross_turns(qx, kx, vx, bias, beams: int) -> dict:
+    """#2 and SDPA on the same inputs (SDPA the yardstick only: beams as
+    query rows of their batch row, the key bias as an additive mask), each
+    timed eagerly and as device time, in turns, twice: {"kernel", "sdpa",
+    "kernel_device", "sdpa_device"} -> two times each."""
+    import torch.nn.functional as F
+
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+
+    ls = kx.shape[1]
+    qh = qx.reshape(BATCH, beams, HEADS, -1).transpose(1, 2)
+    kh, vh = (t.reshape(BATCH, ls, HEADS, -1).transpose(1, 2) for t in (kx, vx))
+    mask = bias[:, None, None, :].to(qx.dtype)
+
+    def kernel():
+        return ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    turns = {"kernel": [], "sdpa": [], "kernel_device": [], "sdpa_device": []}
+    for _ in range(2):
+        for name, fn in (("kernel", kernel), ("sdpa", sdpa)):
+            turns[name].append(_time_ms(fn, iters=50))
+            turns[f"{name}_device"].append(_device_ms(fn, iters=50))
+    return turns
+
+
 def check_kernels() -> list:
     """Each decode kernel vs its plain version at the flagship widths and at
     every beam count the entry points run (DECODE_BEAMS); returns records,
     timed at serving's K 10 as in earlier runs, the other times beside."""
     import torch
-    import torch.nn.functional as F
 
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
 
@@ -501,23 +603,7 @@ def check_kernels() -> list:
                   {"key 0 dropped": ba.beam_cross_attention_plain(qx, kx, vx, dropped, HEADS,
                                                                   beams)}, want)
         worst = max(worst, err)
-        # SDPA on the same inputs (yardstick only): beams as query rows of
-        # their batch row, the key bias as an additive mask; timed in turns
-        # with the kernel.
-        qh = qx.reshape(BATCH, beams, HEADS, -1).transpose(1, 2)
-        kh, vh = (t.reshape(BATCH, ls, HEADS, -1).transpose(1, 2) for t in (kx, vx))
-        mask = bias[:, None, None, :].to(qx.dtype)
-        def kernel():
-            return ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-
-        turns = {"kernel": [], "sdpa": [], "kernel_device": [], "sdpa_device": []}
-        for _ in range(2):
-            for name, fn in (("kernel", kernel), ("sdpa", sdpa)):
-                turns[name].append(_time_ms(fn, iters=50))
-                turns[f"{name}_device"].append(_device_ms(fn, iters=50))
+        turns = _cross_turns(qx, kx, vx, bias, beams)
         ms, library_ms, device_ms, library_device_ms = (
             sum(turns[x]) / 2 for x in ("kernel", "sdpa", "kernel_device", "sdpa_device"))
         plain_ms = _time_ms(lambda: ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams))
@@ -548,6 +634,79 @@ def check_kernels() -> list:
                     "other_times_ms": {k: list(v) for k, v in timing.items()}})
 
     return records
+
+
+def check_cross_long() -> dict:
+    """#2 at the multimodal encoder's Ls 279 (two passes over chunks of 256
+    and 23 keys), at K 1, 10 and 30, on the padding masks of a multimodal
+    request: row 0 fully masked (batch padding), row 1 with every key of the
+    first chunk masked, row 2 with every key of the second. Held to ATTN_TOL
+    and ATTN_RMS_TOL against the plain version, with either chunk left out
+    as planted faults that must be rejected; timed eagerly and as device
+    time in turns with SDPA (additive mask). The bound counts each row's
+    valid keys only. Returns the record's ``long_encoder`` entry."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    ls = MM_LS
+    _, mask = _multimodal_request(seed=98)
+    keep = torch.as_tensor(mask, device=dev).bool()
+    keep[0] = False
+    keep[1, :CROSS_CHUNK] = False
+    keep[2, CROSS_CHUNK:] = False
+    bias = torch.where(keep, 0.0, -1e9).float()
+    valid = int(keep.sum())
+    kx, vx = ((torch.randn(BATCH, ls, D_MODEL, generator=g, device=dev)).bfloat16()
+              for _ in range(2))
+    times, bounds, worst = {}, {}, 0.0
+    for beams, _ in DECODE_BEAMS:
+        qx = torch.randn(BATCH * beams, D_MODEL, generator=g, device=dev).bfloat16()
+        got = ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
+        want = ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams)
+        err, tol, rms, ok = _attn_err(got, want)
+        finite_rows = bool(torch.isfinite(got[: 3 * beams].float()).all())
+        print(f"kernel beam_cross_attention K={beams} Ls={ls} (two passes, chunks of "
+              f"{CROSS_CHUNK} and {ls - CROSS_CHUNK} keys): max_abs_err={err:.3e} tol={tol:.3e} "
+              f"rel_rms_err={rms:.3e} tol={ATTN_RMS_TOL:.0e}; the fully masked row and the rows "
+              f"with a fully masked chunk finite {finite_rows}", flush=True)
+        _require(ok and finite_rows,
+                 f"beam_cross_attention disagrees with its plain version at Ls {ls}")
+        worst = max(worst, err)
+        faults = {}
+        for name, cut in (("first chunk left out", slice(0, CROSS_CHUNK)),
+                          ("second chunk left out", slice(CROSS_CHUNK, ls))):
+            dropped = bias.clone()
+            dropped[:, cut] = -1e9
+            faults[name] = ba.beam_cross_attention_plain(qx, kx, vx, dropped, HEADS, beams)
+        _rejected(f"beam_cross_attention K={beams} Ls={ls}", faults, want)
+
+        turns = _cross_turns(qx, kx, vx, bias, beams)
+        ms, library_ms, device_ms, library_device_ms = (
+            sum(turns[x]) / 2 for x in ("kernel", "sdpa", "kernel_device", "sdpa_device"))
+        plain_ms = _time_ms(lambda: ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS,
+                                                                  beams), iters=5)
+        # Valid keys only: q.k and p.v over each row's valid keys, those
+        # keys' K and V rows read once, q read and out written, the bias.
+        bound = _bound_ms(4 * beams * valid * D_MODEL,
+                          (2 * BATCH * beams + 2 * valid) * D_MODEL * 2 + bias.numel() * 4)
+        times[f"K={beams}"] = (ms, plain_ms, library_ms, device_ms, library_device_ms)
+        bounds[f"K={beams}"] = bound
+        print(f"time beam_cross_attention K={beams} Ls={ls}: a call eagerly, in turns: kernel "
+              f"{ms:.4f} ms {[round(x, 4) for x in turns['kernel']]}, SDPA {library_ms:.4f} ms "
+              f"{[round(x, 4) for x in turns['sdpa']]}; device, CUDA graphs, in turns: kernel "
+              f"{device_ms:.4f} ms {[round(x, 4) for x in turns['kernel_device']]}, SDPA "
+              f"{library_device_ms:.4f} ms {[round(x, 4) for x in turns['sdpa_device']]}; "
+              f"plain {plain_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]}, {valid} valid "
+              f"keys of {BATCH * ls}), {100 * bound[0] / device_ms:.1f}% of it in device time",
+              flush=True)
+    return {"ls": ls, "valid_keys": valid, "max_abs_err": worst,
+            "times_ms_is": "(ms, plain_ms, library_ms, device_ms, library_device_ms)",
+            "times_ms": {k: list(v) for k, v in times.items()},
+            "bound_ms": {k: v[0] for k, v in bounds.items()},
+            "bound_by": {k: v[1] for k, v in bounds.items()}}
 
 
 def _ffn_err(got, want) -> tuple:
@@ -780,6 +939,7 @@ def check_fused_dropout() -> tuple:
     import math
 
     import torch
+    import torch.nn.functional as F
 
     from multimodalanalytical_tpu_torch.ops import dropout as plain_dropout
     from multimodalanalytical_tpu_torch.ops import fused_dropout as fd
@@ -808,26 +968,32 @@ def check_fused_dropout() -> tuple:
         ms = _time_ms(lambda: fd.fused_dropout(x, seed, rate))
         plain_ms = _time_ms(lambda: fd.fused_dropout_plain(x, seed, rate), iters=5)
         default_ms = _time_ms(lambda: plain_dropout.dropout(x, rate, g))
-        times[shape] = (ms, plain_ms, default_ms)
+        library_ms = _time_ms(lambda: F.dropout(x, rate, training=True))
+        times[shape] = (ms, plain_ms, default_ms, library_ms)
         print(f"kernel fused_dropout {tuple(shape)} bf16 rate {rate}: forward bit-equal "
               f"{fwd_equal}, backward bit-equal {bwd_equal}, backward mask = forward mask "
               f"{same_mask}, keep fraction {kept:.6f} (want {1 - rate} +- {5 * sigma:.2e}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, ops/dropout.py {default_ms:.4f} ms",
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, ops/dropout.py {default_ms:.4f} ms, "
+              f"F.dropout {library_ms:.4f} ms",
               flush=True)
         _require(fwd_equal and bwd_equal and same_mask,
                  "fused_dropout differs from its plain version")
         _require(abs(kept - (1 - rate)) <= 5 * sigma, "fused_dropout keep fraction off")
     _require(launches == 2 * len(DROPOUT_SHAPES), "fused_dropout did not launch")
-    ms, plain_ms, default_ms = times[DROPOUT_SHAPES[1]]
+    ms, plain_ms, default_ms, library_ms = times[DROPOUT_SHAPES[1]]
     numel = math.prod(DROPOUT_SHAPES[1])
     bound, bound_by = _bound_ms(numel, 2 * numel * 2)   # bf16 in and out
     return {"name": "fused_dropout", "route": "cuda",
             "source": "multimodalanalytical_tpu_torch/csrc/fused_dropout.cu",
             "replaces": "multimodalanalytical_tpu/ops/fused_dropout.py:59",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": default_ms,
-            "library": "ops/dropout.py (torch.rand mask, then a multiply)",
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+            "library": f"torch.nn.functional.dropout(x, {rate}, training=True)",
+            "ops_dropout_ms": default_ms,
+            "ops_dropout_is": "ops/dropout.py, the port's default route (torch.rand mask, "
+                              "then a multiply)",
             "timed_at": f"{DROPOUT_SHAPES[1]} bf16, rate {rate}",
+            "other_times_ms_is": "(ms, plain_ms, ops_dropout_ms, library_ms)",
             "other_times_ms": {str(s): list(v) for s, v in times.items()}}, launches
 
 
@@ -1062,6 +1228,54 @@ def _request(seed: int, batch: int = BATCH):
     return {"Formula": formula.astype(np.int64), "IR": ir}, mask.astype(np.int32)
 
 
+def _multimodal_model(dtype: str = "bfloat16", dropout: float = 0.1):
+    """The flagship-width CustomModel on the multimodal recipe; seeded, so
+    every call builds the same weights."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.models.config import ModelConfig
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    cfg = ModelConfig(
+        d_model=D_MODEL, encoder_layers=LAYERS, decoder_layers=LAYERS,
+        encoder_attention_heads=HEADS, decoder_attention_heads=HEADS,
+        encoder_ffn_dim=FFN, decoder_ffn_dim=FFN, vocab_size=VOCAB, dtype=dtype,
+        dropout=dropout, max_target_length=MAX_LENGTH)
+    dev = torch.device(DEVICE)
+    return Seq2SeqModel(cfg, MM_DATA_CONFIG, "Smiles", device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def _multimodal_request(seed: int, batch: int = BATCH, xval: bool = False):
+    """A seeded multimodal request (MM_DATA_CONFIG): Formula ids as in
+    :func:`_request`, rows of 4-32 multiplets (5 tokens each) and of 5-40
+    carbon peaks, each tail-padded to the recipe's width, 24 IR patches of
+    75, and the encoder mask over each modality's padding. ``xval``: the
+    same request with the multiplets as a numerical_encoding dict (XVal
+    values around 1 on the valid tokens, 1.0 on the padding)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = {"Formula": rng.integers(6, MM_FORMULA + 1, batch),
+              "Multiplets": 5 * rng.integers(MM_MULTIPLETS_PER_ROW[0],
+                                             MM_MULTIPLETS_PER_ROW[1] + 1, batch),
+              "Carbon": rng.integers(MM_PEAKS_PER_ROW[0], MM_PEAKS_PER_ROW[1] + 1, batch)}
+    widths = {"Formula": MM_FORMULA, "Multiplets": MM_MULTIPLETS, "Carbon": MM_CARBON}
+    inputs, masks = {}, []
+    for name, width in widths.items():
+        keep = np.arange(width)[None, :] < counts[name][:, None]
+        vocab = MM_DATA_CONFIG[name]["vocab_size"]
+        inputs[name] = np.where(keep, rng.integers(4, vocab, (batch, width)), 0).astype(np.int64)
+        masks.append(keep)
+    inputs["IR"] = rng.random((batch, MM_PATCHES, MM_PATCH)).astype(np.float32)
+    masks.append(np.ones((batch, MM_PATCHES), bool))
+    values = np.where(masks[1], rng.normal(1.0, 0.3, (batch, MM_MULTIPLETS)), 1.0)
+    if xval:
+        inputs["Multiplets"] = {"tokenized_input": inputs["Multiplets"],
+                                "numerical_values": values.astype(np.float32)}
+    return inputs, np.concatenate(masks, axis=1).astype(np.int32)
+
+
 def check_teacher_forced(model, plain_model) -> None:
     """Decode logits of the kernel path vs the use_beam_kernel=False path
     on the same weights, for 8 teacher-forced steps with permuted ancestry,
@@ -1107,7 +1321,9 @@ def _eager_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
     step as the graphs, launched eagerly. Returns (seqs, scores, stats, s)."""
     import torch
 
-    inputs = {m: torch.as_tensor(v, device=DEVICE) for m, v in inputs.items()}
+    from multimodalanalytical_tpu_torch.training.trainer import to_device
+
+    inputs = to_device(inputs, DEVICE)
     mask = torch.as_tensor(mask, device=DEVICE)
     stats = {}
     torch.cuda.synchronize()
@@ -1122,7 +1338,9 @@ def _graph_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
     """As :func:`_eager_decode`, through the decoder's CUDA graphs."""
     import torch
 
-    inputs = {m: torch.as_tensor(v, device=DEVICE) for m, v in inputs.items()}
+    from multimodalanalytical_tpu_torch.training.trainer import to_device
+
+    inputs = to_device(inputs, DEVICE)
     mask = torch.as_tensor(mask, device=DEVICE)
     stats = {}
     torch.cuda.synchronize()
@@ -1175,25 +1393,16 @@ def check_early_exit(model) -> None:
              f"no early exit ({steps} steps, {replays} replays)")
 
 
-def run_slice() -> dict:
+def _serve_requests(engine, requests, what: str, model) -> tuple:
+    """The requests through ``engine.decode_batch`` (its graphs, captured
+    by an earlier request), the decode kernels' counts set to 0 just before
+    and read just after: every kernel launched 6 x the replays, outputs of
+    the expected shapes, finite, sorted and BOS-started; then the same
+    requests through the eager loop, bit-equal. Returns (launches, graph
+    s/batch, results as (seqs, scores, stats, s))."""
     import numpy as np
-    import torch
-
-    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
 
     counters = _decode_counters()
-    model = _flagship()
-    plain_model = _flagship(use_beam_kernel=False)
-    plain_model.load_state_dict(model.state_dict())
-    check_teacher_forced(model, plain_model)
-
-    engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.decode_batch(*_request(seed=100))          # captures the graphs; not counted
-    first_s = time.perf_counter() - t0
-    capture = engine.last_stats
-    requests = [_request(seed) for seed in (1, 2, 3)]
     for fn in counters:
         fn.launches = 0
     results, seconds, steps, replays = [], [], 0, 0
@@ -1203,15 +1412,13 @@ def run_slice() -> dict:
         seconds.append(time.perf_counter() - t0)
         stats = engine.last_stats
         _require(stats["graph"] and stats["warmup_steps"] == 0,
-                 "a serving request did not replay the engine's graphs")
+                 f"a {what} request did not replay the engine's graphs")
         steps += stats["steps"]
         replays += stats["replays"]
         results.append((seqs, scores, dict(stats), seconds[-1]))
     launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"slice: 3 requests x {BATCH} spectra, beam {BEAMS}, {steps} decode steps in "
-          f"{replays} graph replays, launches {launches}; graph capture (first request): "
-          f"{capture['capture_s']:.4f} s for {capture['warmup_steps']} stages, first request "
-          f"{first_s:.4f} s in all", flush=True)
+    print(f"{what}: {len(requests)} requests x {BATCH} spectra, beam {BEAMS}, {steps} decode "
+          f"steps in {replays} graph replays, launches {launches}", flush=True)
     for name, count in launches.items():
         _require(count == LAYERS * replays, f"{name} launched {count} times, want "
                                             f"{LAYERS * replays} ({LAYERS} x the replays)")
@@ -1224,22 +1431,45 @@ def run_slice() -> dict:
                  "a sequence does not start with BOS")
     per_batch = sum(seconds) / len(seconds)
     host_ms = 1e3 * sum(r[2]["dispatch_s"] for r in results) / replays
-    print(f"slice kernel path, CUDA graphs: {per_batch:.4f} s/batch ({BATCH / per_batch:.2f} "
+    print(f"{what} kernel path, CUDA graphs: {per_batch:.4f} s/batch ({BATCH / per_batch:.2f} "
           f"spectra/s), per request {[round(x, 4) for x in seconds]}; host {host_ms:.4f} ms "
           f"per step launching replays", flush=True)
-
     # The same requests through the eager loop (the same step, launched
     # eagerly): bit-equal, timed.
     eager_seconds = []
     for (inputs, mask), graph in zip(requests, results):
         eager = _eager_decode(engine.decoder, inputs, mask, BEAMS)
         eager_seconds.append(eager[3])
-        _require_bit_equal("slice request", graph, eager)
+        _require_bit_equal(f"{what} request", graph, eager)
     eager_per_batch = sum(eager_seconds) / len(eager_seconds)
-    print(f"slice kernel path, eager loop (cuda_graph=False): {eager_per_batch:.4f} s/batch "
+    print(f"{what} kernel path, eager loop (cuda_graph=False): {eager_per_batch:.4f} s/batch "
           f"({BATCH / eager_per_batch:.2f} spectra/s), per request "
           f"{[round(x, 4) for x in eager_seconds]}; graphs / eager "
           f"{per_batch / eager_per_batch:.3f}", flush=True)
+    return launches, per_batch, results
+
+
+def run_slice() -> dict:
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+
+    model = _flagship()
+    plain_model = _flagship(use_beam_kernel=False)
+    plain_model.load_state_dict(model.state_dict())
+    check_teacher_forced(model, plain_model)
+
+    engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.decode_batch(*_request(seed=100))          # captures the graphs; not counted
+    first_s = time.perf_counter() - t0
+    capture = engine.last_stats
+    print(f"slice graph capture (first request): {capture['capture_s']:.4f} s for "
+          f"{capture['warmup_steps']} stages, first request {first_s:.4f} s in all", flush=True)
+    requests = [_request(seed) for seed in (1, 2, 3)]
+    launches, _, results = _serve_requests(engine, requests, "slice", model)
     check_early_exit(model)
 
     plain_engine = InferenceEngine(plain_model, n_beams=BEAMS, batch_size=BATCH)
@@ -1745,6 +1975,319 @@ def run_guided_path(predictor, tokenizer, test) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+def _kernel_split(rows) -> dict:
+    """Device ms of the decode kernels #1-#3 and of everything else, from
+    :func:`_device_time`'s rows."""
+    split = {"#1 select attention": 0.0, "#2 cross attention": 0.0, "#3 decode FFN": 0.0,
+             "other": 0.0}
+    for ms, _, name in rows:
+        key = ("#1 select attention" if "select_attention_kernel" in name
+               else "#2 cross attention" if "cross_attention_kernel" in name
+               else "#3 decode FFN" if "ffn_" in name else "other")
+        split[key] += ms
+    return split
+
+
+def run_multimodal_path() -> dict:
+    """Phase 7, serving: three seeded 128-spectrum requests of the
+    multimodal recipe (Ls 279) through ``InferenceEngine.decode_batch`` at
+    beam 10 and max length 128, each decode stage a replayed CUDA graph
+    (captured by an earlier request, timed apart); every decode kernel
+    launched 6 x the replays; the same requests through the eager loop, bit
+    for bit; the encoder and the cross K/V projection timed per request; one
+    request profiled for its device time, busy share and kernel split.
+    Returns the decode kernels' launches over the three requests."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+    from multimodalanalytical_tpu_torch.training.trainer import to_device
+
+    model = _multimodal_model()
+    engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.decode_batch(*_multimodal_request(seed=700))      # captures the graphs; not counted
+    first_s = time.perf_counter() - t0
+    capture = engine.last_stats
+    requests = [_multimodal_request(seed) for seed in (701, 702, 703)]
+    real = [round(int(mask.sum()) / BATCH, 1) for _, mask in requests]
+    print(f"multimodal serving: Formula {MM_FORMULA} + Multiplets {MM_MULTIPLETS} + Carbon "
+          f"{MM_CARBON} + IR {MM_PATCHES} x {MM_PATCH} = Ls {MM_LS}, {real} valid keys per "
+          f"row; graph capture (first request): {capture['capture_s']:.4f} s for "
+          f"{capture['warmup_steps']} stages, first request {first_s:.4f} s in all", flush=True)
+    launches, per_batch, results = _serve_requests(engine, requests, "multimodal", model)
+
+    dmodel = engine.model
+    inputs, mask = requests[0]
+    inputs, mask = to_device(inputs, DEVICE), torch.as_tensor(mask, device=DEVICE)
+    with torch.no_grad():
+        encode_ms = _time_ms(lambda: dmodel.encode(inputs, mask), iters=5)
+        hidden = dmodel.encode(inputs, mask)
+        project_ms = _time_ms(lambda: dmodel.decoder.project_cross_kv(hidden), iters=5)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        engine.decode_batch(*requests[0])
+        torch.cuda.synchronize()
+    device_s, rows, _, graphs = _device_time(prof)
+    split = _kernel_split(rows)
+    print(f"multimodal serving, one request profiled: device time {device_s:.4f} s (kernels "
+          f"and copies only), busy share {device_s / per_batch:.3f} (device / unprofiled "
+          f"s/batch), {graphs} graph launches; encoder {encode_ms:.4f} ms and cross K/V "
+          f"projection {project_ms:.4f} ms per request (CUDA events); device ms by kernel "
+          f"{ {k: round(v, 2) for k, v in split.items()} }", flush=True)
+    for ms, calls, kernel in rows[:PROFILE_TOP]:
+        print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
+              f"{kernel[:100]}", flush=True)
+    _require(graphs >= results[0][2]["replays"], "the profiled request did not replay graphs")
+    del engine, model, dmodel, hidden
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_multimodal_training() -> None:
+    """Phase 7, training: one dropout-0 step of the bf16 multimodal model
+    against the same weights in fp32 (loss and gradient norm); three AdamW
+    steps at B 128 with modality dropout over Multiplets, Carbon and IR,
+    whose dropped spans must be the modality segments of the batch; then a
+    batch with the multiplets as XVal dicts: unit values give the token-id
+    forward bit for bit, seeded values a finite other one, and a train step
+    on it drops the same dict-aware segments."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+    from multimodalanalytical_tpu_torch.training import trainer as trainer_module
+    from multimodalanalytical_tpu_torch.training.trainer import to_device
+
+    inputs, mask = _multimodal_request(seed=710)
+    batch = {"encoder_inputs": inputs, "encoder_mask": mask,
+             **_targets(np.random.default_rng(711), BATCH)}
+    real_tokens = int(mask.sum())
+    routes = {}
+    for dtype in ("bfloat16", "float32"):
+        routes[dtype] = _step_twice(_multimodal_model(dtype=dtype, dropout=0.0), batch)
+        torch.cuda.empty_cache()
+        loss, grad_norm, seconds, peak = routes[dtype]
+        print(f"multimodal train step {dtype}, dropout 0: loss {loss:.6f} grad_norm "
+              f"{grad_norm:.6f}; {seconds:.4f} s/step ({real_tokens / seconds:.1f} encoder "
+              f"tokens/s real); peak {peak:.2f} GiB", flush=True)
+    (b_loss, b_norm, *_), (f_loss, f_norm, *_) = routes["bfloat16"], routes["float32"]
+    loss_rel, norm_rel = abs(b_loss - f_loss) / abs(f_loss), abs(b_norm - f_norm) / abs(f_norm)
+    print(f"multimodal train step bf16 vs fp32: loss rel diff {loss_rel:.3e} (tol "
+          f"{MM_LOSS_RTOL}), grad_norm rel diff {norm_rel:.3e} (tol {MM_GRAD_NORM_RTOL})",
+          flush=True)
+    _require(loss_rel <= MM_LOSS_RTOL and norm_rel <= MM_GRAD_NORM_RTOL,
+             "the bf16 multimodal train step disagrees with the fp32 one")
+
+    want = [(MM_FORMULA, MM_FORMULA + MM_MULTIPLETS),
+            (MM_FORMULA + MM_MULTIPLETS, MM_LS - MM_PATCHES), (MM_LS - MM_PATCHES, MM_LS)]
+    dropped_spans = []
+    original = trainer_module.apply_modality_dropout
+
+    def recording(encoder_mask, droppable, generator):
+        dropped_spans.append(list(droppable))
+        return original(encoder_mask, droppable, generator)
+
+    model = _multimodal_model()
+    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=MM_TRAIN_STEPS + 1,
+                      clip_grad=1.0, modality_dropout=MM_MODALITY_DROPOUT)
+    trainer_module.apply_modality_dropout = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.fit([batch], epochs=MM_TRAIN_STEPS, max_steps=MM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / MM_TRAIN_STEPS
+        xval, _ = _multimodal_request(seed=710, xval=True)
+        xval_loss = float(trainer.train_step(dict(batch, encoder_inputs=xval))["loss"])
+    finally:
+        trainer_module.apply_modality_dropout = original
+    print(f"multimodal train fit: {MM_TRAIN_STEPS} AdamW steps, B {BATCH}, modality dropout "
+          f"over {MM_MODALITY_DROPOUT}: {step_s:.4f} s/step (first step included; "
+          f"{real_tokens / step_s:.1f} encoder tokens/s real); losses "
+          f"{[round(x, 4) for x in losses]}; segments dropped from {dropped_spans[0]}; a step "
+          f"on the XVal batch: loss {xval_loss:.4f}", flush=True)
+    _require(len(losses) == MM_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+             and math.isfinite(xval_loss), "non-finite multimodal training loss")
+    _require(len(dropped_spans) == MM_TRAIN_STEPS + 1
+             and all(spans == want for spans in dropped_spans),
+             f"modality dropout spans {dropped_spans} are not the segments {want}")
+
+    model.eval()
+    unit = dict(xval, Multiplets=dict(xval["Multiplets"], numerical_values=np.ones_like(
+        xval["Multiplets"]["numerical_values"])))
+    args = [torch.as_tensor(batch[k], device=DEVICE)
+            for k in ("encoder_mask", "decoder_ids", "decoder_mask", "labels")]
+    with torch.no_grad():
+        logits = {name: model(to_device(x, DEVICE), *args)["logits"]
+                  for name, x in (("ids", inputs), ("unit", unit), ("xval", xval))}
+    same = torch.equal(logits["ids"], logits["unit"])
+    finite = bool(torch.isfinite(logits["xval"]).all())
+    moved = (logits["xval"] - logits["ids"]).abs().max().item()
+    print(f"multimodal XVal forward (Multiplets as numerical_encoding dicts): logits "
+          f"{tuple(logits['xval'].shape)}, finite {finite}; unit values bit-equal to the "
+          f"token-id forward {same}; seeded values move the logits by up to {moved:.4f}",
+          flush=True)
+    _require(same and finite and moved > 0, "the XVal forward is wrong")
+    del model, trainer, logits
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 8
+def _align_model():
+    import torch
+
+    from multimodalanalytical_tpu_torch.models.config import AlignConfig, ModelConfig
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    cfg = ModelConfig(
+        d_model=D_MODEL, encoder_layers=LAYERS, decoder_layers=LAYERS,
+        encoder_attention_heads=HEADS, decoder_attention_heads=HEADS,
+        encoder_ffn_dim=FFN, decoder_ffn_dim=FFN, vocab_size=VOCAB, dtype="bfloat16",
+        max_target_length=MAX_LENGTH, align_config=AlignConfig(**ALIGN_CONFIG))
+    dev = torch.device(DEVICE)
+    return Seq2SeqModel(cfg, ALIGN_DATA_CONFIG, "Smiles", device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def _align_batch(tokenizer, seed: int, dummies: int = 0, dummy_seed=None) -> dict:
+    """A seeded B 128 batch of the align recipe: Formula ids, 24 IR patches
+    of 75, corpus SMILES targets and 1800-point align targets (a spectrum
+    shared by the batch, three Gaussian bands, plus per-row noise, in
+    [0, 1]). The last ``dummies`` rows are batch padding as the collator
+    pads: fully masked, labels -100, zero align targets; ``dummy_seed``
+    fills their inputs with other values (which must not matter)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(6, MM_FORMULA + 1, BATCH)
+    keep = np.arange(MM_FORMULA)[None, :] < lengths[:, None]
+    formula = np.where(keep, rng.integers(4, 32, (BATCH, MM_FORMULA)), 0).astype(np.int64)
+    ir = rng.random((BATCH, MM_PATCHES, MM_PATCH)).astype(np.float32)
+    mask = np.concatenate([keep, np.ones((BATCH, MM_PATCHES), bool)], axis=1).astype(np.int32)
+    smiles = [SMILES_CORPUS[i] for i in rng.integers(0, len(SMILES_CORPUS), BATCH)]
+    dec = np.zeros((BATCH, EVAL_TARGET_LEN), np.int64)
+    labels = np.full((BATCH, EVAL_TARGET_LEN), -100, np.int64)
+    for row, s in enumerate(smiles):
+        ids = tokenizer.encode(s)
+        dec[row, : len(ids) + 1] = [tokenizer.bos_token_id] + ids
+        labels[row, : len(ids) + 1] = ids + [tokenizer.eos_token_id]
+    grid = np.linspace(0.0, 1.0, ALIGN_CONFIG["output_dimension"])
+    bands = sum(h * np.exp(-((grid - c) / w) ** 2)
+                for h, c, w in ((0.8, 0.2, 0.02), (0.5, 0.55, 0.05), (0.6, 0.8, 0.03)))
+    target = np.clip(bands[None, :] + 0.05 * rng.random((BATCH, grid.size)), 0.0, 1.0)
+    batch = {"encoder_inputs": {"Formula": formula, "IR": ir}, "encoder_mask": mask,
+             "decoder_ids": dec, "decoder_mask": (labels != -100).astype(np.int32),
+             "labels": labels, "target_strings": smiles,
+             "align_target": target.astype(np.float32), "n_valid": BATCH - dummies}
+    if dummies:
+        rows = slice(BATCH - dummies, BATCH)
+        fill = np.random.default_rng(dummy_seed) if dummy_seed is not None else None
+        batch["encoder_mask"][rows] = 0
+        batch["labels"][rows] = -100
+        batch["decoder_mask"][rows] = 0
+        batch["align_target"][rows] = 0.0 if fill is None else fill.random((dummies, grid.size))
+        if fill is not None:
+            formula[rows] = fill.integers(4, 32, (dummies, MM_FORMULA))
+            ir[rows] = fill.random((dummies, MM_PATCHES, MM_PATCH))
+    return batch
+
+
+def run_align_path() -> None:
+    """Phase 8: the align recipe at full width. ``Trainer.fit`` takes 6
+    AdamW steps on the repeated B 128 batch with one validation pass (K 1)
+    and a ``CheckpointManager``: every loss finite, loss = ce + 50 x
+    alignment_loss within fp32 rounding at every step, the alignment loss
+    above 0 and falling; ``best`` restored into a fresh model bit for bit,
+    the align network included. Then dummy rows: the batch with its last 28
+    rows as batch padding gives the align loss of its first 100 rows alone
+    (to bf16 rounding, ALIGN_DUMMY_RTOL), and the same bits whatever the
+    dummy rows hold."""
+    import math
+    import tempfile
+
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+    from multimodalanalytical_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+        restore_params,
+    )
+    from multimodalanalytical_tpu_torch.training.trainer import device_batch
+
+    tokenizer = FixedVocabTokenizer()
+    batch = _align_batch(tokenizer, seed=800)
+    model = _align_model()
+    trainer = Trainer(model, tokenizer, optimiser="adamw", lr=TRAIN_LR, num_steps=ALIGN_STEPS,
+                      clip_grad=1.0)
+    steps, validations = [], []
+    train_step, validate = trainer.train_step, trainer.validate
+    trainer.train_step = lambda b: steps.append(train_step(b)) or steps[-1]
+    trainer.validate = lambda *a, **k: validations.append(validate(*a, **k)) or validations[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoints = CheckpointManager(Path(tmp) / "checkpoints")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.fit([batch] * ALIGN_STEPS, [batch], epochs=1, checkpoints=checkpoints)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        rows = [{k: float(m[k]) for k in ("loss", "model_only_loss", "alignment_loss")}
+                for m in steps]
+        lam = ALIGN_CONFIG["loss_lambda"]
+        identity = max(abs(r["loss"] - (r["model_only_loss"] + lam * r["alignment_loss"]))
+                       / abs(r["loss"]) for r in rows)
+        align = [r["alignment_loss"] for r in rows]
+        print(f"align fit: {ALIGN_STEPS} AdamW steps at B {BATCH} and one validation (K 1) in "
+              f"{fit_s:.4f} s; losses {[round(x, 4) for x in losses]}; ce "
+              f"{[round(r['model_only_loss'], 4) for r in rows]}; alignment_loss "
+              f"{[round(x, 6) for x in align]}; max |loss - (ce + {lam} x align)| / loss "
+              f"{identity:.3e} (tol {ALIGN_IDENTITY_RTOL}); validation {validations}",
+              flush=True)
+        _require(len(losses) == ALIGN_STEPS and all(math.isfinite(x) for x in losses),
+                 "non-finite align training loss")
+        _require(identity <= ALIGN_IDENTITY_RTOL, "loss != ce + lambda x alignment_loss")
+        _require(min(align) > 0 and align[-1] < align[0], "the alignment loss did not fall")
+        _require(len(validations) == 1 and validations[0]["val_alignment_loss"] > 0,
+                 "the validation pass did not report the alignment loss")
+        best = checkpoints.restore("best")["params"]
+        fresh = _align_model()
+        fresh.load_state_dict(restore_params(checkpoints.directory / "best"))
+        restored = fresh.state_dict()
+        identical = all(torch.equal(restored[k].cpu(), best[k]) for k in best)
+        head = [k for k in best if k.startswith("align_network.")]
+        print(f"align restore best (step {checkpoints.best_step}) into a fresh model: "
+              f"{len(best)} tensors ({len(head)} of the align network) bit-identical "
+              f"{identical}", flush=True)
+        _require(identical and set(restored) == set(best) and len(head) == 8,
+                 "restored align params differ")
+
+    model.eval()
+    keys = ("encoder_mask", "decoder_ids", "decoder_mask", "labels", "align_target")
+
+    def align_loss(b, rows=BATCH):
+        dev = device_batch(b, torch.device(DEVICE))
+        cut = {k: dev[k][:rows] for k in keys}
+        with torch.no_grad():
+            return float(model({m: x[:rows] for m, x in dev["encoder_inputs"].items()},
+                               *(cut[k] for k in keys))["alignment_loss"])
+
+    valid = BATCH - ALIGN_DUMMIES
+    padded = align_loss(_align_batch(tokenizer, seed=801, dummies=ALIGN_DUMMIES))
+    other = align_loss(_align_batch(tokenizer, seed=801, dummies=ALIGN_DUMMIES, dummy_seed=9))
+    alone = align_loss(_align_batch(tokenizer, seed=801), rows=valid)
+    rel = abs(padded - alone) / alone
+    print(f"align dummy rows: B {BATCH} with {ALIGN_DUMMIES} dummy rows {padded:.7f}, the same "
+          f"with other dummy contents {other:.7f} (bit-equal {padded == other}), the {valid} "
+          f"valid rows alone {alone:.7f}: rel diff {rel:.3e} (tol {ALIGN_DUMMY_RTOL})",
+          flush=True)
+    _require(padded == other and rel <= ALIGN_DUMMY_RTOL, "dummy rows change the align loss")
+    del model, fresh, trainer
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- profiling
 PROFILE_TOP = 14
 
@@ -1930,6 +2473,7 @@ def main() -> int:
         return 0
 
     records = check_kernels() + [check_ffn()]
+    records[1]["long_encoder"] = check_cross_long()
     read_only = check_read_only_attention()
     dropout, dropout_phase1 = check_fused_dropout()
     records += check_flash_kernels()
@@ -1942,6 +2486,11 @@ def main() -> int:
         by_phase[name]["5"] = n
     for name, n in run_guided_path(predictor, predictor.tokenizer, test).items():
         by_phase[name]["6"] = n
+    del predictor, test
+    for name, n in run_multimodal_path().items():
+        by_phase[name]["7"] = n
+    run_multimodal_training()
+    run_align_path()
     for rec in records:
         rec["launches_by_phase"] = by_phase[rec["name"]]
         rec["launches"] = sum(by_phase[rec["name"]].values())

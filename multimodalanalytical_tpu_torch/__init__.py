@@ -6,7 +6,7 @@ against. Module paths mirror it (``models/``, ``ops/``, ``generation/``,
 ``models/weights.py``). This package imports ``torch`` and never ``jax``,
 nor anything of the JAX package: it keeps its own copies of the
 framework-free layers it needs (``configuration.py``, ``chem/``, ``data/``,
-``config/``, ``evaluation/``).
+``config/``, ``evaluation/``, ``models/torch_mapping.py``).
 """
 
 from .models.config import ModelConfig

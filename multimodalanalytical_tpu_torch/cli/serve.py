@@ -42,6 +42,7 @@ import torch
 
 from ..generation.beam_search import BeamDecoder
 from ..models.seq2seq import Seq2SeqModel
+from ..training.trainer import to_device
 
 logger = logging.getLogger(__name__)
 
@@ -106,10 +107,11 @@ class InferenceEngine:
     # ---------------------------------------------------------- decode core
     def decode_batch(self, encoder_inputs: Dict[str, Any],
                      encoder_mask) -> Tuple[np.ndarray, np.ndarray]:
-        """Beam-decode one collated batch; returns (sequences (B, K, L) int64,
+        """Beam-decode one collated batch (a modality's input may be a dict
+        payload: XVal values, peak indices); returns (sequences (B, K, L) int64,
         scores (B, K) fp32) as numpy. ``last_steps`` records the decode steps
         that counted, ``last_stats`` the beam search's ``stats``."""
-        inputs = {m: torch.as_tensor(v, device=self.device) for m, v in encoder_inputs.items()}
+        inputs = to_device(encoder_inputs, self.device)
         mask = torch.as_tensor(encoder_mask, device=self.device)
         stats: Dict[str, Any] = {}
         seqs, scores = self.decoder.search(inputs, mask, self.n_beams,

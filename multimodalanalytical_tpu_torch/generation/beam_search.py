@@ -64,8 +64,9 @@ def decode_model(model: Seq2SeqModel) -> Seq2SeqModel:
     so are the biases of the Dense layers that compute in bf16 (each call
     would cast them to bf16 again: the same values, bit for bit). Norm
     parameters stay fp32, and the lm_head then runs in fp32 on
-    bf16-rounded weights and its fp32 bias. A model with no such parameter
-    left is returned as is.
+    bf16-rounded weights and its fp32 bias. The copy leaves out the
+    alignment head, which decoding never runs. A model with no such
+    parameter left is returned as is.
     """
     cast = [p for p in model.parameters() if p.dtype == torch.float32 and p.ndim >= 2]
     cast += [m.bias for m in model.modules()
@@ -75,6 +76,8 @@ def decode_model(model: Seq2SeqModel) -> Seq2SeqModel:
         return model
     memo = {id(p): torch.nn.Parameter(p.detach().to(torch.bfloat16), requires_grad=False)
             for p in cast}
+    if model.align_network is not None:
+        memo[id(model.align_network)] = None
     return copy.deepcopy(model, memo)
 
 
@@ -178,11 +181,11 @@ class BeamDecoder:
         decodes as it is."""
         if self.dmodel is self.model:
             return
-        targets = dict(self.dmodel.named_parameters())
-        targets.update(self.dmodel.named_buffers())
+        sources = dict(self.model.named_parameters())
+        sources.update(self.model.named_buffers())
         with torch.no_grad():
-            for name, src in [*self.model.named_parameters(), *self.model.named_buffers()]:
-                targets[name].copy_(src)
+            for name, dst in [*self.dmodel.named_parameters(), *self.dmodel.named_buffers()]:
+                dst.copy_(sources[name])
 
     # ---------------------------------------------------------------- step
     def _step(self, d: _Decode, bound: int, max_length: int, length_penalty: float,

@@ -1,8 +1,9 @@
 """The multimodal encoder-decoder (counterpart of ``models/seq2seq.py``).
 
-``encode``, ``decode_train``, ``forward`` (loss and logits; no align head
-yet), the lazy-ancestry beam cache and ``beam_decode_step``. Module and
-parameter names follow the JAX param tree (``models/weights.py``).
+``encode``, ``decode_train``, ``forward`` (loss and logits, with the
+alignment head's loss when the config has one), the lazy-ancestry beam
+cache and ``beam_decode_step``. Module and parameter names follow the JAX
+param tree (``models/weights.py``).
 
 ``forward(..., deterministic=False, generator=g)`` is the training forward:
 dropout at the JAX sites, drawn from ``g``. The default is deterministic.
@@ -17,6 +18,7 @@ from torch import nn
 
 from ..ops.attention import make_attention_bias, make_causal_bias
 from ..ops.layers import Dense, LayerNorm, make_generator
+from .align import ALIGN_LOSSES, AlignNetwork
 from .config import ModelConfig
 from .embedding import MultimodalEmbedding
 from .transformer import Decoder, Encoder
@@ -36,8 +38,6 @@ class Seq2SeqModel(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None):
         """``generator`` seeds the initialisation (default: seed 0 on ``device``)."""
         super().__init__()
-        if config.align_config is not None:
-            raise NotImplementedError("the alignment head is not ported yet")
         self.config = config
         self.target_modality = target_modality
         g = make_generator(generator, device)
@@ -55,6 +55,9 @@ class Seq2SeqModel(nn.Module):
                              dtype=torch.float32, device=device, generator=g)
         self.decoder_emb_norm = (LayerNorm(config.d_model, device=device)
                                  if config.decoder_embedding_layernorm else None)
+        self.align_network = (AlignNetwork(config.align_config, config.d_model, device=device,
+                                           generator=g)
+                              if config.align_config is not None else None)
 
     def _embed_target(self, inputs, decode_positions=None) -> torch.Tensor:
         embeds = self.embedding(inputs, decode_positions=decode_positions,
@@ -86,10 +89,12 @@ class Seq2SeqModel(nn.Module):
         return self._logits(hidden)
 
     def forward(self, encoder_inputs, encoder_mask, decoder_ids, decoder_mask, labels,
-                deterministic: bool = True,
+                align_target: Optional[torch.Tensor] = None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Loss and logits. ``deterministic=False`` applies dropout, drawn
-        from ``generator`` (required then, unless the dropout rate is 0)."""
+        from ``generator`` (required then, unless the dropout rate is 0).
+        With an align head and an ``align_target`` (B, output_dimension),
+        ``loss`` is the CE plus ``loss_lambda`` times the alignment loss."""
         if deterministic:
             generator = None
         elif generator is None and self.config.dropout > 0:
@@ -98,8 +103,25 @@ class Seq2SeqModel(nn.Module):
         logits = self.decode_train(decoder_ids, decoder_mask, encoder_hidden, encoder_mask,
                                    generator)
         ce = cross_entropy_loss(logits, labels)
-        return {"loss": ce, "model_only_loss": ce,
-                "alignment_loss": torch.zeros((), device=ce.device), "logits": logits}
+        align_loss, total = torch.zeros((), device=ce.device), ce
+        if self.align_network is not None and align_target is not None:
+            align_loss = self.alignment_loss(encoder_hidden, encoder_mask, align_target)
+            total = ce + self.config.align_config.loss_lambda * align_loss
+        return {"loss": total, "model_only_loss": ce, "alignment_loss": align_loss,
+                "logits": logits}
+
+    def alignment_loss(self, encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor,
+                       align_target: torch.Tensor) -> torch.Tensor:
+        """The head's loss on the encoder states mean-pooled over the mask.
+        Fully masked rows (batch padding) are zeroed in prediction and
+        target, and the mse / mae mean is rescaled to the valid rows."""
+        mask = encoder_mask[..., None].float()
+        pooled = (encoder_hidden.float() * mask).sum(dim=1) / (mask.sum(dim=1) + 1e-9)
+        pred = self.align_network(pooled)
+        row_valid = (encoder_mask.sum(dim=1) > 0).float()[:, None]
+        raw = ALIGN_LOSSES[self.config.align_config.loss_function](
+            pred * row_valid, align_target.float() * row_valid)
+        return raw * (pred.shape[0] / row_valid.sum().clamp_min(1.0))
 
     def init_beam_cache(self, batch_size: int, num_beams: int, max_length: int,
                         encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor,

@@ -4,9 +4,12 @@ The port names its parameters after the JAX param tree, so the mapping is
 one mechanical rule: join the tree path with dots, transpose Dense kernels
 and rename ``kernel``/``scale``/``embedding`` to ``weight``. For example
 ``params["encoder"]["layer_0"]["self_attn"]["qkv_proj"]["kernel"]`` becomes
-``encoder.layer_0.self_attn.qkv_proj.weight`` (transposed). A reference
-Lightning checkpoint reaches the port through the JAX package's
-``custom_model_to_flax`` followed by :func:`load_flax_params`.
+``encoder.layer_0.self_attn.qkv_proj.weight`` (transposed). The one
+3-D kernel, the align head's ``conv1`` (flax (k, in, out)), comes out of
+the same transpose as (out, in, k): ``torch.nn.functional.conv1d``'s
+layout. A reference checkpoint's state_dict reaches the port through
+:func:`load_reference_state_dict`: the port's copy of the reference mapping
+(``models/torch_mapping.py``) followed by :func:`load_flax_params`.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from .torch_mapping import lightning_state_dict_to_flax
 
 _RENAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
@@ -61,3 +66,12 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
                 raise ValueError(f"{name}: JAX shape {array.shape} != port shape "
                                  f"{tuple(param.shape)}")
             param.copy_(torch.from_numpy(np.array(array, dtype=np.float32)))
+
+
+def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any]) -> None:
+    """Fill ``model`` from a reference PyTorch state_dict: a bare model's
+    (``CustomModel``, or the BART / T5 graphs) or a Lightning ``HFWrapper``'s
+    with its ``hf_model.`` prefix. Values may be tensors or arrays."""
+    arrays = {key: value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+              else np.asarray(value) for key, value in state_dict.items()}
+    load_flax_params(model, lightning_state_dict_to_flax(arrays))

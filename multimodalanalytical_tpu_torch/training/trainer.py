@@ -51,10 +51,12 @@ MODEL_FIELDS = BATCH_KEYS + ("target_strings", "align_target", "vector_target", 
 def modality_segments(encoder_inputs: Dict[str, Any], order: Sequence[str]
                       ) -> List[Tuple[str, int, int]]:
     """(modality, start, end) over the concatenated source axis, in the data
-    config's ``order`` (the embedding concatenates in that order)."""
+    config's ``order`` (the embedding concatenates in that order). A dict
+    input (XVal values or peak indices) spans its ``tokenized_input``."""
     segments, offset = [], 0
     for modality in (m for m in order if m in encoder_inputs):
-        length = encoder_inputs[modality].shape[1]
+        value = encoder_inputs[modality]
+        length = (value["tokenized_input"] if isinstance(value, dict) else value).shape[1]
         segments.append((modality, offset, offset + length))
         offset += length
     return segments
@@ -77,13 +79,20 @@ def apply_modality_dropout(encoder_mask: torch.Tensor, droppable: Sequence[Tuple
     return mask
 
 
+def to_device(tree: Any, device: torch.device) -> Any:
+    """Arrays, and dicts of them at any depth, as tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {key: to_device(value, device) for key, value in tree.items()}
+    return torch.as_tensor(tree, device=device)
+
+
 def device_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """The model inputs of a collated batch as tensors on ``device``
-    (host-only fields such as ``n_valid`` and ``target_strings`` dropped)."""
-    out = {key: torch.as_tensor(batch[key], device=device) for key in BATCH_KEYS[1:]}
-    out["encoder_inputs"] = {m: torch.as_tensor(x, device=device)
-                             for m, x in batch["encoder_inputs"].items()}
-    return out
+    """The model inputs of a collated batch as tensors on ``device``: the
+    modalities' arrays or dict payloads (XVal values, peak indices), and
+    the ``align_target`` where the batch has one. Host-only fields such as
+    ``n_valid`` and ``target_strings`` are dropped."""
+    return {key: to_device(batch[key], device) for key in BATCH_KEYS + ("align_target",)
+            if key in batch}
 
 
 def calculate_training_steps(train_len: int, batch_size: int, acc_batches: int,
@@ -208,22 +217,22 @@ class Trainer:
         encoder_mask = apply_modality_dropout(batch["encoder_mask"], droppable,
                                               self.modality_generator)
         out = self.model(batch["encoder_inputs"], encoder_mask, batch["decoder_ids"],
-                         batch["decoder_mask"], batch["labels"], deterministic=False,
-                         generator=self.dropout_generator)
+                         batch["decoder_mask"], batch["labels"], batch.get("align_target"),
+                         deterministic=False, generator=self.dropout_generator)
         grads = torch.autograd.grad(out["loss"], self.params, allow_unused=True,
                                     materialize_grads=True)
         grad_norm = global_norm(grads)
         self.optimizer.step(grads)
         self.global_step += 1
         return {"loss": out["loss"].detach(), "model_only_loss": out["model_only_loss"].detach(),
-                "alignment_loss": out["alignment_loss"], "grad_norm": grad_norm}
+                "alignment_loss": out["alignment_loss"].detach(), "grad_norm": grad_norm}
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Teacher-forced forward in deterministic mode on a device batch:
         the losses and the argmax ids (B, Lt)."""
         out = self.model(batch["encoder_inputs"], batch["encoder_mask"], batch["decoder_ids"],
-                         batch["decoder_mask"], batch["labels"])
+                         batch["decoder_mask"], batch["labels"], batch.get("align_target"))
         return {"loss": out["loss"], "model_only_loss": out["model_only_loss"],
                 "alignment_loss": out["alignment_loss"],
                 "predicted_ids": out["logits"].argmax(dim=-1)}
@@ -365,6 +374,7 @@ class Trainer:
         if writer is not None:
             writer.add_scalar("train_loss", loss, step)
             writer.add_scalar("train_model_only_loss", ce, step)
+            writer.add_scalar("train_alignment_loss", float(metrics["alignment_loss"]), step)
 
     def _flush_pending_best(self, checkpoints) -> None:
         """End of fit: save a rate-suppressed best, so fit never ends without it."""
@@ -436,10 +446,14 @@ class Trainer:
         """Weighted validation metrics (reference wrapper.py:491-525): the
         batch losses weighted by their real rows, token accuracy over
         non-padding labels, and greedy (K = 1) molecular accuracy scored by
-        ``evaluation/metrics.py:calc_sampling_metrics``."""
+        ``evaluation/metrics.py:calc_sampling_metrics``. The loss includes
+        the weighted alignment loss where the batches carry an
+        ``align_target``; a model with an align head also reports
+        ``val_alignment_loss``, weighted as ``val_loss``."""
         from ..evaluation.metrics import calc_sampling_metrics
 
         losses: List[float] = []
+        align_losses: List[float] = []
         stats: List[List[float]] = []     # per batch: n_valid, tok_correct, tok_total, mol_correct
         max_batches = len(val_loader)
         if limit_val_batches < 1.0:
@@ -453,6 +467,7 @@ class Trainer:
             seqs = self._decode(decoder, dev, num_beams=1)
             n_valid = batch["n_valid"]
             losses.append(float(out["loss"]))
+            align_losses.append(float(out["alignment_loss"]))
             labels = np.asarray(batch["labels"])[:n_valid]
             predicted = out["predicted_ids"].cpu().numpy()[:n_valid]
             mask = labels != -100
@@ -465,11 +480,18 @@ class Trainer:
             return {"val_loss": 0.0, "val_token_acc": 0.0, "val_molecular_accuracy": 0.0}
         totals = np.asarray(stats, dtype=np.float64)
         n_rows = totals[:, 0].sum()
-        return {
-            "val_loss": float(np.average(losses, weights=totals[:, 0])) if n_rows else 0.0,
+
+        def weighted(values):
+            return float(np.average(values, weights=totals[:, 0])) if n_rows else 0.0
+
+        metrics = {
+            "val_loss": weighted(losses),
             "val_token_acc": float(totals[:, 1].sum() / max(totals[:, 2].sum(), 1.0)),
             "val_molecular_accuracy": float(totals[:, 3].sum() / max(n_rows, 1.0)),
         }
+        if self.model.align_network is not None:
+            metrics["val_alignment_loss"] = weighted(align_losses)
+        return metrics
 
     # ----------------------------------------------------------- predict
     @torch.no_grad()

@@ -108,6 +108,34 @@ def test_cross_attention_matches_plain(gen, dtype, k, heads, head_dim, ls):
     _close(got, want, TOL if dtype == torch.bfloat16 else 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 10, 30])
+@pytest.mark.parametrize("ls", [257, 271, 279, 300])
+def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
+    """Ls just past one 256-key chunk (the multimodal recipe's encoder is
+    279): a second chunk of 1-44 keys, not a multiple of 16. Row 0 is fully
+    masked (batch padding), row 1 has every key of the first chunk masked,
+    row 2 every key of the second, row 3 ragged padding: all finite, within
+    chip_smoke.py's max-error and error-norm limits of the plain version."""
+    b, heads, head_dim = 4, 8, 64
+    d = heads * head_dim
+    q = torch.randn(b * k, d, generator=gen, device="cuda").to(dtype)
+    kv = [torch.randn(b, ls, d, generator=gen, device="cuda").to(dtype) for _ in range(2)]
+    keep = torch.rand(b, ls, generator=gen, device="cuda") < 0.6
+    keep[0] = False
+    keep[1, :256] = False
+    keep[1, 256] = True
+    keep[2, 256:] = False
+    keep[2, 0] = True
+    bias = torch.where(keep, 0.0, -1e9).float()
+    got = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, TOL if dtype == torch.bfloat16 else 1e-5)
+    rms = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert rms <= (1e-3 if dtype == torch.bfloat16 else 1e-6), rms
+
+
 def _ffn_args(gen, m, d, f, gated, dtype=torch.float32):
     dev = "cuda"
     x = torch.randn(m, d, generator=gen, device=dev).bfloat16()
@@ -686,6 +714,73 @@ def test_spilled_stage_decodes_under_capture(gen):
                            stats=want)
     assert got["graph"] and got["steps"] == want["steps"]
     assert torch.equal(seqs, eager[0]) and torch.equal(scores, eager[1])
+
+
+def _small_multimodal_model():
+    """Formula + Multiplets + Carbon + IR at the multimodal recipe's widths
+    (Ls 12 + 189 + 54 + 24 = 279), a small kernel-eligible model."""
+    from multimodalanalytical_tpu_torch.models.config import ModelConfig
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    data_config = {
+        "Formula": {"type": "text", "vocab_size": 32, "target": False},
+        "Multiplets": {"type": "multiplets", "vocab_size": 1400, "target": False},
+        "Carbon": {"type": "carbon", "vocab_size": 2310, "target": False},
+        "IR": {"type": "1D_patches", "target": False,
+               "preprocessor_arguments": {"patch_size": 75}},
+        "Smiles": {"type": "text", "vocab_size": 64, "target": True},
+    }
+    cfg = ModelConfig(d_model=128, encoder_layers=2, decoder_layers=2,
+                      encoder_attention_heads=2, decoder_attention_heads=2,
+                      encoder_ffn_dim=256, decoder_ffn_dim=256, vocab_size=64,
+                      dtype="bfloat16", max_target_length=32)
+    return Seq2SeqModel(cfg, data_config, "Smiles", device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def _multimodal_request(batch, seed, xval, carbon=54):
+    g = torch.Generator().manual_seed(seed)
+    widths = {"Formula": (12, 32), "Multiplets": (189, 1400), "Carbon": (carbon, 2310)}
+    inputs, keeps = {}, []
+    for name, (width, vocab) in widths.items():
+        length = torch.randint(width // 4, width + 1, (batch, 1), generator=g)
+        keep = torch.arange(width)[None, :] < length
+        inputs[name] = torch.where(keep, torch.randint(4, vocab, (batch, width), generator=g), 0)
+        keeps.append(keep)
+    if xval:
+        values = torch.where(keeps[1], 1.0 + 0.3 * torch.randn(batch, 189, generator=g), 1.0)
+        inputs["Multiplets"] = {"tokenized_input": inputs["Multiplets"],
+                                "numerical_values": values}
+    inputs["IR"] = torch.rand(batch, 24, 75, generator=g)
+    keeps.append(torch.ones(batch, 24, dtype=torch.bool))
+    mask = torch.cat(keeps, dim=1).int()
+    move = lambda x: {k: move(v) for k, v in x.items()} if isinstance(x, dict) else x.cuda()  # noqa: E731,E501
+    return move(inputs), mask.cuda()
+
+
+@pytest.mark.parametrize("xval", [False, True], ids=["ids", "xval"])
+def test_multimodal_graph_decode_equals_eager_decode(gen, xval):
+    """The multimodal recipe's encoder (Ls 279, the cross kernel's two-pass
+    form) through the serving engine's graphs against its eager loop: two
+    requests, then one with a shorter carbon width (Ls 255, one pass) that
+    the engine captures apart; sequences and scores bit-equal, each decode
+    kernel launched 2 x the replays and capture steps."""
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+
+    engine = InferenceEngine(_small_multimodal_model(), n_beams=4, batch_size=3)
+    counters = (ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn)
+    for seed, carbon in ((1, 54), (2, 54), (3, 30)):
+        inputs, mask = _multimodal_request(3, seed, xval, carbon)
+        assert mask.shape[1] == 12 + 189 + carbon + 24
+        before = [fn.launches for fn in counters]
+        seqs, scores = engine.decode_batch(inputs, mask)
+        stats = engine.last_stats
+        assert stats["graph"]
+        assert [fn.launches - n for fn, n in zip(counters, before)] == [
+            2 * (stats["replays"] + stats["warmup_steps"])] * 3
+        eager = engine.decoder.search(inputs, mask, 4, max_length=32, cuda_graph=False)
+        assert (seqs == eager[0].cpu().numpy()).all() and (scores == eager[1].cpu().numpy()).all()
+    assert len(engine.decoder._decodes) == 2
 
 
 def test_validate_after_a_step_decodes_the_new_weights(gen):

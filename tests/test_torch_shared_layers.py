@@ -1,5 +1,5 @@
 """The port's own copies of the framework-free layers (``configuration.py``,
-``chem/``, ``data/``, ``config/``, ``evaluation/``).
+``chem/``, ``data/``, ``config/``, ``evaluation/``, ``models/torch_mapping.py``).
 
 The port imports nothing of the JAX package and no JAX library: an ``ast``
 walk over every module of the port and over ``chip_smoke.py`` (imports
@@ -7,7 +7,8 @@ inside functions included), and a fresh interpreter that imports the port's
 entry points and scores a prediction without loading either. Each copy is
 held against its original on the same inputs: preprocessors fitted on
 ``tests/test_data/ir_dataset`` (arrays and JSON state), config composition,
-collated batches, scoring and rejection sampling, canonical SMILES.
+collated batches, scoring and rejection sampling, canonical SMILES, and the
+reference state_dict mapping on the reference goldens' state_dicts.
 """
 
 import ast
@@ -78,6 +79,7 @@ def test_entry_points_load_nothing_of_the_jax_package():
         "import multimodalanalytical_tpu_torch.cli.serve\n"
         "import multimodalanalytical_tpu_torch.training\n"
         "import multimodalanalytical_tpu_torch.generation\n"
+        "import multimodalanalytical_tpu_torch.models.weights\n"
         "from multimodalanalytical_tpu_torch.evaluation.metrics import calc_sampling_metrics\n"
         "metrics = calc_sampling_metrics([['OCC', 'C'], ['C', 'C']], ['CCO', 'CCN'],"
         " molecules=True)\n"
@@ -201,6 +203,43 @@ def test_compose_config_matches_the_original(name, overrides):
 
     assert compose_config(CONFIGS, name, list(overrides)) == jax_compose(
         CONFIGS, name, list(overrides))
+
+
+GOLDEN_CASES = ["preln_geglu_alignconv_sincos", "preln_plain_sincos",
+                "postln_geglu_alignmlp_learned", "postln_plain_xval_learned",
+                "preln_geglu_alignsid_sincos", "bart_executed_graph", "t5_executed_graph"]
+
+
+def _tree_leaves(tree, prefix=()):
+    for key, value in sorted(tree.items()):
+        if isinstance(value, dict):
+            yield from _tree_leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
+
+
+@pytest.mark.parametrize("case", GOLDEN_CASES)
+def test_reference_mapping_matches_the_original(case):
+    """The port's copy of ``models/torch_mapping.py`` maps every reference
+    state_dict of ``tests/golden/reference_model_goldens.npz`` (the five
+    CustomModel cases, BART and T5; bare and with the Lightning
+    ``hf_model.`` prefix) to the original's tree, leaf for leaf."""
+    pytest.importorskip("flax")
+    from multimodalanalytical_tpu.models import torch_mapping as original
+    from multimodalanalytical_tpu_torch.models import torch_mapping as copied
+
+    golden = np.load(REPO / "tests" / "golden" / "reference_model_goldens.npz")
+    prefix = f"{case}/param/"
+    sd = {k[len(prefix):]: golden[k] for k in golden.files if k.startswith(prefix)}
+    wrapped = {f"hf_model.{k}": v for k, v in sd.items()}
+    assert copied.detect_model_family(sd) == original.detect_model_family(sd)
+    for state_dict in (sd, wrapped):
+        got = list(_tree_leaves(copied.lightning_state_dict_to_flax(state_dict)))
+        want = list(_tree_leaves(original.lightning_state_dict_to_flax(state_dict)))
+        assert [path for path, _ in got] == [path for path, _ in want]
+        for (path, a), (_, b) in zip(got, want):
+            assert a.dtype == b.dtype, path
+            np.testing.assert_array_equal(a, b, err_msg="/".join(path))
 
 
 @pytest.mark.parametrize("pad_to_batch_size", [None, 16])
