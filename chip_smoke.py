@@ -104,6 +104,25 @@ line each, any failure raises and exits non-zero:
    falling, ``best`` restored bit for bit with the align network, dummy
    rows leaving the align loss unchanged.
 
+9. every shipped BART / T5 model config (PRESET_MODEL_CONFIGS: bart_medium,
+   hf_bart_medium, custom_hf_bart, t5_small, dict literals equal to their
+   YAML files), resolved by the port at vocab 320 on Formula 12 + IR 14 x
+   125 (each at d_model 512, 6 + 6 layers, 8 heads, FFN 2048): one seeded
+   128-spectrum request at beam 10 through ``InferenceEngine.decode_batch``
+   on the decode graphs (capture apart) and through the eager loop,
+   bit-equal, with s/batch, device time, busy share and steps; #1-#3
+   launched 6 x the replays for the three BART configs, never for t5_small
+   (the JAX package's route: no scale, a relative bias), whose plain route's
+   share of device time is printed; T5's relative buckets on the card equal
+   to the CPU's for offsets -4096..4096; the reference's executed HF BART
+   and T5 graphs (tests/golden/reference_model_goldens.npz) through
+   ``load_reference_state_dict`` in fp32 with TF32 off, at the JAX test's
+   tolerances; the checkpoint converter run on a Lightning-shaped ``.ckpt``
+   of the T5 golden, restored by ``load_finetune_params``, logits bit-equal
+   to the direct load; and for hf_bart_medium and t5_small one dropout-0
+   train step in bf16 against fp32 and three AdamW steps at B 128 (finite,
+   falling loss); the phase's peak device memory.
+
 Phase 1 also holds #2 at the multimodal encoder's Ls 279 (two passes over
 chunks of 256 and 23 keys, rows with a fully masked chunk) against its
 plain version, rejects either chunk left out, and times it at K 1, 10 and
@@ -267,6 +286,42 @@ ALIGN_IDENTITY_RTOL = 1e-6
 # rows, not bit for bit; dummies whose contents differ at the same size must
 # give the same bits.
 ALIGN_DUMMY_RTOL = 1e-3
+
+
+# Phase 9: the shipped BART and T5 model configs, as dict literals equal to
+# configs/model/<name>.yaml (the card's machine has no yaml;
+# tests/test_torch_presets.py holds each equal to the file as the config
+# loader composes it).
+_PRESET_COMMON = {
+    "multimodal_norm": True, "adam_beta1": 0.9, "adam_beta2": 0.999,
+    "model_checkpoint_path": None, "batch_size": 128, "cv_split": 0,
+    "guided_generation": False, "max_position_embeddings": 1024, "align_config": None,
+    "n_beams": 10, "rejection_sampling": False, "dtype": "bfloat16",
+    "use_flash_attention": True, "weight_decay": 0.0, "lr": 1.0e-4,
+}
+_PRESET_WIDTHS = {
+    "d_model": 512, "encoder_attention_heads": 8, "decoder_attention_heads": 8,
+    "encoder_layers": 6, "decoder_layers": 6, "encoder_ffn_dim": 2048,
+    "decoder_ffn_dim": 2048,
+}
+PRESET_MODEL_CONFIGS = {
+    "bart_medium": {
+        "model_type": "BartForConditionalGeneration", **_PRESET_WIDTHS,
+        "final_layer_norm": True, "positional_encoding_type": "sin_cos",
+        "gated_linear": False, "post_layer_normalisation": True, "optimiser": "adamw",
+        **_PRESET_COMMON},
+    "hf_bart_medium": {
+        "model_type": "BartForConditionalGeneration", "model_name": "facebook/bart-base",
+        **_PRESET_WIDTHS, "optimiser": "adam", **_PRESET_COMMON},
+    "custom_hf_bart": {
+        "model_type": "CustomBartForConditionalGeneration", **_PRESET_WIDTHS,
+        "final_layer_norm": False, "positional_encoding_type": "sin_cos",
+        "gated_linear": False, "post_layer_normalisation": True, "optimiser": "adam",
+        **_PRESET_COMMON},
+    "t5_small": {
+        "model_type": "T5ForConditionalGeneration", "model_name": "google-t5/t5-small",
+        "optimiser": "adam", **_PRESET_COMMON},
+}
 
 
 def _require(cond: bool, what: str) -> None:
@@ -1393,13 +1448,14 @@ def check_early_exit(model) -> None:
              f"no early exit ({steps} steps, {replays} replays)")
 
 
-def _serve_requests(engine, requests, what: str, model) -> tuple:
+def _serve_requests(engine, requests, what: str, model, kernels: bool = True) -> tuple:
     """The requests through ``engine.decode_batch`` (its graphs, captured
     by an earlier request), the decode kernels' counts set to 0 just before
-    and read just after: every kernel launched 6 x the replays, outputs of
-    the expected shapes, finite, sorted and BOS-started; then the same
-    requests through the eager loop, bit-equal. Returns (launches, graph
-    s/batch, results as (seqs, scores, stats, s))."""
+    and read just after: every kernel launched 6 x the replays (none at all
+    with ``kernels=False``), outputs of the expected shapes, finite, sorted
+    and BOS-started; then the same requests through the eager loop,
+    bit-equal. Returns (launches, graph s/batch, results as (seqs, scores,
+    stats, s))."""
     import numpy as np
 
     counters = _decode_counters()
@@ -1420,8 +1476,9 @@ def _serve_requests(engine, requests, what: str, model) -> tuple:
     print(f"{what}: {len(requests)} requests x {BATCH} spectra, beam {BEAMS}, {steps} decode "
           f"steps in {replays} graph replays, launches {launches}", flush=True)
     for name, count in launches.items():
-        _require(count == LAYERS * replays, f"{name} launched {count} times, want "
-                                            f"{LAYERS * replays} ({LAYERS} x the replays)")
+        want = LAYERS * replays if kernels else 0
+        _require(count == want, f"{name} launched {count} times, want {want}"
+                                + (f" ({LAYERS} x the replays)" if kernels else ""))
     for seqs, scores, _, _ in results:
         _require(seqs.shape == (BATCH, BEAMS, MAX_LENGTH) and scores.shape == (BATCH, BEAMS),
                  "unexpected output shapes")
@@ -2288,6 +2345,334 @@ def run_align_path() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 9
+PRESET_REQUEST_SEEDS = (900, 901)          # the capturing request, the counted one
+PRESET_TRAINED = ("hf_bart_medium", "t5_small")
+PRESET_TRAIN_STEPS = 3
+# bf16 against fp32 on one dropout-0 step: the loss within MM_LOSS_RTOL, the
+# gradient norm within MM_GRAD_NORM_RTOL, and for T5 within
+# T5_GRAD_NORM_RTOL: its unscaled attention makes random-weight logits ~8
+# wide, and the JAX package's own bf16 step is 7.9% off its fp32 one in
+# gradient norm at t5_small's widths (seeded weights, B 4, on the CPU).
+T5_GRAD_NORM_RTOL = 0.1
+BUCKET_SPAN = 4096
+# The reference's executed HF graphs (tests/golden/reference_model_goldens.npz,
+# read with numpy alone) at their widths, held as tests/test_reference_model_
+# parity.py holds the JAX package: logits rtol 2e-4 / atol 2e-5, loss 1e-5 /
+# 1e-6, fp32 with TF32 off.
+GOLDEN_PATH = REPO / "tests" / "golden" / "reference_model_goldens.npz"
+GOLDEN_CASES = {"bart_executed_graph": "BartForConditionalGeneration",
+                "t5_executed_graph": "T5ForConditionalGeneration"}
+GOLDEN_MODEL = {"d_model": 32, "encoder_layers": 2, "decoder_layers": 2,
+                "encoder_attention_heads": 4, "decoder_attention_heads": 4,
+                "encoder_ffn_dim": 64, "decoder_ffn_dim": 64, "dropout": 0.1,
+                "max_position_embeddings": 64}
+GOLDEN_VOCAB = 50
+GOLDEN_DATA_CONFIG = {
+    "Formula": {"type": "text", "column": "molecular_formula", "target": False,
+                "vocab_size": 32, "pad_token_id": 0, "preprocessor_arguments": {}},
+    "IR": {"type": "1D_patches", "column": "ir", "target": False,
+           "preprocessor_arguments": {"patch_size": 16}},
+    "Smiles": {"type": "text", "column": "smiles", "target": True,
+               "vocab_size": GOLDEN_VOCAB, "pad_token_id": 0, "preprocessor_arguments": {}},
+}
+GOLDEN_RTOL, GOLDEN_ATOL, GOLDEN_LOSS_RTOL, GOLDEN_LOSS_ATOL = 2e-4, 2e-5, 1e-5, 1e-6
+
+
+def _preset_model(name: str, dtype: str = "bfloat16", dropout=None):
+    """The shipped model config ``name`` resolved by the port at vocab 320
+    on DATA_CONFIG (Formula 12 + IR 14 x 125), seeded random weights."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.models.config import resolve_model_config
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    model_config = dict(PRESET_MODEL_CONFIGS[name], dtype=dtype, max_target_length=MAX_LENGTH)
+    if dropout is not None:
+        model_config["dropout"] = dropout
+    cfg = resolve_model_config(model_config, vocab_size=VOCAB, pad_token_id=0, bos_token_id=2,
+                               eos_token_id=3)
+    dev = torch.device(DEVICE)
+    return Seq2SeqModel(cfg, DATA_CONFIG, "Smiles",
+                        multimodal_norm=model_config["multimodal_norm"], device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def _plain_attention_ms(dmodel, bounds) -> tuple:
+    """Device ms per request of the plain self- and cross-attention route of
+    the decoder's 6 layers (T5's): one layer's call timed by CUDA-graph
+    replay at each stage's last position, weighted by the stage's steps
+    (a random-weight request decodes all 127)."""
+    import torch
+
+    cfg = dmodel.config
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(5)
+    layer = dmodel.decoder.layers[0]
+    x = torch.randn(BATCH * BEAMS, cfg.d_model, generator=g, device=dev).bfloat16()
+    cache = torch.randn(2, BATCH, MAX_LENGTH * BEAMS, cfg.d_model, generator=g,
+                        device=dev).bfloat16()
+    anc = torch.randint(0, BEAMS, (BATCH, BEAMS, MAX_LENGTH), generator=g, device=dev,
+                        dtype=torch.int32)
+    kv = [torch.randn(BATCH, FORMULA_LEN + N_PATCHES, cfg.d_model, generator=g,
+                      device=dev).bfloat16() for _ in range(2)]
+    bias = torch.zeros(BATCH, FORMULA_LEN + N_PATCHES, device=dev)
+    self_ms, start = 0.0, 0
+    with torch.no_grad():
+        for bound in bounds:
+            pos = torch.full((), bound - 1, dtype=torch.int32, device=dev)
+            extra = dmodel.decoder.rel_bias(pos[None], torch.arange(bound, device=dev))
+            stage = anc[:, :, :bound].contiguous()
+            ms = _device_ms(lambda: layer.self_attn.beam_decode_self_attention(
+                x, cache, stage, pos, extra), iters=5, reps=3)
+            self_ms += ms * (bound - 1 - start)
+            start = bound - 1
+        cross_ms = _device_ms(lambda: layer.cross_attn.beam_decode_cross_attention(
+            x, kv, bias), iters=5, reps=3) * (MAX_LENGTH - 1)
+    return self_ms * LAYERS, cross_ms * LAYERS
+
+
+def _serve_preset(name: str) -> dict:
+    """One shipped config at full width: one 128-spectrum request at K 10
+    through the decode graphs (captured by an earlier request) and through
+    the eager loop, bit-equal; #1-#3 launched on every layer of every step,
+    or (T5) never; one request profiled for its device time and busy share.
+    Returns the decode kernels' launches."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+    from multimodalanalytical_tpu_torch.generation.beam_search import stage_bounds
+
+    model = _preset_model(name)
+    cfg = model.config
+    # The JAX package's route choice: the decode kernels need the 1/sqrt(Dh)
+    # scale and no extra self-attention bias (T5 has neither).
+    kernels = cfg.attention_scale and not cfg.relative_position_bias
+    print(f"preset {name}: {cfg.d_model} wide, {cfg.encoder_layers} + {cfg.decoder_layers} "
+          f"layers, {cfg.encoder_attention_heads} heads, FFN {cfg.encoder_ffn_dim} "
+          f"{cfg.activation_function}, {cfg.norm_type}, "
+          f"{'pre' if cfg.post_layer_normalisation else 'post'}-LN, final norms "
+          f"{cfg.final_layer_norm}, relative bias {cfg.relative_position_bias}, scale "
+          f"{cfg.attention_scale}: decode kernels {'#1-#3' if kernels else 'none (plain route)'}",
+          flush=True)
+    _require((cfg.d_model, cfg.encoder_layers, cfg.decoder_layers, cfg.decoder_attention_heads,
+              cfg.decoder_ffn_dim) == (D_MODEL, LAYERS, LAYERS, HEADS, FFN),
+             f"{name} does not resolve to the published widths")
+    engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.decode_batch(*_request(seed=PRESET_REQUEST_SEEDS[0]))   # captures; not counted
+    first_s = time.perf_counter() - t0
+    capture = engine.last_stats
+    print(f"preset {name}: graph capture (first request) {capture['capture_s']:.4f} s for "
+          f"{capture['warmup_steps']} stages, first request {first_s:.4f} s in all", flush=True)
+    request = _request(seed=PRESET_REQUEST_SEEDS[1])
+    launches, per_batch, results = _serve_requests(engine, [request], f"preset {name}", model,
+                                                   kernels=kernels)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        engine.decode_batch(*request)
+        torch.cuda.synchronize()
+    device_s, rows, _, graphs = _device_time(prof)
+    _require(graphs >= results[0][2]["replays"], "the profiled request did not replay graphs")
+    split = {k: round(v, 2) for k, v in _kernel_split(rows).items()}
+    print(f"preset {name}: one request profiled: device time {device_s:.4f} s (kernels and "
+          f"copies only), busy share {device_s / per_batch:.3f} (device / unprofiled s/batch), "
+          f"{results[0][2]['steps']} steps; device ms by kernel {split}", flush=True)
+    for ms, calls, kernel in rows[:6]:
+        print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
+              f"{kernel[:100]}", flush=True)
+    if not kernels:
+        self_ms, cross_ms = _plain_attention_ms(engine.decoder.dmodel,
+                                                stage_bounds(32, MAX_LENGTH))
+        print(f"preset {name}: plain route per request (6 layers, timed per call by CUDA-graph "
+              f"replay): self-attention {self_ms:.2f} ms ({self_ms / (10 * device_s):.1f}% of "
+              f"device time), cross attention {cross_ms:.2f} ms "
+              f"({cross_ms / (10 * device_s):.1f}%)", flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_bucket_table() -> None:
+    """T5's relative buckets computed on the card for offsets -4096..4096,
+    both directions, integer for integer against the CPU's."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops.positional import t5_relative_bucket
+
+    rel = torch.arange(-BUCKET_SPAN, BUCKET_SPAN + 1, dtype=torch.int32)
+    for bidirectional in (True, False):
+        cpu = t5_relative_bucket(rel, bidirectional)
+        card = t5_relative_bucket(rel.to(DEVICE), bidirectional).cpu()
+        differ = (cpu != card).nonzero().flatten()
+        print(f"T5 buckets, {'bidirectional' if bidirectional else 'causal'}, offsets "
+              f"-{BUCKET_SPAN}..{BUCKET_SPAN}: card equal to CPU {len(differ) == 0} "
+              f"({len(torch.unique(cpu))} buckets; differing offsets "
+              f"{(rel[differ[:8]]).tolist()})", flush=True)
+        _require(len(differ) == 0, "the card's T5 buckets differ from the CPU's")
+
+
+def _golden_forward(model, ins):
+    import torch
+
+    dev = torch.device(DEVICE)
+    enc = {"Formula": torch.as_tensor(ins["Formula"], device=dev).long(),
+           "IR": torch.as_tensor(ins["IR"], device=dev).float()}
+    args = [torch.as_tensor(ins[k], device=dev).long()
+            for k in ("enc_mask", "dec_ids", "dec_mask", "labels")]
+    with torch.no_grad():
+        return model(enc, *args)
+
+
+def _golden_model(model_type: str):
+    import torch
+
+    from multimodalanalytical_tpu_torch.models.config import resolve_model_config
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    cfg = resolve_model_config(dict(GOLDEN_MODEL, model_type=model_type),
+                               vocab_size=GOLDEN_VOCAB, pad_token_id=0, bos_token_id=2,
+                               eos_token_id=3)
+    return Seq2SeqModel(cfg, GOLDEN_DATA_CONFIG, "Smiles", device=torch.device(DEVICE))
+
+
+def _golden_case(golden, name: str) -> tuple:
+    parts = {}
+    for part in ("param", "in", "out"):
+        prefix = f"{name}/{part}/"
+        parts[part] = {k[len(prefix):]: golden[k] for k in golden.files if k.startswith(prefix)}
+    return parts["param"], parts["in"], parts["out"]
+
+
+def check_hf_goldens() -> None:
+    """The reference's executed HF BART and T5 graphs through
+    ``load_reference_state_dict`` into fp32 port models on the card, held
+    to their logits and loss; then the converter on the card's machine: a
+    Lightning-shaped ``.ckpt`` of the T5 golden converted by
+    ``python -m ...cli.convert_reference_checkpoint``, restored by
+    ``load_finetune_params``, gives the directly loaded model's logits."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.models.weights import load_reference_state_dict
+    from multimodalanalytical_tpu_torch.training.checkpoint import load_finetune_params
+
+    golden = np.load(GOLDEN_PATH, allow_pickle=False)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        logits = {}
+        for name, model_type in GOLDEN_CASES.items():
+            sd, ins, outs = _golden_case(golden, name)
+            model = _golden_model(model_type)
+            load_reference_state_dict(model, sd)
+            res = _golden_forward(model, ins)
+            got = res["logits"].double().cpu().numpy()
+            err = np.abs(got - outs["logits"])
+            worst = float((err / (GOLDEN_ATOL + GOLDEN_RTOL * np.abs(outs["logits"]))).max())
+            loss_err = abs(float(res["loss"]) - float(outs["loss"]))
+            loss_ok = loss_err <= GOLDEN_LOSS_ATOL + GOLDEN_LOSS_RTOL * abs(float(outs["loss"]))
+            print(f"golden {name} on the card ({len(sd)} reference tensors, fp32, TF32 off): "
+                  f"logits max abs err {err.max():.3e} ({worst:.3f} of rtol {GOLDEN_RTOL} / atol "
+                  f"{GOLDEN_ATOL}), loss {float(res['loss']):.7f} vs {float(outs['loss']):.7f} "
+                  f"(err {loss_err:.2e})", flush=True)
+            _require(worst <= 1.0 and loss_ok, f"{name}: the card misses the reference's graph")
+            logits[name] = res["logits"]
+
+        sd, ins, _ = _golden_case(golden, "t5_executed_graph")
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt, out = Path(tmp) / "reference.ckpt", Path(tmp) / "converted"
+            torch.save({"state_dict": {f"hf_model.{k}": torch.from_numpy(np.array(v))
+                                       for k, v in sd.items()}, "epoch": 3, "global_step": 42},
+                       ckpt)
+            t0 = time.perf_counter()
+            result = subprocess.run(
+                [sys.executable, "-m",
+                 "multimodalanalytical_tpu_torch.cli.convert_reference_checkpoint", str(ckpt),
+                 str(out)], cwd=REPO, capture_output=True, text=True, timeout=300)
+            convert_s = time.perf_counter() - t0
+            _require(result.returncode == 0, f"the converter failed: {result.stderr[-2000:]}")
+            model = _golden_model("T5ForConditionalGeneration")
+            params, _ = load_finetune_params(out, model, strip_align=False)
+            model.load_state_dict(params)
+        converted = _golden_forward(model, ins)["logits"]
+        same = torch.equal(converted, logits["t5_executed_graph"])
+        print(f"converter on the card's machine: {result.stdout.strip()} in {convert_s:.2f} s; "
+              f"restored by load_finetune_params, logits bit-equal to the direct load {same}",
+              flush=True)
+        _require(same, "the converted checkpoint gives other logits")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def run_preset_training() -> None:
+    """hf_bart_medium and t5_small at B 128 on one Formula + IR batch: one
+    dropout-0 step of the bf16 model against its fp32 twin (loss and
+    gradient norm), then ``Trainer.fit`` takes 3 AdamW steps: finite, and
+    the last loss below the first."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    inputs, mask = _request(seed=920, batch=BATCH)
+    batch = {"encoder_inputs": inputs, "encoder_mask": mask,
+             **_targets(np.random.default_rng(921), BATCH)}
+    for name in PRESET_TRAINED:
+        routes = {}
+        for dtype in ("bfloat16", "float32"):
+            routes[dtype] = _step_twice(_preset_model(name, dtype=dtype, dropout=0.0), batch)
+            torch.cuda.empty_cache()
+        (b_loss, b_norm, b_s, _), (f_loss, f_norm, f_s, _) = routes["bfloat16"], routes["float32"]
+        loss_rel, norm_rel = abs(b_loss - f_loss) / abs(f_loss), abs(b_norm - f_norm) / abs(f_norm)
+        norm_tol = T5_GRAD_NORM_RTOL if name == "t5_small" else MM_GRAD_NORM_RTOL
+        print(f"preset {name} train step, dropout 0: bf16 loss {b_loss:.6f} grad_norm "
+              f"{b_norm:.6f} ({b_s:.4f} s), fp32 loss {f_loss:.6f} grad_norm {f_norm:.6f} "
+              f"({f_s:.4f} s): loss rel diff {loss_rel:.3e} (tol {MM_LOSS_RTOL}), grad_norm "
+              f"rel diff {norm_rel:.3e} (tol {norm_tol})", flush=True)
+        _require(loss_rel <= MM_LOSS_RTOL and norm_rel <= norm_tol,
+                 f"{name}: the bf16 train step disagrees with the fp32 one")
+        model = _preset_model(name)
+        trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR,
+                          num_steps=PRESET_TRAIN_STEPS + 1, clip_grad=1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.fit([batch], epochs=PRESET_TRAIN_STEPS, max_steps=PRESET_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / PRESET_TRAIN_STEPS
+        print(f"preset {name} train fit: {PRESET_TRAIN_STEPS} AdamW steps, B {BATCH}, dropout "
+              f"{model.config.dropout}: {step_s:.4f} s/step (first step included); losses "
+              f"{[round(x, 4) for x in losses]}", flush=True)
+        _require(len(losses) == PRESET_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+                 and losses[-1] < losses[0], f"{name}: the training loss is not finite and falling")
+        del model, trainer
+        torch.cuda.empty_cache()
+
+
+def run_presets() -> dict:
+    """Phase 9; returns the decode kernels' launches over the four
+    configs' counted requests."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches = {}
+    for name in PRESET_MODEL_CONFIGS:
+        for kernel, count in _serve_preset(name).items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    check_bucket_table()
+    check_hf_goldens()
+    run_preset_training()
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
 # ------------------------------------------------------------- profiling
 PROFILE_TOP = 14
 
@@ -2491,6 +2876,8 @@ def main() -> int:
         by_phase[name]["7"] = n
     run_multimodal_training()
     run_align_path()
+    for name, n in run_presets().items():
+        by_phase[name]["9"] = n
     for rec in records:
         rec["launches_by_phase"] = by_phase[rec["name"]]
         rec["launches"] = sum(by_phase[rec["name"]].values())

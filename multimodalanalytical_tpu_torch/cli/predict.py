@@ -26,7 +26,7 @@ import sys
 from pathlib import Path
 from typing import Any, Dict, List
 
-from ..training.checkpoint import restore_params
+from ..training.checkpoint import load_params
 from ..training.trainer import Trainer
 from .common import (
     build_collator,
@@ -76,7 +76,7 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
     target_modality = collator.target_modality
     tokenizer = preprocessors[target_modality]
     model, _ = build_model(model_config, data_config, target_modality, tokenizer, device, seed)
-    model.load_state_dict(restore_params(model_config["model_checkpoint_path"]))
+    load_params(model_config["model_checkpoint_path"], model)
     logger.info("Restored checkpoint from %s", model_config["model_checkpoint_path"])
 
     n_beams = model_config.get("n_beams", 10)

@@ -278,7 +278,7 @@ def engine_from_config(config: Dict[str, Any]) -> InferenceEngine:
     """The engine of a serve config: the model of ``config["model"]`` with
     the checkpoint ``model.model_checkpoint_path``, and the collator and
     tokenizer of the artifact ``preprocessor_path``."""
-    from ..training.checkpoint import restore_params
+    from ..training.checkpoint import load_params
     from .common import build_model, config_device, seed_everything
 
     device = config_device(config)
@@ -291,7 +291,7 @@ def engine_from_config(config: Dict[str, Any]) -> InferenceEngine:
     collator, tokenizer = collator_from_artifact(Path(config["preprocessor_path"]), batch_size)
     model, _ = build_model(model_config, collator.data_config, collator.target_modality,
                            tokenizer, device, seed_everything())
-    model.load_state_dict(restore_params(model_config["model_checkpoint_path"]))
+    load_params(model_config["model_checkpoint_path"], model)
     return InferenceEngine(model, n_beams=int(model_config.get("n_beams", 10)),
                            batch_size=batch_size, collator=collator, tokenizer=tokenizer,
                            max_wait_ms=float((config.get("serve") or {}).get("max_wait_ms", 20)))

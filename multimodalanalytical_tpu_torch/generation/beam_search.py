@@ -331,7 +331,11 @@ class BeamDecoder:
                      and getattr(logits_hook, "capturable", True))
         batch = encoder_mask.shape[0]
         bounds = stage_bounds(stage_size, max_length)
-        encoder_hidden = self.dmodel.encode(encoder_inputs, encoder_mask)
+        # The encoder runs on the model's own weights, as the JAX package
+        # encodes before its pre-cast: its Dense layers round them to bf16
+        # per call all the same, and fp32 tables (learned positions, T5's
+        # relative bias) stay fp32.
+        encoder_hidden = self.model.encode(encoder_inputs, encoder_mask)
         key = (batch, num_beams, max_length, float(length_penalty), tuple(bounds),
                tuple(encoder_hidden.shape), encoder_hidden.dtype, logits_hook,
                tuple((n, tuple(v.shape), v.dtype) for n, v in sorted((hook_init or {}).items())))

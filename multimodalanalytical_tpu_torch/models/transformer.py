@@ -1,12 +1,13 @@
 """Transformer encoder/decoder stacks (counterpart of ``models/transformer.py``).
 
-Pre- or post-LN layers with an optional gated FFN. Norms run in fp32 and
-their output is cast to the compute dtype; residual streams stay in the
-compute dtype. Dropout sits where the JAX layers put it (FFN hidden and FFN
-output, every attention output before its residual add) and is drawn from
-the ``generator`` that a training forward passes down; ``generator=None``
-is the deterministic (inference) mode. LayerNorm only: RMSNorm and the T5
-relative bias are not ported yet.
+Pre- or post-LN layers with an optional gated FFN. Norms (LayerNorm, or
+T5's RMSNorm) run in fp32 and their output is cast to the compute dtype;
+residual streams stay in the compute dtype. Dropout sits where the JAX
+layers put it (FFN hidden and FFN output, every attention output before its
+residual add) and is drawn from the ``generator`` that a training forward
+passes down; ``generator=None`` is the deterministic (inference) mode. With
+``relative_position_bias`` (T5) each stack holds one
+:class:`RelativePositionBias`, added to every layer's self-attention bias.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from torch import nn
 from ..ops.attention import MultiHeadAttention
 from ..ops.decode_ffn import geglu_ffn
 from ..ops.dropout import dropout
-from ..ops.layers import Dense, LayerNorm
+from ..ops.layers import Dense, LayerNorm, RMSNorm
+from ..ops.positional import RelativePositionBias
 
 ACTIVATIONS = {
     "gelu": F.gelu,
@@ -29,9 +31,10 @@ ACTIVATIONS = {
 }
 
 
-def _check_norm(norm_type: str) -> None:
-    if norm_type != "layernorm":
-        raise NotImplementedError(f"norm_type {norm_type!r} is not ported yet (layernorm only)")
+def _norm(norm_type: str, dim: int, device=None) -> nn.Module:
+    """LayerNorm (eps 1e-5, torch's default, as the reference's layers) or
+    RMSNorm (eps 1e-6, T5's), both fp32."""
+    return RMSNorm(dim, device=device) if norm_type == "rmsnorm" else LayerNorm(dim, device=device)
 
 
 class FeedForward(nn.Module):
@@ -78,7 +81,6 @@ class EncoderLayer(nn.Module):
                  attention_bias: bool = True, attention_scale: bool = True,
                  ffn_bias: bool = True, device=None, generator: torch.Generator):
         super().__init__()
-        _check_norm(norm_type)
         self.norm_first, self.dtype, self.dropout = norm_first, dtype, dropout
         self.self_attn = MultiHeadAttention(
             num_heads, d_model, dtype=dtype, use_flash=use_flash, use_bias=attention_bias,
@@ -86,8 +88,8 @@ class EncoderLayer(nn.Module):
         self.ff = FeedForward(d_model, ffn_dim, activation, gated_linear, dtype=dtype,
                               use_bias=ffn_bias, dropout=dropout, device=device,
                               generator=generator)
-        self.norm1 = LayerNorm(d_model, device=device)
-        self.norm2 = LayerNorm(d_model, device=device)
+        self.norm1 = _norm(norm_type, d_model, device)
+        self.norm2 = _norm(norm_type, d_model, device)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -110,7 +112,6 @@ class DecoderLayer(nn.Module):
                  attention_scale: bool = True, ffn_bias: bool = True, device=None,
                  generator: torch.Generator):
         super().__init__()
-        _check_norm(norm_type)
         self.norm_first, self.dtype, self.dropout = norm_first, dtype, dropout
         attn = dict(dtype=dtype, use_bias=attention_bias, scale_qk=attention_scale,
                     device=device, generator=generator)
@@ -122,21 +123,24 @@ class DecoderLayer(nn.Module):
         self.ff = FeedForward(d_model, ffn_dim, activation, gated_linear, dtype=dtype,
                               use_bias=ffn_bias, dropout=dropout, device=device,
                               generator=generator)
-        self.norm1 = LayerNorm(d_model, device=device)
-        self.norm2 = LayerNorm(d_model, device=device)
-        self.norm3 = LayerNorm(d_model, device=device)
+        self.norm1 = _norm(norm_type, d_model, device)
+        self.norm2 = _norm(norm_type, d_model, device)
+        self.norm3 = _norm(norm_type, d_model, device)
 
-    def beam_decode_step(self, x, self_cache, ancestry, cross_kv, cross_bias, position):
+    def beam_decode_step(self, x, self_cache, ancestry, cross_kv, cross_bias, position,
+                         extra_bias=None):
         """Lazy-ancestry beam decode through this layer on flat (B*K, D) rows;
-        appends to ``self_cache`` in place."""
+        appends to ``self_cache`` in place. ``extra_bias`` (1, H, 1, L) is
+        added to the self-attention logits (T5's relative bias)."""
         dt = self.dtype
         if self.norm_first:
             x = x + self.self_attn.beam_decode_self_attention(
-                self.norm1(x).to(dt), self_cache, ancestry, position)
+                self.norm1(x).to(dt), self_cache, ancestry, position, extra_bias)
             x = x + self.cross_attn.beam_decode_cross_attention(
                 self.norm2(x).to(dt), cross_kv, cross_bias)
             return x + self.ff.decode_fused(self.norm3(x).to(dt))
-        h = self.self_attn.beam_decode_self_attention(x, self_cache, ancestry, position)
+        h = self.self_attn.beam_decode_self_attention(x, self_cache, ancestry, position,
+                                                       extra_bias)
         x = self.norm1(x + h).to(dt)
         x = self.norm2(x + self.cross_attn.beam_decode_cross_attention(
             x, cross_kv, cross_bias)).to(dt)
@@ -173,18 +177,24 @@ def _stack_kwargs(cfg, num_heads: int, ffn_dim: int, dtype, device, generator) -
 class Encoder(nn.Module):
     def __init__(self, cfg, *, device=None, generator: torch.Generator):
         super().__init__()
-        if cfg.relative_position_bias:
-            raise NotImplementedError("the T5 relative attention bias is not ported yet")
         kw = _stack_kwargs(cfg, cfg.encoder_attention_heads, cfg.encoder_ffn_dim,
                            cfg.compute_dtype, device, generator)
         self.dtype = cfg.compute_dtype
         self.num_layers = cfg.encoder_layers
+        self.rel_bias = (RelativePositionBias(cfg.encoder_attention_heads, bidirectional=True,
+                                              device=device, generator=generator)
+                         if cfg.relative_position_bias else None)
         for i in range(cfg.encoder_layers):
             self.add_module(f"layer_{i}", EncoderLayer(**kw))
-        self.final_norm = LayerNorm(cfg.d_model, device=device) if cfg.final_layer_norm else None
+        self.final_norm = (_norm(cfg.norm_type, cfg.d_model, device)
+                           if cfg.final_layer_norm else None)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.rel_bias is not None:
+            # T5: the bidirectional bucketed bias, shared by the layers.
+            positions = torch.arange(x.shape[1], device=x.device)
+            bias = bias + self.rel_bias(positions, positions)
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, bias, generator)
         if self.final_norm is not None:
@@ -195,15 +205,17 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, cfg, *, device=None, generator: torch.Generator):
         super().__init__()
-        if cfg.relative_position_bias:
-            raise NotImplementedError("the T5 relative attention bias is not ported yet")
         kw = _stack_kwargs(cfg, cfg.decoder_attention_heads, cfg.decoder_ffn_dim,
                            cfg.compute_dtype, device, generator)
         self.dtype = cfg.compute_dtype
         for i in range(cfg.decoder_layers):
             self.add_module(f"layer_{i}",
                             DecoderLayer(use_beam_kernel=cfg.use_beam_kernel, **kw))
-        self.final_norm = LayerNorm(cfg.d_model, device=device) if cfg.final_layer_norm else None
+        self.final_norm = (_norm(cfg.norm_type, cfg.d_model, device)
+                           if cfg.final_layer_norm else None)
+        self.rel_bias = (RelativePositionBias(cfg.decoder_attention_heads, bidirectional=False,
+                                              device=device, generator=generator)
+                         if cfg.relative_position_bias else None)
         self.num_layers = cfg.decoder_layers
 
     @property
@@ -218,12 +230,24 @@ class Decoder(nn.Module):
         return self.final_norm(x).to(self.dtype) if self.final_norm is not None else x
 
     def beam_decode_step(self, x, self_caches, ancestry, cross_kvs, cross_bias, position):
+        """``position``: the step index as a 0-d tensor on x's device; the
+        relative bias is computed from it there, over the stage's
+        ``ancestry.shape[2]`` times."""
+        extra_bias = None
+        if self.rel_bias is not None:
+            extra_bias = self.rel_bias(position[None],
+                                       torch.arange(ancestry.shape[2], device=x.device))
         for layer, cache, cross_kv in zip(self.layers, self_caches, cross_kvs):
-            x = layer.beam_decode_step(x, cache, ancestry, cross_kv, cross_bias, position)
+            x = layer.beam_decode_step(x, cache, ancestry, cross_kv, cross_bias, position,
+                                       extra_bias)
         return self._final(x)
 
     def forward(self, x, encoder_hidden, self_bias, cross_bias,
                 generator: Optional[torch.Generator] = None):
+        # As in the JAX package, a one-token target gets no relative bias.
+        if self.rel_bias is not None and x.shape[1] > 1:
+            positions = torch.arange(x.shape[1], device=x.device)
+            self_bias = self_bias + self.rel_bias(positions, positions)
         for layer in self.layers:
             x = layer(x, encoder_hidden, self_bias, cross_bias, generator)
         return self._final(x)

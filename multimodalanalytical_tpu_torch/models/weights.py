@@ -9,7 +9,9 @@ and rename ``kernel``/``scale``/``embedding`` to ``weight``. For example
 the same transpose as (out, in, k): ``torch.nn.functional.conv1d``'s
 layout. A reference checkpoint's state_dict reaches the port through
 :func:`load_reference_state_dict`: the port's copy of the reference mapping
-(``models/torch_mapping.py``) followed by :func:`load_flax_params`.
+(``models/torch_mapping.py``) followed by :func:`load_flax_params`'s
+checks, less the parameters that the reference holds and neither package
+reads (:func:`without_unapplied_reference_params`).
 """
 
 from __future__ import annotations
@@ -53,7 +55,24 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
     numpy-convertible type). Every port parameter must receive exactly one
     JAX parameter of the same shape, and every JAX parameter must be used.
     """
-    incoming = flax_to_state_dict(params)
+    _load_named(model, flax_to_state_dict(params))
+
+
+def without_unapplied_reference_params(model: nn.Module, state: Mapping[str, Any]
+                                       ) -> Dict[str, Any]:
+    """``state`` (port names) without the parameters a reference checkpoint
+    holds and ``model`` never reads: a BART preset's target-modality
+    embedding norm. The reference's shared embedding keeps a norm for every
+    modality, and its BART decoder embeds the target without it
+    (``decoder_modality_norm`` False), so neither the JAX param tree nor
+    the port holds one."""
+    if model.config.decoder_modality_norm:
+        return dict(state)
+    prefix = f"embedding.norm_{model.target_modality}."
+    return {name: value for name, value in state.items() if not name.startswith(prefix)}
+
+
+def _load_named(model: nn.Module, incoming: Mapping[str, np.ndarray]) -> None:
     own = dict(model.named_parameters())
     missing = sorted(set(own) - set(incoming))
     unused = sorted(set(incoming) - set(own))
@@ -68,10 +87,14 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
             param.copy_(torch.from_numpy(np.array(array, dtype=np.float32)))
 
 
-def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any]) -> None:
+def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any],
+                              family: str = "auto") -> None:
     """Fill ``model`` from a reference PyTorch state_dict: a bare model's
     (``CustomModel``, or the BART / T5 graphs) or a Lightning ``HFWrapper``'s
-    with its ``hf_model.`` prefix. Values may be tensors or arrays."""
+    with its ``hf_model.`` prefix. Values may be tensors or arrays.
+    ``family`` names the reference model family, or ``auto`` to detect it
+    from the keys (``torch_mapping.detect_model_family``)."""
     arrays = {key: value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
               else np.asarray(value) for key, value in state_dict.items()}
-    load_flax_params(model, lightning_state_dict_to_flax(arrays))
+    incoming = flax_to_state_dict(lightning_state_dict_to_flax(arrays, family=family))
+    _load_named(model, without_unapplied_reference_params(model, incoming))

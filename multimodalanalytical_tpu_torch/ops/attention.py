@@ -17,7 +17,12 @@ takes the plain formulation ported from the JAX "XLA fallback". On a CUDA
 tensor the kernel route is taken whatever the shape, and its wrapper
 raises on a shape the kernels do not take; on the CPU the route follows
 the kernels' shape limit, :func:`beam_kernel_supports`, so that both
-devices compute the same math. KV caches are
+devices compute the same math. A model without the 1/sqrt(Dh) scale, or
+with an additive bias on the self-attention logits (``extra_bias``, T5's
+relative bias), takes the plain formulation on every device, as the JAX
+package routes it (its ``ops/attention.py``: the kernel only when
+``extra_bias is None`` and ``scale_qk``): T5 decodes with no hand-written
+kernel in either package, by that choice and not as a fallback. KV caches are
 updated in place. Full-sequence attention at the flash gate (encoder
 self-attention with Lq == Lk >= 2048) takes ``ops/flash_attention.py``.
 """
@@ -108,10 +113,12 @@ class MultiHeadAttention(nn.Module):
         cache,                       # (2, B, L*K, D) | {"data": int8, "scale": (2, B, H, F_pad)}
         ancestry: torch.Tensor,      # (B, K, L) int32 slot table (stage slice)
         position,                    # step index: 0-d int32 tensor on x's device, or int
+        extra_bias: Optional[torch.Tensor] = None,   # (1, H, 1, L) fp32 additive bias
     ) -> torch.Tensor:
         """Lazy-ancestry cached self-attention for beam search; appends this
         step's K/V rows to ``cache`` in place and returns (B*K, D). Neither
-        route reads a tensor ``position`` on the host."""
+        route reads a tensor ``position`` on the host. ``extra_bias`` is
+        added to the logits before the slot mask (plain route only)."""
         batch, beams, length = ancestry.shape
         if not isinstance(position, torch.Tensor):
             position = torch.full((), position, dtype=torch.int32, device=x.device)
@@ -120,7 +127,7 @@ class MultiHeadAttention(nn.Module):
         quantized = isinstance(cache, dict)
         # Unlike the Pallas kernel, the CUDA kernel takes one beam too, so
         # greedy decoding (validation's K = 1) runs through it as well.
-        if (self.use_beam_kernel and self.scale_qk
+        if (self.use_beam_kernel and self.scale_qk and extra_bias is None
                 and (quantized or cache.dtype == torch.bfloat16)
                 and (x.is_cuda or beam_kernel_supports(beams, self.d_model, heads))):
             # An int8 cache takes the projection's rows as they are: the
@@ -163,6 +170,8 @@ class MultiHeadAttention(nn.Module):
         qk_all = torch.einsum("bnhd,blkhd->bnhkl",
                               (q * scale).to(kv.dtype).float(), kv[0].float())
         logits = torch.einsum("bnhkl,bnlk->bnhl", qk_all, anc_onehot)
+        if extra_bias is not None:
+            logits = logits + extra_bias[0, :, 0, :]
         slots = torch.arange(length, device=x.device)
         logits = torch.where(slots <= position, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1)

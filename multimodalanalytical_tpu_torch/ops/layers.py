@@ -5,6 +5,8 @@
   bias is added (and rounded again). Weights are kept in fp32 and stored in
   PyTorch's (out_features, in_features) layout: flax's kernel transposed.
 * :class:`LayerNorm` always runs in fp32 (eps 1e-5); callers cast its output.
+* :class:`RMSNorm` is ``flax.linen.RMSNorm(dtype=float32)`` (eps 1e-6, T5's
+  layer_norm_epsilon): fp32, no mean subtraction and no bias.
 * :class:`Embed` is ``flax.linen.Embed(dtype=...)``.
 
 Initialisation draws from an explicit ``torch.Generator`` with the flax
@@ -64,13 +66,32 @@ class LayerNorm(nn.Module):
                             self.bias.float(), self.eps)
 
 
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean_square = x.square().mean(dim=-1, keepdim=True)
+        return x * (torch.rsqrt(mean_square + self.eps) * self.weight.float())
+
+
 class Embed(nn.Module):
+    """``stddev`` draws the table from N(0, stddev^2) (flax's ``normal``
+    initialiser) instead of Xavier-uniform."""
+
     def __init__(self, num_embeddings: int, dim: int, *, dtype: torch.dtype = torch.float32,
-                 device=None, generator: torch.Generator):
+                 stddev: Optional[float] = None, device=None, generator: torch.Generator):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(xavier_uniform_(
-            torch.empty(num_embeddings, dim, device=device), generator))
+        table = torch.empty(num_embeddings, dim, device=device)
+        if stddev is None:
+            xavier_uniform_(table, generator)
+        else:
+            table.normal_(0.0, stddev, generator=generator)
+        self.weight = nn.Parameter(table)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids.long(), self.weight.to(self.dtype))

@@ -1,8 +1,8 @@
-"""Absolute positional encodings (counterpart of ``ops/positional.py``).
+"""Positional encodings (counterpart of ``ops/positional.py``).
 
 Sin/cos in the interleaved layout ([sin(p/w0), cos(p/w0), sin(p/w1), ...])
-for checkpoint parity with the reference, and learned positions (a table
-followed by an fp32 LayerNorm). The T5 relative bias is not ported yet.
+for checkpoint parity with the reference, learned positions (a table
+followed by an fp32 LayerNorm), and T5's bucketed relative attention bias.
 """
 
 from __future__ import annotations
@@ -69,3 +69,52 @@ POS_ENC_REGISTRY = {
     "sin_cos": SinCosPositionalEncoding,
     "learned": LearnedPositionalEncoding,
 }
+
+
+def t5_relative_bucket(relative_position: torch.Tensor, bidirectional: bool,
+                       num_buckets: int = 32, max_distance: int = 128) -> torch.Tensor:
+    """T5's relative-position bucketing (HF t5 ``_relative_position_bucket``):
+    half the buckets for exact small offsets, the rest log-spaced, in fp32
+    as the JAX package computes it (the truncation toward zero sits next to
+    an integer at some offsets, so the fp32 operations are kept as they are).
+    Runs on ``relative_position``'s device and never reads it on the host."""
+    ret = torch.zeros_like(relative_position)
+    n = -relative_position
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + torch.where(n < 0, num_buckets, 0)
+        n = n.abs()
+    else:
+        n = n.clamp_min(0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    # A 0-d fp32 tensor filled on n's device (no host copy, so a CUDA graph
+    # can capture it): a true division, where a Python divisor may become a
+    # multiplication by its reciprocal.
+    log_span = torch.log(torch.full((), max_distance / max_exact, device=n.device))
+    val_large = max_exact + (torch.log(n.float() / max_exact + 1e-9) / log_span
+                             * (num_buckets - max_exact)).to(torch.int32)
+    val_large = val_large.clamp_max(num_buckets - 1)
+    return ret + torch.where(is_small, n, val_large)
+
+
+class RelativePositionBias(nn.Module):
+    """T5-style bucketed relative attention bias (HF modeling_t5
+    ``T5Attention.compute_bias``): one fp32 (num_buckets, heads) table
+    ``rel_bias`` per stack, shared by its layers as T5 shares block 0's."""
+
+    def __init__(self, num_heads: int, bidirectional: bool, num_buckets: int = 32,
+                 max_distance: int = 128, *, device=None, generator: torch.Generator):
+        super().__init__()
+        self.bidirectional = bidirectional
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.rel_bias = Embed(num_buckets, num_heads, stddev=1.0, device=device,
+                              generator=generator)
+
+    def forward(self, query_positions: torch.Tensor,
+                key_positions: torch.Tensor) -> torch.Tensor:
+        """(Lq,), (Lk,) integer positions on one device -> (1, H, Lq, Lk) fp32."""
+        rel = key_positions[None, :] - query_positions[:, None]
+        buckets = t5_relative_bucket(rel, self.bidirectional, self.num_buckets,
+                                     self.max_distance)
+        return self.rel_bias(buckets).permute(2, 0, 1)[None]

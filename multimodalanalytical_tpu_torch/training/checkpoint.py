@@ -28,7 +28,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.weights import flax_to_state_dict
+from ..models.weights import flax_to_state_dict, without_unapplied_reference_params
 
 logger = logging.getLogger(__name__)
 
@@ -177,13 +177,21 @@ def restore_params(path: Path) -> Dict[str, torch.Tensor]:
     return tree["params"] if "params" in tree else tree
 
 
+def load_params(path: Path, model: torch.nn.Module) -> None:
+    """``model``'s parameters from the checkpoint at ``path``
+    (:func:`restore_params`), every name matched (``load_state_dict``,
+    strict), less what a converted reference checkpoint holds and the model
+    never reads (``models/weights.py:without_unapplied_reference_params``)."""
+    model.load_state_dict(without_unapplied_reference_params(model, restore_params(path)))
+
+
 def load_finetune_params(path: Path, model: torch.nn.Module, strip_align: bool
                          ) -> Tuple[Dict[str, torch.Tensor], int]:
     """Params for finetuning, optionally without the align network's
     (reference cli/training.py:152-162, JAX ``load_finetune_params``).
     Returns (state_dict, number of dropped sub-trees); raises when the
     checkpoint and the model hold different numbers of parameters."""
-    params = restore_params(path)
+    params = without_unapplied_reference_params(model, restore_params(path))
     own = model.state_dict()
     dropped = 0
     if strip_align and any(k.startswith("align_network.") for k in params):

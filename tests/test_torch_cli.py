@@ -1,8 +1,10 @@
 """The port's entry points end to end on the CPU: ``tests/test_run.py``'s
 train-then-predict through ``multimodalanalytical_tpu_torch.cli``, the port's
 predict CLI on a JAX-trained checkpoint (carried as an ``.npz`` of the JAX
-param tree) against the JAX predict CLI, and ``cli/serve.py``'s
-``build_server(config)`` round trip as ``tests/test_serve.py`` drives it.
+param tree) against the JAX predict CLI, ``cli/serve.py``'s
+``build_server(config)`` round trip as ``tests/test_serve.py`` drives it, and
+train, predict and serve on each shipped BART / T5 model config, with the
+predict CLI on a converted reference checkpoint of each family.
 """
 
 import json
@@ -155,11 +157,161 @@ def test_port_predict_on_a_jax_trained_checkpoint(fixture_dataset, tmp_path):
             == json.loads((tmp_path / "jax" / "metrics_beam_2.json").read_text()))
 
 
+# The model configs at the executed-reference goldens' widths
+# (tests/golden/reference_model_goldens.npz: d_model 32, 2 + 2 layers, 4
+# heads, FFN 64), so that a reference checkpoint of that layout fits them.
+PRESET_WIDTHS = ["d_model=32", "encoder_layers=2", "decoder_layers=2", "encoder_ffn_dim=64",
+                 "decoder_ffn_dim=64", "encoder_attention_heads=4", "decoder_attention_heads=4"]
+PRESET_DATA = [arg for arg in DATA if not arg.startswith("model=")]
+
+
+def preset_model(name):
+    """The overrides of PRESET_WIDTHS; t5_small's YAML names no widths (they
+    come from its checkpoint name), so there they are added keys."""
+    add = "+" if name == "t5_small" else ""
+    return [f"{add}model.{w}" for w in PRESET_WIDTHS] + [
+        "model.batch_size=8", "model.n_beams=2", "model.dtype=float32"]
+
+
+@pytest.fixture(scope="module")
+def preset_run(fixture_dataset, tmp_path_factory):
+    """``preset_run(name)``: the working directory of one epoch of the
+    training CLI on ``model=name`` at PRESET_WIDTHS (trained once)."""
+    from multimodalanalytical_tpu_torch.cli import training
+
+    runs = {}
+
+    def run(name):
+        if name not in runs:
+            run_dir = tmp_path_factory.mktemp(name)
+            training.main([f"working_dir={run_dir}", "job_name=train", *PRESET_DATA,
+                           f"model={name}", "trainer.epochs=1", "trainer.acc_batches=1",
+                           *preset_model(name), CPU])
+            runs[name] = run_dir
+        return runs[name]
+
+    return run
+
+
+def _predict(run_dir, name, checkpoint, job):
+    from multimodalanalytical_tpu_torch.cli import predict
+
+    predict.main([f"working_dir={run_dir}", f"job_name={job}", *PRESET_DATA, f"model={name}",
+                  f"preprocessor_path={run_dir}/train/preprocessor.json",
+                  f"model.model_checkpoint_path={checkpoint}", *preset_model(name), CPU])
+    logits = json.loads((run_dir / job / "test_data_logits_beam_2.json").read_text())
+    assert all(len(p) == 2 for p in logits["predictions"]) and np.isfinite(logits["avg_loss"])
+    assert "Top-1" in json.loads((run_dir / job / "metrics_beam_2.json").read_text())
+    return logits
+
+
+@pytest.mark.e2e
+@pytest.mark.parametrize("name", ["bart_medium", "hf_bart_medium", "custom_hf_bart", "t5_small"])
+def test_each_preset_config_trains_and_predicts(preset_run, name):
+    """The training CLI (one epoch, validation, checkpoints, the final beam
+    predict) and then the predict CLI on its ``last`` checkpoint, on each
+    shipped BART / T5 model config cut to 2 + 2 layers."""
+    from multimodalanalytical_tpu_torch.training.checkpoint import restore_params
+
+    run_dir = preset_run(name)
+    train_logits = json.loads((run_dir / "train" / "test_data_logits_beam_2.json").read_text())
+    params = restore_params(run_dir / "train" / "checkpoints" / "last")
+    assert all(torch.isfinite(v).all() for v in params.values())
+    assert any(".rel_bias." in k for k in params) == (name == "t5_small")
+    logits = _predict(run_dir, name, run_dir / "train" / "checkpoints" / "last", "predict")
+    assert logits["predictions"] == train_logits["predictions"]
+
+
+@pytest.mark.e2e
+@pytest.mark.parametrize("name, golden_case, prefix, head", [
+    ("custom_model", "preln_plain_sincos", "embedding", "token_ff"),
+    ("hf_bart_medium", "bart_executed_graph", "model.shared", "lm_head"),
+    ("t5_small", "t5_executed_graph", "shared", "lm_head"),
+])
+def test_predict_cli_on_a_converted_reference_checkpoint(preset_run, tmp_path, name,
+                                                         golden_case, prefix, head):
+    """A Lightning checkpoint in the reference's key layout of each family
+    (the golden state_dict, its data-dependent tensors, the token tables,
+    the IR patch projection and the output head, taken from the training
+    CLI's model so that they fit this dataset's vocabularies) goes through
+    ``python -m ...cli.convert_reference_checkpoint`` into a directory that
+    the predict CLI loads with ``model.model_checkpoint_path=``."""
+    import re
+    import subprocess
+
+    from multimodalanalytical_tpu_torch.training.checkpoint import restore_params
+
+    run_dir = preset_run(name)
+    trained = restore_params(run_dir / "train" / "checkpoints" / "last")
+    golden = np.load(Path(__file__).parent / "golden" / "reference_model_goldens.npz")
+    start = f"{golden_case}/param/"
+    state = {k[len(start):]: golden[k] for k in golden.files if k.startswith(start)}
+    replaced = 0
+    for key in state:
+        table = re.match(rf"{re.escape(prefix)}\.embedding_layer_dict\.(\w+)\.(weight|bias)$", key)
+        if table:
+            modality, leaf = table.groups()
+            port = f"embedding.embed_{modality}.{leaf}"
+            port = port if port in trained else f"embedding.embed_{modality}.proj.{leaf}"
+        elif re.match(rf"{head}\.(weight|bias)$", key):
+            port = "lm_head." + key.split(".")[-1]
+        else:
+            continue
+        state[key] = trained[port].numpy()
+        replaced += 1
+    assert replaced >= 4
+    ckpt = tmp_path / "reference.ckpt"
+    torch.save({"state_dict": {f"hf_model.{k}": torch.as_tensor(v) for k, v in state.items()},
+                "epoch": 1}, ckpt)
+    converted = tmp_path / "converted"
+    result = subprocess.run(
+        [sys.executable, "-m", "multimodalanalytical_tpu_torch.cli.convert_reference_checkpoint",
+         str(ckpt), str(converted)], cwd=Path(__file__).resolve().parents[1],
+        capture_output=True, text=True, timeout=300)
+    assert result.returncode == 0, result.stderr
+    _predict(run_dir, name, converted, "converted")
+
+
 def _post(base, records):
     req = urllib.request.Request(f"{base}/predict", data=json.dumps({"records": records}).encode(),
                                  headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=120) as resp:
         return json.loads(resp.read())
+
+
+@pytest.mark.e2e
+@pytest.mark.parametrize("name", ["bart_medium", "hf_bart_medium", "custom_hf_bart", "t5_small"])
+def test_each_preset_config_serves(preset_run, name):
+    """``build_server(config)`` on each BART / T5 config's checkpoint: one
+    record through ``/predict`` answers with its two beams and finite
+    scores."""
+    import pyarrow.parquet as pq
+
+    from multimodalanalytical_tpu_torch.cli import serve
+    from multimodalanalytical_tpu_torch.cli.common import compose
+
+    run_dir = preset_run(name)
+    config = compose("config_serve", [
+        f"working_dir={run_dir}",
+        *[a for a in PRESET_DATA if not a.startswith(("data_path=", "molecules="))],
+        f"model={name}", f"preprocessor_path={run_dir / 'train' / 'preprocessor.json'}",
+        f"model.model_checkpoint_path={run_dir / 'train' / 'checkpoints' / 'last'}",
+        *preset_model(name), "serve.port=0", "serve.max_wait_ms=5", CPU])
+    server = serve.build_server(config)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        table = pq.read_table(TEST_DATA / "ir_data.parquet")
+        row = {c: table.column(c)[1].as_py() for c in table.column_names}
+        record = {"IR": row["ir_spectra"], "Formula": row["molecular_formula"]}
+        results = _post(f"http://127.0.0.1:{server.server_address[1]}", [record])["results"]
+        assert len(results) == 1 and len(results[0]["smiles"]) == 2
+        assert all(np.isfinite(results[0]["scores"]))
+    finally:
+        server.shutdown()
+        server.engine.close()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
 
 
 @pytest.mark.e2e

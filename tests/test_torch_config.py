@@ -38,13 +38,6 @@ def test_resolve_model_config_matches_jax(model_type):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
-def test_hf_derived_dimensions_are_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        port_config.resolve_model_config(
-            {"model_type": "BartForConditionalGeneration", "model_name": "facebook/bart-base"},
-            vocab_size=10, pad_token_id=0, bos_token_id=2, eos_token_id=3)
-
-
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port, and chip_smoke.py, import with torch, numpy
     and the standard library only (as on a machine without JAX), except the

@@ -818,3 +818,94 @@ def test_validate_after_a_step_decodes_the_new_weights(gen):
     assert trainer.decode_warmups == 1        # the K 1 graph was captured once
     assert np.array_equal(decoded[1], new.cpu().numpy())
     assert not np.array_equal(decoded[1], old.cpu().numpy())
+
+
+def _small_preset_model(model_type, device, d_model=128, heads=2, max_length=32, **extra):
+    """A small bf16 model of a BART / T5 preset (post-LN BART without final
+    norms, or T5: RMSNorm, relative bias, no scale, ReLU without biases)."""
+    from multimodalanalytical_tpu_torch.models.config import resolve_model_config
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    data_config = {
+        "Formula": {"type": "text", "vocab_size": 32, "target": False},
+        "IR": {"type": "1D_patches", "target": False,
+               "preprocessor_arguments": {"patch_size": 125}},
+        "Smiles": {"type": "text", "vocab_size": 64, "target": True},
+    }
+    cfg = resolve_model_config(
+        {"model_type": model_type, "d_model": d_model, "encoder_layers": 2,
+         "decoder_layers": 2, "encoder_attention_heads": heads,
+         "decoder_attention_heads": heads, "encoder_ffn_dim": 2 * d_model,
+         "decoder_ffn_dim": 2 * d_model, "dtype": "bfloat16",
+         "max_target_length": max_length, **extra},
+        vocab_size=64, pad_token_id=0, bos_token_id=2, eos_token_id=3)
+    return Seq2SeqModel(cfg, data_config, "Smiles", device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+
+
+@pytest.mark.parametrize("beams,stage_size", [(4, 8), (10, None), (1, 8)])
+def test_t5_plain_decode_under_capture_equals_eager(gen, beams, stage_size):
+    """T5 decodes on the plain route (no scale, a relative bias): its
+    captured steps (the buckets computed on the card from the device
+    position, the cache rows written by index_copy_ at it) equal the eager
+    loop bit for bit, and no decode kernel is launched."""
+    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+
+    decoder = BeamDecoder(_small_preset_model("T5ForConditionalGeneration", "cuda"))
+    counters = (ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn)
+    before = [fn.launches for fn in counters]
+    for seed in (1, 2):
+        inputs, mask = _request(3, seed)
+        got, want = {}, {}
+        seqs, scores = decoder.search(inputs, mask, beams, max_length=32, stage_size=stage_size,
+                                      stats=got)
+        eager = decoder.search(inputs, mask, beams, max_length=32, stage_size=stage_size,
+                               cuda_graph=False, stats=want)
+        assert got["graph"] and got["steps"] == want["steps"]
+        assert torch.equal(seqs, eager[0]) and torch.equal(scores, eager[1])
+    assert [fn.launches for fn in counters] == before
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("batch,beams,stage", [(3, 4, 16), (5, 10, 37), (2, 1, 13)])
+def test_post_ln_bart_decode_steps_on_card_match_cpu(gen, kv_cache_dtype, batch, beams, stage):
+    """hf_bart_medium's post-LN decode branch, small and ragged: the card
+    launches #1-#3 once per layer per step and its teacher-forced logits
+    match the same weights on the CPU (the kernels' plain versions) within
+    the bf16 bound of test_decode_steps_on_card_match_cpu."""
+    from multimodalanalytical_tpu_torch.generation.beam_search import decode_model
+
+    cpu = _small_preset_model("BartForConditionalGeneration", "cpu",
+                              kv_cache_dtype=kv_cache_dtype)
+    assert not cpu.config.post_layer_normalisation and not cpu.config.final_layer_norm
+    card = _small_preset_model("BartForConditionalGeneration", "cuda",
+                               kv_cache_dtype=kv_cache_dtype)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(batch)
+    inputs = {"Formula": torch.randint(4, 32, (batch, 12), generator=g),
+              "IR": torch.rand(batch, 14, 125, generator=g)}
+    mask = torch.ones(batch, 26, dtype=torch.int32)
+    mask[0, 7:12] = 0
+    steps = 6
+    tokens = torch.randint(4, 64, (batch, beams, steps), generator=g)
+    anc = torch.randint(0, beams, (batch, beams, stage), generator=g, dtype=torch.int32)
+    counters = (ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn)
+    quantize = kv_cache_dtype == "int8"
+    logits = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        before = [fn.launches for fn in counters]
+        with torch.no_grad():
+            hidden = model.encode({k: v.to(dev) for k, v in inputs.items()}, mask.to(dev))
+            dm = decode_model(model)
+            cache = dm.init_beam_cache(batch, beams, stage, hidden, mask.to(dev), quantize)
+            out = []
+            for t in range(steps):
+                a = anc.clone()
+                a[:, :, t] = torch.arange(beams, dtype=torch.int32)
+                out.append(dm.beam_decode_step(tokens[:, :, t].to(dev), t, cache,
+                                               a.to(dev)).float().cpu())
+        launched = [fn.launches - b for fn, b in zip(counters, before)]
+        assert launched == ([0, 0, 0] if dev == "cpu" else [2 * steps] * 3)
+        logits.append(torch.stack(out))
+    err = (logits[1] - logits[0]).abs().max().item()
+    assert err <= 5e-2 * max(1.0, logits[0].abs().max().item()), err

@@ -8,7 +8,8 @@ them). Here the same state_dicts reach the port through
 then ``load_flax_params``), and the port's forward must give the goldens at
 the JAX test's own tolerances: conv / mlp / sid align heads, the
 ``linear_2_layer`` and ``linear_3_layer`` patch encoders, XVal multiplets
-and learned positions.
+and learned positions; and the reference's executed HF BART and T5 graphs
+(``bart_executed_graph``, ``t5_executed_graph``) on the BART and T5 presets.
 """
 
 from pathlib import Path
@@ -19,12 +20,17 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # xdist workers share the cores; tiny shapes need no more
 
-from multimodalanalytical_tpu_torch.models.config import AlignConfig, ModelConfig  # noqa: E402
+from multimodalanalytical_tpu_torch.models.config import (  # noqa: E402
+    AlignConfig,
+    ModelConfig,
+    resolve_model_config,
+)
 from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel  # noqa: E402
 from multimodalanalytical_tpu_torch.models.weights import load_reference_state_dict  # noqa: E402
 from test_reference_model_parity import (  # noqa: E402
     CASES,
     D_MODEL,
+    HF_CASES,
     VOCAB,
     _case_arrays,
     build_data_config,
@@ -126,3 +132,42 @@ def test_a_state_dict_of_another_architecture_is_refused(golden):
     model = port_model(CASES["preln_geglu_alignconv_sincos"])
     with pytest.raises(ValueError, match="missing"):
         load_reference_state_dict(model, sd)
+
+
+def hf_port_model(model_type):
+    """The BART / T5 preset at the goldens' widths, resolved as the JAX
+    test resolves it."""
+    cfg = resolve_model_config(
+        {"model_type": model_type, "d_model": D_MODEL, "encoder_layers": 2,
+         "decoder_layers": 2, "encoder_attention_heads": 4, "decoder_attention_heads": 4,
+         "encoder_ffn_dim": 64, "decoder_ffn_dim": 64, "dropout": 0.1,
+         "max_position_embeddings": 64},
+        vocab_size=VOCAB, pad_token_id=0, bos_token_id=2, eos_token_id=3)
+    return Seq2SeqModel(cfg, build_data_config({}), "Smiles")
+
+
+@pytest.mark.parametrize("family", ["auto", "explicit"])
+@pytest.mark.parametrize("name", list(HF_CASES))
+def test_hf_graph_matches_executed_reference(golden, name, family):
+    """The reference's executed HF graphs (its embedding and position
+    surgery, BART's decoder layernorm_embedding without final stack norms,
+    T5's RMSNorm, relative bias, unscaled bias-free attention and tied
+    d**-0.5 logits) through ``load_reference_state_dict``, every key of the
+    state_dict used once but BART's target-modality embedding norm, which
+    its executed decoder never applies, at the JAX test's tolerances."""
+    model_type, _ = HF_CASES[name]
+    sd, ins, outs = _case_arrays(golden, name)
+    model = hf_port_model(model_type)
+    load_reference_state_dict(model, sd, family=model_type if family == "explicit" else "auto")
+    res = run_case(model, {}, ins)
+    np.testing.assert_allclose(res["logits"].double().numpy(), outs["logits"], rtol=2e-4,
+                               atol=2e-5, err_msg=f"{name}: logits")
+    np.testing.assert_allclose(float(res["loss"]), float(outs["loss"]), rtol=1e-5, atol=1e-6,
+                               err_msg=f"{name}: loss")
+
+
+def test_hf_state_dict_of_the_other_family_is_refused(golden):
+    sd, _, _ = _case_arrays(golden, "t5_executed_graph")
+    with pytest.raises(KeyError):
+        load_reference_state_dict(hf_port_model("T5ForConditionalGeneration"), sd,
+                                  family="BartForConditionalGeneration")
