@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile-eval   # phase 5's decodes and a serving request, profiled
     python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
     python3 chip_smoke.py --time-ffn       # the decode FFN's times alone (one JSON line)
+    python3 chip_smoke.py --dp-rank SPEC   # one rank of phase 10's two-rank fit (the script starts it)
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a), ``nvcc``
 and ``g++``; it imports torch, numpy, the standard library and
@@ -122,6 +123,28 @@ line each, any failure raises and exits non-zero:
    to the direct load; and for hf_bart_medium and t5_small one dropout-0
    train step in bf16 against fp32 and three AdamW steps at B 128 (finite,
    falling loss); the phase's peak device memory.
+
+10. the mixture paper's Table 1 recipe (ALIGN_MODEL_CONFIG, MIX_DATA_CONFIG:
+   custom_model_align on ir/patches_mixture_text_align, Formula 12 + IR 24 x
+   75 -> SMILES with the pure spectrum as align target) with mixture=ir/binary
+   and then ir/multitask (normalize over 5 modes), on a seeded pool of 38,000
+   synthetic 1791-point spectra (phase 5's corpus as targets, stand-in
+   tokenizers), built by the entry points' own calls (``build_loaders``,
+   ``try_build_device_mixture``, ``build_model``): (a) the first 4 premixed
+   B 128 batches on the card equal the host collator's batches of the same
+   samples (ids, masks, labels bit for bit; patches and align target within
+   MIX_FLOAT_TOL of their largest magnitude); ``Trainer.fit`` takes 6 AdamW
+   steps in fp32 (dropout 0) on the device route and on the host generator,
+   losses within MIX_FIT_RTOL; the recipe in bf16 on both routes for s/step,
+   the device route with one validation (K 1) through the decode graphs,
+   #1-#3 launched 6 x its replays; the loaders' host ms per batch, the pool
+   bytes and the peak memory; (b) a world-1 NCCL process group drives the
+   fp32 device-route fit again, bit-equal to the fit with no group (cuDNN's
+   deterministic algorithms for the phase), and DP_RANKS processes of this
+   script (``--dp-rank``) share the card over gloo on the host route (the
+   device route refused there, as in the JAX package) at the same global
+   batch, held to the one-process fit as DP_RTOL says, with their s/step and
+   the gradient all-reduce's ms per step.
 
 Phase 1 also holds #2 at the multimodal encoder's Ls 279 (two passes over
 chunks of 256 and 23 keys, rows with a fully masked chunk) against its
@@ -1776,29 +1799,54 @@ EVAL_EPOCHS = 2
 EVAL_TARGET_LEN = 32      # longest corpus target (19 tokens) + BOS/EOS, padded
 
 
+SMILES_EXTRA_TOKENS = ("S", "P", "F", "I", "n", "o", "s", "[nH]", "=", "#", "(", ")")
+FORMULA_REGEX = r"([A-Z]{1}[a-z]?[0-9]*)"
+FORMULA_VOCAB = 32
+
+
 class FixedVocabTokenizer:
-    """Stand-in for the fitted target ``RegexTokenizer`` (``data/tokenizer.py``
-    needs the ``tokenizers`` package, which the card's machine lacks): the
-    SMILES regex's tokens, then fillers up to the flagship vocabulary of 320,
-    with the same special tokens and ids (pad 0, bos 2, eos 3), the same
-    ``vocab`` and the same ``batch_decode`` output (tokens joined by spaces,
+    """Stand-in for a fitted ``RegexTokenizer`` (``data/tokenizer.py`` needs
+    the ``tokenizers`` package, which the card's machine lacks): the regex's
+    tokens of ``corpus`` and ``extra``, then fillers up to ``vocab_size``
+    (by default the SMILES target's: the flagship vocabulary of 320), with
+    the same special tokens and ids (pad 0, bos 2, eos 3), the same
+    ``vocab``, the same padded and truncated ``__call__`` rows (BOS, tokens,
+    EOS) and the same ``batch_decode`` output (tokens joined by spaces,
     specials skipped), whose strings the chemistry engine parses as it
     parses the fitted tokenizer's (guided decoding's exact mode)."""
 
-    def __init__(self):
+    def __init__(self, regex: str = SMILES_REGEX, corpus=SMILES_CORPUS,
+                 extra=SMILES_EXTRA_TOKENS, vocab_size: int = VOCAB):
         import re
 
-        self.regex = re.compile(SMILES_REGEX)
-        atoms = sorted({t for s in SMILES_CORPUS for t in self.regex.findall(s)})
-        atoms += [t for t in ("S", "P", "F", "I", "n", "o", "s", "[nH]", "=", "#", "(", ")")
-                  if t not in atoms]
+        self.regex = re.compile(regex)
+        atoms = sorted({t for s in corpus for t in self.regex.findall(s)})
+        atoms += [t for t in extra if t not in atoms]
         self.pad_token, self.unk_token, self.bos_token, self.eos_token = (
             "<pad>", "<unk>", "<bos>", "<eos>")
         tokens = [self.pad_token, self.unk_token, self.bos_token, self.eos_token] + atoms
-        self.tokens = tokens + [f"<x{i}>" for i in range(VOCAB - len(tokens))]
+        self.tokens = tokens + [f"<x{i}>" for i in range(vocab_size - len(tokens))]
         self.ids = {t: i for i, t in enumerate(self.tokens)}
         self.pad_token_id, self.bos_token_id, self.eos_token_id = 0, 2, 3
-        self.vocab_size = VOCAB
+        self.vocab_size = vocab_size
+
+    def __call__(self, texts, padding: str = "max_length", max_length: int = 0,
+                 truncation: bool = True) -> dict:
+        """Rows of BOS, tokens, EOS padded to ``max_length``; a longer row
+        keeps its EOS, as ``RegexTokenizer`` truncates."""
+        import numpy as np
+
+        rows = [[self.bos_token_id] + self.encode(t) + [self.eos_token_id] for t in texts]
+        rows = [r if len(r) <= max_length else r[:max_length - 1] + [self.eos_token_id]
+                for r in rows]
+        ids = np.zeros((len(rows), max_length), np.int32)
+        mask = np.zeros((len(rows), max_length), np.int32)
+        for i, row in enumerate(rows):
+            ids[i, :len(row)], mask[i, :len(row)] = row, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def encode_lengths(self, texts) -> list:
+        return [len(self.encode(t)) + 2 for t in texts]
 
     @property
     def vocab(self) -> dict:
@@ -2673,6 +2721,493 @@ def run_presets() -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 10
+# The mixture paper's Table 1 recipe (paper_replication/mixture/scripts/
+# replicate_table_1.sh): model=custom_model_align data=ir/patches_mixture_text_align
+# mixture=ir/binary, then mixture=ir/multitask (Tables 2/3). The configs as
+# dict literals equal to the files as the config loader composes them
+# (tests/test_torch_presets.py holds them so).
+ALIGN_MODEL_CONFIG = {
+    "model_type": "CustomModel", "d_model": 512, "encoder_attention_heads": 8,
+    "decoder_attention_heads": 8, "encoder_layers": 6, "decoder_layers": 6,
+    "encoder_ffn_dim": 2048, "decoder_ffn_dim": 2048, "multimodal_norm": True,
+    "final_layer_norm": True, "positional_encoding_type": "sin_cos", "gated_linear": False,
+    "post_layer_normalisation": True, "optimiser": "adamw", "lr": 1.0e-4, "weight_decay": 0.0,
+    "adam_beta1": 0.9, "adam_beta2": 0.999, "model_checkpoint_path": None, "batch_size": 128,
+    "cv_split": 0, "guided_generation": False, "max_position_embeddings": 1024,
+    "align_config": {"align_network": "convolutional", "hidden_dimension": 256,
+                     "conv_channels": 512, "kernel_size": 5, "output_dimension": 1800,
+                     "loss_lambda": 50, "loss_function": "mae"},
+    "n_beams": 10, "rejection_sampling": False, "dtype": "bfloat16", "use_flash_attention": True,
+}
+_MIX_PATCHES = {"patch_size": 75, "interpolation": False, "masking": False}
+MIX_DATA_CONFIG = {
+    "Formula": {"type": "text", "column": "molecular_formula", "target": False,
+                "preprocessor_arguments": {"tokenizer": "formula",
+                                           "tokenizer_regex": FORMULA_REGEX}},
+    "IR": {"type": "1D_patches", "column": "ir_spectra", "target": False,
+           "preprocessor_arguments": dict(_MIX_PATCHES)},
+    "IR_target": {"type": "1D_patches", "column": "", "target": True, "alignment": True,
+                  "preprocessor_arguments": dict(_MIX_PATCHES)},
+    "Smiles": {"type": "text", "column": "smiles", "target": True,
+               "preprocessor_arguments": {
+                   "tokenizer": "smiles",
+                   "tokenizer_regex": (r"(\[[^\]]+]|Br?|Cl?|N|O|S|P|F|I|b|c|n|o|s|p|\(|\)|"
+                                       r"\.|=|#|-|\+|\\\\|\/|:|~|@|\?|>|\*|\$|\%[0-9]{2}|"
+                                       r"[0-9])")}},
+}
+
+
+def _mix_mode(ratio, normalize: bool) -> dict:
+    return {"n_compounds": 2, "compounds_ratio": ratio, "train_max_n_samples": 320000000,
+            "validation_max_n_samples": 10000, "test_max_n_samples": 10000,
+            "parallel_samples": 16384, "normalize": normalize}
+
+
+MIXTURE_CONFIGS = {
+    "ir/binary": {"balanced": _mix_mode(None, False)},
+    "ir/multitask": {"balanced": _mix_mode(None, True),
+                     "unbalanced_4_6": _mix_mode([0.4, 0.6], True),
+                     "unbalanced_3_7": _mix_mode([0.3, 0.7], True),
+                     "unbalanced_2_8": _mix_mode([0.2, 0.8], True),
+                     "unbalanced_1_9": _mix_mode([0.1, 0.9], True)},
+}
+# The pure-compound pool: the size the JAX package's note measured
+# (data/device_mixture.py there, a 38k x 1800 fp32 pool), of seeded
+# synthetic spectra at the real data's 1791 points; the targets cycle
+# through phase 5's corpus, each with its formula.
+MIX_POOL_ROWS, MIX_SPECTRUM_LEN = 38_000, 1791
+MIX_STEPS = 6                  # AdamW steps at B 128 per fit: the stream is cut to 6 batches
+MIX_SAMPLE = 256               # mixtures the preprocessors and the collator's lengths fit on
+MIX_CHECK_BATCHES = 4          # premixed batches held against the host collator
+MIX_FLOAT_TOL = 1e-6           # patches and align targets: of the batch's largest magnitude
+MIX_FIT_RTOL = 5e-4            # tests/test_device_mixture.py's bound, device route vs host
+# Two ranks sharing the card over gloo against one process at the same
+# global batch (fp32, dropout 0): losses and gradient norms to DP_RTOL; the
+# parameters to DP_RTOL on all but DP_NOISE_SHARE of their entries. Those
+# are the entries whose gradient is rounding noise of its sum (the attention
+# key biases, whose gradient is 0 in exact arithmetic, and mae signs that
+# cancel over the batch), which Adam turns into steps of the learning
+# rate's size, so they are held to twice the sum of the fit's rates.
+DP_RANKS, DP_RTOL, DP_NOISE_SHARE = 2, 1e-5, 1e-3
+DP_TIMEOUT_S = 300
+
+
+def _mixture_setup(mixture_name: str) -> tuple:
+    """(stream, data config, preprocessors, collator) of the recipe on the
+    seeded pool, built as ``cli/training.py`` builds them: the stream is
+    ``multi_config_mix`` over the pool (cut to MIX_STEPS batches), the patch
+    preprocessors are fitted and the collator's lengths fitted on
+    MIX_SAMPLE of its mixtures; the two text modalities take the
+    fixed-vocabulary stand-in (the card's machine has no ``tokenizers``)."""
+    import copy
+
+    import numpy as np
+
+    from multimodalanalytical_tpu_torch.chem import mol_formula
+    from multimodalanalytical_tpu_torch.configuration import DEFAULT_SETTINGS
+    from multimodalanalytical_tpu_torch.data.collator import MultiModalCollator
+    from multimodalanalytical_tpu_torch.data.datasets import (
+        IterableDatasetWithLength,
+        TableDataset,
+        multi_config_mix,
+    )
+    from multimodalanalytical_tpu_torch.data.preprocessing import PatchPreprocessor
+
+    rng = np.random.default_rng(1000)
+    spectra = rng.random((MIX_POOL_ROWS, MIX_SPECTRUM_LEN), dtype=np.float32)
+    smiles = [SMILES_CORPUS[i % len(SMILES_CORPUS)] for i in range(MIX_POOL_ROWS)]
+    formula = {s: mol_formula(s) for s in SMILES_CORPUS}
+    pool = TableDataset({"Smiles": smiles, "Formula": [formula[s] for s in smiles],
+                         "IR": list(spectra)})
+    stream = IterableDatasetWithLength(
+        generator_fn=multi_config_mix, length=MIX_STEPS * BATCH, split="train",
+        generator_args={"dataset": pool, "mixture_config": MIXTURE_CONFIGS[mixture_name],
+                        "split": "train", "seed": DEFAULT_SETTINGS.default_seed})
+    sample = stream.take(MIX_SAMPLE).columns
+    data_config = copy.deepcopy(MIX_DATA_CONFIG)
+    preps = {"Formula": FixedVocabTokenizer(FORMULA_REGEX, formula.values(), (), FORMULA_VOCAB),
+             "Smiles": FixedVocabTokenizer()}
+    for modality in ("Formula", "Smiles"):
+        data_config[modality].update(vocab_size=preps[modality].vocab_size,
+                                     pad_token_id=preps[modality].pad_token_id)
+    for modality in ("IR", "IR_target"):
+        preps[modality] = PatchPreprocessor(**data_config[modality]["preprocessor_arguments"])
+        preps[modality].fit(sample[modality])
+        data_config[modality]["n_features"] = preps[modality].n_features
+    collator = MultiModalCollator(preps, data_config, pad_to_batch_size=BATCH)
+    collator.fit_lengths(sample)
+    return stream, data_config, preps, collator
+
+
+def _device_mixture(setup):
+    """``try_build_device_mixture`` on the recipe, as ``cli/training.py``
+    calls it: the pool staged on the card, or None where the route is
+    refused."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.configuration import DEFAULT_SETTINGS
+    from multimodalanalytical_tpu_torch.data.device_mixture import try_build_device_mixture
+
+    stream, data_config, preps, collator = setup
+    return try_build_device_mixture(stream, data_config, preps, collator, BATCH,
+                                    seed=DEFAULT_SETTINGS.default_seed,
+                                    device=torch.device(DEVICE))
+
+
+def _host_loader(setup):
+    """The host generator's train loader through ``cli/common.py:build_loaders``
+    (row-sharded under a process group)."""
+    from multimodalanalytical_tpu_torch.cli.common import build_loaders
+    from multimodalanalytical_tpu_torch.configuration import DEFAULT_SETTINGS
+
+    stream, _, _, collator = setup
+    return build_loaders({"train": stream}, collator, BATCH,
+                         DEFAULT_SETTINGS.default_seed)["train"]
+
+
+def _mix_fit(setup, route: str, dtype: str, dropout=None, val=None) -> dict:
+    """``Trainer.fit`` of custom_model_align (at ``dtype``, and ``dropout``
+    where given) for MIX_STEPS AdamW steps on a route ("device" or "host"),
+    as ``cli/training.py`` builds it (one accumulation step); with ``val``,
+    one validation pass (K 1) at the end. Returns each step's metrics, the
+    final parameters (on the host), the seconds per train step (from the
+    end of the first step, which carries the warm-up, to the end of the
+    last, between CUDA events: the host's loader time within it counts),
+    the learning rates and the trainer."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.cli.common import build_model
+    from multimodalanalytical_tpu_torch.configuration import DEFAULT_SETTINGS
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    _, data_config, preps, _ = setup
+    seed = DEFAULT_SETTINGS.default_seed
+    loader, transform = _host_loader(setup), None
+    if route == "device":
+        mix = _device_mixture(setup)
+        _require(mix is not None, "the recipe did not take the device route")
+        loader, transform = mix.loader, (mix.premix, mix.consts)
+    config = dict(ALIGN_MODEL_CONFIG, dtype=dtype)
+    if dropout is not None:
+        config["dropout"] = dropout
+    model, _ = build_model(config, data_config, "Smiles", preps["Smiles"],
+                           torch.device(DEVICE), seed)
+    trainer = Trainer(model, preps["Smiles"], optimiser="adamw", lr=ALIGN_MODEL_CONFIG["lr"],
+                      num_steps=MIX_STEPS, clip_grad=1.0, seed=seed, batch_transform=transform)
+    steps, ends = [], []
+    train_step = trainer.train_step
+
+    def timed_step(batch):
+        steps.append(train_step(batch))
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return steps[-1]
+
+    trainer.train_step = timed_step
+    trainer.fit(loader, val, epochs=1)
+    torch.cuda.synchronize()
+    step_s = ends[0].elapsed_time(ends[-1]) / 1e3 / (len(ends) - 1)
+    return {"steps": [{k: float(v) for k, v in m.items()} for m in steps],
+            "params": [p.detach().cpu() for p in trainer.params], "step_s": step_s,
+            "trainer": trainer, "lrs": [trainer.optimizer.schedule(t) for t in range(len(steps))]}
+
+
+def _host_ms_per_batch(loader) -> float:
+    """Host time per batch of a loader iterated alone (no prefetch thread)."""
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def _check_premix(setup, mixture_name: str) -> dict:
+    """The first MIX_CHECK_BATCHES premixed batches on the card against the
+    host collator's batches of the same samples. Returns the loaders' host
+    ms per batch and the pool bytes."""
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.training.loader import DataLoader
+    from multimodalanalytical_tpu_torch.training.trainer import device_batch
+
+    stream, _, _, collator = setup
+    mix = _device_mixture(setup)
+    _require(mix is not None, "the recipe did not take the device route")
+    host = DataLoader(stream, collator, BATCH, prefetch=0)
+    worst = 0.0
+    for i, (host_batch, index_batch) in enumerate(zip(host, mix.loader)):
+        if i == MIX_CHECK_BATCHES:
+            break
+        got = mix.premix(mix.consts, device_batch(index_batch, torch.device(DEVICE)))
+        _require(index_batch["n_valid"] == host_batch["n_valid"] == BATCH, "partial batch")
+        for key in ("encoder_mask", "decoder_ids", "decoder_mask", "labels"):
+            _require(np.array_equal(got[key].cpu().numpy(), host_batch[key]),
+                     f"{mixture_name} premix batch {i}: {key} differs from the host's")
+        _require(np.array_equal(got["encoder_inputs"]["Formula"].cpu().numpy(),
+                                host_batch["encoder_inputs"]["Formula"]),
+                 f"{mixture_name} premix batch {i}: Formula ids differ from the host's")
+        for what, a, b in (("IR patches", got["encoder_inputs"]["IR"],
+                            host_batch["encoder_inputs"]["IR"]),
+                           ("align target", got["align_target"], host_batch["align_target"])):
+            err = float(np.abs(a.cpu().numpy().astype(np.float64) - b).max()
+                        / np.abs(b).max())
+            worst = max(worst, err)
+            _require(err <= MIX_FLOAT_TOL, f"{mixture_name} premix batch {i}: {what} off by "
+                                           f"{err:.3e} of its largest magnitude")
+    times = {"host": _host_ms_per_batch(DataLoader(stream, collator, BATCH, prefetch=0)),
+             "device": _host_ms_per_batch(mix.loader)}
+    print(f"mixture {mixture_name}: {MIX_CHECK_BATCHES} premixed B {BATCH} batches equal the "
+          f"host collator's (ids, masks, labels bit for bit; patches and align target within "
+          f"{worst:.3e} of their largest magnitude, tol {MIX_FLOAT_TOL}); pool "
+          f"{MIX_POOL_ROWS} x {MIX_SPECTRUM_LEN} spectra, {mix.pool_bytes} B on the card; "
+          f"index batch {mix.loader.batch_bytes} B; host ms per batch: host generator "
+          f"{times['host']:.2f}, device route {times['device']:.2f}", flush=True)
+    return {"pool_bytes": mix.pool_bytes, "host_ms": times}
+
+
+def _require_same_fit(what: str, got: dict, want: dict, rtol: float) -> float:
+    """Each step's losses and gradient norm within ``rtol``; the worst."""
+    worst = 0.0
+    for a, b in zip(got["steps"], want["steps"]):
+        for key in ("loss", "model_only_loss", "alignment_loss", "grad_norm"):
+            worst = max(worst, abs(a[key] - b[key]) / abs(b[key]))
+    _require(len(got["steps"]) == len(want["steps"]) == MIX_STEPS and worst <= rtol,
+             f"{what}: steps differ by {worst:.3e} (tol {rtol})")
+    return worst
+
+
+def run_mixture_path() -> tuple:
+    """Phase 10 (a). Returns (the decode kernels' launches in the
+    validation, the fp32 fits of ir/binary on each route)."""
+    import math
+
+    import torch
+
+    counters = _decode_counters()
+    torch.cuda.reset_peak_memory_stats()
+    fp32 = {}
+    for mixture_name in MIXTURE_CONFIGS:
+        t0 = time.perf_counter()
+        setup = _mixture_setup(mixture_name)
+        setup_s = time.perf_counter() - t0
+        checked = _check_premix(setup, mixture_name)
+        fits = {route: _mix_fit(setup, route, "float32", 0.0) for route in ("device", "host")}
+        worst = _require_same_fit(f"{mixture_name} fp32 device route vs host", fits["device"],
+                                  fits["host"], MIX_FIT_RTOL)
+        _require(all(math.isfinite(s["loss"]) for f in fits.values() for s in f["steps"]),
+                 "non-finite mixture loss")
+        print(f"mixture {mixture_name} fp32 fits ({MIX_STEPS} AdamW steps, B {BATCH}, dropout "
+              f"0; setup {setup_s:.2f} s): losses device "
+              f"{[round(s['loss'], 5) for s in fits['device']['steps']]}, host "
+              f"{[round(s['loss'], 5) for s in fits['host']['steps']]}, worst rel diff "
+              f"{worst:.3e} (tol {MIX_FIT_RTOL}); s/step (steps 2-{MIX_STEPS}) device "
+              f"{fits['device']['step_s']:.5f}, host {fits['host']['step_s']:.5f}", flush=True)
+        if mixture_name == "ir/binary":
+            fp32 = {route: {k: v for k, v in fit.items() if k != "trainer"}
+                    for route, fit in fits.items()}
+            binary_setup = setup
+        del fits
+
+    # The recipe as it trains (bf16, dropout 0.1) on each route; the device
+    # route validates once at the end (K 1) through the decode graphs.
+    val = [next(iter(_host_loader(binary_setup)))]
+    for fn in counters:
+        fn.launches = 0
+    device = _mix_fit(binary_setup, "device", "bfloat16", val=val)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    trainer = device["trainer"]
+    host = _mix_fit(binary_setup, "host", "bfloat16")
+    replays, warmups = trainer.decode_replays, trainer.decode_warmups
+    for name, count in launches.items():
+        _require(count == LAYERS * (replays + warmups),
+                 f"{name} launched {count} times in validation, want {LAYERS * (replays + warmups)}")
+    _require(all(math.isfinite(s["loss"]) for s in device["steps"] + host["steps"]),
+             "non-finite bf16 mixture loss")
+    print(f"mixture ir/binary bf16 fits (the recipe, dropout 0.1): s/step (steps "
+          f"2-{MIX_STEPS}) device route {device['step_s']:.5f}, host generator "
+          f"{host['step_s']:.5f}; losses device "
+          f"{[round(s['loss'], 4) for s in device['steps']]}, host "
+          f"{[round(s['loss'], 4) for s in host['steps']]}; validation (K 1) "
+          f"{trainer.decode_steps} decode steps in {replays} graph replays and {warmups} "
+          f"eager capture steps, launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del device, host, trainer
+    torch.cuda.empty_cache()
+    return launches, fp32
+
+
+def _dp_command(spec: dict) -> list:
+    return [sys.executable, str(REPO / "chip_smoke.py"), "--dp-rank", json.dumps(spec)]
+
+
+def run_dp_rank(spec: dict) -> None:
+    """One rank of phase 10 (b): joins a gloo group on card 0 (a file
+    store), checks that the device route is refused at this world size,
+    fits ir/binary on the host route in fp32 (its rows of each global
+    batch), and writes its steps, its seconds per step and per gradient
+    all-reduce, and (rank 0) the final parameters into ``spec["out"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodalanalytical_tpu_torch.training.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}", rank=spec["rank"],
+                            world_size=spec["world"])
+    try:
+        setup = _mixture_setup("ir/binary")
+        _require(_device_mixture(setup) is None,
+                 "the device route was taken under several processes")
+        reduce_s, reduce = [], Trainer._sum_over_ranks
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = reduce(*args)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+            return out
+
+        Trainer._sum_over_ranks = staticmethod(timed)
+        fit = _mix_fit(setup, "host", "float32", 0.0)
+        out = Path(spec["out"])
+        (out / f"rank{spec['rank']}.json").write_text(json.dumps(
+            {"steps": fit["steps"], "step_s": fit["step_s"],
+             "reduce_ms": 1e3 * sum(reduce_s[1:]) / len(reduce_s[1:])}))
+        if spec["rank"] == 0:
+            torch.save(fit["params"], out / "params.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _join_world_one_nccl() -> None:
+    """Join a world-1 NCCL group as the CLIs join one: through
+    ``initialize_multihost`` with torchrun's environment (a free local
+    port); the process's environment is restored after."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodalanalytical_tpu_torch.parallel import initialize_multihost
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(AFM_MULTIHOST="1", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        joined = initialize_multihost(torch.device(DEVICE))
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key)
+            else:
+                os.environ[key] = value
+    _require(joined == torch.device("cuda", 0) and dist.get_backend() == "nccl",
+             f"initialize_multihost joined {dist.get_backend()} on {joined}, want nccl on cuda:0")
+
+
+def run_distributed_path(fp32: dict) -> None:
+    """Phase 10 (b): the process-group path on the one card. A world-1 NCCL
+    group, joined through ``initialize_multihost`` as the CLIs join it,
+    drives the fp32 device-route fit of (a) again: losses and
+    parameters bit-equal to (a)'s fit with no group. Then DP_RANKS ranks
+    share the card over gloo (two NCCL ranks on one device are refused as a
+    duplicate GPU) and fit on the host route at the same global batch:
+    against (a)'s one-process host fit, as DP_RTOL says."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    _join_world_one_nccl()
+    try:
+        # NCCL sets up its communicator at the first collective: once here,
+        # so that the fit's s/step is its steady cost.
+        dist.all_reduce(torch.zeros(1, device=DEVICE))
+        grouped = _mix_fit(_mixture_setup("ir/binary"), "device", "float32", 0.0)
+    finally:
+        dist.destroy_process_group()
+    alone = fp32["device"]
+    same_params = all(torch.equal(a, b) for a, b in zip(grouped["params"], alone["params"]))
+    print(f"distributed: a world-1 NCCL group's fit (device route, fp32) against no group: "
+          f"losses bit-equal {grouped['steps'] == alone['steps']}, {len(alone['params'])} "
+          f"parameter tensors bit-equal {same_params}; s/step (steps 2-{MIX_STEPS}) "
+          f"{grouped['step_s']:.5f} against {alone['step_s']:.5f}", flush=True)
+    _require(grouped["steps"] == alone["steps"] and same_params,
+             "the world-1 NCCL fit differs from the fit with no group")
+    del grouped
+
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = [{"rank": r, "world": DP_RANKS, "store": f"{tmp}/store", "out": tmp}
+                 for r in range(DP_RANKS)]
+        logs = [Path(tmp) / f"rank{r}.log" for r in range(DP_RANKS)]
+        t0 = time.perf_counter()
+        procs = []
+        for spec, log in zip(specs, logs):
+            with open(log, "w") as out:   # a file: an unread pipe could block a rank
+                procs.append(subprocess.Popen(_dp_command(spec), stdout=out,
+                                              stderr=subprocess.STDOUT))
+        try:
+            for proc in procs:
+                proc.wait(timeout=DP_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            _require(proc.returncode == 0,
+                     f"rank {r} of {DP_RANKS} failed:\n{log.read_text()[-3000:]}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(DP_RANKS)]
+        params = torch.load(Path(tmp) / "params.pt")
+    ref = fp32["host"]
+    worst = max(_require_same_fit(f"{DP_RANKS} ranks over gloo vs one process", rank, ref,
+                                  DP_RTOL) for rank in ranks)
+    _require(all(rank["steps"] == ranks[0]["steps"] for rank in ranks),
+             "the ranks report different steps")
+    got = torch.cat([p.reshape(-1) for p in params]).double()
+    want = torch.cat([p.reshape(-1) for p in ref["params"]]).double()
+    diff = (got - want).abs()
+    outside = diff > DP_RTOL * want.abs() + 1e-7
+    drift = 2 * sum(ref["lrs"])
+    print(f"distributed: {DP_RANKS} ranks over gloo on one card (host route, fp32, B {BATCH} "
+          f"global) against one process: worst step rel diff {worst:.3e} (tol {DP_RTOL}); "
+          f"parameters outside rtol {DP_RTOL}: {int(outside.sum())} of {got.numel()} "
+          f"(share {float(outside.double().mean()):.2e}, tol {DP_NOISE_SHARE}), max |diff| "
+          f"{float(diff.max()):.3e} (tol {drift:.3e}); s/step (steps 2-{MIX_STEPS}) "
+          f"{ranks[0]['step_s']:.5f} per rank against {ref['step_s']:.5f} in one process, "
+          f"gradient all-reduce {ranks[0]['reduce_ms']:.2f} ms per step (steps 2-{MIX_STEPS}); "
+          f"{wall:.1f} s with the ranks' start-up",
+          flush=True)
+    _require(float(outside.double().mean()) <= DP_NOISE_SHARE and float(diff.max()) <= drift,
+             "the ranks' parameters differ from the one-process fit")
+
+
+def run_mixture_phase() -> dict:
+    """Phase 10; returns the decode kernels' launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    # The align head's convolutions take deterministic cuDNN algorithms, so
+    # that fits repeated with the same inputs are bit-equal.
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches, fp32 = run_mixture_path()
+        run_distributed_path(fp32)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 # ------------------------------------------------------------- profiling
 PROFILE_TOP = 14
 
@@ -2833,6 +3368,9 @@ def main() -> int:
     if not (REPO / "multimodalanalytical_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repository")
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--dp-rank"]:
+        run_dp_rank(json.loads(sys.argv[2]))
+        return 0
     from multimodalanalytical_tpu_torch.ops import _cuda
 
     smi = subprocess.run(
@@ -2878,6 +3416,8 @@ def main() -> int:
     run_align_path()
     for name, n in run_presets().items():
         by_phase[name]["9"] = n
+    for name, n in run_mixture_phase().items():
+        by_phase[name]["10"] = n
     for rec in records:
         rec["launches_by_phase"] = by_phase[rec["name"]]
         rec["launches"] = sum(by_phase[rec["name"]].values())

@@ -131,27 +131,40 @@ def build_collator(data_config: Dict[str, Any], preprocessors: Dict[str, Any], t
 
 def build_loaders(dataset_dict: Dict[str, Any], collator, batch_size: int, seed: int,
                   test_idx=None) -> Dict[str, DataLoader]:
-    """Train (shuffled when a table), validation and test loaders in one
-    process; validation and test are capped at 10k random rows, or the test
-    rows are the ``test_idx`` .npy index file (reference
-    datamodules.py:441-491)."""
-    from ..data.datasets import TableDataset
+    """Train (shuffled when a table), validation and test loaders;
+    validation and test are capped at 10k random rows, or the test rows are
+    the ``test_idx`` .npy index file (reference datamodules.py:441-491).
 
+    Under several processes every loader is row-sharded: each process feeds
+    its contiguous chunk of every global batch of ``batch_size`` rows
+    (reference trainer/trainer.py:58, DDP), and the collator pads to the
+    chunk, ``batch_size // process_count``, which must be whole."""
+    from ..data.datasets import TableDataset
+    from ..parallel import process_count, process_index
+
+    num_shards = process_count()
+    if num_shards > 1:
+        if batch_size % num_shards != 0:
+            raise ValueError(f"model.batch_size={batch_size} must be divisible by the process "
+                             f"count ({num_shards}) for multi-process training")
+        collator.pad_to_batch_size = batch_size // num_shards
+    shards = dict(num_shards=num_shards, shard_index=process_index())
     loaders = {}
     if "train" in dataset_dict:
         loaders["train"] = DataLoader(dataset_dict["train"], collator, batch_size,
                                       shuffle=isinstance(dataset_dict["train"], TableDataset),
-                                      seed=seed)
+                                      seed=seed, **shards)
     if "validation" in dataset_dict:
         loaders["validation"] = DataLoader(
-            subsample_dataset(dataset_dict["validation"], 10000, seed), collator, batch_size)
+            subsample_dataset(dataset_dict["validation"], 10000, seed), collator, batch_size,
+            **shards)
     if "test" in dataset_dict:
         test_set = dataset_dict["test"]
         if test_idx is not None:
             test_set = test_set.select(np.load(test_idx))
         else:
             test_set = subsample_dataset(test_set, 10000, seed)
-        loaders["test"] = DataLoader(test_set, collator, batch_size)
+        loaders["test"] = DataLoader(test_set, collator, batch_size, **shards)
     return loaders
 
 

@@ -16,7 +16,8 @@ an ``.npz`` of a JAX param tree (``training/checkpoint.py``).
 ``model.guided_generation`` (``true``, ``surrogate`` or ``exact``) guides
 the beams by each target's formula, as the training CLI's predict does.
 It runs on the CUDA device unless the override ``+device=cpu`` asks for
-the CPU.
+the CPU. Under ``AFM_MULTIHOST=1`` (torchrun) each process decodes its rows
+of every batch and writes its artifacts with a ``_rank{r}`` suffix.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import sys
 from pathlib import Path
 from typing import Any, Dict, List
 
+from ..parallel import initialize_multihost, rank_suffix
 from ..training.checkpoint import load_params
 from ..training.trainer import Trainer
 from .common import (
@@ -52,6 +54,7 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
     work_dir = Path(config["working_dir"]) / config["job_name"]
     work_dir.mkdir(parents=True, exist_ok=True)
     setup_logging(work_dir / "predict.log")
+    device = initialize_multihost(device)
     seed = seed_everything()
 
     model_config: Dict[str, Any] = dict(config["model"])
@@ -86,8 +89,9 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
     metrics = score_predictions(predictions, molecules=config.get("molecules", True),
                                 rejection_sampling=bool(model_config.get("rejection_sampling")),
                                 predict_class=predict_class)
-    write_json(work_dir / f"test_data_logits_beam_{n_beams}.json", predictions)
-    metrics_path = work_dir / f"metrics_beam_{n_beams}.json"
+    suffix = rank_suffix()
+    write_json(work_dir / f"test_data_logits_beam_{n_beams}{suffix}.json", predictions)
+    metrics_path = work_dir / f"metrics_beam_{n_beams}{suffix}.json"
     write_json(metrics_path, metrics)
     logger.info("Metrics saved to: %s", metrics_path)
     return metrics

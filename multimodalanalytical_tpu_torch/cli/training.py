@@ -13,11 +13,22 @@ encoders); the override ``+device=cpu`` asks for the CPU, and without it a
 machine with no CUDA device raises before any data is loaded. Config
 composition and the datasets need pyyaml, pyarrow and ``tokenizers``.
 
-A ``mixture`` config trains on the host generator: the JAX package's
-``device_mixing=False`` route, its parity reference (device-side mixing is
-not ported yet). ``model.guided_generation`` guides the final predict by
-each target's formula: ``true`` (or ``surrogate``) in the decode step's
-graph, ``exact`` with one host call per step (``generation/guided.py``).
+Across processes, as the reference's DDP runs (``AFM_MULTIHOST=1``, one
+process per card, ``parallel/mesh.py``)::
+
+    AFM_MULTIHOST=1 torchrun --nproc_per_node N -m multimodalanalytical_tpu_torch.cli.training ...
+
+each process trains on its rows of every global batch of
+``model.batch_size`` (NCCL; gloo with ``+device=cpu``), rank 0 writes the
+checkpoints and the tensorboard log, and every rank writes its predictions
+and metrics with a ``_rank{r}`` suffix.
+
+A ``mixture`` config trains on the device-side premix
+(``data/device_mixture.py``) when the recipe is eligible and the run has
+one process; ``device_mixing=false`` keeps the host generator, the parity
+reference. ``model.guided_generation`` guides the final predict by each
+target's formula: ``true`` (or ``surrogate``) in the decode step's graph,
+``exact`` with one host call per step (``generation/guided.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import sys
 from pathlib import Path
 from typing import Any, Dict, List
 
+from ..parallel import initialize_multihost, is_main, rank_suffix
 from ..training.checkpoint import CheckpointManager, load_finetune_params, restore_params
 from ..training.trainer import Trainer, calculate_training_steps
 from .common import (
@@ -65,13 +77,11 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
     work_dir = Path(config["working_dir"]) / config["job_name"]
     work_dir.mkdir(parents=True, exist_ok=True)
     setup_logging(work_dir / "training.log")
+    device = initialize_multihost(device)
     seed = seed_everything()
 
     data_config = dict(config["data"])
     model_config: Dict[str, Any] = dict(config["model"])
-    if config.get("mixture"):
-        logger.info("Mixture synthesis runs on the host generator (device-side mixing is "
-                    "ROADMAP Queue 1 item 10)")
 
     data_config, dataset = build_dataset_multimodal(
         data_config, data_path=config["data_path"], cv_split=config.get("cv_split", 0),
@@ -89,6 +99,19 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
     loaders = build_loaders(dataset, collator, batch_size, seed)
     target_modality = collator.target_modality
     logger.info("Built loaders (target modality: %s)", target_modality)
+
+    # Device-side mixture synthesis (data/device_mixture.py): the pool on
+    # the device, only the sampling decisions from the host.
+    # ``device_mixing=false`` keeps the host generator (the parity route).
+    batch_transform = None
+    if config.get("mixture") and config.get("device_mixing", True):
+        from ..data.device_mixture import try_build_device_mixture
+
+        device_mix = try_build_device_mixture(dataset["train"], data_config, preprocessors,
+                                              collator, batch_size, seed=seed, device=device)
+        if device_mix is not None:
+            loaders["train"] = device_mix.loader
+            batch_transform = (device_mix.premix, device_mix.consts)
 
     tokenizer = preprocessors[target_modality]
     model, _ = build_model(model_config, data_config, target_modality, tokenizer, device, seed)
@@ -113,6 +136,7 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
         n_beams=model_config.get("n_beams", 10),
         monitor=monitor,
         checkpoint_every_n_vals=trainer_config.get("checkpoint_every_n_vals", 1) or 1,
+        batch_transform=batch_transform,
     )
 
     # Finetuning: params only, without the align network when align is off
@@ -126,12 +150,13 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
     checkpoints = CheckpointManager(work_dir / "checkpoints", monitor=monitor,
                                     mode=trainer.monitor_mode)
     metrics_writer = None
-    try:
-        import tensorboardX
+    if is_main():
+        try:
+            import tensorboardX
 
-        metrics_writer = tensorboardX.SummaryWriter(str(work_dir / "tb"))
-    except ImportError:
-        pass
+            metrics_writer = tensorboardX.SummaryWriter(str(work_dir / "tb"))
+        except ImportError:
+            pass
 
     # Resume (full optimizer state) when a checkpoint path is given without
     # finetuning (reference cli/training.py:165).
@@ -158,8 +183,10 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
                                   guided=build_guided(model_config, tokenizer))
     metrics = score_predictions(predictions, molecules=config.get("molecules", True),
                                 predict_class=predict_class)
-    write_json(work_dir / f"test_data_logits_beam_{n_beams}.json", predictions)
-    metrics_path = work_dir / f"metrics_beam_{n_beams}.json"
+    # Per-rank artifacts across processes (reference cli/training.py:230-251).
+    suffix = rank_suffix()
+    write_json(work_dir / f"test_data_logits_beam_{n_beams}{suffix}.json", predictions)
+    metrics_path = work_dir / f"metrics_beam_{n_beams}{suffix}.json"
     write_json(metrics_path, metrics)
     logger.info("Metrics saved to: %s", metrics_path)
     return metrics

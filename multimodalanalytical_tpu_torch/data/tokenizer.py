@@ -7,14 +7,19 @@ specials ``<pad> <unk> <bos> <eos>`` and bos/eos template post-processing.
 Differences (TPU-first): wraps the Rust ``tokenizers.Tokenizer`` directly and
 returns numpy arrays (no torch / transformers slow wrapper in the hot path),
 and serializes to JSON (no pickle) for the preprocessor artifact.
+``tokenizers`` is imported where a tokenizer is built or loaded, so that
+the collator and the preprocessors import on a machine without it (where
+a stand-in with this class's interface takes the tokenizer's place).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Sequence, Union
+from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
-from tokenizers import Regex, Tokenizer, models, pre_tokenizers, processors, trainers
+
+if TYPE_CHECKING:
+    from tokenizers import Tokenizer
 
 PAD, UNK, BOS, EOS = "<pad>", "<unk>", "<bos>", "<eos>"
 
@@ -126,6 +131,8 @@ class RegexTokenizer:
 
     @classmethod
     def from_json(cls, payload: Dict[str, object]) -> "RegexTokenizer":
+        from tokenizers import Tokenizer
+
         tok = Tokenizer.from_str(str(payload["tokenizer"]))
         return cls(tok, int(payload["model_max_length"]))  # type: ignore[arg-type]
 
@@ -138,6 +145,8 @@ def build_regex_tokenizer(
     max_length: int = 512,
 ) -> RegexTokenizer:
     """Train a WordLevel tokenizer from an iterator (reference tokenizer.py:5-46)."""
+    from tokenizers import Regex, Tokenizer, models, pre_tokenizers, processors, trainers
+
     tok = Tokenizer(models.WordLevel(unk_token=UNK))
     tok.pre_tokenizer = pre_tokenizers.Sequence([
         pre_tokenizers.Split(pattern=Regex(regex_string), behavior=tokenizer_behaviour)

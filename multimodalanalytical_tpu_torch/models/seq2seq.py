@@ -11,7 +11,7 @@ dropout at the JAX sites, drawn from ``g``. The default is deterministic.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,12 +24,16 @@ from .embedding import MultimodalEmbedding
 from .transformer import Decoder, Encoder
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over positions whose label is not -100."""
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over positions whose label is not -100: the sum over this
+    batch's positions divided by ``count``, by default their number (under
+    data parallelism, the number over every rank's rows)."""
     mask = labels != -100
     logp = torch.log_softmax(logits.float(), dim=-1)
     picked = logp.gather(-1, torch.where(mask, labels, 0).long()[..., None])[..., 0]
-    return -(picked * mask).sum() / mask.sum().clamp_min(1)
+    count = mask.sum() if count is None else count
+    return -(picked * mask).sum() / count.clamp_min(1)
 
 
 class Seq2SeqModel(nn.Module):
@@ -90,11 +94,16 @@ class Seq2SeqModel(nn.Module):
 
     def forward(self, encoder_inputs, encoder_mask, decoder_ids, decoder_mask, labels,
                 align_target: Optional[torch.Tensor] = None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                loss_counts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
         """Loss and logits. ``deterministic=False`` applies dropout, drawn
         from ``generator`` (required then, unless the dropout rate is 0).
         With an align head and an ``align_target`` (B, output_dimension),
-        ``loss`` is the CE plus ``loss_lambda`` times the alignment loss."""
+        ``loss`` is the CE plus ``loss_lambda`` times the alignment loss.
+        ``loss_counts`` = (target tokens, valid rows) of the global batch
+        under data parallelism: the losses are then this rank's share of
+        the global batch's, and the shares of all ranks sum to it."""
         if deterministic:
             generator = None
         elif generator is None and self.config.dropout > 0:
@@ -102,26 +111,31 @@ class Seq2SeqModel(nn.Module):
         encoder_hidden = self.encode(encoder_inputs, encoder_mask, generator)
         logits = self.decode_train(decoder_ids, decoder_mask, encoder_hidden, encoder_mask,
                                    generator)
-        ce = cross_entropy_loss(logits, labels)
+        tokens, valid_rows = (None, None) if loss_counts is None else loss_counts
+        ce = cross_entropy_loss(logits, labels, tokens)
         align_loss, total = torch.zeros((), device=ce.device), ce
         if self.align_network is not None and align_target is not None:
-            align_loss = self.alignment_loss(encoder_hidden, encoder_mask, align_target)
+            align_loss = self.alignment_loss(encoder_hidden, encoder_mask, align_target,
+                                             valid_rows)
             total = ce + self.config.align_config.loss_lambda * align_loss
         return {"loss": total, "model_only_loss": ce, "alignment_loss": align_loss,
                 "logits": logits}
 
     def alignment_loss(self, encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor,
-                       align_target: torch.Tensor) -> torch.Tensor:
+                       align_target: torch.Tensor,
+                       valid_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The head's loss on the encoder states mean-pooled over the mask.
         Fully masked rows (batch padding) are zeroed in prediction and
-        target, and the mse / mae mean is rescaled to the valid rows."""
+        target, and the mse / mae mean is rescaled to the valid rows: this
+        batch's, or ``valid_rows`` (a float count over every rank's rows)."""
         mask = encoder_mask[..., None].float()
         pooled = (encoder_hidden.float() * mask).sum(dim=1) / (mask.sum(dim=1) + 1e-9)
         pred = self.align_network(pooled)
         row_valid = (encoder_mask.sum(dim=1) > 0).float()[:, None]
         raw = ALIGN_LOSSES[self.config.align_config.loss_function](
             pred * row_valid, align_target.float() * row_valid)
-        return raw * (pred.shape[0] / row_valid.sum().clamp_min(1.0))
+        valid_rows = row_valid.sum() if valid_rows is None else valid_rows
+        return raw * (pred.shape[0] / valid_rows.clamp_min(1.0))
 
     def init_beam_cache(self, batch_size: int, num_beams: int, max_length: int,
                         encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor,

@@ -6,6 +6,11 @@ top entry) and ``index.json``. Each checkpoint directory holds one
 ``state.pt`` written by ``torch.save``: ``{"params": model state_dict,
 "opt_state": optimizer state, "step": n}`` with every tensor on the CPU.
 
+Under several processes only rank 0 writes (as the JAX manager saves
+from process 0 only); every rank keeps the index in step, and waits at a
+barrier after each save until the files are on disk, so that no rank reads
+``last`` or ``best`` before they are.
+
 Saves are synchronous. The JAX package's asynchronous saver, its latest-wins
 queue and its wait timeout answer a slow device-to-host relay; what stays is
 the trainer's policy that decides which states land on disk (cadence,
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import shutil
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from ..models.weights import flax_to_state_dict, without_unapplied_reference_params
+from ..parallel import multihost
 
 logger = logging.getLogger(__name__)
 
@@ -60,16 +67,28 @@ class CheckpointManager:
             self._index = json.loads(self._index_path.read_text())
 
     def _save_tree(self, name: str, tree: Any) -> Path:
+        """Write ``tree`` under ``.<name>.partial`` and move it into place in
+        one rename: the directory on a first save, the state file over the
+        previous one after that. A process killed mid-save leaves the
+        previous checkpoint (or none), never a torn or missing one."""
         path = self.directory / name
-        if path.exists():
-            shutil.rmtree(path)
-        path.mkdir(parents=True)
-        torch.save(to_cpu(tree), path / STATE_FILE)
+        staging = self.directory / f".{name}.partial"
+        staging.mkdir(parents=True, exist_ok=True)
+        torch.save(to_cpu(tree), staging / STATE_FILE)
+        if path.is_dir():
+            os.replace(staging / STATE_FILE, path / STATE_FILE)
+            staging.rmdir()
+        else:
+            staging.rename(path)
         return path
 
     def save(self, step: int, tree: Any, metrics: Dict[str, float]) -> None:
-        """Save ``last`` plus a top-K entry when the monitored metric warrants."""
-        self._save_tree("last", tree)
+        """Save ``last`` plus a top-K entry when the monitored metric
+        warrants. Every rank calls it; rank 0 writes (``tree`` is not read
+        on the others) and all of them leave it together."""
+        main = multihost.is_main()
+        if main:
+            self._save_tree("last", tree)
         self._index["last"] = {"step": step, "metrics": metrics}
 
         value = metrics.get(self.monitor)
@@ -81,20 +100,24 @@ class CheckpointManager:
                 key=lambda e: e["value"], reverse=(self.mode == "max"))
             keep, drop = better[: self.top_k], better[self.top_k:]
             if any(e["name"] == name for e in keep):
-                self._save_tree(name, tree)
-                for e in drop:
-                    stale = self.directory / e["name"]
-                    if stale.exists():
-                        shutil.rmtree(stale)
+                if main:
+                    self._save_tree(name, tree)
+                    for e in drop:
+                        stale = self.directory / e["name"]
+                        if stale.exists():
+                            shutil.rmtree(stale)
                 self._index["checkpoints"] = keep
                 best = keep[0]
                 if self._index.get("best") != best:
                     self._index["best"] = dict(best)
                     best_path = self.directory / "best"
-                    if best_path.exists():
-                        shutil.rmtree(best_path)
-                    shutil.copytree(self.directory / best["name"], best_path)
-        self._index_path.write_text(json.dumps(self._index, indent=1))
+                    if main:
+                        if best_path.exists():
+                            shutil.rmtree(best_path)
+                        shutil.copytree(self.directory / best["name"], best_path)
+        if main:
+            self._index_path.write_text(json.dumps(self._index, indent=1))
+        multihost.barrier()
 
     def restore(self, name: str) -> Dict[str, Any]:
         """The saved tree of checkpoint ``name`` (tensors on the CPU)."""

@@ -9,6 +9,23 @@ step folds the step count into its dropout key, the generators are seeded
 from (seed, step) at every step, so a resumed run draws what the
 uninterrupted one drew.
 
+Across processes (``torch.distributed``, ``parallel/``), each rank feeds
+its row-block of the global batch and every step computes what the JAX
+package's GSPMD step computes on the global batch: the token and valid-row
+counts are summed over the ranks first, each rank's loss is its local sum
+over those global counts, and one ``all_reduce`` of a flat buffer sums the
+gradients (and the reported losses) before the clip. The modality-dropout
+draw is the same on every rank; the element-dropout stream folds in the
+rank. ``validate`` and ``predict`` sum their per-batch counts and loss
+shares over the ranks, so every rank takes the same early-stop and
+checkpoint decisions; checkpoints are written by rank 0
+(``training/checkpoint.py``).
+
+``Trainer(batch_transform=(fn, consts))`` expands a device-mixture index
+batch (``data/device_mixture.py``) into the collated batch on the device
+at the top of ``train_step``; validation and predict loaders stay on the
+host path.
+
 Mixed precision comes from the model's own casts: ``Dense`` and ``Embed``
 cast weights and inputs to the compute dtype where flax does
 (``ops/layers.py``), so no ``torch.autocast`` is used; autocast would round
@@ -38,12 +55,17 @@ import numpy as np
 import torch
 
 from ..generation.beam_search import BeamDecoder
+from ..parallel import multihost
 from .checkpoint import to_cpu
 from .optim import build_optimizer, global_norm
 
 logger = logging.getLogger(__name__)
 
 BATCH_KEYS = ("encoder_inputs", "encoder_mask", "decoder_ids", "decoder_mask", "labels")
+# A device-mixture index batch's sampling decisions (``data/device_mixture.py``).
+MIX_KEYS = ("mix_idx", "comp_slot", "mix_weights", "mix_normalize", "row_valid")
+# Added to the element-dropout seed per rank (an odd 63-bit constant).
+RANK_SEED_STRIDE = 0x1E3779B97F4A7C15
 # Collated fields that predict does not return as extra columns.
 MODEL_FIELDS = BATCH_KEYS + ("target_strings", "align_target", "vector_target", "n_valid")
 
@@ -88,11 +110,12 @@ def to_device(tree: Any, device: torch.device) -> Any:
 
 def device_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     """The model inputs of a collated batch as tensors on ``device``: the
-    modalities' arrays or dict payloads (XVal values, peak indices), and
-    the ``align_target`` where the batch has one. Host-only fields such as
-    ``n_valid`` and ``target_strings`` are dropped."""
-    return {key: to_device(batch[key], device) for key in BATCH_KEYS + ("align_target",)
-            if key in batch}
+    modalities' arrays or dict payloads (XVal values, peak indices), the
+    ``align_target`` where the batch has one, and a device-mixture index
+    batch's sampling decisions. Host-only fields such as ``n_valid`` and
+    ``target_strings`` are dropped."""
+    return {key: to_device(batch[key], device)
+            for key in BATCH_KEYS + ("align_target",) + MIX_KEYS if key in batch}
 
 
 def calculate_training_steps(train_len: int, batch_size: int, acc_batches: int,
@@ -151,11 +174,14 @@ class Trainer:
                  adam_beta2: float = 0.999, num_steps: int = 1000, acc_batches: int = 1,
                  clip_grad: float = 1.0, modality_dropout: Optional[Sequence[str]] = None,
                  seed: int = 0, n_beams: int = 10, monitor: str = "val_molecular_accuracy",
-                 checkpoint_every_n_vals: int = 1):
+                 checkpoint_every_n_vals: int = 1, batch_transform=None):
         """As the JAX ``Trainer``'s arguments. ``target_tokenizer`` (anything
         with ``batch_decode(ids, skip_special_tokens=True)``) is needed by
         ``validate`` and ``predict`` only. ``seed`` seeds the dropout stream
-        (on the model's device) and the modality dropout draws (on the host)."""
+        (on the model's device) and the modality dropout draws (on the host).
+        ``batch_transform``: ``(fn, consts)``; ``train_step`` turns a batch
+        with ``mix_idx`` into ``fn(consts, batch)`` on the device (the
+        device-mixture premix and its staged pool)."""
         self.model = model
         self.tokenizer = target_tokenizer
         self.params = list(model.parameters())
@@ -187,6 +213,7 @@ class Trainer:
         self._saved_state_step = -1
         # (step, state copy, metrics) of a rate-suppressed improvement.
         self._pending_best = None
+        self._transform_fn, self._transform_consts = batch_transform or (None, None)
 
     # ------------------------------------------------------------- state
     def state_tree(self) -> Dict[str, Any]:
@@ -203,36 +230,74 @@ class Trainer:
     # ------------------------------------------------------------- steps
     def _seed_step(self) -> None:
         step_seed = (self.seed * 1_000_003 + self.global_step) % 2 ** 63
-        self.dropout_generator.manual_seed(step_seed)
+        self.dropout_generator.manual_seed(
+            (step_seed + multihost.process_index() * RANK_SEED_STRIDE) % 2 ** 63)
         self.modality_generator.manual_seed(step_seed)
 
+    @staticmethod
+    def loss_counts(labels: torch.Tensor, encoder_mask: torch.Tensor
+                    ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """(target tokens, valid rows) summed over every rank's rows of the
+        global batch, for ``Seq2SeqModel.forward(loss_counts=...)``; None
+        when no process group is up (the model then counts its own rows)."""
+        if not multihost.initialized():
+            return None
+        counts = torch.stack([(labels != -100).sum(), (encoder_mask.sum(dim=1) > 0).sum()])
+        multihost.all_reduce_(counts)
+        return counts[0], counts[1].float()
+
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One step on a collated batch; returns 0-d tensors (no host sync):
-        loss, model_only_loss, alignment_loss and grad_norm (the global norm
-        of this batch's gradients, before clipping)."""
+        """One step on a collated batch (or a device-mixture index batch);
+        returns 0-d tensors (no host sync): loss, model_only_loss,
+        alignment_loss and grad_norm (the global norm of this batch's
+        gradients, before clipping), each of the global batch under data
+        parallelism."""
         self._seed_step()
         batch = device_batch(batch, self.device)
+        if "mix_idx" in batch:
+            batch = self._transform_fn(self._transform_consts, batch)
         segments = modality_segments(batch["encoder_inputs"], self.model.embedding.modalities)
         droppable = [(start, end) for m, start, end in segments if m in self.modality_dropout]
         encoder_mask = apply_modality_dropout(batch["encoder_mask"], droppable,
                                               self.modality_generator)
+        counts = self.loss_counts(batch["labels"], encoder_mask)
         out = self.model(batch["encoder_inputs"], encoder_mask, batch["decoder_ids"],
                          batch["decoder_mask"], batch["labels"], batch.get("align_target"),
-                         deterministic=False, generator=self.dropout_generator)
+                         deterministic=False, generator=self.dropout_generator,
+                         loss_counts=counts)
         grads = torch.autograd.grad(out["loss"], self.params, allow_unused=True,
                                     materialize_grads=True)
+        losses = [out[key].detach() for key in ("loss", "model_only_loss", "alignment_loss")]
+        if counts is not None:
+            grads, losses = self._sum_over_ranks(grads, losses)
         grad_norm = global_norm(grads)
         self.optimizer.step(grads)
         self.global_step += 1
-        return {"loss": out["loss"].detach(), "model_only_loss": out["model_only_loss"].detach(),
-                "alignment_loss": out["alignment_loss"].detach(), "grad_norm": grad_norm}
+        return {"loss": losses[0], "model_only_loss": losses[1], "alignment_loss": losses[2],
+                "grad_norm": grad_norm}
+
+    @staticmethod
+    def _sum_over_ranks(grads: Sequence[torch.Tensor], scalars: Sequence[torch.Tensor]
+                        ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """The gradients and 0-d ``scalars`` summed over the ranks by one
+        ``all_reduce`` of a single flat fp32 buffer."""
+        flat = torch.cat([g.float().reshape(-1) for g in grads]
+                         + [x.float().reshape(1) for x in scalars])
+        multihost.all_reduce_(flat)
+        parts = flat.split([g.numel() for g in grads] + [1] * len(scalars))
+        return ([p.view_as(g) for p, g in zip(parts, grads)],
+                [p[0] for p in parts[len(grads):]])
 
     @torch.no_grad()
-    def eval_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def eval_step(self, batch: Dict[str, Any],
+                  loss_counts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
         """Teacher-forced forward in deterministic mode on a device batch:
-        the losses and the argmax ids (B, Lt)."""
+        the losses (this rank's shares of the global batch's, given its
+        ``loss_counts``) and the argmax ids (B, Lt)."""
         out = self.model(batch["encoder_inputs"], batch["encoder_mask"], batch["decoder_ids"],
-                         batch["decoder_mask"], batch["labels"], batch.get("align_target"))
+                         batch["decoder_mask"], batch["labels"], batch.get("align_target"),
+                         loss_counts=loss_counts)
         return {"loss": out["loss"], "model_only_loss": out["model_only_loss"],
                 "alignment_loss": out["alignment_loss"],
                 "predicted_ids": out["logits"].argmax(dim=-1)}
@@ -320,7 +385,8 @@ class Trainer:
                 if profiler is not None:
                     profiler.after_step(self.global_step - 1)
                 losses.append(metrics["loss"])
-                n_samples += batch.get("n_valid", len(batch["encoder_mask"]))
+                n_samples += (batch["n_valid"] if "n_valid" in batch
+                              else len(batch["encoder_mask"]))
                 if (self.global_step - 1) % log_every == 0:
                     self._log_train(metrics_writer, epoch, self.global_step - 1, metrics)
 
@@ -428,8 +494,9 @@ class Trainer:
                     checkpoints.save(self.global_step, self.state_tree(), val_metrics)
                     self._saved_state_step = self.global_step
             elif improved:
-                self._pending_best = (self.global_step, to_cpu(self.state_tree()),
-                                      dict(val_metrics))
+                # Only rank 0 writes, so only it keeps the state's copy.
+                tree = to_cpu(self.state_tree()) if multihost.is_main() else None
+                self._pending_best = (self.global_step, tree, dict(val_metrics))
         if early_stopping_patience is not None:
             if improved:
                 patience_left = early_stopping_patience
@@ -449,12 +516,15 @@ class Trainer:
         ``evaluation/metrics.py:calc_sampling_metrics``. The loss includes
         the weighted alignment loss where the batches carry an
         ``align_target``; a model with an align head also reports
-        ``val_alignment_loss``, weighted as ``val_loss``."""
+        ``val_alignment_loss``, weighted as ``val_loss``. Under data
+        parallelism each rank scores its own rows and the per-batch counts
+        and loss shares are summed over the ranks, so that every rank
+        returns the same metrics (as the JAX ``validate``)."""
         from ..evaluation.metrics import calc_sampling_metrics
 
-        losses: List[float] = []
-        align_losses: List[float] = []
-        stats: List[List[float]] = []     # per batch: n_valid, tok_correct, tok_total, mol_correct
+        # Per batch: n_valid, tok_correct, tok_total, mol_correct, and this
+        # rank's shares of the batch's loss and alignment loss.
+        stats: List[List[float]] = []
         max_batches = len(val_loader)
         if limit_val_batches < 1.0:
             max_batches = max(1, int(max_batches * limit_val_batches))
@@ -463,11 +533,9 @@ class Trainer:
             if i >= max_batches:
                 break
             dev = device_batch(batch, self.device)
-            out = self.eval_step(dev)
+            out = self.eval_step(dev, self.loss_counts(dev["labels"], dev["encoder_mask"]))
             seqs = self._decode(decoder, dev, num_beams=1)
             n_valid = batch["n_valid"]
-            losses.append(float(out["loss"]))
-            align_losses.append(float(out["alignment_loss"]))
             labels = np.asarray(batch["labels"])[:n_valid]
             predicted = out["predicted_ids"].cpu().numpy()[:n_valid]
             mask = labels != -100
@@ -475,22 +543,23 @@ class Trainer:
             scores = calc_sampling_metrics([[d] for d in decoded],
                                            batch["target_strings"][:n_valid], molecules=False)
             stats.append([n_valid, int(((labels == predicted) & mask).sum()), int(mask.sum()),
-                          int(round(scores.get("Top-1", 0.0) * n_valid))])
+                          int(round(scores.get("Top-1", 0.0) * n_valid)), float(out["loss"]),
+                          float(out["alignment_loss"])])
         if not stats:
             return {"val_loss": 0.0, "val_token_acc": 0.0, "val_molecular_accuracy": 0.0}
-        totals = np.asarray(stats, dtype=np.float64)
+        totals = multihost.sum_across_processes(stats)
         n_rows = totals[:, 0].sum()
 
         def weighted(values):
             return float(np.average(values, weights=totals[:, 0])) if n_rows else 0.0
 
         metrics = {
-            "val_loss": weighted(losses),
+            "val_loss": weighted(totals[:, 4]),
             "val_token_acc": float(totals[:, 1].sum() / max(totals[:, 2].sum(), 1.0)),
             "val_molecular_accuracy": float(totals[:, 3].sum() / max(n_rows, 1.0)),
         }
         if self.model.align_network is not None:
-            metrics["val_alignment_loss"] = weighted(align_losses)
+            metrics["val_alignment_loss"] = weighted(totals[:, 5])
         return metrics
 
     # ----------------------------------------------------------- predict
@@ -509,7 +578,8 @@ class Trainer:
         decoder = self.beam_decoder()
         for batch in loader:
             dev = device_batch(batch, self.device)
-            losses.append(float(self.eval_step(dev)["loss"]))
+            counts = self.loss_counts(dev["labels"], dev["encoder_mask"])
+            losses.append(float(self.eval_step(dev, counts)["loss"]))
             n_valid = batch["n_valid"]
             hook_kwargs = None if guided is None else {
                 "logits_hook": guided.hook,
@@ -523,5 +593,7 @@ class Trainer:
             for col, values in batch.items():
                 if col not in MODEL_FIELDS:
                     extras.setdefault(col, []).extend(list(values)[:n_valid])
-        return {"avg_loss": float(np.mean(losses)) if losses else 0.0,
+        # The ranks' shares of each batch's loss sum to the global batch's.
+        losses = multihost.sum_across_processes(losses)
+        return {"avg_loss": float(np.mean(losses)) if len(losses) else 0.0,
                 "predictions": predictions, "targets": targets, **extras}

@@ -6,6 +6,8 @@ The policy tests mirror ``tests/test_trainer.py`` (cadence, pinned best,
 ``max_steps``) on the port's synchronous ``CheckpointManager``.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,7 @@ from multimodalanalytical_tpu_torch.models.config import ModelConfig  # noqa: E4
 from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel  # noqa: E402
 from multimodalanalytical_tpu_torch.training import DataLoader, Trainer  # noqa: E402
 from multimodalanalytical_tpu_torch.training.checkpoint import (  # noqa: E402
+    STATE_FILE,
     CheckpointManager,
     _migrate_fused_projections,
     load_finetune_params,
@@ -266,3 +269,32 @@ def test_jax_params_npz_round_trip_and_fused_projection_migration(tmp_path):
     assert set(got) == set(want)
     for name, value in want.items():
         np.testing.assert_array_equal(got[name].numpy(), value)
+
+
+@pytest.mark.parametrize("first_save", [True, False])
+def test_a_save_cut_short_leaves_the_previous_last(tmp_path, monkeypatch, first_save):
+    """A save that dies while writing (the file half written, then an
+    error) leaves ``last`` as it was: absent before the first save, else
+    the previous state file whole. The next save completes it."""
+    manager = CheckpointManager(tmp_path / "ckpt")
+    if not first_save:
+        manager.save(1, {"w": torch.ones(3)}, {})
+    save = torch.save
+
+    def cut_short(obj, path):
+        Path(path).write_bytes(b"torn")
+        raise OSError("killed mid-save")
+
+    monkeypatch.setattr(torch, "save", cut_short)
+    with pytest.raises(OSError):
+        manager.save(2, {"w": torch.full((3,), 2.0)}, {})
+    monkeypatch.setattr(torch, "save", save)
+    last = tmp_path / "ckpt" / "last"
+    if first_save:
+        assert not last.exists()
+    else:
+        assert torch.equal(manager.restore("last")["w"], torch.ones(3))
+    manager.save(3, {"w": torch.full((3,), 3.0)}, {})
+    assert torch.equal(manager.restore("last")["w"], torch.full((3,), 3.0))
+    assert sorted(p.name for p in last.iterdir()) == [STATE_FILE]
+    assert not (tmp_path / "ckpt" / ".last.partial").exists()

@@ -909,3 +909,108 @@ def test_post_ln_bart_decode_steps_on_card_match_cpu(gen, kv_cache_dtype, batch,
         logits.append(torch.stack(out))
     err = (logits[1] - logits[0]).abs().max().item()
     assert err <= 5e-2 * max(1.0, logits[0].abs().max().item()), err
+
+
+def _premix_inputs(rows=40, batch=16, compounds=3, vocab=30, spec_len=1791):
+    """A seeded pool and index batch for ``data/device_mixture.py``'s premix
+    (no tokenizer: the pool's token rows are seeded ids), the last 3 rows
+    padding; half the rows normalized."""
+    import numpy as np
+
+    from multimodalanalytical_tpu_torch.data import device_mixture as dm
+
+    rng = np.random.default_rng(0)
+    pool_ir = np.zeros((rows, dm.SPECTRUM_PAD_LENGTH), np.float32)
+    pool_ir[:, :spec_len] = rng.random((rows, spec_len)) - 0.1
+    lengths = rng.integers(3, 12, (2, rows))
+    arrays = {"pool_ir": pool_ir}
+    for name, width, length in (("formula", 12, lengths[0]), ("smiles", 16, lengths[1])):
+        mask = (np.arange(width)[None] < length[:, None]).astype(np.int32)
+        arrays[f"{name}_ids"] = (rng.integers(4, vocab, (rows, width)) * mask).astype(np.int32)
+        arrays[f"{name}_mask"] = mask
+    static = {"text_mod": "Formula", "patch_mod": "IR", "align": True, "spec_len": spec_len,
+              "patch_size": 75, "mean": 0.4, "std": 0.3, "modality_order": ["Formula", "IR"]}
+    loader = dm.DeviceMixtureLoader(rows, {"a": {"n_compounds": compounds}}, "train", 0, batch, 1)
+    samples = [(rng.choice(rows, compounds, replace=False), int(rng.integers(compounds)),
+                tuple(float(w) for w in rng.dirichlet(np.ones(compounds))), bool(i % 2))
+               for i in range(batch - 3)]
+    return dm.build_premix(static), arrays, loader._make_batch(samples, len(samples))
+
+
+def test_premix_on_the_card_equals_the_cpu(gen):
+    """The device-mixture premix of one index batch on the card and on the
+    CPU: ids, masks and labels bit-equal, patches and the align target
+    within 1e-6 of their largest magnitude."""
+    from multimodalanalytical_tpu_torch.training.trainer import device_batch
+
+    premix, arrays, index_batch = _premix_inputs()
+    outs = [premix({k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
+                   device_batch(index_batch, torch.device(device)))
+            for device in ("cpu", "cuda")]
+    cpu, card = outs
+    for key in ("encoder_mask", "decoder_ids", "decoder_mask", "labels"):
+        assert torch.equal(card[key].cpu(), cpu[key]), key
+    assert torch.equal(card["encoder_inputs"]["Formula"].cpu(), cpu["encoder_inputs"]["Formula"])
+    for got, want in ((card["encoder_inputs"]["IR"], cpu["encoder_inputs"]["IR"]),
+                      (card["align_target"], cpu["align_target"])):
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-6 * want.abs().max().item(), err
+
+
+def test_world_one_nccl_step_is_bit_equal_to_no_group(gen, monkeypatch):
+    """Two train steps (fp32, dropout 0) in a world-1 NCCL process group,
+    joined through ``initialize_multihost`` from torchrun's environment as
+    the CLIs join it, which sums the gradients over one rank by an
+    ``all_reduce``, against the same steps with no group: losses, gradient
+    norms and parameters bit-equal."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from multimodalanalytical_tpu_torch.models.config import ModelConfig
+    from multimodalanalytical_tpu_torch.parallel import initialize_multihost
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    data_config = {
+        "Formula": {"type": "text", "vocab_size": 32, "target": False},
+        "IR": {"type": "1D_patches", "target": False,
+               "preprocessor_arguments": {"patch_size": 125}},
+        "Smiles": {"type": "text", "vocab_size": 64, "target": True},
+    }
+    cfg = ModelConfig(d_model=64, encoder_layers=1, decoder_layers=1,
+                      encoder_attention_heads=2, decoder_attention_heads=2,
+                      encoder_ffn_dim=128, decoder_ffn_dim=128, vocab_size=64,
+                      dtype="float32", dropout=0.0)
+    inputs, mask = _request(4, 1)
+    dec = np.random.default_rng(1).integers(4, 64, (4, 10))
+    labels = dec.copy()
+    labels[1, 6:] = -100
+    batch = {"encoder_inputs": {k: v.cpu().numpy() for k, v in inputs.items()},
+             "encoder_mask": mask.cpu().numpy(), "decoder_ids": dec,
+             "decoder_mask": (labels != -100).astype(np.int32), "labels": labels}
+
+    def run():
+        model = Seq2SeqModel(cfg, data_config, "Smiles", device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+        trainer = Trainer(model, optimiser="adamw", lr=1e-3, num_steps=10)
+        steps = [trainer.train_step(batch) for _ in range(2)]
+        return ([{k: v.item() for k, v in s.items()} for s in steps],
+                [p.detach().clone() for p in model.parameters()])
+
+    alone = run()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(AFM_MULTIHOST="1", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(key, value)
+    assert initialize_multihost(torch.device("cuda")) == torch.device("cuda", 0)
+    assert dist.get_backend() == "nccl"
+    try:
+        grouped = run()
+    finally:
+        dist.destroy_process_group()
+    assert grouped[0] == alone[0]
+    assert all(torch.equal(a, b) for a, b in zip(grouped[1], alone[1]))

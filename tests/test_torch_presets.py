@@ -180,6 +180,22 @@ def test_chip_smoke_config_literals_equal_the_yaml_files():
         assert literal == composed["model"] == shipped(name), name
 
 
+def test_chip_smoke_mixture_literals_equal_the_yaml_files():
+    """Phase 10's model, data and mixture configs as chip_smoke.py carries
+    them equal what the port's loader composes from the files."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from multimodalanalytical_tpu_torch.config import compose_config
+
+    for mixture, literal in chip_smoke.MIXTURE_CONFIGS.items():
+        composed = compose_config(REPO / "configs", "config_train", [
+            "working_dir=/tmp/x", "model=custom_model_align",
+            "data=ir/patches_mixture_text_align", f"mixture={mixture}"])
+        assert composed["mixture"] == literal, mixture
+        assert composed["model"] == chip_smoke.ALIGN_MODEL_CONFIG
+        assert composed["data"] == chip_smoke.MIX_DATA_CONFIG
+
+
 # ------------------------------------------------------------ layers
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["fp32", "bf16"])
 def test_rmsnorm_matches_flax(dtype):

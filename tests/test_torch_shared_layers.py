@@ -326,3 +326,60 @@ def test_chem_library_is_built_in_the_ports_own_directory():
     so_path = smiles._build_library()
     assert so_path.parent == PORT / "csrc" / "build" and so_path.is_file()
     assert smiles._build_library() == so_path
+
+
+MIXTURE_FILES = sorted((CONFIGS / "mixture" / "ir").glob("*.yaml"))
+DATA_FILES = sorted((CONFIGS / "data").rglob("*.yaml"))
+
+
+def _yaml(path: Path):
+    yaml = pytest.importorskip("yaml")
+    return yaml.safe_load(path.read_text())
+
+
+@pytest.mark.parametrize("path", MIXTURE_FILES, ids=lambda p: p.stem)
+def test_device_mixture_index_streams_match_the_original(path):
+    """``data/device_mixture.py``'s index streams on each shipped mixture
+    config (the sample counts cut to 96 per split, 16 drawn at a time) over
+    a 30-row pool: the same decisions per mode and interleaved, and the
+    same refusal of a ``mixed`` mode."""
+    from multimodalanalytical_tpu.data import device_mixture as jax_dm
+    from multimodalanalytical_tpu_torch.data import device_mixture as dm
+
+    mixture = {mode: dict(cfg, train_max_n_samples=96, parallel_samples=16)
+               for mode, cfg in _yaml(path).items()}
+    if any(cfg.get("mixed") for cfg in mixture.values()):
+        for module in (dm, jax_dm):
+            with pytest.raises(ValueError):
+                list(module.multi_config_index_stream(mixture, 30, "train", seed=5))
+        return
+    got = list(dm.multi_config_index_stream(mixture, 30, "train", seed=5))
+    want = list(jax_dm.multi_config_index_stream(mixture, 30, "train", seed=5))
+    assert len(got) == len(want) > 0
+    for (idx, *rest), (j_idx, *j_rest) in zip(got, want):
+        np.testing.assert_array_equal(idx, j_idx)
+        assert rest == j_rest
+
+
+@pytest.mark.parametrize("path", DATA_FILES, ids=lambda p: f"{p.parent.name}/{p.stem}")
+def test_device_mixture_eligibility_matches_the_original(path):
+    """``device_mixture_eligible`` on each shipped data config (its patch
+    preprocessors built from the config's arguments) under every shipped
+    mixture config: the JAX predicate's answer each time."""
+    from multimodalanalytical_tpu.data import device_mixture as jax_dm
+    from multimodalanalytical_tpu_torch.data import device_mixture as dm
+    from multimodalanalytical_tpu_torch.data.preprocessing import PatchPreprocessor
+
+    data_config = _yaml(path)
+    preps = {m: PatchPreprocessor(**(c.get("preprocessor_arguments") or {}))
+             for m, c in data_config.items() if c["type"] == "1D_patches"}
+    answers = []
+    for mixture_path in MIXTURE_FILES:
+        mixture = _yaml(mixture_path)
+        got = dm.device_mixture_eligible(data_config, mixture, preps)
+        assert got == jax_dm.device_mixture_eligible(data_config, mixture, preps), mixture_path
+        answers.append(got)
+    names = [p.stem for p in MIXTURE_FILES]
+    assert not answers[names.index("binary_real_data_mixed")]
+    if path.stem == "patches_mixture_text_align":   # the mixture paper's Table 1 recipe
+        assert answers[names.index("binary")] and answers[names.index("multitask")]
