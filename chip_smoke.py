@@ -5,7 +5,9 @@
     python3 chip_smoke.py --profile-eval   # phase 5's decodes and a serving request, profiled
     python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
     python3 chip_smoke.py --time-ffn       # the decode FFN's times alone (one JSON line)
+    python3 chip_smoke.py --tensor-parallel  # phase 11 alone
     python3 chip_smoke.py --dp-rank SPEC   # one rank of phase 10's two-rank fit (the script starts it)
+    python3 chip_smoke.py --tp-rank SPEC   # one rank of phase 11's tensor-parallel pair (likewise)
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a), ``nvcc``
 and ``g++``; it imports torch, numpy, the standard library and
@@ -26,7 +28,9 @@ line each, any failure raises and exits non-zero:
    FFN at M 128, 1280 and 3840, gated and ungated (held to FFN_REL_TOL and
    FFN_RMS_TOL, two calls bit-equal, a planted fault that skips one 64-deep
    stage of F rejected, eager and device times in turns with the cuBLAS
-   route); the read-only select attention at B 128,
+   route), and its partial mode (a tensor-parallel rank's fp32 down product
+   without b2) at M 1280, D 512, F 1024 beside the full mode on the same
+   shard, with its own planted fault; the read-only select attention at B 128,
    L 128, pos 127, K 10 and 30, int8 and bf16 caches. Decode attention is
    held to ATTN_TOL in max error and ATTN_RMS_TOL in error norm, the
    update's appended int8 rows and scales bit for bit to
@@ -41,18 +45,21 @@ line each, any failure raises and exits non-zero:
    (8, 4090, 512), bit for bit, forward and backward (also against
    ``ops/dropout.py``'s time); the flash attention forward and backward at
    the long RLE encoder's (B 8, H 8, L 4090 padded to 4096, head_dim 64,
-   bf16, ragged key masks) and at head_dim 128 (B 8, H 4), two backward
-   calls bit-equal, the check shown to reject the kernels with one key
-   stage left out, timed in turns with
+   bf16, ragged key masks) and at head_dim 128 (B 8, H 4), 192 (B 8, H 4)
+   and 256 (B 8, H 2), two backward calls bit-equal, the check shown to
+   reject the kernels with one key stage left out, timed in turns with
    ``scaled_dot_product_attention`` (the yardstick; the port never calls
    it), whose backend's kernels are printed;
 2. serving: the flagship CustomModel (6 + 6 layers, bf16, int8 KV cache,
    seeded random weights) decodes 8 teacher-forced steps through the
    kernels and through ``use_beam_kernel=False`` at K 1, 10 and 30 (logits
-   within LOGIT_TOL), then answers three seeded 128-spectrum requests
-   (Formula 12 tokens + IR 14 x 125) through ``InferenceEngine.decode_batch``
-   at beam 10 and max length 128, each decode stage a replayed CUDA graph
-   (captured by an earlier request, whose capture time is printed apart).
+   within LOGIT_TOL); its ``InferenceEngine``, built with a collator as the
+   serve CLI builds it, decodes a warm batch in its constructor, so the
+   first request must capture nothing (``capture_s`` and ``warmup_steps``
+   0; its wall time printed beside the steady one); then it answers three
+   seeded 128-spectrum requests (Formula 12 tokens + IR 14 x 125) through
+   ``InferenceEngine.decode_batch`` at beam 10 and max length 128, each
+   decode stage a replayed CUDA graph.
    Every decode kernel's launch count must equal 6 x the graph replays
    (each replay adds what its capture recorded). The same requests then run
    through the eager loop (``cuda_graph=False``: the same step, launched
@@ -146,6 +153,19 @@ line each, any failure raises and exits non-zero:
    batch, held to the one-process fit as DP_RTOL says, with their s/step and
    the gradient all-reduce's ms per step.
 
+11. tensor parallelism (``run_tensor_parallel``): the flagship at full
+   width on the (1, 2) layout, two ranks of this script (``--tp-rank``)
+   sharing the card over gloo, against one process on the same weights:
+   one fp32 AdamW step of the IR recipe at B 128 (loss within TP_LOSS_TOL,
+   gathered parameters within TP_PARAM_RTOL / TP_PARAM_ATOL), then bf16
+   with the int8 cache at K 10: teacher-forced logits within LOGIT_TOL and
+   phase 2's three requests decoded with eager steps (gloo collectives are
+   not captured), every row's top beam rescored by the one-process model
+   within TP_SCORE_TOL of its score; #1, #2 and #3 (partial mode) launched
+   6 x the steps
+   on each rank; s/step, s/request, the model all-reduces' ms and the peak
+   memory per rank.
+
 Phase 1 also holds #2 at the multimodal encoder's Ls 279 (two passes over
 chunks of 256 and 23 keys, rows with a fully masked chunk) against its
 plain version, rejects either chunk left out, and times it at K 1, 10 and
@@ -199,6 +219,7 @@ DEVICE_MS_IS = "device time: 20 calls in one CUDA graph, replayed 5 times betwee
 FFN_REL_TOL = 0.02
 FFN_RMS_TOL = 1e-2
 FFN_FAULT_STAGE = 17
+FFN_PARTIAL_FAULT_STAGE = 7        # of the 16 stages of a rank's F 1024 (phase 1, partial mode)
 # Teacher-forced decode logits, kernel path vs the use_beam_kernel=False
 # path on the same weights: the two differ only in bf16 rounding order
 # inside attention, carried through 6 layers.
@@ -215,7 +236,7 @@ FLASH_RMS_TOL = 1e-2
 LSE_REL_TOL = 1e-5
 # Keys per stage of the bf16 forward kernel, by head_dim (Layout<HD>::kKeys
 # in csrc/flash_attention.cu).
-FLASH_KEY_STAGE = {64: 128, 128: 64}
+FLASH_KEY_STAGE = {64: 128, 128: 64, 192: 64, 256: 64}
 # The long-sequence training slice (phase 3).
 TRAIN_BATCH, TRAIN_STEPS, TARGET_LEN = 8, 10, 128
 TRAIN_LR = 1e-4      # configs/model/custom_model.yaml: adamw, lr 1e-4, weight decay 0
@@ -922,6 +943,81 @@ def check_ffn() -> dict:
             "other_times_ms": {k: list(v) for k, v in timing.items()}}
 
 
+def check_ffn_partial() -> dict:
+    """#3's partial mode, as a rank of phase 11's (1, 2) layout runs it: the
+    first F / 2 = 1024 columns of the flagship FFN at M = B K = 1280, D 512,
+    ungated. The fp32 down product without b2 against the plain version's
+    partial mode (FFN_REL_TOL of max|plain|, FFN_RMS_TOL in norm), two calls
+    bit-equal, a planted fault (stage FFN_PARTIAL_FAULT_STAGE of the shard's
+    F left out of the down product) rejected; eager and device times in
+    turns with the cuBLAS route (F.linear, fp32 F.gelu, F.linear without
+    b2, bf16 out), and the full mode on the same shard beside it. Returns
+    the record's ``partial_mode`` entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodalanalytical_tpu_torch.ops import decode_ffn
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    (w1, b1, _, _, w2, b2), rows = _ffn_inputs(g)
+    m, f = BATCH * BEAMS, FFN // 2
+    x = rows[m]
+    w1, b1, w2 = w1[:f].contiguous(), b1[:f].contiguous(), w2[:, :f].contiguous()
+    args = (x, w1, b1, None, None, w2, None)
+    got = decode_ffn.geglu_ffn(*args, partial=True)
+    again = decode_ffn.geglu_ffn(*args, partial=True)
+    want = decode_ffn.geglu_ffn_plain(*args, partial=True)
+    w2_fault = w2.clone()
+    stage = FFN_PARTIAL_FAULT_STAGE
+    w2_fault[:, 64 * stage:64 * (stage + 1)] = 0
+    fault = decode_ffn.geglu_ffn_plain(*args[:5], w2_fault, None, partial=True)
+    torch.cuda.synchronize()
+    rel, rms, ok = _ffn_err(got, want)
+    fault_rel, fault_rms, fault_ok = _ffn_err(fault, want)
+    same = torch.equal(got, again)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = f"ungated M={m} D={D_MODEL} F={f} (a rank's half of F {FFN})"
+    print(f"kernel geglu_ffn partial mode {shape}, {decode_ffn.ffn_plan(m, D_MODEL, f, sms)}: "
+          f"out {got.dtype} {tuple(got.shape)}, max_rel_err={rel:.3e} tol={FFN_REL_TOL} "
+          f"rel_rms_err={rms:.3e} tol={FFN_RMS_TOL:.0e}; two calls bit-equal {same}; planted "
+          f"fault (stage {stage} of F left out of the down product): max_rel_err="
+          f"{fault_rel:.3e} rel_rms_err={fault_rms:.3e}, rejected {not fault_ok}", flush=True)
+    _require(got.dtype == torch.float32 and ok, "geglu_ffn's partial mode disagrees with its "
+                                                "plain version")
+    _require(same, "two partial-mode geglu_ffn calls differ")
+    _require(not fault_ok, "the partial-mode check passes a down product that skips a stage")
+
+    def library():
+        return F.linear(F.gelu(F.linear(x, w1, b1).float()).to(x.dtype), w2)
+
+    full_args = (x, w1, b1, None, None, w2, b2)
+    turns = {"ms": [], "library_ms": [], "device_ms": [], "library_device_ms": [],
+             "full_ms": [], "full_device_ms": []}
+    for _ in range(2):
+        for prefix, fn in (("", lambda: decode_ffn.geglu_ffn(*args, partial=True)),
+                           ("library_", library),
+                           ("full_", lambda: decode_ffn.geglu_ffn(*full_args))):
+            turns[f"{prefix}ms"].append(_time_ms(fn, iters=50))
+            turns[f"{prefix}device_ms"].append(_device_ms(fn, iters=50))
+    t = {key: sum(val) / len(val) for key, val in turns.items()}
+    t["plain_ms"] = _time_ms(lambda: decode_ffn.geglu_ffn_plain(*args, partial=True))
+    # each input read once (x, W1, b1, W2 in bf16), the fp32 output written once
+    bound, by = _bound_ms(2 * m * 2 * f * D_MODEL,
+                          (2 * f * D_MODEL + f + m * D_MODEL) * 2 + m * D_MODEL * 4)
+    print(f"time geglu_ffn partial mode {shape}: in turns, eagerly: kernel {t['ms']:.4f} ms "
+          f"{[round(v, 4) for v in turns['ms']]}, cuBLAS {t['library_ms']:.4f} ms, full mode "
+          f"on the shard {t['full_ms']:.4f} ms; device, CUDA graphs: kernel "
+          f"{t['device_ms']:.4f} ms, cuBLAS {t['library_device_ms']:.4f} ms, full mode "
+          f"{t['full_device_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; bound {bound:.4f} ms "
+          f"({by}), {100 * bound / t['device_ms']:.1f}% of bound in device time", flush=True)
+    return {"timed_at": shape, "max_abs_err": (got - want).abs().max().item(),
+            "rel_rms_err": rms, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "device_ms": t["device_ms"], "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"], "full_mode_ms": t["full_ms"],
+            "full_mode_device_ms": t["full_device_ms"], "bound_ms": bound, "bound_by": by,
+            "library": "cuBLAS route: F.linear, fp32 F.gelu, F.linear without b2 (bf16 out)"}
+
+
 def time_ffn() -> None:
     """``--time-ffn``: #3's times alone, as ``check_ffn`` takes them, on
     whatever ``multimodalanalytical_tpu_torch`` sits beside this script (so
@@ -1241,13 +1337,15 @@ def _check_flash_shape(g, b, h, d) -> dict:
 
 def check_flash_kernels() -> list:
     """#5/#6 flash attention forward and backward vs their plain versions at
-    the long RLE encoder's shapes, head_dim 64 (B 8, H 8: the records) and
-    128 (B 8, H 4: the same d_model 512); returns records."""
+    the long RLE encoder's shapes, head_dim 64 (B 8, H 8: the records), 128
+    (B 8, H 4: the same d_model 512), 192 (B 8, H 4: d_model 768) and 256
+    (B 8, H 2: d_model 512); returns records."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(5)
     main = _check_flash_shape(g, TRAIN_BATCH, HEADS, D_MODEL // HEADS)
-    wide = _check_flash_shape(g, TRAIN_BATCH, HEADS // 2, 2 * D_MODEL // HEADS)
+    wider = {d: _check_flash_shape(g, TRAIN_BATCH, h, d)
+             for d, h in ((128, HEADS // 2), (192, 4), (256, 2))}
     records = []
     for name, part, line, err in (
             ("flash_attention_fwd", "fwd", 115, main["errs"]["out"]),
@@ -1265,17 +1363,22 @@ def check_flash_kernels() -> list:
                        + (" (forward + backward minus forward)" if part == "bwd" else ""),
             "library_kernels": main["sdpa_kernels"][part], "timed_at": main["shape"],
             "valid_keys": main["valid_keys"],
-            "head_dim_128": {"timed_at": wide["shape"], "ms": wide["ms"][part],
-                             "plain_ms": wide["plain_ms"][part],
-                             "library_ms": wide["library_ms"][part],
-                             "bound_ms": wide["bound_ms"][part],
-                             "valid_keys": wide["valid_keys"],
-                             "tflops": wide["flops"][part] / wide["ms"][part] / 1e9}})
+            **{f"head_dim_{d}": {"timed_at": wide["shape"], "ms": wide["ms"][part],
+                                 "plain_ms": wide["plain_ms"][part],
+                                 "library_ms": wide["library_ms"][part],
+                                 "bound_ms": wide["bound_ms"][part],
+                                 "bound_by": wide["bound_by"][part],
+                                 "max_abs_err": (wide["errs"]["out"] if part == "fwd" else
+                                                 max(wide["errs"][x] for x in ("dq", "dk", "dv"))),
+                                 "valid_keys": wide["valid_keys"],
+                                 "tflops": wide["flops"][part] / wide["ms"][part] / 1e9}
+               for d, wide in wider.items()}})
     return records
 
 
 # ---------------------------------------------------------------- phase 2
-def _flagship(use_beam_kernel: bool = True, kv_cache_dtype: str = "int8"):
+def _flagship(use_beam_kernel: bool = True, kv_cache_dtype: str = "int8",
+              dtype: str = "bfloat16", mesh=None):
     import torch
 
     from multimodalanalytical_tpu_torch.models.config import ModelConfig
@@ -1285,12 +1388,12 @@ def _flagship(use_beam_kernel: bool = True, kv_cache_dtype: str = "int8"):
         d_model=D_MODEL, encoder_layers=LAYERS, decoder_layers=LAYERS,
         encoder_attention_heads=HEADS, decoder_attention_heads=HEADS,
         encoder_ffn_dim=FFN, decoder_ffn_dim=FFN, vocab_size=VOCAB,
-        dtype="bfloat16", max_target_length=MAX_LENGTH,
+        dtype=dtype, max_target_length=MAX_LENGTH,
         use_beam_kernel=use_beam_kernel, kv_cache_dtype=kv_cache_dtype,
     )
     dev = torch.device(DEVICE)
     return Seq2SeqModel(cfg, DATA_CONFIG, "Smiles", device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(0))
+                        generator=torch.Generator(device=dev).manual_seed(0), mesh=mesh)
 
 
 def _request(seed: int, batch: int = BATCH):
@@ -1529,6 +1632,28 @@ def _serve_requests(engine, requests, what: str, model, kernels: bool = True) ->
     return launches, per_batch, results
 
 
+def _serving_collator():
+    """(collator, tokenizer) of the slice's requests, as the serve CLI's
+    artifact gives them: the fixed-vocabulary stand-ins for Formula and
+    SMILES (the card's machine has no ``tokenizers``), a patch preprocessor
+    fitted on seeded 1750-point spectra, and the fitted lengths of
+    ``_request`` (Formula 12, IR 14 patches), padded to B 128."""
+    import numpy as np
+
+    from multimodalanalytical_tpu_torch.chem import mol_formula
+    from multimodalanalytical_tpu_torch.data.collator import MultiModalCollator
+    from multimodalanalytical_tpu_torch.data.preprocessing import PatchPreprocessor
+
+    formulas = [mol_formula(s) for s in SMILES_CORPUS]
+    preps = {"Formula": FixedVocabTokenizer(FORMULA_REGEX, formulas, (), FORMULA_VOCAB),
+             "Smiles": FixedVocabTokenizer(), "IR": PatchPreprocessor(patch_size=PATCH)}
+    preps["IR"].fit(list(np.random.default_rng(101).random((64, N_PATCHES * PATCH))))
+    collator = MultiModalCollator(preps, DATA_CONFIG,
+                                  max_source_length={"Formula": FORMULA_LEN, "IR": N_PATCHES},
+                                  max_target_length=MAX_LENGTH, pad_to_batch_size=BATCH)
+    return collator, preps["Smiles"]
+
+
 def run_slice() -> dict:
     import numpy as np
     import torch
@@ -1540,16 +1665,32 @@ def run_slice() -> dict:
     plain_model.load_state_dict(model.state_dict())
     check_teacher_forced(model, plain_model)
 
-    engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH)
+    # The engine as the serve CLI builds it (with a collator): its
+    # constructor decodes a warm batch, so the first request finds its
+    # graphs captured and captures nothing.
+    collator, tokenizer = _serving_collator()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.decode_batch(*_request(seed=100))          # captures the graphs; not counted
+    engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH, collator=collator,
+                             tokenizer=tokenizer)
+    build_s = time.perf_counter() - t0
+    warm = engine.warm_stats
+    t0 = time.perf_counter()
+    engine.decode_batch(*_request(seed=100))
     first_s = time.perf_counter() - t0
-    capture = engine.last_stats
-    print(f"slice graph capture (first request): {capture['capture_s']:.4f} s for "
-          f"{capture['warmup_steps']} stages, first request {first_s:.4f} s in all", flush=True)
+    first = engine.last_stats
+    print(f"slice warm-up in the engine's constructor: graph capture {warm['capture_s']:.4f} s "
+          f"for {warm['warmup_steps']} stages, {build_s:.4f} s in all; first request "
+          f"{first_s:.4f} s (capture_s {first['capture_s']}, warmup_steps "
+          f"{first['warmup_steps']}, graph {first['graph']})", flush=True)
+    _require(warm["graph"] and warm["warmup_steps"] > 0,
+             "the engine's warm-up captured no decode graphs")
+    _require(first["capture_s"] == 0 and first["warmup_steps"] == 0 and first["graph"],
+             "the first request captured its decode graphs: the warm-up missed its shape")
     requests = [_request(seed) for seed in (1, 2, 3)]
-    launches, _, results = _serve_requests(engine, requests, "slice", model)
+    launches, per_batch, results = _serve_requests(engine, requests, "slice", model)
+    print(f"slice first request {first_s:.4f} s against a steady {per_batch:.4f} s/batch",
+          flush=True)
     check_early_exit(model)
 
     plain_engine = InferenceEngine(plain_model, n_beams=BEAMS, batch_size=BATCH)
@@ -3359,6 +3500,442 @@ def profile_train() -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 11
+TP_RANKS = 2                  # layout (1, 2): one model group of two ranks sharing the card
+TP_TIMEOUT_S = 420
+TP_LOSS_TOL = 1e-5            # tests/test_multichip.py's bound on the loss across meshes
+TP_PARAM_RTOL, TP_PARAM_ATOL = 2e-4, 2e-5   # and on the parameters after the step
+TP_REQUEST_SEEDS = (1, 2, 3)  # phase 2's requests
+TP_LOGIT_STEPS = 8
+TP_TIMED_STEPS = 3            # s/step is the mean of steps 2-4 (the first carries warm-up)
+# The bf16 decode against one process. The two differ only where a
+# row-parallel product's fp32 partial sums, added in another order, round
+# to another bf16 value, and where that flips an int8 rounding of the cache
+# (the int8 cache alone moves phase 2's kernel-vs-plain logits by ~5e-2).
+# Teacher-forced logits are held to LOGIT_TOL (phase 2's bound between the
+# kernel and the plain route). A beam search on random weights turns any
+# such difference into other beams at its top-K cuts (phase 2's plain route
+# agrees with the kernel route on ~6% of top beams), so the beams are held
+# by their scores: every row's top beam of the tensor-parallel decode,
+# rescored by the one-process model along its own tokens (the same decode
+# step and int8 cache, identity ancestry), within TP_SCORE_TOL of the score
+# the ranks reported (length-normalised log-probabilities; the bound stated
+# before the phase's first run for the beams the two decodes share); the
+# rescoring itself is held to the one-process decode's own scores within
+# TP_RESCORE_TOL (summation order only). The search's quality: the best
+# score of every row, the tensor-parallel decode's minus the one process's,
+# averaged over all rows, within TP_BEST_MEAN_TOL of 0 (the rows scatter
+# both ways; a search that scores its tokens right but finds worse beams
+# throughout fails here). The top-beam agreement is printed.
+TP_SCORE_TOL = 1e-2
+TP_RESCORE_TOL = 1e-4
+TP_BEST_MEAN_TOL = 1e-2
+
+
+def _tp_batch() -> dict:
+    """Phase 4's IR-recipe batch (B 128)."""
+    import numpy as np
+
+    inputs, mask = _request(seed=11, batch=IR_RECIPE_BATCH)
+    return {"encoder_inputs": inputs, "encoder_mask": mask,
+            **_targets(np.random.default_rng(12), IR_RECIPE_BATCH)}
+
+
+def _tp_trainer(model):
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    return Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=IR_RECIPE_STEPS,
+                   clip_grad=1.0)
+
+
+def _tp_teacher_forced(model):
+    """Decode logits of TP_LOGIT_STEPS teacher-forced steps at B 128, K 10,
+    int8 cache, permuted ancestry, on phase 2's first request: (steps, B,
+    K, V) fp32 on the CPU."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.generation.beam_search import decode_model
+
+    dev = torch.device(DEVICE)
+    inputs, mask = _request(seed=TP_REQUEST_SEEDS[0], batch=BATCH)
+    inputs = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+    mask = torch.as_tensor(mask, device=dev)
+    g = torch.Generator().manual_seed(7)
+    steps = TP_LOGIT_STEPS
+    tokens = torch.randint(4, VOCAB, (BATCH, BEAMS, steps), generator=g).to(dev)
+    anc = torch.randint(0, BEAMS, (BATCH, BEAMS, steps), generator=g, dtype=torch.int32).to(dev)
+    out = []
+    with torch.no_grad():
+        hidden = model.encode(inputs, mask)
+        dm = decode_model(model)
+        cache = dm.init_beam_cache(BATCH, BEAMS, steps, hidden, mask, True)
+        for t in range(steps):
+            a = anc.clone()
+            a[:, :, t] = torch.arange(BEAMS, device=dev, dtype=torch.int32)
+            out.append(dm.beam_decode_step(tokens[:, :, t], t, cache, a).float().cpu())
+    return torch.stack(out)
+
+
+def _rescore(model, inputs, mask, seqs):
+    """The score ``model``'s decode step gives each beam of ``seqs`` (B, K,
+    L) along its own tokens, as the beam search scores a finished
+    hypothesis: its log-probabilities summed up to and with its first EOS
+    (forced at step L - 2, as the search forces it), over that length
+    (length penalty 1). The step runs as the search runs it (one stage,
+    the search's cache, each beam's rows in its own slot). (B, K) numpy."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.generation.beam_search import (
+        decode_model,
+        kv_cache_quantized,
+    )
+
+    cfg = model.config
+    dev = torch.device(DEVICE)
+    seqs = torch.as_tensor(seqs, device=dev)
+    b, k, length = seqs.shape
+    inputs = {key: torch.as_tensor(v, device=dev) for key, v in inputs.items()}
+    mask = torch.as_tensor(mask, device=dev)
+    with torch.no_grad():
+        hidden = model.encode(inputs, mask)
+        dm = decode_model(model)
+        cache = dm.init_beam_cache(b, k, length, hidden, mask,
+                                   kv_cache_quantized(cfg, k, length))
+        anc = torch.arange(k, device=dev, dtype=torch.int32)[None, :, None].expand(
+            b, k, length).contiguous()
+        forced = torch.full((cfg.vocab_size,), -1.0e7, device=dev)
+        forced[cfg.eos_token_id] = 0.0
+        total = torch.zeros(b, k, dtype=torch.float64, device=dev)
+        count = torch.zeros(b, k, dtype=torch.float64, device=dev)
+        done = torch.zeros(b, k, dtype=torch.bool, device=dev)
+        for t in range(length - 1):
+            logp = torch.log_softmax(dm.beam_decode_step(seqs[:, :, t], t, cache, anc).float(),
+                                     dim=-1)
+            if t == length - 2:
+                logp = forced.expand_as(logp)
+            token = seqs[:, :, t + 1]
+            picked = logp.gather(-1, token[..., None])[..., 0].double()
+            total += torch.where(done, 0.0, picked)
+            count += (~done).double()
+            done |= token == cfg.eos_token_id
+    return (total / count).cpu().numpy()
+
+
+@contextlib.contextmanager
+def _timed_model_reduces():
+    """Every sum over the model group, synchronised and timed on the host:
+    yields the list of seconds, one per all-reduce."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.parallel.mesh import Mesh
+
+    original, seconds = Mesh.all_reduce_model_, []
+
+    def timed(self, tensor):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(self, tensor)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    Mesh.all_reduce_model_ = timed
+    try:
+        yield seconds
+    finally:
+        Mesh.all_reduce_model_ = original
+
+
+def run_tp_rank(spec: dict) -> None:
+    """One rank of phase 11: joins a gloo group on card 0 (a file store),
+    builds the (1, 2) mesh, and (a) takes one fp32 AdamW step of the IR
+    recipe from the parent's initial weights, then TP_TIMED_STEPS timed
+    ones (s/step), then one more with its model all-reduces timed; (b) decodes TP_LOGIT_STEPS teacher-forced steps and
+    phase 2's requests in bf16 with the int8 cache (eager steps: gloo
+    collectives are not captured) and counts #1, #2 and #3 (#3's partial
+    calls apart). Writes its report, and (rank 0) the gathered parameters,
+    the logits and the beams, into ``spec["out"]``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+    from multimodalanalytical_tpu_torch.models import transformer
+    from multimodalanalytical_tpu_torch.models.weights import gather_state_dict, shard_state_dict
+    from multimodalanalytical_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    rank, out = spec["rank"], Path(spec["out"])
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}", rank=rank,
+                            world_size=spec["world"])
+    try:
+        mesh = make_mesh(1, spec["world"])
+        report = {"rank": rank, "backend": dist.get_backend()}
+        # (a) the fp32 step
+        model = _flagship(dtype="float32", mesh=mesh)
+        model.load_state_dict(shard_state_dict(
+            torch.load(out / "fp32_init.pt", map_location=DEVICE), model))
+        report["local_heads"] = model.encoder.layer_0.self_attn.num_heads
+        report["local_ffn"] = model.encoder.layer_0.ff.linear1.weight.shape[0]
+        trainer = _tp_trainer(model)
+        batch = _tp_batch()
+        torch.cuda.reset_peak_memory_stats()
+        report["loss"] = float(trainer.train_step(batch)["loss"])
+        params = gather_state_dict(model)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in params.items()}, out / "tp_params.pt")
+        del params
+        report["step_s"] = _mean_step_s(trainer, batch)
+        with _timed_model_reduces() as seconds:
+            trainer.train_step(batch)
+        report["step_reduce_ms"], report["step_reduces"] = 1e3 * sum(seconds), len(seconds)
+        report["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        # (b) the bf16 decode
+        model = _flagship(mesh=mesh)
+        model.load_state_dict(shard_state_dict(
+            torch.load(out / "bf16_init.pt", map_location=DEVICE), model))
+        logits = _tp_teacher_forced(model)
+        if rank == 0:
+            torch.save(logits, out / "tp_logits.pt")
+        engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH)
+        real_ffn, partial_calls = transformer.geglu_ffn, [0]
+
+        def counting_ffn(*args, partial=False):
+            partial_calls[0] += int(partial)
+            return real_ffn(*args, partial=partial)
+
+        transformer.geglu_ffn = counting_ffn
+        counters = _decode_counters()
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        seqs, scores, seconds, steps, replays, graph = [], [], [], 0, 0, set()
+        try:
+            for i, seed in enumerate(TP_REQUEST_SEEDS):
+                timed = (_timed_model_reduces() if i == len(TP_REQUEST_SEEDS) - 1
+                         else contextlib.nullcontext([]))
+                with timed as reduce_s:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = engine.decode_batch(*_request(seed, batch=BATCH))
+                    seconds.append(time.perf_counter() - t0)
+                stats = engine.last_stats
+                seqs.append(got[0])
+                scores.append(got[1])
+                steps += stats["steps"]
+                replays += stats["replays"]
+                graph.add(stats["graph"])
+        finally:
+            transformer.geglu_ffn = real_ffn
+        report.update(
+            launches={fn.__name__: fn.launches for fn in counters},
+            partial_ffn_calls=partial_calls[0], steps=steps, replays=replays,
+            graph=sorted(graph), request_s=seconds,
+            decode_reduce_ms_per_step=1e3 * sum(reduce_s) / max(stats["replays"], 1),
+            decode_reduces_per_step=len(reduce_s) / max(stats["replays"], 1),
+            decode_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        np.savez(out / f"tp_beams_rank{rank}.npz", seqs=np.stack(seqs), scores=np.stack(scores))
+        (out / f"tp_rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mean_step_s(trainer, batch) -> float:
+    """Seconds per step of TP_TIMED_STEPS steps after the first, with no
+    synchronisation between them."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TP_TIMED_STEPS):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / TP_TIMED_STEPS
+
+
+def _tp_command(spec: dict) -> list:
+    return [sys.executable, str(REPO / "chip_smoke.py"), "--tp-rank", json.dumps(spec)]
+
+
+def run_tensor_parallel() -> dict:
+    """Phase 11: the flagship CustomModel at full width (d_model 512, 6 + 6
+    layers, 8 heads, FFN 2048, vocab 320) on the (1, 2) layout, two ranks of
+    this script (``--tp-rank``) sharing the card over gloo (two NCCL ranks
+    on one device are refused), against one process on the same weights:
+    (a) one fp32 AdamW step of the IR recipe at B 128 (dropout 0.1: the
+    ranks draw the one process's masks), loss within TP_LOSS_TOL and the
+    gathered parameters within TP_PARAM_RTOL / TP_PARAM_ATOL, s/step of
+    steps 2-4 on each side; (b) bf16 with
+    the int8 cache at K 10: teacher-forced logits within LOGIT_TOL, then
+    phase 2's three requests (B 128, max length 128) decoded on both ranks
+    with eager steps (``graph`` False: gloo collectives are not captured),
+    beams the same on both ranks, every row's top beam rescored by the
+    one-process model within TP_SCORE_TOL of its score (the rescoring held
+    to the one-process decode's own scores within TP_RESCORE_TOL), the mean
+    best-score difference over all rows within TP_BEST_MEAN_TOL; #1, #2
+    and #3 (every call in partial mode) launched 6 x the steps on each
+    rank. Returns the
+    decode kernels' launches, both ranks together."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        fp32 = _flagship(dtype="float32")
+        torch.save(fp32.state_dict(), tmp / "fp32_init.pt")
+        trainer = _tp_trainer(fp32)
+        batch = _tp_batch()
+        loss_one = float(trainer.train_step(batch)["loss"])
+        params_one = {k: v.detach().cpu() for k, v in fp32.state_dict().items()}
+        step_one_s = _mean_step_s(trainer, batch)
+        del trainer, fp32
+        bf16 = _flagship()
+        torch.save(bf16.state_dict(), tmp / "bf16_init.pt")
+        logits_one = _tp_teacher_forced(bf16)
+        engine = InferenceEngine(bf16, n_beams=BEAMS, batch_size=BATCH)
+        one, one_s = [], []
+        for seed in TP_REQUEST_SEEDS:
+            t0 = time.perf_counter()
+            one.append(engine.decode_batch(*_request(seed, batch=BATCH)))
+            one_s.append(time.perf_counter() - t0)
+        del engine
+        torch.cuda.empty_cache()
+
+        specs = [{"rank": r, "world": TP_RANKS, "store": str(tmp / "store"), "out": str(tmp)}
+                 for r in range(TP_RANKS)]
+        logs = [tmp / f"tp_rank{r}.log" for r in range(TP_RANKS)]
+        t0 = time.perf_counter()
+        procs = []
+        for spec, log in zip(specs, logs):
+            with open(log, "w") as out:   # a file: an unread pipe could block a rank
+                procs.append(subprocess.Popen(_tp_command(spec), stdout=out,
+                                              stderr=subprocess.STDOUT))
+        try:
+            for proc in procs:
+                proc.wait(timeout=TP_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            _require(proc.returncode == 0,
+                     f"tensor-parallel rank {r} failed:\n{log.read_text()[-3000:]}")
+        ranks = [json.loads((tmp / f"tp_rank{r}.json").read_text()) for r in range(TP_RANKS)]
+        params = torch.load(tmp / "tp_params.pt")
+        logits = torch.load(tmp / "tp_logits.pt")
+        beams = [np.load(tmp / f"tp_beams_rank{r}.npz") for r in range(TP_RANKS)]
+        beams = [(b["seqs"], b["scores"]) for b in beams]
+
+    # (a) the fp32 step
+    loss_err = max(abs(r["loss"] - loss_one) for r in ranks)
+    _require(set(params) == set(params_one), "the gathered parameters name other tensors")
+    outside, worst = 0, 0.0
+    for name, want in params_one.items():
+        diff = (params[name] - want).abs()
+        outside += int((diff > TP_PARAM_RTOL * want.abs() + TP_PARAM_ATOL).sum())
+        worst = max(worst, float(diff.max()))
+    print(f"tensor parallel (1, {TP_RANKS}) over gloo on one card, flagship fp32 AdamW step of "
+          f"the IR recipe (B {IR_RECIPE_BATCH}, dropout 0.1): losses "
+          f"{[r['loss'] for r in ranks]} against one process {loss_one} (max |diff| "
+          f"{loss_err:.3e}, tol {TP_LOSS_TOL}); {sum(v.numel() for v in params_one.values())} "
+          f"parameters, {outside} outside rtol {TP_PARAM_RTOL} / atol {TP_PARAM_ATOL}, max "
+          f"|diff| {worst:.3e}; local heads {ranks[0]['local_heads']} of {HEADS}, local FFN "
+          f"{ranks[0]['local_ffn']} of {FFN}; s/step of steps 2-{1 + TP_TIMED_STEPS} "
+          f"{[round(r['step_s'], 5) for r in ranks]} per rank against {step_one_s:.5f} in one "
+          f"process; model all-reduces of step {2 + TP_TIMED_STEPS} (each synchronised and "
+          f"timed) {[round(r['step_reduce_ms'], 3) for r in ranks]} ms over "
+          f"{ranks[0]['step_reduces']} calls; peak memory "
+          f"{[round(r['train_peak_gib'], 3) for r in ranks]} GiB", flush=True)
+    _require(all(r["local_heads"] == HEADS // TP_RANKS and r["local_ffn"] == FFN // TP_RANKS
+                 for r in ranks), "the ranks do not hold their shares of the heads and the FFN")
+    _require(loss_err <= TP_LOSS_TOL and outside == 0,
+             "the tensor-parallel step differs from the one-process step")
+
+    # (b) the bf16 decode
+    logit_err = (logits - logits_one).abs().max().item()
+    logit_tol = LOGIT_TOL * max(1.0, logits_one.abs().max().item())
+    print(f"tensor parallel bf16 teacher-forced logits (K {BEAMS}, int8 cache, "
+          f"{TP_LOGIT_STEPS} steps, B {BATCH}) against one process: max_abs_err "
+          f"{logit_err:.3e} tol {logit_tol:.3e}", flush=True)
+    _require(bool(torch.isfinite(logits).all()) and logit_err <= logit_tol,
+             "the tensor-parallel decode logits differ from one process")
+    _require(all(np.array_equal(beams[0][0], b[0]) and np.array_equal(beams[0][1], b[1])
+                 for b in beams[1:]), "the ranks decoded different beams")
+    seqs, scores = beams[0]
+    one_seqs = np.stack([s for s, _ in one])
+    one_scores = np.stack([c for _, c in one])
+    _require(bool(np.isfinite(scores).all()) and seqs.shape == one_seqs.shape
+             and bool((np.diff(scores, axis=-1) <= 0).all()),
+             "unexpected tensor-parallel beams")
+    # Both decodes' beams rescored by the one-process model along their own
+    # tokens (the top beam of every row is compared).
+    t0 = time.perf_counter()
+    rescored, rescored_one = [], []
+    for i, seed in enumerate(TP_REQUEST_SEEDS):
+        inputs, mask = _request(seed, batch=BATCH)
+        rescored.append(_rescore(bf16, inputs, mask, seqs[i]))
+        rescored_one.append(_rescore(bf16, inputs, mask, one_seqs[i]))
+    rescore_s = time.perf_counter() - t0
+    rescored, rescored_one = np.stack(rescored), np.stack(rescored_one)
+    self_err = float(np.abs(rescored_one[..., 0] - one_scores[..., 0]).max())
+    score_err = float(np.abs(rescored[..., 0] - scores[..., 0]).max())
+    all_beams_err = float(np.abs(rescored - scores).max())
+    agree = (seqs[:, :, 0] == one_seqs[:, :, 0]).all(axis=-1)
+    best_diff = (scores[:, :, 0] - one_scores[:, :, 0]).astype(np.float64).ravel()
+    best_mean = float(best_diff.mean())
+    best_sem = float(best_diff.std(ddof=1) / np.sqrt(best_diff.size))
+    per_request = [float(x) for r in ranks for x in r["request_s"]]
+    print(f"tensor parallel bf16 decode of {len(TP_REQUEST_SEEDS)} requests x {BATCH} spectra, "
+          f"K {BEAMS}, int8 cache: every row's top beam rescored by the one-process model, "
+          f"max |diff| to the ranks' score {score_err:.3e} (tol {TP_SCORE_TOL}; all {BEAMS} "
+          f"beams {all_beams_err:.3e}); the rescoring against the one-process decode's own "
+          f"top scores {self_err:.3e} (tol {TP_RESCORE_TOL}); {rescore_s:.1f} s to rescore; "
+          f"top beams equal to one process's on {float(agree.mean()):.4f} of rows (reported), "
+          f"best score tensor-parallel minus one process over {best_diff.size} rows: mean "
+          f"{best_mean:.3e} (tol {TP_BEST_MEAN_TOL}; standard error {best_sem:.3e}), max "
+          f"|diff| {float(np.abs(best_diff).max()):.3e} (reported); route graph "
+          f"{ranks[0]['graph']} (backend {ranks[0]['backend']}); s/request per rank "
+          f"{[round(x, 4) for x in per_request]} against one process (graphs) "
+          f"{[round(x, 4) for x in one_s]} (first with its capture); model all-reduces per "
+          f"decode step {[round(r['decode_reduce_ms_per_step'], 3) for r in ranks]} ms over "
+          f"{ranks[0]['decode_reduces_per_step']:.1f} calls (last request, synchronised); peak "
+          f"memory {[round(r['decode_peak_gib'], 3) for r in ranks]} GiB", flush=True)
+    _require(self_err <= TP_RESCORE_TOL, "the rescoring does not reproduce the one-process "
+                                         "decode's scores")
+    _require(score_err <= TP_SCORE_TOL,
+             "the tensor-parallel beams' scores differ from the one-process model's")
+    _require(abs(best_mean) <= TP_BEST_MEAN_TOL,
+             "the tensor-parallel search finds other best scores than one process on average")
+    del bf16
+    torch.cuda.empty_cache()
+    launches = {}
+    for r in ranks:
+        print(f"tensor parallel rank {r['rank']}: launches {r['launches']} over {r['steps']} "
+              f"decode steps in {r['replays']} eager steps; geglu_ffn calls in partial mode "
+              f"{r['partial_ffn_calls']}", flush=True)
+        for name, count in r["launches"].items():
+            _require(count == LAYERS * r["replays"],
+                     f"rank {r['rank']}: {name} launched {count} times, want "
+                     f"{LAYERS * r['replays']} ({LAYERS} x the steps)")
+            launches[name] = launches.get(name, 0) + count
+        _require(r["graph"] == [False], "a tensor-parallel decode over gloo used graphs")
+        _require(r["partial_ffn_calls"] == r["launches"]["geglu_ffn"],
+                 "a tensor-parallel decode FFN ran outside the partial mode")
+    print(f"phase 11 done in {time.perf_counter() - start:.1f} s ({wall:.1f} s with the ranks' "
+          f"start-up)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3370,6 +3947,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if sys.argv[1:2] == ["--dp-rank"]:
         run_dp_rank(json.loads(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--tp-rank"]:
+        run_tp_rank(json.loads(sys.argv[2]))
         return 0
     from multimodalanalytical_tpu_torch.ops import _cuda
 
@@ -3394,8 +3974,13 @@ def main() -> int:
         print(smi, flush=True)
         time_ffn()
         return 0
+    if "--tensor-parallel" in sys.argv[1:]:
+        print(smi, flush=True)
+        run_tensor_parallel()
+        return 0
 
     records = check_kernels() + [check_ffn()]
+    records[-1]["partial_mode"] = check_ffn_partial()
     records[1]["long_encoder"] = check_cross_long()
     read_only = check_read_only_attention()
     dropout, dropout_phase1 = check_fused_dropout()
@@ -3418,6 +4003,8 @@ def main() -> int:
         by_phase[name]["9"] = n
     for name, n in run_mixture_phase().items():
         by_phase[name]["10"] = n
+    for name, n in run_tensor_parallel().items():
+        by_phase[name]["11"] = n
     for rec in records:
         rec["launches_by_phase"] = by_phase[rec["name"]]
         rec["launches"] = sum(by_phase[rec["name"]].values())

@@ -135,20 +135,23 @@ def build_loaders(dataset_dict: Dict[str, Any], collator, batch_size: int, seed:
     validation and test are capped at 10k random rows, or the test rows are
     the ``test_idx`` .npy index file (reference datamodules.py:441-491).
 
-    Under several processes every loader is row-sharded: each process feeds
-    its contiguous chunk of every global batch of ``batch_size`` rows
+    Under several data ranks every loader is row-sharded: each feeds its
+    contiguous chunk of every global batch of ``batch_size`` rows
     (reference trainer/trainer.py:58, DDP), and the collator pads to the
-    chunk, ``batch_size // process_count``, which must be whole."""
+    chunk, ``batch_size // n_data``, which must be whole. The data ranks
+    are ``parallel/mesh.py:default_mesh``'s: every process (no CLI builds a
+    model axis)."""
     from ..data.datasets import TableDataset
-    from ..parallel import process_count, process_index
+    from ..parallel.mesh import default_mesh
 
-    num_shards = process_count()
+    mesh = default_mesh()
+    num_shards = mesh.n_data
     if num_shards > 1:
         if batch_size % num_shards != 0:
-            raise ValueError(f"model.batch_size={batch_size} must be divisible by the process "
-                             f"count ({num_shards}) for multi-process training")
+            raise ValueError(f"model.batch_size={batch_size} must be divisible by the data "
+                             f"ranks ({num_shards}) for multi-process training")
         collator.pad_to_batch_size = batch_size // num_shards
-    shards = dict(num_shards=num_shards, shard_index=process_index())
+    shards = dict(num_shards=num_shards, shard_index=mesh.data_index)
     loaders = {}
     if "train" in dataset_dict:
         loaders["train"] = DataLoader(dataset_dict["train"], collator, batch_size,

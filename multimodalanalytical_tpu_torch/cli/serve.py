@@ -103,6 +103,15 @@ class InferenceEngine:
         self.last_stats: Dict[str, Any] = {}
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._worker: Optional[threading.Thread] = None
+        # As the JAX engine's __init__: one decode of a warm batch before any
+        # request can be taken, so that the first request finds its decode
+        # (on a CUDA device, its captured graphs) ready. An engine without a
+        # collator has no request shape to warm.
+        self.warm_stats: Dict[str, Any] = {}
+        if collator is not None:
+            warm = self._warm_batch()
+            self.decode_batch(warm["encoder_inputs"], warm["encoder_mask"])
+            self.warm_stats = self.last_stats
 
     # ---------------------------------------------------------- decode core
     def decode_batch(self, encoder_inputs: Dict[str, Any],
@@ -130,6 +139,27 @@ class InferenceEngine:
         columns = {col: [r.get(col, "" if col == target else None) for r in records]
                    for col in self.input_columns + [target]}
         return self.collator(columns)
+
+    def _warm_batch(self) -> Dict[str, Any]:
+        """A one-record batch with the shapes a real request has, collated
+        and padded to ``batch_size`` as :meth:`_batch_loop` pads a real one
+        (the JAX engine's ``_warm_batch``): text gets a minimal token,
+        patches zero spectra at the fitted length (max_source_length x
+        patch_size), every other modality None (a fully masked segment of
+        the real shape), and the target is empty."""
+        record: Dict[str, Any] = {}
+        for modality in self.input_columns:
+            mtype = self.collator.data_config[modality]["type"]
+            if mtype == "text":
+                record[modality] = "C"
+            elif mtype == "1D_patches":
+                patch_size = self.collator.preprocessors[modality].patch_size
+                record[modality] = [0.0] * (self.collator.max_source_length[modality]
+                                            * patch_size)
+            else:
+                record[modality] = None
+        record[self.collator.target_modality] = ""
+        return self._collate([record])
 
     def validate_record(self, record: Dict[str, Any]) -> None:
         """Collate the record alone (no decode) so a malformed record is

@@ -45,6 +45,12 @@
 //      workspace and
 //   3. a reduction adds the partials in split order 0..S-1, rounds, adds
 //      b2 and rounds: no atomics, so reruns give the same bits.
+//   Partial mode (tensor parallelism: a rank holds F / n of the columns of
+//   W1 and the gate and the rows of W2): the down product's fp32 sum over
+//   this rank's F, without b2 and without rounding, written as (M, D) fp32,
+//   directly from the down GEMM with one split and by the reduction (the
+//   partials added in split order, nothing more) with more. The caller sums
+//   it over the ranks, then rounds, adds b2 and rounds, as step 3 does.
 // Rows past M and columns past D or F (ragged shapes) are zero-filled by
 // the TMA loads and masked in every store. Nothing here allocates,
 // synchronises or reads device memory on the host, so a CUDA graph can
@@ -283,10 +289,12 @@ __global__ void __launch_bounds__(kGroups * kConsumers + 32) ffn_gemm_kernel(
   }
 }
 
-// out (m, n) = round(round(sum_z part[z]) + bias), the splits z added in
-// order 0..splits-1 in fp32; four columns per thread.
+// out (m, n) = round(round(sum_z part[z]) + bias) in bf16, or with kSum the
+// fp32 sum_z part[z] itself, the splits z added in order 0..splits-1 in
+// fp32; four columns per thread.
+template <bool kSum>
 __global__ void __launch_bounds__(kReduceThreads) ffn_split_reduce_kernel(
-    const float* __restrict__ part, const bf16* __restrict__ bias, bf16* __restrict__ out, int m,
+    const float* __restrict__ part, const bf16* __restrict__ bias, void* __restrict__ out, int m,
     int n, int splits) {
   const size_t total = static_cast<size_t>(m) * n;
   const size_t idx = (static_cast<size_t>(blockIdx.x) * kReduceThreads + threadIdx.x) * 4;
@@ -299,13 +307,17 @@ __global__ void __launch_bounds__(kReduceThreads) ffn_split_reduce_kernel(
     s.z += p.z;
     s.w += p.w;
   }
+  if constexpr (kSum) {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + idx) = s;
+    return;
+  }
   const int col = static_cast<int>(idx % n);   // n % 8 == 0: the four share a row
   const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(bias + col);
   const float2 lo = __bfloat1622float2(b2[0]), hi = __bfloat1622float2(b2[1]);
   __nv_bfloat162 y[2] = {
       __floats2bfloat162_rn(round_bf16(s.x) + lo.x, round_bf16(s.y) + lo.y),
       __floats2bfloat162_rn(round_bf16(s.z) + hi.x, round_bf16(s.w) + hi.y)};
-  *reinterpret_cast<uint2*>(out + idx) = *reinterpret_cast<const uint2*>(y);
+  *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + idx) = *reinterpret_cast<const uint2*>(y);
 }
 
 template <int kMode, int kBN, int kGroups>
@@ -344,7 +356,8 @@ extern "C" {
 
 // x (m, d); w1, wg (f, d); w2 (d, f); biases (f,) / (d,), all bf16 and
 // 16-byte aligned; hidden (m, f) bf16 scratch for the activation; out (m,
-// d) bf16. wg and bg are null when ungated. The plan (ops/decode_ffn.py
+// d) bf16, or with `partial` the (m, d) fp32 down product without b2 (b2
+// may then be null). wg and bg are null when ungated. The plan (ops/decode_ffn.py
 // ffn_plan): up_groups (1, or 2 for ping-pong) consumer warpgroups per
 // block of the up GEMM (64-wide tiles), down_tile_n (64 or 128) columns per
 // tile of the down GEMM, and `splits` splits of F (1 <= splits <= ceil(f /
@@ -354,7 +367,7 @@ extern "C" {
 int mmt_geglu_ffn(const void* x, const void* w1, const void* b1, const void* wg,
                   const void* bg, const void* w2, const void* b2, void* hidden, void* workspace,
                   void* out, int m, int d, int f, int up_groups, int down_tile_n, int splits,
-                  int sms, void* stream) {
+                  int partial, int sms, void* stream) {
   using namespace mmt;
   const int d_tiles = (d + kBK - 1) / kBK, f_tiles = (f + kBK - 1) / kBK;
   if (m < 1 || d < 8 || f < 8 || d % 8 != 0 || f % 8 != 0 || splits < 1 || splits > f_tiles ||
@@ -376,20 +389,23 @@ int mmt_geglu_ffn(const void* x, const void* w1, const void* b1, const void* wg,
   cudaError_t err = up(1, x_map, w1_map, gated ? wg_map : w1_map, b1, bg, hidden, m, f, d_tiles,
                        sms, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits == 1) {
-    const auto down = down_tile_n == 64 ? launch_tile<kBias, 64, 1> : launch_tile<kBias, 128, 1>;
-    return static_cast<int>(down(1, h_map, w2_map, w2_map, b2, nullptr, out, m, d, f_tiles, sms,
-                                 s));
-  }
-  const auto down =
+  const auto partial_down =
       down_tile_n == 64 ? launch_tile<kPartial, 64, 1> : launch_tile<kPartial, 128, 1>;
-  err = down(splits, h_map, w2_map, w2_map, nullptr, nullptr, workspace, m, d, f_tiles, sms, s);
+  if (splits == 1) {
+    // one split: the down GEMM's epilogue writes the result (partial: its
+    // fp32 tile, as split 0 of one)
+    const auto down = down_tile_n == 64 ? launch_tile<kBias, 64, 1> : launch_tile<kBias, 128, 1>;
+    return static_cast<int>((partial ? partial_down : down)(1, h_map, w2_map, w2_map, b2, nullptr,
+                                                            out, m, d, f_tiles, sms, s));
+  }
+  err = partial_down(splits, h_map, w2_map, w2_map, nullptr, nullptr, workspace, m, d, f_tiles,
+                     sms, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t quads = static_cast<size_t>(m) * d / 4;
-  ffn_split_reduce_kernel<<<static_cast<unsigned>((quads + kReduceThreads - 1) / kReduceThreads),
-                            kReduceThreads, 0, s>>>(static_cast<const float*>(workspace),
-                                                    static_cast<const bf16*>(b2),
-                                                    static_cast<bf16*>(out), m, d, splits);
+  const unsigned blocks = static_cast<unsigned>((quads + kReduceThreads - 1) / kReduceThreads);
+  const auto reduce = partial ? ffn_split_reduce_kernel<true> : ffn_split_reduce_kernel<false>;
+  reduce<<<blocks, kReduceThreads, 0, s>>>(static_cast<const float*>(workspace),
+                                           static_cast<const bf16*>(b2), out, m, d, splits);
   return static_cast<int>(cudaGetLastError());
 }
 

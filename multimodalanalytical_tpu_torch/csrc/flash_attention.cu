@@ -52,10 +52,17 @@
 // L >= 2048.
 //
 // head_dim is 64 (every shipped model config: d_model 512 / 8, 768 / 12,
-// 1024 / 16) or 128, the two multiples of 64 up to 128 that the JAX gate
-// routes here; each is its own instantiation. len is a multiple of 64: a
-// 128-row block whose last 64 rows lie past len leaves its second consumer
-// warpgroup idle.
+// 1024 / 16), 128, 192 or 256, the multiples of 64 up to 256 that the JAX
+// gate routes here; each is its own instantiation. At 192 and 256 the
+// shared-memory and register plans change: the forward keeps its 64-key
+// stages (Q 64 KB + a 2-stage K/V ring of 128 KB at 256) and its producer
+// hands registers to the consumers (O takes 128 fp32 registers a thread);
+// the backward's ring has one stage at 256 (two 64 KB resident blocks + two
+// 32 KB tiles), dQ's consumers take the producer's registers too, and dK
+// and dV are computed by two launches, each holding one head_dim-wide
+// accumulator. The fp32 backward stages three tiles instead of four there
+// (Geom). len is a multiple of 64: a 128-row block whose last 64 rows lie
+// past len leaves its second consumer warpgroup idle.
 
 #include <cuda.h>
 
@@ -71,6 +78,14 @@ constexpr int kThreads = 256;      // 16 x 16 threads
 constexpr int kLdp = kTile + 16;   // floats per row of a 64 x 64 probability tile
 constexpr float kNegInf = -1e9f;   // the reference's NEG_INF (running-max start)
 
+// What a dK/dV launch computes: both (head_dim up to 128), or, above, dV in
+// one launch and dK in another. On the tensor cores two head_dim-wide
+// accumulators would not fit in 240 registers; on the FMA path four staged
+// fp32 tiles would not fit in shared memory.
+enum BwdPass { kDkDv = 0, kDvOnly = 1, kDkOnly = 2 };
+template <int HD>
+__host__ __device__ constexpr bool split_dkdv() { return HD > 128; }
+
 // ------------------------------------------------------------ fp32 path
 // Scalar fp32 FMA kernels (the fp32 instantiation): one 256-thread block
 // per (batch * head, 64-row tile), 64-row operand tiles staged as fp32, a
@@ -79,15 +94,22 @@ constexpr float kNegInf = -1e9f;   // the reference's NEG_INF (running-max start
 // Geometry of one head width: staged rows are HD + 4 floats (16-byte
 // aligned), and a thread's output tile is 4 rows x 4 columns in each of
 // the HD / 64 column chunks (columns 64 c + 4 tx + e).
+//
+// Above head_dim 128 four staged tiles no longer fit (266 KB at 256), so the
+// backward holds three: dK and dV take one launch each (a dV pass needs no
+// V, a dK pass stages dO and then Q in one tile), and dQ stages a key
+// tile's V and then its K in one tile.
 template <int HD>
 struct Geom {
   static constexpr int kLd = HD + 4;
   static constexpr int kChunks = HD / 64;
   static constexpr int kCols = 4 * kChunks;
+  static constexpr int kTiles = split_dkdv<HD>() ? 3 : 4;   // staged tiles in the backward
   static constexpr size_t kFwdSmem = (3 * kTile * kLd + kTile * kLdp + kTile) * sizeof(float);
   static constexpr size_t kDkdvSmem =
-      (4 * kTile * kLd + 2 * kTile * kLdp + 3 * kTile) * sizeof(float);
-  static constexpr size_t kDqSmem = (4 * kTile * kLd + kTile * kLdp + kTile) * sizeof(float);
+      (kTiles * kTile * kLd + (split_dkdv<HD>() ? 1 : 2) * kTile * kLdp + 3 * kTile) *
+      sizeof(float);
+  static constexpr size_t kDqSmem = (kTiles * kTile * kLd + kTile * kLdp + kTile) * sizeof(float);
 };
 
 // Stage kTile rows of a row-major (rows, HD) matrix as fp32, times `mul`.
@@ -280,10 +302,11 @@ __global__ void __launch_bounds__(kThreads) flash_delta_kernel(
   if (lane == 0) delta[row] = acc;
 }
 
-// Grid (len / 64, B * H). One block: the dK and dV of 64 keys, summed in
-// registers over every query tile. Computed transposed (keys as rows), so
-// P^T and dS^T land in shared memory in the layout the sums read.
-template <int HD, typename T>
+// Grid (len / 64, B * H). One block: the dK and dV of 64 keys (or one of
+// them, kPass), summed in registers over every query tile. Computed
+// transposed (keys as rows), so P^T and dS^T land in shared memory in the
+// layout the sums read.
+template <int HD, typename T, int kPass>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const T* __restrict__ dout, const float* __restrict__ lse,
@@ -291,15 +314,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     float scale) {
   constexpr int kLd = Geom<HD>::kLd;
   constexpr int kCols = Geom<HD>::kCols;
+  constexpr bool kDv = kPass != kDkOnly, kDk = kPass != kDvOnly;
   extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                   // [64 keys][kLd]
-  float* v_s = k_s + kTile * kLd;
-  float* q_s = v_s + kTile * kLd;      // [64 queries][kLd] q * scale
-  float* do_s = q_s + kTile * kLd;     // [64 queries][kLd]
-  float* pt_s = do_s + kTile * kLd;    // [64 keys][kLdp] P^T
-  float* dst_s = pt_s + kTile * kLdp;  // [64 keys][kLdp] dS^T
-  float* b_s = dst_s + kTile * kLdp;   // [64] bias of this block's keys
-  float* lse_s = b_s + kTile;          // [64] of the current query tile
+  // kDkDv: K, V, Q, dO, P^T, dS^T. kDvOnly: K, Q, dO, P^T. kDkOnly: K, V,
+  // one tile for dO and then Q, dS^T.
+  float* k_s = smem;                                          // [64 keys][kLd]
+  float* v_s = k_s + kTile * kLd;                             // (not kDvOnly)
+  float* q_s = kDk ? v_s + kTile * kLd : v_s;                 // [64 queries][kLd] q * scale
+  float* do_s = kPass == kDkOnly ? q_s : q_s + kTile * kLd;   // [64 queries][kLd]
+  float* pt_s = do_s + kTile * kLd;                           // [64 keys][kLdp] P^T (kDv)
+  float* dst_s = kDv ? pt_s + kTile * kLdp : pt_s;            // [64 keys][kLdp] dS^T (kDk)
+  float* b_s = kDk ? dst_s + kTile * kLdp : pt_s + kTile * kLdp;   // [64] this block's keys
+  float* lse_s = b_s + kTile;                                 // [64] of the current query tile
   float* delta_s = lse_s + kTile;
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kTile;
@@ -309,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const size_t row_base = static_cast<size_t>(bh) * len;
 
   stage_rows<HD>(k_s, k + base + static_cast<size_t>(k0) * HD, 1.f);
-  stage_rows<HD>(v_s, v + base + static_cast<size_t>(k0) * HD, 1.f);
+  if constexpr (kDk) stage_rows<HD>(v_s, v + base + static_cast<size_t>(k0) * HD, 1.f);
   if (threadIdx.x < kTile) b_s[threadIdx.x] = bias[static_cast<size_t>(bh / heads) * len + k0 + threadIdx.x];
   float dk_acc[4][kCols], dv_acc[4][kCols];
 #pragma unroll
@@ -319,7 +345,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
   for (int q0 = 0; q0 < len; q0 += kTile) {
     __syncthreads();
-    stage_rows<HD>(q_s, q + base + static_cast<size_t>(q0) * HD, scale);
+    if constexpr (kPass != kDkOnly) {
+      stage_rows<HD>(q_s, q + base + static_cast<size_t>(q0) * HD, scale);
+    }
     stage_rows<HD>(do_s, dout + base + static_cast<size_t>(q0) * HD, 1.f);
     if (threadIdx.x < kTile) {
       lse_s[threadIdx.x] = lse[row_base + q0 + threadIdx.x];
@@ -328,23 +356,31 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     __syncthreads();
 
     float st[4][4], dpt[4][4];
-    tile_dot<HD>(k_s, q_s, ty, tx, st);     // S^T: keys ty + 16 i, queries tx + 16 j
-    tile_dot<HD>(v_s, do_s, ty, tx, dpt);   // dP^T
+    if constexpr (kPass == kDkOnly) {
+      tile_dot<HD>(v_s, do_s, ty, tx, dpt);   // dP^T
+      __syncthreads();                        // every thread is done with dO
+      stage_rows<HD>(q_s, q + base + static_cast<size_t>(q0) * HD, scale);
+      __syncthreads();
+      tile_dot<HD>(k_s, q_s, ty, tx, st);     // S^T
+    } else {
+      tile_dot<HD>(k_s, q_s, ty, tx, st);     // S^T: keys ty + 16 i, queries tx + 16 j
+      if constexpr (kDk) tile_dot<HD>(v_s, do_s, ty, tx, dpt);   // dP^T
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qi = tx + 16 * j;
         const float p = expf(st[i][j] + b_s[ty + 16 * i] - lse_s[qi]);
-        pt_s[(ty + 16 * i) * kLdp + qi] = p;
-        dst_s[(ty + 16 * i) * kLdp + qi] = p * (dpt[i][j] - delta_s[qi]);
+        if constexpr (kDv) pt_s[(ty + 16 * i) * kLdp + qi] = p;
+        if constexpr (kDk) dst_s[(ty + 16 * i) * kLdp + qi] = p * (dpt[i][j] - delta_s[qi]);
       }
     __syncthreads();
-    tile_accumulate<HD>(pt_s, do_s, ty, tx, dv_acc);   // dV += P^T dO
-    tile_accumulate<HD>(dst_s, q_s, ty, tx, dk_acc);   // dK += dS^T (q * scale)
+    if constexpr (kDv) tile_accumulate<HD>(pt_s, do_s, ty, tx, dv_acc);    // dV += P^T dO
+    if constexpr (kDk) tile_accumulate<HD>(dst_s, q_s, ty, tx, dk_acc);   // dK += dS^T (q * scale)
   }
-  store_tile<HD>(dk + base, k0, ty, tx, dk_acc, 1.f);
-  store_tile<HD>(dv + base, k0, ty, tx, dv_acc, 1.f);
+  if constexpr (kDk) store_tile<HD>(dk + base, k0, ty, tx, dk_acc, 1.f);
+  if constexpr (kDv) store_tile<HD>(dv + base, k0, ty, tx, dv_acc, 1.f);
 }
 
 // Grid (len / 64, B * H). One block: dQ of 64 query rows over every key tile.
@@ -355,11 +391,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* __restrict__ delta, T* __restrict__ dq, int heads, int len, float scale) {
   constexpr int kLd = Geom<HD>::kLd;
   constexpr int kCols = Geom<HD>::kCols;
+  constexpr bool kOneTile = split_dkdv<HD>();   // V, then K, in one tile
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                   // [64 queries][kLd] q * scale
   float* do_s = q_s + kTile * kLd;
   float* k_s = do_s + kTile * kLd;     // [64 keys][kLd]
-  float* v_s = k_s + kTile * kLd;
+  float* v_s = kOneTile ? k_s : k_s + kTile * kLd;
   float* ds_s = v_s + kTile * kLd;     // [64 queries][kLdp] dS
   float* b_s = ds_s + kTile * kLdp;    // [64] bias of the current key tile
   const int bh = blockIdx.y;
@@ -383,14 +420,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
   for (int k0 = 0; k0 < len; k0 += kTile) {
     __syncthreads();
-    stage_rows<HD>(k_s, k + base + static_cast<size_t>(k0) * HD, 1.f);
+    if constexpr (!kOneTile) stage_rows<HD>(k_s, k + base + static_cast<size_t>(k0) * HD, 1.f);
     stage_rows<HD>(v_s, v + base + static_cast<size_t>(k0) * HD, 1.f);
     if (threadIdx.x < kTile) b_s[threadIdx.x] = bias_row[k0 + threadIdx.x];
     __syncthreads();
 
     float s[4][4], dp[4][4];
-    tile_dot<HD>(q_s, k_s, ty, tx, s);
     tile_dot<HD>(do_s, v_s, ty, tx, dp);
+    if constexpr (kOneTile) {
+      __syncthreads();                 // every thread is done with V
+      stage_rows<HD>(k_s, k + base + static_cast<size_t>(k0) * HD, 1.f);
+      __syncthreads();
+    }
+    tile_dot<HD>(q_s, k_s, ty, tx, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -507,14 +549,33 @@ __device__ __forceinline__ void ss_product(float* d, uint64_t a, uint64_t b, int
   }
 }
 
-// d (64 x N) += a (registers) . b, b transposed (MN-major) in shared memory.
-template <int N>
-__device__ __forceinline__ void rs_product(float* d, const uint32_t a[4], uint64_t b) {
-  if constexpr (N == 64) {
-    wgmma::wgmma_rs_t64(d, a, b);
-  } else {
-    wgmma::wgmma_rs_t128(d, a, b);
+// d (64 x HD) += a (registers) . b, b rows 16 kk..16 kk + 15 of a [HD / 64][rows][64]
+// block, read transposed (MN-major): an m64n128 product per pair of 64-column
+// halves and an m64n64 one for an odd last half. A 16-row group of a warp keeps
+// columns 8 nd.. at d[4 nd..], so the product of columns c.. adds into d + c / 2.
+template <int HD>
+__device__ __forceinline__ void rs_product(float* d, const uint32_t a[4], uint32_t block,
+                                           int rows, int kk) {
+#pragma unroll
+  for (int c = 0; c + 128 <= HD; c += 128) {
+    wgmma::wgmma_rs_t128(d + c / 2, a, mn_major(block + (c / 64) * rows * kRowBytes, rows, kk));
   }
+  if constexpr (HD % 128 == 64) {
+    wgmma::wgmma_rs_t64(d + (HD - 64) / 2, a,
+                        mn_major(block + (HD / 64 - 1) * rows * kRowBytes, rows, kk));
+  }
+}
+
+// Registers at head_dim 192 and 256: O's (or dQ's) fp32 accumulators take HD / 2
+// per thread, more than the 168 that 384 threads get each; the producer
+// warpgroup, which needs few, hands its share to the consumers.
+template <int HD>
+__device__ __forceinline__ void producer_registers() {
+  if constexpr (HD >= 192) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+}
+template <int HD>
+__device__ __forceinline__ void consumer_registers() {
+  if constexpr (HD >= 192) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
 }
 
 // Grid (ceil(len / 128), B * H), 384 threads: 128 query rows (64 per
@@ -558,6 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
   const int wg_index = threadIdx.x / 128;
   if (wg_index == 0) {
     // ---- producer: one thread keeps the ring full
+    producer_registers<HD>();
     if (threadIdx.x != 0) return;
     mbar_expect_tx(q_full, L::kQBytes);
     load_block<HD>(q_s, &q_map, row_base + q0, kBlockRows, q_full);
@@ -575,6 +637,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
   }
 
   // ---- consumers: 64 query rows per warpgroup, 16 per warp
+  consumer_registers<HD>();
   const int wg = wg_index - 1;
   if (q0 + 64 * wg >= len) return;
   const int tid = threadIdx.x % 128;
@@ -644,7 +707,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      rs_product<HD>(o, p[kk], mn_major(v_s + st * L::kTileBytes, kKeys, kk));
+      rs_product<HD>(o, p[kk], v_s + st * L::kTileBytes, kKeys, kk);
     }
     wgmma_commit_and_wait();
     fence_regs<HD / 2>(o);
@@ -664,16 +727,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
 }
 
 // Shared layout of the backward kernels: two 128-row blocks resident for
-// the whole loop (dQ: Q and dO; dK/dV: K and V), then a 2-stage ring of two
-// 64-row tiles (dQ: K and V; dK/dV: Q and dO), then 1 + 2 kStages barriers.
+// the whole loop (dQ: Q and dO; dK/dV: K and V), then a ring of two 64-row
+// tiles per stage (dQ: K and V; dK/dV: Q and dO), then 1 + 2 kStages
+// barriers. Two stages up to head_dim 192 (192 KB there); one at 256, where
+// two would take 256 KB of the 227 KB a block may have.
 template <int HD>
 struct BwdLayout {
   static constexpr int kRows = 64;   // rows of a ring tile
   static constexpr int kBlockBytes = HD / 64 * kBlockRows * kRowBytes;
   static constexpr int kTileBytes = HD / 64 * kRows * kRowBytes;
+  static constexpr int kStages = 2 * kBlockBytes + 4 * kTileBytes + 2048 <= 232448 ? 2 : 1;
   static constexpr int kBarrierOffset = 2 * kBlockBytes + kStages * 2 * kTileBytes;
   static constexpr size_t kSmem = 1024 + kBarrierOffset + 8 * (1 + 2 * kStages);
 };
+
 
 // Grid (ceil(len / 128), B * H), 384 threads: dQ of 128 query rows (64 per
 // consumer warpgroup) over every key tile of 64. S = Q K^T and dP = dO V^T
@@ -686,6 +753,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_wgmma_kernel(
     const float* __restrict__ delta, bf16* __restrict__ dq, int heads, int len, float scale) {
   using L = BwdLayout<HD>;
   constexpr int kKeys = L::kRows;
+  constexpr int kStages = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base, do_s = base + L::kBlockBytes;
@@ -712,6 +780,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_wgmma_kernel(
 
   const int wg_index = threadIdx.x / 128;
   if (wg_index == 0) {
+    producer_registers<HD>();
     if (threadIdx.x != 0) return;
     mbar_expect_tx(block_full, 2 * L::kBlockBytes);
     load_block<HD>(q_s, &q_map, row_base + q0, kBlockRows, block_full);
@@ -726,6 +795,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_wgmma_kernel(
     return;
   }
 
+  consumer_registers<HD>();
   const int wg = wg_index - 1;
   if (q0 + 64 * wg >= len) return;
   const int tid = threadIdx.x % 128;
@@ -779,7 +849,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_wgmma_kernel(
     fence_regs<HD / 2>(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) rs_product<HD>(acc, ds[kk], mn_major(k_s(st), kKeys, kk));
+    for (int kk = 0; kk < kKeys / 16; ++kk) rs_product<HD>(acc, ds[kk], k_s(st), kKeys, kk);
     wgmma_commit_and_wait();
     fence_regs<HD / 2>(acc);
     mbar_arrive(empty(st));
@@ -794,7 +864,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_wgmma_kernel(
 // (keys as rows): S^T = K Q^T and dP^T = V dO^T from shared memory, then
 // dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers. The
 // producer warpgroup gives its registers to the consumers (setmaxnreg).
-template <int HD>
+// kPass (BwdPass) leaves out what the other launch computes: dV needs no
+// dP^T, dK no P^T dO.
+template <int HD, int kPass>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
@@ -803,6 +875,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_wgmma_kernel(
     int len, float scale) {
   using L = BwdLayout<HD>;
   constexpr int kQueries = L::kRows;
+  constexpr int kStages = L::kStages;
+  constexpr bool kDv = kPass != kDkOnly, kDk = kPass != kDvOnly;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t k_s = base, v_s = base + L::kBlockBytes;
@@ -854,9 +928,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_wgmma_kernel(
       for (int hr = 0; hr < 2; ++hr) {
         key_bias[hr] = bias[static_cast<size_t>(bh / heads) * len + row0 + (lane >> 2) + 8 * hr];
       }
+      // the accumulator a pass leaves out is never touched, so it takes no registers
       float dk_acc[HD / 2], dv_acc[HD / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      for (int i = 0; i < HD / 2; ++i) {
+        if constexpr (kDk) dk_acc[i] = 0.f;
+        if constexpr (kDv) dv_acc[i] = 0.f;
+      }
       mbar_wait(block_full, 0);
 
       for (int j = 0; j < tiles; ++j) {
@@ -869,14 +947,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_wgmma_kernel(
           ss_product<kQueries>(s, k_major(k_s, kBlockRows, 64 * wg, kk),
                                k_major(q_s(st), kQueries, 0, kk), kk > 0);
         }
+        if constexpr (kDk) {
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          ss_product<kQueries>(dp, k_major(v_s, kBlockRows, 64 * wg, kk),
-                               k_major(do_s(st), kQueries, 0, kk), kk > 0);
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            ss_product<kQueries>(dp, k_major(v_s, kBlockRows, 64 * wg, kk),
+                                 k_major(do_s(st), kQueries, 0, kk), kk > 0);
+          }
         }
         wgmma_commit_and_wait();
         fence_regs<kQueries / 2>(s);
-        fence_regs<kQueries / 2>(dp);
+        if constexpr (kDk) fence_regs<kQueries / 2>(dp);
 #pragma unroll
         for (int nb = 0; nb < kQueries / 8; ++nb) {
           const size_t col = static_cast<size_t>(row_base) + j * kQueries + 8 * nb + 2 * t4;
@@ -889,33 +969,39 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_wgmma_kernel(
             const float p1 = exp2f((s[i + 1] * scale + key_bias[hr] - lq.y) * kLog2e);
             s[i] = p0;                                              // P^T
             s[i + 1] = p1;
-            dp[i] = p0 * (dp[i] - dq.x);                            // dS^T
-            dp[i + 1] = p1 * (dp[i + 1] - dq.y);
+            if constexpr (kDk) {
+              dp[i] = p0 * (dp[i] - dq.x);                          // dS^T
+              dp[i + 1] = p1 * (dp[i + 1] - dq.y);
+            }
           }
         }
         uint32_t pt[kQueries / 16][4], dst[kQueries / 16][4];
 #pragma unroll
         for (int kk = 0; kk < kQueries / 16; ++kk) {
-          acc_to_a(pt[kk], s + 8 * kk, s + 8 * kk + 4);
-          acc_to_a(dst[kk], dp + 8 * kk, dp + 8 * kk + 4);
+          if constexpr (kDv) acc_to_a(pt[kk], s + 8 * kk, s + 8 * kk + 4);
+          if constexpr (kDk) acc_to_a(dst[kk], dp + 8 * kk, dp + 8 * kk + 4);
         }
-        fence_regs<HD / 2>(dv_acc);
-        fence_regs<HD / 2>(dk_acc);
+        if constexpr (kDv) fence_regs<HD / 2>(dv_acc);
+        if constexpr (kDk) fence_regs<HD / 2>(dk_acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kQueries / 16; ++kk) {
-          rs_product<HD>(dv_acc, pt[kk], mn_major(do_s(st), kQueries, kk));   // dV += P^T dO
-          rs_product<HD>(dk_acc, dst[kk], mn_major(q_s(st), kQueries, kk));   // dK += dS^T Q
+          if constexpr (kDv) rs_product<HD>(dv_acc, pt[kk], do_s(st), kQueries, kk);  // dV += P^T dO
+          if constexpr (kDk) rs_product<HD>(dk_acc, dst[kk], q_s(st), kQueries, kk);  // dK += dS^T Q
         }
         wgmma_commit_and_wait();
-        fence_regs<HD / 2>(dv_acc);
-        fence_regs<HD / 2>(dk_acc);
+        if constexpr (kDv) fence_regs<HD / 2>(dv_acc);
+        if constexpr (kDk) fence_regs<HD / 2>(dk_acc);
         mbar_arrive(empty(st));
       }
 
       const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
-      store_rows<HD>(dk + static_cast<size_t>(row_base) * HD, row0, dk_acc, mul, lane);
-      store_rows<HD>(dv + static_cast<size_t>(row_base) * HD, row0, dv_acc, one, lane);
+      if constexpr (kDk) {
+        store_rows<HD>(dk + static_cast<size_t>(row_base) * HD, row0, dk_acc, mul, lane);
+      }
+      if constexpr (kDv) {
+        store_rows<HD>(dv + static_cast<size_t>(row_base) * HD, row0, dv_acc, one, lane);
+      }
     }
   }
 }
@@ -982,23 +1068,43 @@ int run_bwd(const void* q, const void* k, const void* v, const void* bias, const
     }
     constexpr size_t smem = wg::BwdLayout<HD>::kSmem;
     const dim3 grid((len + wg::kBlockRows - 1) / wg::kBlockRows, bh);
-    auto dkdv = wg::flash_bwd_dkdv_wgmma_kernel<HD>;
-    if ((err = allow_smem(dkdv, smem)) != cudaSuccess) return static_cast<int>(err);
-    dkdv<<<grid, wg::kThreads, smem, s>>>(q_map, k_map, v_map, do_map, b, lse_f, delta_f,
-                                          static_cast<T*>(dk), static_cast<T*>(dv), heads, len,
-                                          scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    auto dkdv = [&](auto kernel) {
+      cudaError_t e = allow_smem(kernel, smem);
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, wg::kThreads, smem, s>>>(q_map, k_map, v_map, do_map, b, lse_f, delta_f,
+                                              static_cast<T*>(dk), static_cast<T*>(dv), heads,
+                                              len, scale);
+      return cudaGetLastError();
+    };
+    if constexpr (split_dkdv<HD>()) {
+      if ((err = dkdv(wg::flash_bwd_dkdv_wgmma_kernel<HD, kDvOnly>)) != cudaSuccess ||
+          (err = dkdv(wg::flash_bwd_dkdv_wgmma_kernel<HD, kDkOnly>)) != cudaSuccess) {
+        return static_cast<int>(err);
+      }
+    } else if ((err = dkdv(wg::flash_bwd_dkdv_wgmma_kernel<HD, kDkDv>)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
     auto dq_kernel = wg::flash_bwd_dq_wgmma_kernel<HD>;
     if ((err = allow_smem(dq_kernel, smem)) != cudaSuccess) return static_cast<int>(err);
     dq_kernel<<<grid, wg::kThreads, smem, s>>>(q_map, k_map, v_map, do_map, b, lse_f, delta_f,
                                                static_cast<T*>(dq), heads, len, scale);
   } else {
-    auto dkdv = flash_bwd_dkdv_kernel<HD, T>;
-    if ((err = allow_smem(dkdv, Geom<HD>::kDkdvSmem)) != cudaSuccess) return static_cast<int>(err);
-    dkdv<<<dim3(len / kTile, bh), kThreads, Geom<HD>::kDkdvSmem, s>>>(
-        qt, kt, vt, b, dot, lse_f, delta_f, static_cast<T*>(dk), static_cast<T*>(dv), heads, len,
-        scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    auto dkdv = [&](auto kernel) {
+      cudaError_t e = allow_smem(kernel, Geom<HD>::kDkdvSmem);
+      if (e != cudaSuccess) return e;
+      kernel<<<dim3(len / kTile, bh), kThreads, Geom<HD>::kDkdvSmem, s>>>(
+          qt, kt, vt, b, dot, lse_f, delta_f, static_cast<T*>(dk), static_cast<T*>(dv), heads,
+          len, scale);
+      return cudaGetLastError();
+    };
+    if constexpr (split_dkdv<HD>()) {
+      if ((err = dkdv(flash_bwd_dkdv_kernel<HD, T, kDvOnly>)) != cudaSuccess ||
+          (err = dkdv(flash_bwd_dkdv_kernel<HD, T, kDkOnly>)) != cudaSuccess) {
+        return static_cast<int>(err);
+      }
+    } else if ((err = dkdv(flash_bwd_dkdv_kernel<HD, T, kDkDv>)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
     auto dq_kernel = flash_bwd_dq_kernel<HD, T>;
     if ((err = allow_smem(dq_kernel, Geom<HD>::kDqSmem)) != cudaSuccess) {
       return static_cast<int>(err);
@@ -1012,23 +1118,37 @@ int run_bwd(const void* q, const void* k, const void* v, const void* bias, const
 template <typename T>
 int dispatch_fwd(int head_dim, const void* q, const void* k, const void* v, const void* bias,
                  void* out, void* lse, int bh, int heads, int len, float scale, cudaStream_t s) {
-  return head_dim == 64 ? run_fwd<64, T>(q, k, v, bias, out, lse, bh, heads, len, scale, s)
-                        : run_fwd<128, T>(q, k, v, bias, out, lse, bh, heads, len, scale, s);
+  switch (head_dim) {
+    case 64: return run_fwd<64, T>(q, k, v, bias, out, lse, bh, heads, len, scale, s);
+    case 128: return run_fwd<128, T>(q, k, v, bias, out, lse, bh, heads, len, scale, s);
+    case 192: return run_fwd<192, T>(q, k, v, bias, out, lse, bh, heads, len, scale, s);
+    default: return run_fwd<256, T>(q, k, v, bias, out, lse, bh, heads, len, scale, s);
+  }
 }
 
 template <typename T>
 int dispatch_bwd(int head_dim, const void* q, const void* k, const void* v, const void* bias,
                  const void* out, const void* lse, const void* dout, void* delta, void* dq,
                  void* dk, void* dv, int bh, int heads, int len, float scale, cudaStream_t s) {
-  return head_dim == 64
-             ? run_bwd<64, T>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, bh, heads, len,
-                              scale, s)
-             : run_bwd<128, T>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, bh, heads, len,
-                               scale, s);
+  switch (head_dim) {
+    case 64:
+      return run_bwd<64, T>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, bh, heads, len,
+                            scale, s);
+    case 128:
+      return run_bwd<128, T>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, bh, heads, len,
+                             scale, s);
+    case 192:
+      return run_bwd<192, T>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, bh, heads, len,
+                             scale, s);
+    default:
+      return run_bwd<256, T>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, bh, heads, len,
+                             scale, s);
+  }
 }
 
 bool supported(int len, int head_dim) {
-  return len % kTile == 0 && (head_dim == 64 || head_dim == 128);
+  return len % kTile == 0 &&
+         (head_dim == 64 || head_dim == 128 || head_dim == 192 || head_dim == 256);
 }
 
 }  // namespace
@@ -1037,7 +1157,7 @@ bool supported(int len, int head_dim) {
 extern "C" {
 
 // q, k, v, out: (batch * heads, len, head_dim) bf16 (is_bf16) or fp32,
-// head_dim 64 or 128; bias: (batch, len) fp32; lse: (batch * heads, len)
+// head_dim 64, 128, 192 or 256; bias: (batch, len) fp32; lse: (batch * heads, len)
 // fp32; len % 64 == 0. bf16 runs on the tensor cores, fp32 on the FMA
 // pipes. Returns the cudaError_t of the launch (0 on success).
 int mmt_flash_attention_fwd(int is_bf16, const void* q, const void* k, const void* v,
@@ -1055,7 +1175,7 @@ int mmt_flash_attention_fwd(int is_bf16, const void* q, const void* k, const voi
 
 // As the forward, plus dout (the output's gradient, q's dtype), delta
 // ((batch * heads, len) fp32 scratch) and dq, dk, dv (q's dtype). Three
-// launches: delta, dk/dv, dq. Returns the first non-zero cudaError_t.
+// launches: delta, dk/dv, dq; four above head_dim 128 (dv and dk apart). Returns the first non-zero cudaError_t.
 int mmt_flash_attention_bwd(int is_bf16, const void* q, const void* k, const void* v,
                             const void* bias, const void* out, const void* lse, const void* dout,
                             void* delta, void* dq, void* dk, void* dv, int batch, int heads,

@@ -30,6 +30,15 @@ it is set: one graph per stage, as the JAX package runs one ``while_loop``
 per stage. Elsewhere, or with ``cuda_graph=False``, the same step runs
 eagerly in the same loop.
 
+Under tensor parallelism (a model built on a mesh with a model axis) each
+rank decodes with its slices: the decode copy and :meth:`BeamDecoder.refresh`
+keep them, the self caches hold its heads, and the step's sums over the
+model group (attention and FFN outputs, the gathered logits) run inside the
+step, so every rank's state is the same. A stage's step is captured as a
+CUDA graph only where those sums can be captured: when the model group's
+backend is NCCL. Under gloo (ranks sharing one card, or the CPU) the steps
+run eagerly; ``stats["graph"]`` says which route ran.
+
 Ties in every top-k break toward the lower index, as ``jax.lax.top_k`` does
 (a stable descending sort), so fp32 runs pick the beams the JAX package
 picks. The JAX package's rounding of stage sizes to its kernel's tiling is
@@ -43,6 +52,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..models.seq2seq import Seq2SeqModel
 from ..ops import _cuda
@@ -78,7 +88,18 @@ def decode_model(model: Seq2SeqModel) -> Seq2SeqModel:
             for p in cast}
     if model.align_network is not None:
         memo[id(model.align_network)] = None
+    if model.mesh is not None:
+        memo[id(model.mesh)] = model.mesh      # its process groups are shared, not copied
     return copy.deepcopy(model, memo)
+
+
+def collectives_capturable(model: Seq2SeqModel) -> bool:
+    """Whether a decode step's collectives can be captured in a CUDA graph:
+    none to capture (no model axis), or a model group over NCCL."""
+    mesh = model.mesh
+    if mesh is None or mesh.n_model == 1:
+        return True
+    return dist.get_backend(mesh.model_group) == "nccl"
 
 
 def kv_cache_quantized(cfg, num_beams: int, max_length: int) -> bool:
@@ -314,7 +335,9 @@ class BeamDecoder:
         is replayed from a CUDA graph, captured at the first decode of this
         shape; a capture that fails raises. A hook whose ``capturable``
         attribute is False (the exact formula hook, which makes one host
-        call per step) runs the step eagerly, as ``cuda_graph=False`` does.
+        call per step), or a model group whose collectives cannot be
+        captured (:func:`collectives_capturable`), runs the step eagerly, as
+        ``cuda_graph=False`` does.
         The host reads the ``done`` flag once every ``check_every`` steps.
 
         ``stats``, if given, receives ``steps`` (the device ``t`` at the end:
@@ -328,7 +351,8 @@ class BeamDecoder:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
         device = encoder_mask.device
         use_graph = (cuda_graph and device.type == "cuda"
-                     and getattr(logits_hook, "capturable", True))
+                     and getattr(logits_hook, "capturable", True)
+                     and collectives_capturable(self.model))
         batch = encoder_mask.shape[0]
         bounds = stage_bounds(stage_size, max_length)
         # The encoder runs on the model's own weights, as the JAX package

@@ -7,6 +7,15 @@ param tree (``models/weights.py``).
 
 ``forward(..., deterministic=False, generator=g)`` is the training forward:
 dropout at the JAX sites, drawn from ``g``. The default is deterministic.
+
+``Seq2SeqModel(..., mesh=m)`` builds this process's part of the model on
+the mesh's layout (``parallel/mesh.py``): under tensor parallelism the
+stacks run on local heads and FFN columns (``models/transformer.py``) and
+the lm_head holds this rank's vocabulary columns; the logits are gathered
+over the model group before the cross entropy and before the beam's
+log-softmax and top-k, so everything after them is replicated. Weights are
+drawn in full and sliced, so the ranks' slices are the one-process
+model's.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ from torch import nn
 
 from ..ops.attention import make_attention_bias, make_causal_bias
 from ..ops.layers import Dense, LayerNorm, make_generator
+from ..parallel.mesh import Mesh, shards_width
+from ..parallel.tensor import gather_from_model
 from .align import ALIGN_LOSSES, AlignNetwork
 from .config import ModelConfig
 from .embedding import MultimodalEmbedding
@@ -39,11 +50,15 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 class Seq2SeqModel(nn.Module):
     def __init__(self, config: ModelConfig, data_config: Dict[str, Any],
                  target_modality: str, multimodal_norm: bool = True, *,
-                 device=None, generator: Optional[torch.Generator] = None):
-        """``generator`` seeds the initialisation (default: seed 0 on ``device``)."""
+                 device=None, generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None):
+        """``generator`` seeds the initialisation (default: seed 0 on ``device``);
+        ``mesh`` is this process's layout (None: one process, or data
+        parallelism over the process group)."""
         super().__init__()
         self.config = config
         self.target_modality = target_modality
+        self.mesh = mesh
         g = make_generator(generator, device)
         dtype = config.compute_dtype
         self.embedding = MultimodalEmbedding(
@@ -53,10 +68,12 @@ class Seq2SeqModel(nn.Module):
             max_seq_len=config.max_position_embeddings,
             unnormed=() if config.decoder_modality_norm else (target_modality,),
             dtype=dtype, device=device, generator=g)
-        self.encoder = Encoder(config, device=device, generator=g)
-        self.decoder = Decoder(config, device=device, generator=g)
+        self.encoder = Encoder(config, device=device, generator=g, mesh=mesh)
+        self.decoder = Decoder(config, device=device, generator=g, mesh=mesh)
         self.lm_head = Dense(config.d_model, config.vocab_size, bias=config.lm_head_bias,
-                             dtype=torch.float32, device=device, generator=g)
+                             dtype=torch.float32, device=device, generator=g,
+                             **(dict(mesh=mesh, shard_axis=0)
+                                if shards_width(config.vocab_size, mesh) else {}))
         self.decoder_emb_norm = (LayerNorm(config.d_model, device=device)
                                  if config.decoder_embedding_layernorm else None)
         self.align_network = (AlignNetwork(config.align_config, config.d_model, device=device,
@@ -71,11 +88,12 @@ class Seq2SeqModel(nn.Module):
         return embeds
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """lm_head in fp32 (with T5's tied-embedding d**-0.5 output scaling)."""
+        """lm_head in fp32 (with T5's tied-embedding d**-0.5 output scaling),
+        its vocabulary columns gathered over the model group when split."""
         hidden = hidden.float()
         if self.config.tied_logits_scale:
             hidden = hidden * (self.config.d_model ** -0.5)
-        return self.lm_head(hidden)
+        return gather_from_model(self.lm_head(hidden), self.lm_head.mesh)
 
     def encode(self, encoder_inputs: Dict[str, torch.Tensor], encoder_mask: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -145,16 +163,18 @@ class Seq2SeqModel(nn.Module):
         rounded up to 128), "cross": per-layer flat (k, v), "cross_bias":
         the (B, Ls) fp32 padding bias of ``encoder_mask``, built once for
         every step and layer}. Flat row l*K + s holds what beam slot s wrote
-        at time l; rows are never reordered."""
+        at time l; rows are never reordered. Under tensor parallelism the
+        self caches hold this rank's heads only (D and H local)."""
         cfg = self.config
         device = encoder_hidden.device
         flat = max_length * num_beams
-        shape = (2, batch_size, flat, cfg.d_model)
+        attn = self.decoder.layers[0].self_attn
+        shape = (2, batch_size, flat, attn.width)
         if quantize:
             flat_pad = (flat + 127) // 128 * 128
             selves: list = [
                 {"data": torch.zeros(shape, dtype=torch.int8, device=device),
-                 "scale": torch.zeros((2, batch_size, cfg.decoder_attention_heads, flat_pad),
+                 "scale": torch.zeros((2, batch_size, attn.num_heads, flat_pad),
                                       device=device)}
                 for _ in range(cfg.decoder_layers)]
         else:

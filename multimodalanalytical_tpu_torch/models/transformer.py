@@ -8,6 +8,18 @@ residual add) and is drawn from the ``generator`` that a training forward
 passes down; ``generator=None`` is the deterministic (inference) mode. With
 ``relative_position_bias`` (T5) each stack holds one
 :class:`RelativePositionBias`, added to every layer's self-attention bias.
+
+Under tensor parallelism (a ``mesh`` with a model axis) the attention
+modules run on their local heads (``ops/attention.py``) and the FFN holds
+F / n_model of the hidden width: ``linear1`` and ``gate`` column-parallel,
+``linear2`` row-parallel. Each residual branch ends in a sum over the model
+group, so the residual stream, the norms and every dropout on a branch's
+output act on the replicated activation: their draws must be the same on
+every rank of the group, which the trainer ensures by seeding the dropout
+stream from the data index. The dropout on the FFN's sharded hidden draws
+the mask of the whole hidden and keeps this rank's columns
+(``ops/dropout.py``), so a tensor-parallel step drops what the one-process
+step drops.
 """
 
 from __future__ import annotations
@@ -23,6 +35,8 @@ from ..ops.decode_ffn import geglu_ffn
 from ..ops.dropout import dropout
 from ..ops.layers import Dense, LayerNorm, RMSNorm
 from ..ops.positional import RelativePositionBias
+from ..parallel.mesh import shards_width
+from ..parallel.tensor import reduce_from_model
 
 ACTIVATIONS = {
     "gelu": F.gelu,
@@ -40,38 +54,51 @@ def _norm(norm_type: str, dim: int, device=None) -> nn.Module:
 class FeedForward(nn.Module):
     def __init__(self, d_model: int, ffn_dim: int, activation: str = "gelu",
                  gated_linear: bool = False, *, dtype=torch.float32, use_bias: bool = True,
-                 dropout: float = 0.0, device=None, generator: torch.Generator):
+                 dropout: float = 0.0, device=None, generator: torch.Generator, mesh=None):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise ValueError(f"Unsupported activation {activation!r}")
         self.activation, self.dtype, self.use_bias = activation, dtype, use_bias
-        self.dropout = dropout
+        self.dropout, self.ffn_dim = dropout, ffn_dim
+        split = shards_width(ffn_dim, mesh)
+        self.mesh = mesh if split else None
         dense = dict(bias=use_bias, dtype=dtype, device=device, generator=generator)
-        self.linear1 = Dense(d_model, ffn_dim, **dense)
-        self.gate = Dense(d_model, ffn_dim, **dense) if gated_linear else None
-        self.linear2 = Dense(ffn_dim, d_model, **dense)
+        column = dict(mesh=mesh, shard_axis=0) if split else {}
+        self.linear1 = Dense(d_model, ffn_dim, **dense, **column)
+        self.gate = Dense(d_model, ffn_dim, **dense, **column) if gated_linear else None
+        self.linear2 = Dense(ffn_dim, d_model, **dense,
+                             **(dict(mesh=mesh, shard_axis=1) if split else {}))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         hidden = ACTIVATIONS[self.activation](self.linear1(x))
         if self.gate is not None:
             hidden = hidden * self.gate(x)
-        hidden = dropout(hidden, self.dropout, generator)
+        if self.mesh is None:
+            hidden = dropout(hidden, self.dropout, generator)
+        else:
+            hidden = dropout(hidden, self.dropout, generator,
+                             (self.mesh.n_model, self.mesh.model_index))
         return dropout(self.linear2(hidden), self.dropout, generator)
 
     def decode_fused(self, x: torch.Tensor) -> torch.Tensor:
         """Decode-path FFN: the fused kernel (ops/decode_ffn.py) for bf16
-        GELU FFNs with biases on flat (M, D) rows; the plain path otherwise."""
+        GELU FFNs with biases on flat (M, D) rows; the plain path otherwise.
+        Split over a model group, the kernel's partial mode gives this
+        rank's fp32 down product over its F columns; the sum over the group
+        is rounded, b2 added and rounded, where the full kernel rounds."""
         if not (self.dtype == torch.bfloat16 and self.use_bias
                 and self.activation == "gelu" and x.ndim == 2):
             return self(x)
         gate = self.gate
-        return geglu_ffn(
-            x, self.linear1.weight, self.linear1.bias,
-            gate.weight if gate is not None else None,
-            gate.bias if gate is not None else None,
-            self.linear2.weight, self.linear2.bias,
-        )
+        args = (x, self.linear1.weight, self.linear1.bias,
+                gate.weight if gate is not None else None,
+                gate.bias if gate is not None else None, self.linear2.weight)
+        if self.mesh is None:
+            return geglu_ffn(*args, self.linear2.bias)
+        partial = geglu_ffn(*args, None, partial=True)
+        return (reduce_from_model(partial, self.mesh).to(torch.bfloat16)
+                + self.linear2.bias.to(torch.bfloat16))
 
 
 class EncoderLayer(nn.Module):
@@ -79,15 +106,15 @@ class EncoderLayer(nn.Module):
                  gated_linear: bool = False, norm_first: bool = True, *, dtype=torch.float32,
                  dropout: float = 0.0, use_flash: bool = False, norm_type: str = "layernorm",
                  attention_bias: bool = True, attention_scale: bool = True,
-                 ffn_bias: bool = True, device=None, generator: torch.Generator):
+                 ffn_bias: bool = True, device=None, generator: torch.Generator, mesh=None):
         super().__init__()
         self.norm_first, self.dtype, self.dropout = norm_first, dtype, dropout
         self.self_attn = MultiHeadAttention(
             num_heads, d_model, dtype=dtype, use_flash=use_flash, use_bias=attention_bias,
-            scale_qk=attention_scale, device=device, generator=generator)
+            scale_qk=attention_scale, device=device, generator=generator, mesh=mesh)
         self.ff = FeedForward(d_model, ffn_dim, activation, gated_linear, dtype=dtype,
                               use_bias=ffn_bias, dropout=dropout, device=device,
-                              generator=generator)
+                              generator=generator, mesh=mesh)
         self.norm1 = _norm(norm_type, d_model, device)
         self.norm2 = _norm(norm_type, d_model, device)
 
@@ -110,11 +137,11 @@ class DecoderLayer(nn.Module):
                  dropout: float = 0.0, use_flash: bool = False, use_beam_kernel: bool = True,
                  norm_type: str = "layernorm", attention_bias: bool = True,
                  attention_scale: bool = True, ffn_bias: bool = True, device=None,
-                 generator: torch.Generator):
+                 generator: torch.Generator, mesh=None):
         super().__init__()
         self.norm_first, self.dtype, self.dropout = norm_first, dtype, dropout
         attn = dict(dtype=dtype, use_bias=attention_bias, scale_qk=attention_scale,
-                    device=device, generator=generator)
+                    device=device, generator=generator, mesh=mesh)
         self.self_attn = MultiHeadAttention(num_heads, d_model, use_flash=use_flash,
                                             use_beam_kernel=use_beam_kernel, **attn)
         # As in the JAX package, use_beam_kernel gates the self-attention
@@ -122,7 +149,7 @@ class DecoderLayer(nn.Module):
         self.cross_attn = MultiHeadAttention(num_heads, d_model, mode="cross", **attn)
         self.ff = FeedForward(d_model, ffn_dim, activation, gated_linear, dtype=dtype,
                               use_bias=ffn_bias, dropout=dropout, device=device,
-                              generator=generator)
+                              generator=generator, mesh=mesh)
         self.norm1 = _norm(norm_type, d_model, device)
         self.norm2 = _norm(norm_type, d_model, device)
         self.norm3 = _norm(norm_type, d_model, device)
@@ -163,8 +190,8 @@ class DecoderLayer(nn.Module):
         return self.norm3(x + self.ff(x, generator)).to(dt)
 
 
-def _stack_kwargs(cfg, num_heads: int, ffn_dim: int, dtype, device, generator) -> dict:
-    return dict(
+def _stack_kwargs(cfg, num_heads: int, ffn_dim: int, dtype, device, generator, mesh) -> dict:
+    return dict(mesh=mesh,
         d_model=cfg.d_model, num_heads=num_heads, ffn_dim=ffn_dim,
         activation=cfg.activation_function, gated_linear=cfg.gated_linear,
         norm_first=cfg.post_layer_normalisation, dtype=dtype, dropout=cfg.dropout,
@@ -175,10 +202,10 @@ def _stack_kwargs(cfg, num_heads: int, ffn_dim: int, dtype, device, generator) -
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg, *, device=None, generator: torch.Generator):
+    def __init__(self, cfg, *, device=None, generator: torch.Generator, mesh=None):
         super().__init__()
         kw = _stack_kwargs(cfg, cfg.encoder_attention_heads, cfg.encoder_ffn_dim,
-                           cfg.compute_dtype, device, generator)
+                           cfg.compute_dtype, device, generator, mesh)
         self.dtype = cfg.compute_dtype
         self.num_layers = cfg.encoder_layers
         self.rel_bias = (RelativePositionBias(cfg.encoder_attention_heads, bidirectional=True,
@@ -203,10 +230,10 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg, *, device=None, generator: torch.Generator):
+    def __init__(self, cfg, *, device=None, generator: torch.Generator, mesh=None):
         super().__init__()
         kw = _stack_kwargs(cfg, cfg.decoder_attention_heads, cfg.decoder_ffn_dim,
-                           cfg.compute_dtype, device, generator)
+                           cfg.compute_dtype, device, generator, mesh)
         self.dtype = cfg.compute_dtype
         for i in range(cfg.decoder_layers):
             self.add_module(f"layer_{i}",

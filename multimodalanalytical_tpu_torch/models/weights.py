@@ -12,6 +12,12 @@ layout. A reference checkpoint's state_dict reaches the port through
 (``models/torch_mapping.py``) followed by :func:`load_flax_params`'s
 checks, less the parameters that the reference holds and neither package
 reads (:func:`without_unapplied_reference_params`).
+
+Under tensor parallelism a model holds this rank's slices
+(``parallel/mesh.py``): :func:`shard_state_dict` takes a full state dict
+(from :func:`flax_to_state_dict`, a checkpoint or a one-process model) to
+the slices of a model built on the mesh, and :func:`gather_state_dict`
+gives back the full tensors, the same on every rank of the model group.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import gather_slices, local_slice, param_shardings
 from .torch_mapping import lightning_state_dict_to_flax
 
 _RENAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
@@ -98,3 +105,43 @@ def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any],
               else np.asarray(value) for key, value in state_dict.items()}
     incoming = flax_to_state_dict(lightning_state_dict_to_flax(arrays, family=family))
     _load_named(model, without_unapplied_reference_params(model, incoming))
+
+
+def _check_keys(own, incoming) -> None:
+    missing = sorted(set(own) - set(incoming))
+    unused = sorted(set(incoming) - set(own))
+    if missing or unused:
+        raise ValueError(f"state dict names differ: missing {missing}, unused {unused}")
+
+
+def shard_state_dict(full: Mapping[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The full ``state_dict`` ``full`` (tensors or arrays) as ``model``'s own
+    state dict: this rank's slice of every parameter that ``model`` (built on
+    its mesh) holds split, the rest as it is. Every key of ``model`` must be
+    given once and every given key used."""
+    own = model.state_dict()
+    _check_keys(own, full)
+    mesh = model.mesh
+    specs = param_shardings(model, mesh) if mesh is not None else {}
+    out: Dict[str, torch.Tensor] = {}
+    for name, param in own.items():
+        value = torch.as_tensor(np.asarray(full[name]) if not isinstance(full[name], torch.Tensor)
+                                else full[name])
+        spec = specs.get(name)
+        if spec is not None:
+            value = local_slice(value, spec, mesh.n_model, mesh.model_index)
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(param.shape)}")
+        out[name] = value.to(param.dtype)
+    return out
+
+
+def gather_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s state dict with every split parameter gathered whole over
+    its mesh's model group: what one process holds. Every rank of the group
+    must call it."""
+    mesh = model.mesh
+    specs = param_shardings(model, mesh) if mesh is not None else {}
+    return {name: gather_slices(value.detach(), specs[name], mesh)
+            if specs.get(name) is not None else value
+            for name, value in model.state_dict().items()}

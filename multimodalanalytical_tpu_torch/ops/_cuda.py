@@ -39,7 +39,7 @@ SIGNATURES = {
     "mmt_beam_select_attention_update": [_I] + [_P] * 8 + [_I] * 7 + [_P, _I, _F, _P],
     "mmt_beam_select_attention": [_I] + [_P] * 6 + [_I] * 7 + [_P, _I, _F, _P],
     "mmt_beam_cross_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "mmt_geglu_ffn": [_P] * 10 + [_I] * 7 + [_P],
+    "mmt_geglu_ffn": [_P] * 10 + [_I] * 8 + [_P],
     "mmt_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "mmt_flash_attention_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_F, _P],
     "mmt_fused_dropout": [_I, _P, _P, _P, ctypes.c_longlong, ctypes.c_uint, _F, _P],

@@ -25,6 +25,15 @@ package routes it (its ``ops/attention.py``: the kernel only when
 kernel in either package, by that choice and not as a fallback. KV caches are
 updated in place. Full-sequence attention at the flash gate (encoder
 self-attention with Lq == Lk >= 2048) takes ``ops/flash_attention.py``.
+
+Under tensor parallelism (a ``mesh`` whose model axis divides the heads)
+a module holds the q, k and v columns of its H / n_model local heads
+(column-parallel projections) and the matching input rows of ``out_proj``
+(row-parallel, summed over the model group), and every path above runs on
+the local heads at the local width (heads x head_dim): the kernels, the
+flash route, the self cache (which holds only the local heads' rows and
+scales). A per-head additive bias over all H heads (T5's relative bias) is
+sliced to the local heads where it is added.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import Mesh, shards_heads
 from .beam_attention import beam_cross_attention, beam_kernel_supports, \
     beam_select_attention_update, quantize_kv_heads
 from .flash_attention import NEG_INF, flash_attention, flash_qualifies
@@ -79,24 +89,40 @@ def dot_product_attention(q, k, v, bias, use_flash: bool = False,
 
 class MultiHeadAttention(nn.Module):
     """Projections + attention. ``mode`` "self" fuses q/k/v into one Dense,
-    "cross" keeps q separate and fuses k/v."""
+    "cross" keeps q separate and fuses k/v. ``num_heads`` is the local head
+    count (``total_heads`` / n_model under tensor parallelism) and ``width``
+    the local width."""
 
     def __init__(self, num_heads: int, d_model: int, *, dtype=torch.float32,
                  use_flash: bool = False, use_beam_kernel: bool = True,
                  mode: str = "self", use_bias: bool = True, scale_qk: bool = True,
-                 device=None, generator: torch.Generator):
+                 device=None, generator: torch.Generator, mesh: Optional[Mesh] = None):
         super().__init__()
-        self.num_heads, self.d_model, self.dtype = num_heads, d_model, dtype
+        split = shards_heads(num_heads, mesh)
+        self.total_heads, self.d_model, self.dtype = num_heads, d_model, dtype
         self.head_dim = d_model // num_heads
+        self.num_heads = num_heads // mesh.n_model if split else num_heads
+        self.head0 = mesh.model_index * self.num_heads if split else 0
+        self.width = self.num_heads * self.head_dim
         self.use_flash, self.use_beam_kernel = use_flash, use_beam_kernel
         self.mode, self.scale_qk = mode, scale_qk
         dense = dict(bias=use_bias, dtype=dtype, device=device, generator=generator)
+        column = dict(mesh=mesh, shard_axis=0) if split else {}
         if mode == "self":
-            self.qkv_proj = Dense(d_model, 3 * d_model, blocks=3, **dense)
+            self.qkv_proj = Dense(d_model, 3 * d_model, blocks=3, **dense, **column)
         else:
-            self.q_proj = Dense(d_model, d_model, **dense)
-            self.kv_proj = Dense(d_model, 2 * d_model, blocks=2, **dense)
-        self.out_proj = Dense(d_model, d_model, **dense)
+            self.q_proj = Dense(d_model, d_model, **dense, **column)
+            self.kv_proj = Dense(d_model, 2 * d_model, blocks=2, **dense, **column)
+        self.out_proj = Dense(d_model, d_model, **dense,
+                              **(dict(mesh=mesh, shard_axis=1) if split else {}))
+
+    def _local_heads(self, bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A (.., H, .., ..) per-head bias over all heads -> this rank's heads;
+        a bias that broadcasts over the heads as it is."""
+        if (bias is None or self.num_heads == self.total_heads or bias.ndim != 4
+                or bias.shape[1] != self.total_heads):
+            return bias
+        return bias[:, self.head0:self.head0 + self.num_heads]
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
@@ -122,14 +148,15 @@ class MultiHeadAttention(nn.Module):
         batch, beams, length = ancestry.shape
         if not isinstance(position, torch.Tensor):
             position = torch.full((), position, dtype=torch.int32, device=x.device)
-        heads, head_dim = self.num_heads, self.head_dim
+        heads, head_dim, width = self.num_heads, self.head_dim, self.width
+        extra_bias = self._local_heads(extra_bias)
         q_flat, k_new, v_new = self.qkv_proj(x).chunk(3, dim=-1)
         quantized = isinstance(cache, dict)
         # Unlike the Pallas kernel, the CUDA kernel takes one beam too, so
         # greedy decoding (validation's K = 1) runs through it as well.
         if (self.use_beam_kernel and self.scale_qk and extra_bias is None
                 and (quantized or cache.dtype == torch.bfloat16)
-                and (x.is_cuda or beam_kernel_supports(beams, self.d_model, heads))):
+                and (x.is_cuda or beam_kernel_supports(beams, width, heads))):
             # An int8 cache takes the projection's rows as they are: the
             # update quantizes them itself.
             if quantized:
@@ -143,8 +170,8 @@ class MultiHeadAttention(nn.Module):
             return self.out_proj(out.to(x.dtype))
 
         # Plain formulation on (B, K, D) views of the flat rows.
-        k_new = k_new.reshape(batch, beams, self.d_model)
-        v_new = v_new.reshape(batch, beams, self.d_model)
+        k_new = k_new.reshape(batch, beams, width)
+        v_new = v_new.reshape(batch, beams, width)
         # This step's flat rows position*K .. position*K + K - 1.
         rows = position.long() * beams + torch.arange(beams, device=x.device)
         if quantized:
@@ -177,7 +204,7 @@ class MultiHeadAttention(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         pw = torch.einsum("bnhl,bnlk->bnhlk", probs.to(kv.dtype).float(), anc_onehot)
         out = torch.einsum("bnhlk,blkhd->bnhd", pw, kv[1].float()).to(x.dtype)
-        return self.out_proj(out.reshape(batch * beams, self.d_model))
+        return self.out_proj(out.reshape(batch * beams, width))
 
     def beam_decode_cross_attention(
         self,
@@ -191,7 +218,7 @@ class MultiHeadAttention(nn.Module):
         heads, head_dim = self.num_heads, self.head_dim
         q_flat = self.q_proj(x)
         if (self.use_beam_kernel and self.scale_qk
-                and (x.is_cuda or beam_kernel_supports(beams, self.d_model, heads))):
+                and (x.is_cuda or beam_kernel_supports(beams, self.width, heads))):
             out = beam_cross_attention(q_flat.to(kv[0].dtype), kv[0], kv[1], bias,
                                        heads, beams)
             return self.out_proj(out.to(x.dtype))
@@ -204,7 +231,7 @@ class MultiHeadAttention(nn.Module):
         logits = logits + bias[:, None, None, :]
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bkhl,blhd->bkhd", probs.to(v.dtype).float(), v.float())
-        return self.out_proj(out.to(x.dtype).reshape(batch * beams, self.d_model))
+        return self.out_proj(out.to(x.dtype).reshape(batch * beams, self.width))
 
     def forward(self, query_input: torch.Tensor, kv_input: Optional[torch.Tensor],
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -214,7 +241,7 @@ class MultiHeadAttention(nn.Module):
         else:
             q = self._split(self.q_proj(query_input))
             k, v = (self._split(t) for t in self.kv_proj(kv_input).chunk(2, dim=-1))
-        out = dot_product_attention(q, k, v, bias, use_flash=self.use_flash,
+        out = dot_product_attention(q, k, v, self._local_heads(bias), use_flash=self.use_flash,
                                     scale=None if self.scale_qk else 1.0)
         b, h, lq, dh = out.shape
         return self.out_proj(out.transpose(1, 2).reshape(b, lq, h * dh))

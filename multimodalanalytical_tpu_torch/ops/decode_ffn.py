@@ -16,6 +16,12 @@ Cephes rational the TPU kernel uses; the difference vanishes in the bf16
 rounding. A split down product adds its fp32 partials in a fixed order,
 so reruns give the same bits.
 
+Partial mode (``partial=True``, tensor parallelism: the caller holds F / n
+columns of W1 and the gate, and the matching rows of W2): the result is the
+fp32 (M, D) down product over this F without b2 and without rounding; the
+caller sums it over the ranks, then rounds to bf16, adds b2 and rounds,
+where the full mode rounds.
+
 Dispatch: a CPU tensor takes :func:`geglu_ffn_plain`; a CUDA tensor launches
 the kernel or raises.
 """
@@ -80,7 +86,8 @@ def geglu_ffn_plain(
     wg: Optional[torch.Tensor],
     bg: Optional[torch.Tensor],
     w2: torch.Tensor,
-    b2: torch.Tensor,
+    b2: Optional[torch.Tensor],
+    partial: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version; weights in Linear layout (out, in)."""
     x = x.to(BF16)
@@ -88,6 +95,8 @@ def geglu_ffn_plain(
     act = F.gelu(h.float()).to(BF16)
     if wg is not None:
         act = act * ((x @ wg.to(BF16).t()) + bg.to(BF16))
+    if partial:
+        return act.float() @ w2.to(BF16).float().t()
     return (act @ w2.to(BF16).t()) + b2.to(BF16)
 
 
@@ -98,19 +107,22 @@ def geglu_ffn(
     wg: Optional[torch.Tensor],    # (F, D) | None (ungated)
     bg: Optional[torch.Tensor],    # (F,)   | None
     w2: torch.Tensor,              # (D, F)
-    b2: torch.Tensor,              # (D,)
+    b2: Optional[torch.Tensor],    # (D,) | None (partial mode)
+    partial: bool = False,
 ) -> torch.Tensor:
-    """Fused (optionally gated) GELU FFN; returns (M, D) bf16.
+    """Fused (optionally gated) GELU FFN; returns (M, D) bf16, or in partial
+    mode the (M, D) fp32 down product without b2.
 
     ``geglu_ffn.launches`` counts the calls that launched the kernel (one
     per call: the up, down and reduction launches of one call count once).
     """
     if x.device.type == "cpu":
-        return geglu_ffn_plain(x, w1, b1, wg, bg, w2, b2)
-    return _launch(x, w1, b1, wg, bg, w2, b2)
+        return geglu_ffn_plain(x, w1, b1, wg, bg, w2, b2, partial)
+    return _launch(x, w1, b1, wg, bg, w2, b2, partial=partial)
 
 
-def _launch(x, w1, b1, wg, bg, w2, b2, plan: Optional[FfnPlan] = None) -> torch.Tensor:
+def _launch(x, w1, b1, wg, bg, w2, b2, plan: Optional[FfnPlan] = None,
+            partial: bool = False) -> torch.Tensor:
     """The kernel on CUDA tensors, run as ``plan`` says (:func:`ffn_plan`'s
     unless given)."""
     _cuda.require(x.is_cuda, f"geglu_ffn: unsupported device {x.device}")
@@ -123,7 +135,7 @@ def _launch(x, w1, b1, wg, bg, w2, b2, plan: Optional[FfnPlan] = None) -> torch.
     _cuda.require(m >= 1 and d % 8 == 0 and f % 8 == 0,
                   f"geglu_ffn: {m} rows; d_model {d} and ffn_dim {f} must be multiples of 8")
     _cuda.require(w1.shape == (f, d) and w2.shape == (d, f)
-                  and b1.shape == (f,) and b2.shape == (d,)
+                  and b1.shape == (f,) and (partial or b2.shape == (d,))
                   and (not gated or (wg.shape == (f, d) and bg.shape == (f,))),
                   "geglu_ffn: weight shapes do not match x")
     _cuda.require(all(t.is_cuda and t.device == x.device and t.data_ptr() % 16 == 0
@@ -136,12 +148,13 @@ def _launch(x, w1, b1, wg, bg, w2, b2, plan: Optional[FfnPlan] = None) -> torch.
     hidden = torch.empty((m, f), dtype=BF16, device=x.device)
     workspace = (torch.empty((plan.splits, m, d), dtype=torch.float32, device=x.device)
                  if plan.splits > 1 else None)
-    out = torch.empty((m, d), dtype=BF16, device=x.device)
+    out = torch.empty((m, d), dtype=torch.float32 if partial else BF16, device=x.device)
     lib = _cuda.library()
     _cuda.check(lib.mmt_geglu_ffn(
         _cuda.ptr(x), _cuda.ptr(w1), _cuda.ptr(b1), _cuda.ptr(wg), _cuda.ptr(bg),
-        _cuda.ptr(w2), _cuda.ptr(b2), _cuda.ptr(hidden), _cuda.ptr(workspace), _cuda.ptr(out),
-        m, d, f, *plan, sms, _cuda.stream()), "geglu_ffn")
+        _cuda.ptr(w2), _cuda.ptr(None if partial else b2), _cuda.ptr(hidden),
+        _cuda.ptr(workspace), _cuda.ptr(out), m, d, f, *plan, int(partial), sms,
+        _cuda.stream()), "geglu_ffn")
     geglu_ffn.launches += 1
     return out
 

@@ -14,19 +14,28 @@ autograd keeps the boolean mask.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``x`` with inverted dropout; the identity for rate 0 or no generator
-    (deterministic mode)."""
+    (deterministic mode). ``columns`` = (n, i): ``x`` is block i of n equal
+    blocks of the last axis of a wider tensor (a tensor-parallel rank's
+    slice); the mask is drawn for the wider tensor and block i of it kept,
+    so that the ranks together drop what one process drops."""
     if generator is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if columns is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    else:
+        n, i = columns
+        width = x.shape[-1]
+        keep = (torch.rand(*x.shape[:-1], n * width, generator=generator, device=x.device)
+                [..., i * width:(i + 1) * width] < keep_prob)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -37,8 +37,8 @@ fp32). The running max starts at ``NEG_INF`` in both versions.
 
 Dispatch: a CPU tensor takes the ``*_plain`` version; a CUDA tensor launches
 the kernels or raises. The kernels take head_dim 64 (every shipped model
-config) and 128: every width the gate routes here up to 128. The gate also
-admits 192, 256, ...; the wrapper raises on those.
+config), 128, 192 and 256: every width the gate routes here up to 256
+(d_model 768 with 4 heads, 512 with 2), each its own instantiation.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ from . import _cuda
 NEG_INF = -1e9
 BLK = 256               # the JAX wrapper's BLK_Q = BLK_K; Lq and Lk are padded to it
 FLASH_MIN_LENGTH = 2048
-KERNEL_HEAD_DIMS = (64, 128)   # the gate's multiples of 64 up to 128, one instantiation each
+KERNEL_HEAD_DIMS = (64, 128, 192, 256)   # the gate's multiples of 64 up to 256, one instantiation each
 
 
 def flash_qualifies(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],

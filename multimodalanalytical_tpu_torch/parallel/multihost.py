@@ -4,10 +4,11 @@ The reference trains across devices with Lightning DDP (reference
 trainer/trainer.py:58, cli/training.py:49-59): one process per device,
 each with a rank-sharded loader, the gradients all-reduced underneath. The
 JAX package spans processes with ``jax.distributed`` under one GSPMD
-program; this package does it with ``torch.distributed``: process ``p``
+program; this package does it with ``torch.distributed``: data rank ``p``
 feeds the ``p``-th contiguous row-block of every global batch
 (``training/loader.py``), and the trainer sums the gradients with one
-``all_reduce`` per step (``training/trainer.py``). Every helper is the
+``all_reduce`` per step over the data group (``training/trainer.py``,
+``parallel/mesh.py``). Every helper is the
 identity when no process group is initialised, so a single-process run
 takes the same code path.
 
@@ -57,13 +58,6 @@ def group_device() -> torch.device:
     return torch.device("cpu")
 
 
-def all_reduce_(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum ``tensor`` over every process, in place; returns it."""
-    if initialized():
-        dist.all_reduce(tensor)
-    return tensor
-
-
 def barrier() -> None:
     """Wait until every process gets here (nothing without a group)."""
     if not initialized():
@@ -74,15 +68,18 @@ def barrier() -> None:
         dist.barrier()
 
 
-def sum_across_processes(values) -> np.ndarray:
-    """Element-wise sum of a small array over all processes (metric
-    reduction): one ``all_reduce`` of a float64 tensor on the group's
-    device, so every process sees the same totals and takes the same
-    early-stop and checkpoint decisions. The array as float64 when
-    single-process."""
+def sum_across_processes(values, mesh=None) -> np.ndarray:
+    """Element-wise sum of a small array over all processes, or over
+    ``mesh``'s data group (metric reduction): one ``all_reduce`` of a
+    float64 tensor on the group's device, so every process sees the same
+    totals and takes the same early-stop and checkpoint decisions. The
+    array as float64 when single-process or with one data rank."""
     values = np.asarray(values, dtype=np.float64)
-    if not initialized():
+    if not initialized() or (mesh is not None and mesh.n_data == 1):
         return values
     total = torch.from_numpy(values.copy()).to(group_device())
-    dist.all_reduce(total)
+    if mesh is None:
+        dist.all_reduce(total)
+    else:
+        mesh.all_reduce_data_(total)
     return total.cpu().numpy()

@@ -13,7 +13,12 @@ where PyTorch's stock pieces compute something else:
 * AdamW decays every parameter, decoupled from the adaptive step, with
   optax's bias correction.
 
-Updates are applied in place to the model's fp32 parameters.
+Updates are applied in place to the model's fp32 parameters. Under tensor
+parallelism a rank holds slices of some parameters and whole copies of the
+rest: the update is elementwise, so it runs on the slices as they are, and
+the global norm counts the sharded gradients' squares summed over the model
+group and the replicated ones once (the optimizer's ``sharded`` and
+``mesh``), so that the clip equals the one-process clip.
 """
 
 from __future__ import annotations
@@ -51,17 +56,29 @@ def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (a 0-d tensor):
-    the norm of the per-tensor norms, a few fused launches for any count."""
+    the norm of the per-tensor norms, a few fused launches for any count.
+    With ``sharded`` (per tensor: a slice over ``mesh``'s model group) the
+    squares of the sharded tensors are summed over the model group, and the
+    replicated ones counted once."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if mesh is None or mesh.n_model == 1 or not any(sharded or ()):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    squares = torch.stack(norms).square()
+    mask = torch.tensor(list(sharded), device=squares.device)
+    split = squares[mask].sum().reshape(1)
+    mesh.all_reduce_model_(split)
+    return (split[0] + squares[~mask].sum()).sqrt()
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: ``g / norm * max_norm`` for every
-    gradient when ``norm >= max_norm``, the gradients unchanged otherwise."""
-    norm = global_norm(grads)
+    gradient when ``norm >= max_norm``, the gradients unchanged otherwise.
+    ``norm``: the gradients' global norm when computed already."""
+    norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 
@@ -77,8 +94,9 @@ class Optimizer:
     def __init__(self, params: Sequence[torch.Tensor], schedule: Callable[[int], float],
                  b1: float = 0.9, b2: float = 0.999,
                  weight_decay: Optional[float] = None, clip_grad: float = 1.0,
-                 acc_batches: int = 1):
+                 acc_batches: int = 1, sharded: Optional[Sequence[bool]] = None, mesh=None):
         self.params = list(params)
+        self.sharded, self.mesh = sharded, mesh
         self.schedule = schedule
         self.b1, self.b2 = b1, b2
         self.weight_decay = weight_decay
@@ -127,10 +145,15 @@ class Optimizer:
                 return
             grads = self.acc
             self.mini_step = 0
-        self._update(clip_by_global_norm(grads, self.clip_grad))
+        self._update(clip_by_global_norm(grads, self.clip_grad, self.norm(grads)))
         if self.acc is not None:
             for acc in self.acc:
                 acc.zero_()
+
+    def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of gradients of :attr:`params` (the sharded ones'
+        squares summed over the mesh's model group)."""
+        return global_norm(grads, self.sharded, self.mesh)
 
     def _update(self, grads: List[torch.Tensor]) -> None:
         lr = self.schedule(self.count)
@@ -154,11 +177,14 @@ class Optimizer:
 def build_optimizer(params: Sequence[torch.Tensor], optimiser: str, lr: float, num_steps: int,
                     weight_decay: float = 0.0, adam_beta1: float = 0.9,
                     adam_beta2: float = 0.999, clip_grad: float = 1.0,
-                    acc_batches: int = 1) -> Optimizer:
+                    acc_batches: int = 1, sharded: Optional[Sequence[bool]] = None,
+                    mesh=None) -> Optimizer:
     """clip -> adam/adamw with the OneCycle schedule -> accumulation, as the
     JAX ``build_optimizer``; the horizon is floored at 4 updates there too
-    (its warmup segment would be empty below that)."""
+    (its warmup segment would be empty below that). ``sharded`` (per
+    parameter: a slice over ``mesh``'s model group) and ``mesh`` make the
+    clip's global norm the one-process norm under tensor parallelism."""
     schedule = cosine_onecycle_schedule(max(num_steps, 4), float(lr))
     return Optimizer(params, schedule, b1=adam_beta1, b2=adam_beta2,
                      weight_decay=float(weight_decay) if optimiser == "adamw" else None,
-                     clip_grad=clip_grad, acc_batches=acc_batches)
+                     clip_grad=clip_grad, acc_batches=acc_batches, sharded=sharded, mesh=mesh)

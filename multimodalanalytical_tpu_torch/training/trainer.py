@@ -9,17 +9,28 @@ step folds the step count into its dropout key, the generators are seeded
 from (seed, step) at every step, so a resumed run draws what the
 uninterrupted one drew.
 
-Across processes (``torch.distributed``, ``parallel/``), each rank feeds
-its row-block of the global batch and every step computes what the JAX
-package's GSPMD step computes on the global batch: the token and valid-row
-counts are summed over the ranks first, each rank's loss is its local sum
-over those global counts, and one ``all_reduce`` of a flat buffer sums the
-gradients (and the reported losses) before the clip. The modality-dropout
-draw is the same on every rank; the element-dropout stream folds in the
-rank. ``validate`` and ``predict`` sum their per-batch counts and loss
-shares over the ranks, so every rank takes the same early-stop and
-checkpoint decisions; checkpoints are written by rank 0
-(``training/checkpoint.py``).
+Across processes (``torch.distributed``, ``parallel/``) the trainer takes
+the model's mesh (``parallel/mesh.py``; pure data parallelism over the
+process group for a model built without one): a **data** group of ranks
+that feed different rows, and a **model** group of ranks that hold one
+replica between them under tensor parallelism, each its share of the heads,
+the FFN width and the vocabulary. Each data rank feeds its row-block of the
+global batch, and every step computes what the JAX package's GSPMD step
+computes on the global batch: the token and valid-row counts are summed
+over the data group first, each data rank's loss is its local sum over
+those global counts, and one ``all_reduce`` of a flat buffer over the data
+group sums the gradients (and the reported losses) before the clip. The
+model group's sums run inside the forward and backward
+(``parallel/tensor.py``); the clip's global norm counts the sharded
+gradients over the model group and the replicated ones once. The
+modality-dropout draw is the same on every rank; the element-dropout
+stream folds in the data index, so the ranks of a model group draw the
+same masks on the replicated activations. ``validate`` and ``predict`` sum
+their per-batch counts and loss shares over the data group, so every rank
+takes the same early-stop and checkpoint decisions. A checkpoint holds the
+full parameters and Adam moments, gathered over the model group (the tree
+one process writes), and is written by rank 0 (``training/checkpoint.py``);
+a restore takes each rank's slices of it.
 
 ``Trainer(batch_transform=(fn, consts))`` expands a device-mixture index
 batch (``data/device_mixture.py``) into the collated batch on the device
@@ -55,16 +66,18 @@ import numpy as np
 import torch
 
 from ..generation.beam_search import BeamDecoder
+from ..models.weights import gather_state_dict, shard_state_dict
 from ..parallel import multihost
+from ..parallel.mesh import default_mesh, gather_slices, local_slice, param_shardings
 from .checkpoint import to_cpu
-from .optim import build_optimizer, global_norm
+from .optim import build_optimizer
 
 logger = logging.getLogger(__name__)
 
 BATCH_KEYS = ("encoder_inputs", "encoder_mask", "decoder_ids", "decoder_mask", "labels")
 # A device-mixture index batch's sampling decisions (``data/device_mixture.py``).
 MIX_KEYS = ("mix_idx", "comp_slot", "mix_weights", "mix_normalize", "row_valid")
-# Added to the element-dropout seed per rank (an odd 63-bit constant).
+# Added to the element-dropout seed per data index (an odd 63-bit constant).
 RANK_SEED_STRIDE = 0x1E3779B97F4A7C15
 # Collated fields that predict does not return as extra columns.
 MODEL_FIELDS = BATCH_KEYS + ("target_strings", "align_target", "vector_target", "n_valid")
@@ -186,9 +199,13 @@ class Trainer:
         self.tokenizer = target_tokenizer
         self.params = list(model.parameters())
         self.device = self.params[0].device
+        self.mesh = getattr(model, "mesh", None) or default_mesh()
+        # Per parameter, its split over the model group (None: replicated).
+        self.shards = list(param_shardings(model, self.mesh).values())
         self.optimizer = build_optimizer(self.params, optimiser, float(lr), num_steps,
                                          float(weight_decay), adam_beta1, adam_beta2, clip_grad,
-                                         acc_batches)
+                                         acc_batches, [spec is not None for spec in self.shards],
+                                         self.mesh)
         self.modality_dropout = list(modality_dropout or [])
         self.seed = int(seed)
         self.dropout_generator = torch.Generator(device=self.device)
@@ -217,33 +234,54 @@ class Trainer:
 
     # ------------------------------------------------------------- state
     def state_tree(self) -> Dict[str, Any]:
-        """What a checkpoint holds: params, optimizer state and step."""
-        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+        """What a checkpoint holds: params, optimizer state and step; under
+        tensor parallelism gathered whole over the model group (every rank of
+        it must call this), so the tree is the one one process holds."""
+        opt_state = self.optimizer.state_dict()
+        if not self.mesh.tensor_parallel:
+            return {"params": self.model.state_dict(), "opt_state": opt_state,
+                    "step": self.global_step}
+        for key in ("mu", "nu", "acc"):
+            if opt_state[key] is not None:
+                opt_state[key] = [gather_slices(t, spec, self.mesh) if spec is not None else t
+                                  for t, spec in zip(opt_state[key], self.shards)]
+        return {"params": gather_state_dict(self.model), "opt_state": opt_state,
                 "step": self.global_step}
 
     def load_state_tree(self, tree: Dict[str, Any]) -> None:
-        """Restore params, optimizer state and step (a resume)."""
-        self.model.load_state_dict(tree["params"])
-        self.optimizer.load_state_dict(tree["opt_state"])
+        """Restore params, optimizer state and step (a resume); under tensor
+        parallelism each rank takes its slices of the full tree."""
+        params, opt_state = tree["params"], tree["opt_state"]
+        if self.mesh.tensor_parallel:
+            params = shard_state_dict(params, self.model)
+            mesh = self.mesh
+            opt_state = dict(opt_state)
+            for key in ("mu", "nu", "acc"):
+                if opt_state.get(key) is not None:
+                    opt_state[key] = [
+                        local_slice(t, spec, mesh.n_model, mesh.model_index)
+                        if spec is not None else t
+                        for t, spec in zip(opt_state[key], self.shards)]
+        self.model.load_state_dict(params)
+        self.optimizer.load_state_dict(opt_state)
         self.global_step = int(tree["step"])
 
     # ------------------------------------------------------------- steps
     def _seed_step(self) -> None:
         step_seed = (self.seed * 1_000_003 + self.global_step) % 2 ** 63
         self.dropout_generator.manual_seed(
-            (step_seed + multihost.process_index() * RANK_SEED_STRIDE) % 2 ** 63)
+            (step_seed + self.mesh.data_index * RANK_SEED_STRIDE) % 2 ** 63)
         self.modality_generator.manual_seed(step_seed)
 
-    @staticmethod
-    def loss_counts(labels: torch.Tensor, encoder_mask: torch.Tensor
+    def loss_counts(self, labels: torch.Tensor, encoder_mask: torch.Tensor
                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-        """(target tokens, valid rows) summed over every rank's rows of the
-        global batch, for ``Seq2SeqModel.forward(loss_counts=...)``; None
-        when no process group is up (the model then counts its own rows)."""
-        if not multihost.initialized():
+        """(target tokens, valid rows) summed over every data rank's rows of
+        the global batch, for ``Seq2SeqModel.forward(loss_counts=...)``;
+        None with one data rank (the model then counts its own rows)."""
+        if self.mesh.n_data == 1:
             return None
         counts = torch.stack([(labels != -100).sum(), (encoder_mask.sum(dim=1) > 0).sum()])
-        multihost.all_reduce_(counts)
+        self.mesh.all_reduce_data_(counts)
         return counts[0], counts[1].float()
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -269,21 +307,21 @@ class Trainer:
                                     materialize_grads=True)
         losses = [out[key].detach() for key in ("loss", "model_only_loss", "alignment_loss")]
         if counts is not None:
-            grads, losses = self._sum_over_ranks(grads, losses)
-        grad_norm = global_norm(grads)
+            grads, losses = self._sum_over_ranks(grads, losses, self.mesh)
+        grad_norm = self.optimizer.norm(grads)
         self.optimizer.step(grads)
         self.global_step += 1
         return {"loss": losses[0], "model_only_loss": losses[1], "alignment_loss": losses[2],
                 "grad_norm": grad_norm}
 
     @staticmethod
-    def _sum_over_ranks(grads: Sequence[torch.Tensor], scalars: Sequence[torch.Tensor]
-                        ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """The gradients and 0-d ``scalars`` summed over the ranks by one
-        ``all_reduce`` of a single flat fp32 buffer."""
+    def _sum_over_ranks(grads: Sequence[torch.Tensor], scalars: Sequence[torch.Tensor],
+                        mesh) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """The gradients and 0-d ``scalars`` summed over ``mesh``'s data
+        group by one ``all_reduce`` of a single flat fp32 buffer."""
         flat = torch.cat([g.float().reshape(-1) for g in grads]
                          + [x.float().reshape(1) for x in scalars])
-        multihost.all_reduce_(flat)
+        mesh.all_reduce_data_(flat)
         parts = flat.split([g.numel() for g in grads] + [1] * len(scalars))
         return ([p.view_as(g) for p, g in zip(parts, grads)],
                 [p[0] for p in parts[len(grads):]])
@@ -494,8 +532,10 @@ class Trainer:
                     checkpoints.save(self.global_step, self.state_tree(), val_metrics)
                     self._saved_state_step = self.global_step
             elif improved:
-                # Only rank 0 writes, so only it keeps the state's copy.
-                tree = to_cpu(self.state_tree()) if multihost.is_main() else None
+                # Only rank 0 writes, so only it keeps the state's copy (every
+                # rank gathers it under tensor parallelism).
+                tree = self.state_tree()
+                tree = to_cpu(tree) if multihost.is_main() else None
                 self._pending_best = (self.global_step, tree, dict(val_metrics))
         if early_stopping_patience is not None:
             if improved:
@@ -517,9 +557,9 @@ class Trainer:
         the weighted alignment loss where the batches carry an
         ``align_target``; a model with an align head also reports
         ``val_alignment_loss``, weighted as ``val_loss``. Under data
-        parallelism each rank scores its own rows and the per-batch counts
-        and loss shares are summed over the ranks, so that every rank
-        returns the same metrics (as the JAX ``validate``)."""
+        parallelism each data rank scores its own rows and the per-batch
+        counts and loss shares are summed over the data group, so that every
+        rank returns the same metrics (as the JAX ``validate``)."""
         from ..evaluation.metrics import calc_sampling_metrics
 
         # Per batch: n_valid, tok_correct, tok_total, mol_correct, and this
@@ -547,7 +587,7 @@ class Trainer:
                           float(out["alignment_loss"])])
         if not stats:
             return {"val_loss": 0.0, "val_token_acc": 0.0, "val_molecular_accuracy": 0.0}
-        totals = multihost.sum_across_processes(stats)
+        totals = multihost.sum_across_processes(stats, self.mesh)
         n_rows = totals[:, 0].sum()
 
         def weighted(values):
@@ -594,6 +634,6 @@ class Trainer:
                 if col not in MODEL_FIELDS:
                     extras.setdefault(col, []).extend(list(values)[:n_valid])
         # The ranks' shares of each batch's loss sum to the global batch's.
-        losses = multihost.sum_across_processes(losses)
+        losses = multihost.sum_across_processes(losses, self.mesh)
         return {"avg_loss": float(np.mean(losses)) if len(losses) else 0.0,
                 "predictions": predictions, "targets": targets, **extras}

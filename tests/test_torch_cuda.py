@@ -201,6 +201,27 @@ def test_geglu_ffn_every_plan_layout(gen, gated, up_groups, down_tile_n):
 
 
 @pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("m,d,f", [(12, 16, 40), (128, 512, 1024), (1280, 512, 1024),
+                                   (1281, 520, 2056)])
+def test_geglu_ffn_partial_mode_matches_plain(gen, gated, m, d, f):
+    """Partial mode (fp32 down product without b2, as a tensor-parallel rank
+    takes it) vs the plain version's partial mode, at one split and at
+    several, within the full mode's tolerances of max|plain| and in norm;
+    two calls bit-equal."""
+    x, w1, b1, wg, bg, w2, _ = _ffn_args(gen, m, d, f, gated, dtype=torch.bfloat16)
+    args = (x, w1, b1, wg, bg, w2, None)
+    want = decode_ffn.geglu_ffn_plain(*args, partial=True)
+    for splits in sorted({min(3, -(-f // 64)), 1, decode_ffn.ffn_plan(m, d, f, 132).splits}):
+        plan = decode_ffn.FfnPlan(1, 128, splits)
+        got = decode_ffn._launch(*args, plan=plan, partial=True)
+        assert got.dtype == torch.float32 and got.shape == (m, d)
+        assert torch.equal(got, decode_ffn._launch(*args, plan=plan, partial=True))
+        diff = got - want
+        assert diff.abs().max().item() <= 0.02 * want.abs().max().item()
+        assert (diff.norm() / want.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("gated", [False, True])
 @pytest.mark.parametrize("m", [128, 1280, 3840])
 def test_geglu_ffn_reruns_are_bit_identical(gen, gated, m):
     """At the decode M (9, 2 and 1 split(s) of F on an H100): the split
@@ -350,7 +371,7 @@ def test_flash_kernels_match_plain_head_dim_128(gen, length, dead_row):
         _flash_close(got, ref)
 
 
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [64, 128, 192, 256])
 def test_flash_bf16_kernels_at_a_64_row_tail(gen, head_dim):
     """bf16 at L 2112, a multiple of 64 but not of 128, called directly (no
     256-row padding): the last 128-row block of every kernel has a 64-row
@@ -374,10 +395,34 @@ def test_flash_bf16_kernels_at_a_64_row_tail(gen, head_dim):
         _flash_close(got, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim,heads,length,dead_row", [
+    (192, 2, 2048, None), (192, 1, 2100, 0), (256, 2, 2048, 1), (256, 1, 2100, None)])
+def test_flash_kernels_match_plain_wide_heads(gen, dtype, head_dim, heads, length, dead_row):
+    """The head_dim-192 and -256 instantiations (their own shared-memory and
+    register plans, dK and dV in two launches): forward and backward vs the
+    plain versions, as the head_dim-64 cases."""
+    q, k, v, bias = _padded_flash_inputs(gen, 2, heads, length, head_dim, dtype, dead_row)
+
+    def close(got, want):
+        return _close(got, want, 1e-4) if dtype == torch.float32 else _flash_close(got, want)
+    out, lse = flash.flash_attention_fwd(q, k, v, bias)
+    want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, bias)
+    close(out, want_out)
+    _rel_close(lse, want_lse, 1e-5)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    grads = flash.flash_attention_bwd(q, k, v, bias, out, lse, dout)
+    want = flash.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, want):
+        assert ref.abs().max() > 0
+        close(got, ref)
+
+
 def test_flash_kernel_raises_on_unsupported_head_dim(gen):
-    """head_dim 192 passes the JAX gate (a multiple of 64), but the kernels
-    take 64 and 128 only: the wrapper raises."""
-    q = torch.randn(1, 1, 2048, 192, generator=gen, device="cuda")
+    """head_dim 320 passes the JAX gate (a multiple of 64), but the kernels
+    take 64, 128, 192 and 256 only: the wrapper raises."""
+    q = torch.randn(1, 1, 2048, 320, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_attention_fwd(q, q, q, torch.zeros(1, 2048, device="cuda"))
 

@@ -93,6 +93,30 @@ def test_split_k_arithmetic_matches_pallas_interpret(gated, splits):
     assert np.linalg.norm(diff) / np.linalg.norm(want) < RMS_TOL
 
 
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("gated", [False, True])
+def test_partial_mode_summed_over_shards_matches_pallas_interpret(gated, shards):
+    """Partial mode, as tensor parallelism runs it: each shard's (M, D) fp32
+    down product over its F / n columns (no b2, no rounding), summed over
+    the shards, rounded, + b2, rounded, against the Pallas kernel within
+    the full mode's tolerances."""
+    args, want = _case(gated)
+    x, w1, b1, wg, bg, w2, b2 = _torch_args(args)
+    width = F // shards
+    total = None
+    for z in range(shards):
+        cols = slice(z * width, (z + 1) * width)
+        part = decode_ffn.geglu_ffn(x, w1[cols], b1[cols], None if wg is None else wg[cols],
+                                    None if bg is None else bg[cols], w2[:, cols], None,
+                                    partial=True)
+        assert part.dtype == torch.float32 and part.shape == (M, D)
+        total = part if total is None else total + part
+    got = (total.to(torch.bfloat16) + b2.to(torch.bfloat16)).float().numpy()
+    diff = got - want
+    assert np.abs(diff).max() / np.abs(want).max() < 0.02
+    assert np.linalg.norm(diff) / np.linalg.norm(want) < RMS_TOL
+
+
 @pytest.mark.parametrize("m,want", [(128, (1, 64, 9)), (1280, (2, 128, 2)), (3840, (2, 128, 1))])
 def test_split_plan_fills_the_card_at_the_decode_shapes(m, want):
     """M = B K at validation (K 1), serving (K 10) and predict (K 30), D 512,

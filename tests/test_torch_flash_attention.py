@@ -133,14 +133,38 @@ def test_qualifies_is_the_jax_gate():
 
 
 def test_kernel_head_dims_are_what_the_gate_routes_up_to_128():
-    """The CUDA wrapper declares exactly the head widths up to 128 that the
-    gate sends to flash attention; wider ones the gate admits (192, 256)
-    are outside the set, where the wrapper raises on the card."""
+    """The CUDA wrapper declares exactly the head widths that the gate sends
+    to flash attention up to 256, the widest a model config reaches (64 and
+    128, and 192 and 256 since the kernels took them)."""
     routed = [d for d in range(1, 257)
               if flash.flash_qualifies(torch.zeros(1, 1, 2048, d), torch.zeros(1, 1, 2048, d),
                                        None, None)]
-    assert tuple(d for d in routed if d <= 128) == flash.KERNEL_HEAD_DIMS
-    assert [d for d in routed if d > 128] == [192, 256]
+    assert tuple(d for d in routed if d <= 128) == (64, 128)
+    assert tuple(routed) == flash.KERNEL_HEAD_DIMS == (64, 128, 192, 256)
+
+
+@pytest.mark.parametrize("head_dim, heads", [(192, 2), (256, 1)])
+def test_wide_heads_match_jax(head_dim, heads):
+    """Head widths 192 and 256 (d_model 768 with 4 heads, 512 with 2): the
+    public entry at L 2048 with a masked tail, output and gradients vs
+    ``jax_flash.flash_attention`` in interpret mode, fp32, within the
+    tolerances of the narrower widths (1e-4 and 1e-3: summation order)."""
+    q, k, v, bias_row = _inputs(1, heads, 2048, head_dim, masked_from=1990, seed=7)
+    bias = bias_row[:, None, None, :]
+    rng = np.random.default_rng(8)
+    weight = rng.standard_normal(q.shape).astype(np.float32)
+
+    def loss(q, k, v):
+        out = jax_flash.flash_attention(q, k, v, jnp.asarray(bias))
+        return jnp.sum(out * weight), out
+
+    (_, want), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(q, k, v)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    got = attention.dot_product_attention(tq, tk, tv, torch.as_tensor(bias), use_flash=True)
+    (got * torch.as_tensor(weight)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    for g, ref in zip((tq.grad, tk.grad, tv.grad), grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), rtol=0, atol=1e-3)
 
 
 def test_dot_product_attention_takes_flash_math_at_the_gate():

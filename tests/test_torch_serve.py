@@ -136,3 +136,41 @@ def test_decode_batch_needs_no_collator(server):
     assert scores.shape == (BATCH_SIZE, BEAMS)
     assert (seqs[:, :, 0] == engine.model.config.bos_token_id).all()
     assert 1 <= bare.last_steps <= engine.max_length - 1
+
+
+def test_warm_batch_is_decoded_before_the_first_request(server, records):
+    """The constructor decodes a warm batch shaped as a real request (the
+    JAX engine's ``_warm_batch``, padded to batch_size as the batching loop
+    pads), so the first request reuses that decode's entry in the decoder
+    (on a CUDA device, its captured graphs) and adds none."""
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+
+    engine = server.engine
+    fresh = InferenceEngine(engine.decoder.model, n_beams=BEAMS, batch_size=BATCH_SIZE,
+                            collator=engine.collator, tokenizer=engine.tokenizer,
+                            max_wait_ms=5)
+    record = {"IR": records["ir_spectra"][3], "Formula": records["molecular_formula"][3]}
+    warm, real = fresh._warm_batch(), fresh._collate([record])
+
+    def layout(tree):
+        if isinstance(tree, dict):
+            return {key: layout(value) for key, value in tree.items()}
+        array = np.asarray(tree)
+        return (array.shape, array.dtype)
+
+    assert set(warm["encoder_inputs"]) == set(real["encoder_inputs"]) == {"Formula", "IR"}
+    assert layout(warm["encoder_inputs"]) == layout(real["encoder_inputs"])
+    assert layout(warm["encoder_mask"]) == layout(real["encoder_mask"])
+    assert np.asarray(warm["encoder_mask"]).shape[0] == BATCH_SIZE
+
+    assert len(fresh.decoder._decodes) == 1
+    warm_key = next(iter(fresh.decoder._decodes))
+    assert fresh.warm_stats["steps"] >= 1
+    fresh.start()
+    try:
+        pending = fresh.submit(record)
+        assert pending.event.wait(timeout=120) and pending.error is None
+    finally:
+        fresh.close()
+    assert list(fresh.decoder._decodes) == [warm_key]
+    assert len(pending.result["smiles"]) == BEAMS
