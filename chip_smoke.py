@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
     python3 chip_smoke.py --time-ffn       # the decode FFN's times alone (one JSON line)
     python3 chip_smoke.py --tensor-parallel  # phase 11 alone
+    python3 chip_smoke.py --eval-path      # phase 5 alone
     python3 chip_smoke.py --dp-rank SPEC   # one rank of phase 10's two-rank fit (the script starts it)
     python3 chip_smoke.py --tp-rank SPEC   # one rank of phase 11's tensor-parallel pair (likewise)
 
@@ -82,13 +83,25 @@ line each, any failure raises and exits non-zero:
 5. evaluation: the flagship model, 640 seeded spectra (384 train, 128
    validation, 128 test, real SMILES targets, a fixed-vocabulary stand-in
    for the target tokenizer: the card's machine has no ``tokenizers``).
-   ``Trainer.fit`` takes 2 epochs (6 AdamW steps at B 128) with validation
-   (greedy K 1 decode) every epoch and a ``CheckpointManager``; ``best`` is
+   (a) ``Trainer.fit`` takes 2 epochs (6 AdamW steps at B 128) with
+   validation (greedy K 1 decode) every epoch and a ``CheckpointManager``,
+   three times from the same seeded weights: with asynchronous saves (the
+   trainer's route), with synchronous ones (``save_async`` made ``wait``
+   then ``save``) and with a planted fault (a snapshot that hands over the
+   live tensors, read after the next step); the main thread's seconds in
+   each ``save_async``, the end-of-fit drain and each fit's wall time are
+   printed; ``last``, ``best``, every ``step_N`` and the index of the first
+   two must be bit-equal, the planted fault's must not; ``best`` is
    restored into a fresh model bit for bit; ``predict`` decodes the test
    spectra at beam 30, scored with rejection sampling off and on (the
-   mixture paper's Table 4 recipe). Every decode kernel's launches must
-   equal 6 x the graph replays and capture warm-up steps of validation and
-   predict; one batch of each also through the eager loop, bit-equal;
+   mixture paper's Table 4 recipe); (b) predict at K 30 and (c) validation
+   over 4 more batches of 128 at the trainer's ``PIPELINE_DEPTH`` 0 and 8
+   and at 8 with the interpreter's default switch interval (the module
+   constants patched), in turns: s/batch, device time, busy share and
+   replays of each, every result equal to depth 0's. Every decode kernel's
+   launches must equal 6 x the graph replays and capture warm-up steps of
+   phase 5's decodes; one batch of each also through the eager loop,
+   bit-equal;
 6. guided decoding: phase 5's restored model predicts at beam 10 with the
    surrogate formula guide (inside the captured step) on the corpus
    targets, graphs against the eager loop bit for bit, every finished beam
@@ -1938,6 +1951,19 @@ SMILES_REGEX = (r"(\[[^\]]+]|Br?|Cl?|N|O|S|P|F|I|b|c|n|o|s|p|\(|\)|\.|=|#|-|\+|\
 EVAL_TRAIN, EVAL_VAL, EVAL_TEST = 384, 128, 128
 EVAL_EPOCHS = 2
 EVAL_TARGET_LEN = 32      # longest corpus target (19 tokens) + BOS/EOS, padded
+# Phase 5 (a): how long the planted fault's saving thread waits for the
+# trainer's next step before it reads the live tensors.
+SAVE_HOLD_S = 2.0
+EVAL_FIT_ROUTES = ("async", "sync", "planted", "async, warm", "async, switch 1e-4")
+# Phase 5 (b), (c): predict and validation over PIPELINE_BATCHES batches of
+# spectra 640.. at the trainer's PIPELINE_DEPTH and PIPELINE_SWITCH_INTERVAL_S
+# ("module": the module's value; None: the interpreter's default), timed in
+# PIPELINE_ORDER.
+PIPELINE_BATCHES = 4
+PIPELINE_VARIANTS = {"depth 0": (0, "module"), "depth 8": (8, "module"),
+                     "depth 8, default switch interval": (8, None)}
+PIPELINE_ORDER = ("depth 0", "depth 8", "depth 8, default switch interval",
+                  "depth 8, default switch interval", "depth 8", "depth 0")
 
 
 SMILES_EXTRA_TOKENS = ("S", "P", "F", "I", "n", "o", "s", "[nH]", "=", "#", "(", ")")
@@ -2026,11 +2052,236 @@ def _eval_loader(tokenizer, first: int, rows: int) -> list:
     return batches
 
 
+def _synchronous(manager):
+    """``manager`` with ``save_async`` as the synchronous route: drain the
+    queue, then ``save`` (the trainer calls ``save_async`` only)."""
+    def save_async(step, tree, metrics, fresh=()):
+        manager.wait()
+        manager.save(step, tree, metrics)
+
+    manager.save_async = save_async
+    return manager
+
+
+def _planted_live_snapshot(manager, trainer):
+    """The planted fault of phase 5 (a): ``manager.snapshot`` hands over the
+    live tensors uncopied, and the saving thread reads them only after the
+    trainer has taken its next step (or SAVE_HOLD_S has passed), so a save
+    publishes a later step's weights under its own step."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.training.checkpoint import Snapshot
+
+    host_tree, requested = manager._host_tree, []
+
+    def live(tree, fresh=()):
+        requested.append(trainer.global_step)
+        return Snapshot(tree)
+
+    def held(snap):
+        deadline = time.monotonic() + SAVE_HOLD_S
+        while trainer.global_step <= requested[-1] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        return host_tree(snap)
+
+    manager.snapshot = live
+
+    manager._host_tree = held
+    return manager
+
+
+def _checkpoint_files(directory) -> tuple:
+    """{checkpoint name: its state on the host} and the index."""
+    import torch
+
+    states = {p.name: torch.load(p / "state.pt", map_location="cpu", weights_only=True)
+              for p in sorted(directory.iterdir()) if (p / "state.pt").is_file()}
+    return states, json.loads((directory / "index.json").read_text())
+
+
+def _trees_equal(got, want) -> bool:
+    """Bit-equal tensors and equal other leaves, at the same places."""
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        return isinstance(got, torch.Tensor) and torch.equal(got, want)
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and got.keys() == want.keys()
+                and all(_trees_equal(got[k], want[k]) for k in want))
+    if isinstance(want, (list, tuple)):
+        return (isinstance(got, (list, tuple)) and len(got) == len(want)
+                and all(_trees_equal(g, w) for g, w in zip(got, want)))
+    return got == want
+
+
+def _same_checkpoints(a, b) -> bool:
+    """The two directories hold the same checkpoints, tensor for tensor,
+    and the same index."""
+    (states_a, index_a), (states_b, index_b) = _checkpoint_files(a), _checkpoint_files(b)
+    return (index_a == index_b and states_a.keys() == states_b.keys()
+            and all(_trees_equal(states_a[k], states_b[k]) for k in states_b))
+
+
+def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
+    """Phase 5's fit (2 epochs at B 128, validation each) into a fresh
+    ``CheckpointManager`` at ``directory``, its saves on ``route``: "async"
+    (the trainer's), "sync" (``_synchronous``) or "planted"
+    (``_planted_live_snapshot``); "async, warm" and "async, switch 1e-4"
+    are the asynchronous route again (pinned host memory cached by the
+    earlier fits; and with the interpreter's switch interval at 1e-4 s).
+    Returns the trainer, the manager, the losses, the fit's wall seconds
+    and the host seconds inside each ``validate``, each ``save_async``
+    call, the end-of-fit drain and each ``train_step`` call (no
+    synchronisation: the host's own time), and the saving thread's
+    seconds copying to the host and writing."""
+    import sys
+
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+    from multimodalanalytical_tpu_torch.training.checkpoint import CheckpointManager
+
+    steps = EVAL_EPOCHS * len(train)
+    trainer = Trainer(_flagship(), tokenizer, optimiser="adamw", lr=TRAIN_LR, num_steps=steps,
+                      clip_grad=1.0, n_beams=EVAL_BEAMS)
+    checkpoints = CheckpointManager(directory)
+    if route == "sync":
+        _synchronous(checkpoints)
+    elif route == "planted":
+        _planted_live_snapshot(checkpoints, trainer)
+    spent = {"validate": [], "save_async": [], "drain": [], "train_step": [], "host_copy": [],
+             "write": []}
+
+    def timed(name, fn, synchronize):
+        def wrapper(*args, **kwargs):
+            if synchronize:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if synchronize:
+                torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    trainer.validate = timed("validate", trainer.validate, True)
+    # The main thread's own seconds: no synchronisation around a request.
+    checkpoints.save_async = timed("save_async", checkpoints.save_async, False)
+    trainer._flush_pending_best = timed("drain", trainer._flush_pending_best, False)
+    trainer.train_step = timed("train_step", trainer.train_step, False)
+    checkpoints._host_tree = timed("host_copy", checkpoints._host_tree, False)
+    checkpoints._write = timed("write", checkpoints._write, False)
+    interval = sys.getswitchinterval()
+    if route == "async, switch 1e-4":
+        sys.setswitchinterval(1e-4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
+        torch.cuda.synchronize()
+    finally:
+        sys.setswitchinterval(interval)
+    return {"trainer": trainer, "checkpoints": checkpoints, "losses": losses,
+            "fit_s": time.perf_counter() - t0, **spent}
+
+
+def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
+    """``run()`` (a validate or predict over ``batches`` batches of
+    ``owner``) under each of PIPELINE_VARIANTS (the trainer module's
+    constants, patched): unprofiled in PIPELINE_ORDER for the wall time,
+    then once each under ``torch.profiler`` for the device time (kernels
+    and copies). Prints s/batch, device s/batch, the busy share and the
+    replays of each, and where the host's seconds went in its first run
+    (the calling thread in ``eval_step``, in the search and its replay
+    dispatch, waiting for scores; the detokenising, on whichever thread);
+    requires every run's result equal to depth 0's. Returns {variant:
+    result}."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import trainer as trainer_module
+
+    pipeline, tokenizer = trainer_module._Pipeline, owner.tokenizer
+    hooks = {"eval_step": (owner, owner.eval_step), "search": (owner, owner._decode),
+             "detokenise": (tokenizer, tokenizer.batch_decode),
+             "submit": (pipeline, pipeline.submit), "finish": (pipeline, pipeline.finish)}
+
+    def at(variant):
+        saved = trainer_module.PIPELINE_DEPTH, trainer_module.PIPELINE_SWITCH_INTERVAL_S
+        depth, interval = PIPELINE_VARIANTS[variant]
+        if interval == "module":
+            interval = saved[1]
+        trainer_module.PIPELINE_DEPTH, trainer_module.PIPELINE_SWITCH_INTERVAL_S = depth, interval
+        host = {name: 0.0 for name in hooks}
+        host["dispatch"] = 0.0
+
+        def timed(name, fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    host[name] += time.perf_counter() - t0
+                    if name == "search":
+                        host["dispatch"] += owner.last_decode_stats["dispatch_s"]
+            return wrapper
+
+        for name, (obj, fn) in hooks.items():
+            setattr(obj, fn.__name__, timed(name, fn))
+        try:
+            before = owner.decode_replays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, owner.decode_replays - before, host
+        finally:
+            trainer_module.PIPELINE_DEPTH, trainer_module.PIPELINE_SWITCH_INTERVAL_S = saved
+            for obj, fn in hooks.values():
+                if obj is pipeline:
+                    setattr(obj, fn.__name__, fn)
+                else:
+                    delattr(obj, fn.__name__)
+
+    results, walls, replays, device, hosts = {}, {}, {}, {}, {}
+    for variant in PIPELINE_ORDER:
+        out, wall, count, host = at(variant)
+        results.setdefault(variant, out)
+        hosts.setdefault(variant, host)
+        _require(out == results["depth 0"],
+                 f"{what} at {variant} returned other results than at depth 0")
+        walls.setdefault(variant, []).append(wall / batches)
+        replays.setdefault(variant, []).append(count)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for variant in PIPELINE_VARIANTS:
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=activities) as prof:
+            at(variant)
+        device[variant] = _device_time(prof)[0] / batches
+        profiled_s = time.perf_counter() - t0
+    for variant in PIPELINE_VARIANTS:
+        wall = sum(walls[variant]) / len(walls[variant])
+        host = {k: round(v / batches, 4) for k, v in hosts[variant].items()}
+        print(f"eval path pipeline, {what}, {variant}: {[round(x, 4) for x in walls[variant]]} "
+              f"s/batch over {batches} batches of {BATCH}; device time {device[variant]:.4f} "
+              f"s/batch (kernels and copies, profiled run); busy share "
+              f"{device[variant] / wall:.3f}; replays {replays[variant]} per run; host s/batch "
+              f"of its first run {host}", flush=True)
+    print(f"eval path pipeline, {what}: the last profiled run and its reading took "
+          f"{profiled_s:.1f} s", flush=True)
+    return results
+
+
 def run_eval_path() -> dict:
-    """Phase 5: fit (2 epochs, validation each), checkpoints, restore of
-    ``best`` into a fresh model, predict at K 30 and Table 4's scoring with
-    rejection sampling off and on. Returns (the decode kernels' launches,
-    the predicting trainer, the test batches) for the guided phase."""
+    """Phase 5: (a) fit (2 epochs, validation each) with asynchronous saves,
+    then with synchronous ones and with the planted uncopied snapshot, each
+    from the same seeded weights: the asynchronous and synchronous routes'
+    checkpoints bit-equal, the planted fault's not; restore of ``best``
+    into a fresh model; predict at K 30 and Table 4's scoring with
+    rejection sampling off and on; (b) predict at K 30 and (c) validation
+    over PIPELINE_BATCHES batches at each of PIPELINE_VARIANTS. Returns
+    (the decode kernels' launches, the predicting trainer, the test
+    batches) for the guided phase."""
     import math
     import tempfile
 
@@ -2038,56 +2289,58 @@ def run_eval_path() -> dict:
 
     from multimodalanalytical_tpu_torch.cli.common import score_predictions
     from multimodalanalytical_tpu_torch.training import Trainer
-    from multimodalanalytical_tpu_torch.training.checkpoint import (
-        CheckpointManager,
-        restore_params,
-    )
+    from multimodalanalytical_tpu_torch.training.checkpoint import restore_params
 
+    start = time.perf_counter()
     tokenizer = FixedVocabTokenizer()
     train = _eval_loader(tokenizer, 0, EVAL_TRAIN)
     val = _eval_loader(tokenizer, EVAL_TRAIN, EVAL_VAL)
     test = _eval_loader(tokenizer, EVAL_TRAIN + EVAL_VAL, EVAL_TEST)
+    extra = _eval_loader(tokenizer, EVAL_TRAIN + EVAL_VAL + EVAL_TEST, PIPELINE_BATCHES * BATCH)
     steps = EVAL_EPOCHS * len(train)
-    model = _flagship()
-    trainer = Trainer(model, tokenizer, optimiser="adamw", lr=TRAIN_LR, num_steps=steps,
-                      clip_grad=1.0, n_beams=EVAL_BEAMS)
     counters = _decode_counters()
     for fn in counters:
         fn.launches = 0
 
-    spent = {"validate": [], "save": []}
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[name].append(time.perf_counter() - t0)
-            return out
-        return wrapper
-
     with tempfile.TemporaryDirectory() as tmp:
-        checkpoints = CheckpointManager(Path(tmp) / "checkpoints")
-        trainer.validate = timed("validate", trainer.validate)
-        checkpoints.save = timed("save", checkpoints.save)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
+        fits = {route: _eval_fit(tokenizer, train, val, Path(tmp) / route.replace(" ", "_"),
+                                 route)
+                for route in EVAL_FIT_ROUTES}
+        for route, fit in fits.items():
+            busy = sum(fit["validate"]) + sum(fit["save_async"]) + sum(fit["drain"])
+            print(f"eval path fit, {route} saves: {steps} AdamW steps at B {BATCH} in "
+                  f"{fit['fit_s']:.4f} s ({(fit['fit_s'] - busy) / steps:.4f} s/step outside "
+                  f"validation and saving); main thread in each save_async "
+                  f"{[round(x, 4) for x in fit['save_async']]} s; end-of-fit drain "
+                  f"{[round(x, 4) for x in fit['drain']]} s; validation "
+                  f"{[round(x, 4) for x in fit['validate']]} s/pass (K 1); host s in each "
+                  f"train_step call {[round(x, 4) for x in fit['train_step']]}; saving thread: "
+                  f"copies to the host {[round(x, 4) for x in fit['host_copy']]} s, writes "
+                  f"{[round(x, 4) for x in fit['write']]} s; losses "
+                  f"{[round(x, 4) for x in fit['losses']]}; best step "
+                  f"{fit['checkpoints'].best_step}", flush=True)
+            _require(len(fit["losses"]) == steps
+                     and all(math.isfinite(x) for x in fit["losses"]), "non-finite training loss")
+            _require(len(fit["validate"]) == EVAL_EPOCHS, "validation did not run every epoch")
+            for name in ("last", "best"):
+                _require((fit["checkpoints"].directory / name).is_dir(), f"no {name} checkpoint")
+        same = _same_checkpoints(Path(tmp) / "async", Path(tmp) / "sync")
+        planted = _same_checkpoints(Path(tmp) / "planted", Path(tmp) / "sync")
+        names = sorted(_checkpoint_files(Path(tmp) / "sync")[0])
+        print(f"eval path checkpoints {names}: asynchronous against synchronous saves "
+              f"bit-equal {same}; the planted uncopied snapshot bit-equal {planted} (must be "
+              f"rejected)", flush=True)
+        _require(all(fit["losses"] == fits["sync"]["losses"] for fit in fits.values()),
+                 "the fits took other steps")
+        _require(same, "asynchronous saves wrote other checkpoints than synchronous ones")
+        for route in EVAL_FIT_ROUTES:
+            if route.startswith("async, "):
+                _require(_same_checkpoints(Path(tmp) / route.replace(" ", "_"),
+                                           Path(tmp) / "sync"),
+                         f"the {route} fit wrote other checkpoints than synchronous saves")
+        _require(not planted, "the checkpoint check did not reject the planted uncopied snapshot")
+        trainer, checkpoints = fits["async"]["trainer"], fits["async"]["checkpoints"]
         val_steps = trainer.decode_steps
-        step_s = (fit_s - sum(spent["validate"]) - sum(spent["save"])) / steps
-        print(f"eval path fit: {steps} AdamW steps at B {BATCH}: {step_s:.4f} s/step (train "
-              f"steps only); validation {[round(x, 4) for x in spent['validate']]} s/pass "
-              f"(K 1, {val_steps} decode steps in all); checkpoint saves "
-              f"{[round(x, 3) for x in spent['save']]} s; losses "
-              f"{[round(x, 4) for x in losses]}; best step {checkpoints.best_step}", flush=True)
-        _require(len(losses) == steps and all(math.isfinite(x) for x in losses),
-                 "non-finite training loss")
-        _require(len(spent["validate"]) == EVAL_EPOCHS, "validation did not run every epoch")
-        for name in ("last", "best"):
-            _require((checkpoints.directory / name).is_dir(), f"no {name} checkpoint")
 
         # The best checkpoint into a fresh model: its params, bit for bit.
         best = checkpoints.restore("best")["params"]
@@ -2105,24 +2358,33 @@ def run_eval_path() -> dict:
     predictions = predictor.predict(test, n_beams=EVAL_BEAMS)
     torch.cuda.synchronize()
     predict_s = (time.perf_counter() - t0) / len(test)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    decode_steps = val_steps + predictor.decode_steps
-    replays = trainer.decode_replays + predictor.decode_replays
-    warmups = trainer.decode_warmups + predictor.decode_warmups
-    cache_bytes = 2 * BATCH * MAX_LENGTH * EVAL_BEAMS * D_MODEL
-    print(f"eval path predict: K {EVAL_BEAMS}, {len(test)} batch(es) of {BATCH}: "
-          f"{predict_s:.4f} s/batch ({BATCH / predict_s:.2f} spectra/s, graph capture "
-          f"included: {predictor.last_decode_stats['capture_s']:.4f} s), "
-          f"{predictor.decode_steps} decode steps, avg_loss {predictions['avg_loss']:.4f}; "
-          f"int8 KV cache {cache_bytes} B per layer ({cache_bytes / 2**30:.3f} GiB, "
-          f"{LAYERS} layers); launches {launches} over {decode_steps} decode steps in "
-          f"{replays} graph replays and {warmups} eager steps of graph captures "
-          f"(validation and predict)", flush=True)
     _require(len(predictions["predictions"]) == EVAL_TEST
              and all(len(p) == EVAL_BEAMS for p in predictions["predictions"])
              and predictions["targets"] == [s for b in test for s in b["target_strings"]],
              "predict returned other rows or beams")
     _require(math.isfinite(predictions["avg_loss"]), "non-finite predict loss")
+    print(f"eval path predict: K {EVAL_BEAMS}, {len(test)} batch(es) of {BATCH}: "
+          f"{predict_s:.4f} s/batch ({BATCH / predict_s:.2f} spectra/s, graph capture "
+          f"included: {predictor.last_decode_stats['capture_s']:.4f} s), "
+          f"{predictor.decode_steps} decode steps, avg_loss {predictions['avg_loss']:.4f}",
+          flush=True)
+
+    # (b) and (c): the pipeline at depth 0 and 8 (the graphs are captured).
+    _pipeline_runs(f"predict K {EVAL_BEAMS}", predictor,
+                   lambda: predictor.predict(extra, n_beams=EVAL_BEAMS), PIPELINE_BATCHES)
+    _pipeline_runs("validation K 1", trainer, lambda: trainer.validate(extra), PIPELINE_BATCHES)
+
+    owners = [fit["trainer"] for fit in fits.values()] + [predictor]
+    launches = {fn.__name__: fn.launches for fn in counters}
+    decode_steps = sum(t.decode_steps for t in owners)
+    replays = sum(t.decode_replays for t in owners)
+    warmups = sum(t.decode_warmups for t in owners)
+    cache_bytes = 2 * BATCH * MAX_LENGTH * EVAL_BEAMS * D_MODEL
+    print(f"eval path decodes: validation {val_steps} decode steps in the fit; int8 KV cache "
+          f"{cache_bytes} B per layer ({cache_bytes / 2**30:.3f} GiB, {LAYERS} layers) at K "
+          f"{EVAL_BEAMS}; launches {launches} over {decode_steps} decode steps in {replays} "
+          f"graph replays and {warmups} eager steps of graph captures (the three fits' "
+          f"validations, predict and the pipeline runs)", flush=True)
     for name, count in launches.items():
         _require(count == LAYERS * (replays + warmups),
                  f"{name} launched {count} times, want {LAYERS * (replays + warmups)}")
@@ -2140,6 +2402,8 @@ def run_eval_path() -> dict:
                 if k in ("Top-1", "Top-5", "Top-10", f"Top-{EVAL_BEAMS}")}
         print(f"eval path scoring, rejection sampling {rejection}: {tops} (random weights: "
               f"reported, not asserted)", flush=True)
+    del fits
+    print(f"phase 5 done in {time.perf_counter() - start:.1f} s", flush=True)
     return launches, predictor, test
 
 
@@ -3028,7 +3292,7 @@ def _mix_fit(setup, route: str, dtype: str, dropout=None, val=None) -> dict:
     if route == "device":
         mix = _device_mixture(setup)
         _require(mix is not None, "the recipe did not take the device route")
-        loader, transform = mix.loader, (mix.premix, mix.consts)
+        loader, transform = mix.loader, mix.expand
     config = dict(ALIGN_MODEL_CONFIG, dtype=dtype)
     if dropout is not None:
         config["dropout"] = dropout
@@ -3977,6 +4241,10 @@ def main() -> int:
     if "--tensor-parallel" in sys.argv[1:]:
         print(smi, flush=True)
         run_tensor_parallel()
+        return 0
+    if "--eval-path" in sys.argv[1:]:
+        print(smi, flush=True)
+        run_eval_path()
         return 0
 
     records = check_kernels() + [check_ffn()]

@@ -111,7 +111,7 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
                                               collator, batch_size, seed=seed, device=device)
         if device_mix is not None:
             loaders["train"] = device_mix.loader
-            batch_transform = (device_mix.premix, device_mix.consts)
+            batch_transform = device_mix.expand
 
     tokenizer = preprocessors[target_modality]
     model, _ = build_model(model_config, data_config, target_modality, tokenizer, device, seed)
@@ -136,6 +136,11 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
         n_beams=model_config.get("n_beams", 10),
         monitor=monitor,
         checkpoint_every_n_vals=trainer_config.get("checkpoint_every_n_vals", 1) or 1,
+        # Only an explicit YAML null takes the default: 0 abandons an
+        # in-flight save at once at the end of the fit.
+        checkpoint_wait_timeout_s=(
+            600.0 if trainer_config.get("checkpoint_wait_timeout_s") is None
+            else trainer_config["checkpoint_wait_timeout_s"]),
         batch_transform=batch_transform,
     )
 

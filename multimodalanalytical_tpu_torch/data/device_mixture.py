@@ -249,10 +249,11 @@ class DeviceMixtureLoader:
 
 class DeviceMixture:
     """The staged pool tensors and the index -> batch expansion:
-    ``premix(consts, batch)``. The pool is an argument, as in the JAX
-    module, though nothing here needs that: JAX passed it so that a traced
-    closure would not inline it into the compiled program, and eager
-    PyTorch compiles nothing."""
+    ``premix(consts, batch)``, or :meth:`expand` (what the trainer's
+    ``batch_transform`` takes). The pool is an argument of ``premix``, as
+    in the JAX module, though nothing here needs that: JAX passed it so
+    that a traced closure would not inline it into the compiled program,
+    and eager PyTorch compiles nothing."""
 
     def __init__(self, loader: DeviceMixtureLoader, premix, consts: Dict[str, torch.Tensor],
                  pool_bytes: int):
@@ -260,6 +261,10 @@ class DeviceMixture:
         self.premix = premix
         self.consts = consts
         self.pool_bytes = pool_bytes
+
+    def expand(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """An index batch on the device as the collated batch."""
+        return self.premix(self.consts, batch)
 
 
 def _stage_pool(

@@ -7,7 +7,6 @@ gradients, ``dryrun`` one step and decode on a layout."""
 
 from .mesh import initialize_multihost
 from .multihost import (
-    barrier,
     is_main,
     process_count,
     process_index,
@@ -16,7 +15,6 @@ from .multihost import (
 )
 
 __all__ = [
-    "barrier",
     "initialize_multihost",
     "is_main",
     "process_count",

@@ -58,16 +58,6 @@ def group_device() -> torch.device:
     return torch.device("cpu")
 
 
-def barrier() -> None:
-    """Wait until every process gets here (nothing without a group)."""
-    if not initialized():
-        return
-    if dist.get_backend() == "nccl":
-        dist.barrier(device_ids=[torch.cuda.current_device()])
-    else:
-        dist.barrier()
-
-
 def sum_across_processes(values, mesh=None) -> np.ndarray:
     """Element-wise sum of a small array over all processes, or over
     ``mesh``'s data group (metric reduction): one ``all_reduce`` of a

@@ -6,15 +6,25 @@ top entry) and ``index.json``. Each checkpoint directory holds one
 ``state.pt`` written by ``torch.save``: ``{"params": model state_dict,
 "opt_state": optimizer state, "step": n}`` with every tensor on the CPU.
 
-Under several processes only rank 0 writes (as the JAX manager saves
-from process 0 only); every rank keeps the index in step, and waits at a
-barrier after each save until the files are on disk, so that no rank reads
-``last`` or ``best`` before they are.
+Two routes write the same files through one writer (``_write``). ``save``
+is synchronous. ``save_async`` (what ``Trainer.fit`` calls, as the JAX
+trainer does) takes a device snapshot of the tree on the current stream,
+enqueues its copies into pinned host memory on a side stream, and hands
+the request to one persistent daemon thread through a latest-wins queue of
+depth 1; the thread waits for the copies' event and writes, while the
+train steps go on. The snapshot is what makes that safe: the optimizer
+updates the parameters and moments in place, so copies read from them
+beside the next step would publish later weights under an earlier step. ``wait(timeout_s)`` drains the queue,
+re-raises the first background error and, on timeout, logs what is on disk
+and returns False.
 
-Saves are synchronous. The JAX package's asynchronous saver, its latest-wins
-queue and its wait timeout answer a slow device-to-host relay; what stays is
-the trainer's policy that decides which states land on disk (cadence,
-pinned best, the save at ``max_steps``).
+Under several processes only rank 0 writes (as the JAX manager saves from
+process 0 only). The index is kept where the writes run: on rank 0, by the
+writer. The saving thread never calls a collective; ``save`` and ``wait``
+end on every rank's main thread with one reduction that carries rank 0's
+outcome and doubles as the barrier, after which the other ranks reload
+``index.json``. So no rank reads ``last`` or ``best`` before they are on
+disk, and no rank's index names a step whose write the queue dropped.
 
 :func:`restore_params` also reads a JAX param tree flattened to an ``.npz``
 (keys joined with ``/``; see :func:`save_flax_npz`), converted by
@@ -28,8 +38,11 @@ import json
 import logging
 import os
 import shutil
+import threading
+import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,15 +55,33 @@ logger = logging.getLogger(__name__)
 STATE_FILE = "state.pt"
 
 
+def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
+    """``tree`` with ``fn`` applied to every tensor leaf, depth first in
+    mapping and sequence order; other leaves (the int step) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
 def to_cpu(tree: Any) -> Any:
     """A copy of ``tree`` with every tensor detached and on the CPU."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    if isinstance(tree, Mapping):
-        return {k: to_cpu(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_cpu(v) for v in tree)
-    return tree
+    return _map_tensors(tree, lambda t: t.detach().to("cpu", copy=True))
+
+
+@dataclass
+class Snapshot:
+    """A checkpoint tree whose tensors are private copies (what
+    :meth:`CheckpointManager.snapshot` returns), and the CUDA event that
+    marks the end of their copies on ``device`` (both None for tensors on
+    the CPU)."""
+
+    tree: Any
+    event: Optional[torch.cuda.Event] = None
+    device: Optional[torch.device] = None
 
 
 class CheckpointManager:
@@ -65,6 +96,14 @@ class CheckpointManager:
         self._index: Dict[str, Any] = {"checkpoints": [], "last": None, "best": None}
         if self._index_path.exists():
             self._index = json.loads(self._index_path.read_text())
+        # The saving thread, started at the first save_async, and its queue
+        # of depth 1 (the latest request wins).
+        self._worker: Optional[threading.Thread] = None
+        self._stream = None
+        self._cond = threading.Condition()
+        self._pending: Optional[Tuple[int, Snapshot, Dict[str, float]]] = None
+        self._busy = False
+        self._async_error: Optional[BaseException] = None
 
     def _save_tree(self, name: str, tree: Any) -> Path:
         """Write ``tree`` under ``.<name>.partial`` and move it into place in
@@ -74,7 +113,7 @@ class CheckpointManager:
         path = self.directory / name
         staging = self.directory / f".{name}.partial"
         staging.mkdir(parents=True, exist_ok=True)
-        torch.save(to_cpu(tree), staging / STATE_FILE)
+        torch.save(tree, staging / STATE_FILE)
         if path.is_dir():
             os.replace(staging / STATE_FILE, path / STATE_FILE)
             staging.rmdir()
@@ -82,13 +121,11 @@ class CheckpointManager:
             staging.rename(path)
         return path
 
-    def save(self, step: int, tree: Any, metrics: Dict[str, float]) -> None:
-        """Save ``last`` plus a top-K entry when the monitored metric
-        warrants. Every rank calls it; rank 0 writes (``tree`` is not read
-        on the others) and all of them leave it together."""
-        main = multihost.is_main()
-        if main:
-            self._save_tree("last", tree)
+    def _write(self, step: int, tree: Any, metrics: Dict[str, float]) -> None:
+        """Rank 0's writes of one save, a host ``tree``: ``last``, a top-K
+        entry and ``best`` when the monitored metric warrants, then the
+        index, which names only files already in place."""
+        self._save_tree("last", tree)
         self._index["last"] = {"step": step, "metrics": metrics}
 
         value = metrics.get(self.monitor)
@@ -100,24 +137,172 @@ class CheckpointManager:
                 key=lambda e: e["value"], reverse=(self.mode == "max"))
             keep, drop = better[: self.top_k], better[self.top_k:]
             if any(e["name"] == name for e in keep):
-                if main:
-                    self._save_tree(name, tree)
-                    for e in drop:
-                        stale = self.directory / e["name"]
-                        if stale.exists():
-                            shutil.rmtree(stale)
+                self._save_tree(name, tree)
+                for e in drop:
+                    stale = self.directory / e["name"]
+                    if stale.exists():
+                        shutil.rmtree(stale)
                 self._index["checkpoints"] = keep
                 best = keep[0]
                 if self._index.get("best") != best:
                     self._index["best"] = dict(best)
                     best_path = self.directory / "best"
-                    if main:
-                        if best_path.exists():
-                            shutil.rmtree(best_path)
-                        shutil.copytree(self.directory / best["name"], best_path)
-        if main:
-            self._index_path.write_text(json.dumps(self._index, indent=1))
-        multihost.barrier()
+                    if best_path.exists():
+                        shutil.rmtree(best_path)
+                    shutil.copytree(self.directory / best["name"], best_path)
+        staging = self.directory / ".index.json.partial"
+        staging.write_text(json.dumps(self._index, indent=1))
+        os.replace(staging, self._index_path)
+
+    def _agree(self, ok: bool) -> bool:
+        """Rank 0's ``ok`` on every rank, by one reduction on each rank's
+        main thread that also serves as the barrier after rank 0's writes;
+        the other ranks then reload the index rank 0 wrote."""
+        if not multihost.initialized():
+            return ok
+        main = multihost.is_main()
+        ok = bool(multihost.sum_across_processes([float(ok and main)])[0])
+        if not main and self._index_path.exists():
+            self._index = json.loads(self._index_path.read_text())
+        return ok
+
+    def save(self, step: int, tree: Any, metrics: Dict[str, float]) -> None:
+        """Save ``last`` plus a top-K entry when the monitored metric
+        warrants, synchronously. Every rank calls it; rank 0 first drains
+        the asynchronous queue (so no queued request lands after this one),
+        then writes (``tree`` is not read on the others); all of them leave
+        it together."""
+        if multihost.is_main():
+            self._drain(None)
+            if isinstance(tree, Snapshot):
+                tree = tree.tree
+            self._write(step, to_cpu(tree), metrics)
+        self._agree(True)
+
+    # ----------------------------------------------------------- async save
+    def snapshot(self, tree: Any, fresh: Iterable[torch.Tensor] = ()) -> Snapshot:
+        """A copy of every tensor leaf of ``tree`` on its device, made by
+        one ``torch._foreach_copy_`` on the current stream, with the event
+        recorded after it; other leaves keep their type. Tensors in
+        ``fresh`` (by identity: made for this tree, such as those gathered
+        over the model group) are private already and are not copied
+        again. The trainer pins a rate-suppressed best this way."""
+        keep = {id(t) for t in fresh}
+        sources: List[torch.Tensor] = []
+        _map_tensors(tree, lambda t: None if id(t) in keep else sources.append(t))
+        copies = [torch.empty_like(t) for t in sources]
+        if copies:
+            with torch.no_grad():
+                torch._foreach_copy_(copies, sources)
+        it = iter(copies)
+        tree = _map_tensors(tree, lambda t: t if id(t) in keep else next(it))
+        device = next((t.device for t in copies if t.device.type == "cuda"), None)
+        if device is None:
+            return Snapshot(tree)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        return Snapshot(tree, event, device)
+
+    def save_async(self, step: int, tree: Any, metrics: Dict[str, float],
+                   fresh: Iterable[torch.Tensor] = ()) -> None:
+        """Asynchronous ``save``: a device snapshot now (unless ``tree`` is
+        a :class:`Snapshot` already; ``fresh`` as in :meth:`snapshot`), the
+        copy to the host and the writes on the saving thread. The queue has
+        depth 1: a request made while a save runs replaces any queued one.
+        Every rank may call it; only rank 0 queues (the others' trees are
+        not read). ``wait()`` drains the queue and raises what failed."""
+        if not multihost.is_main():
+            return
+        snap = tree if isinstance(tree, Snapshot) else self.snapshot(tree, fresh)
+        with self._cond:
+            self._pending = (step, snap, dict(metrics))
+            if self._worker is None:
+                self._worker = threading.Thread(target=self._drain_loop, daemon=True,
+                                                name="checkpoint-save")
+                self._worker.start()
+            self._cond.notify_all()
+
+    def _host_tree(self, snap: Snapshot) -> Any:
+        """The snapshot's tree on the host. CUDA tensors are copied into
+        pinned memory on a side stream that waits for the snapshot's event
+        (not for the whole device), and the thread waits for that stream
+        alone; ``record_stream`` keeps the caching allocator from handing
+        the snapshot's memory out before the copies have read it."""
+        if snap.event is None:
+            return snap.tree
+        # A thread starts on device 0: pinned memory and the stream are
+        # taken on the snapshot's device.
+        with torch.cuda.device(snap.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            stream = self._stream
+            stream.wait_event(snap.event)
+
+            def copy(t: torch.Tensor) -> torch.Tensor:
+                if t.device.type != "cuda":
+                    return t
+                t.record_stream(stream)
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                return host.copy_(t, non_blocking=True)
+
+            with torch.cuda.stream(stream):
+                tree = _map_tensors(snap.tree, copy)
+            stream.synchronize()
+        return tree
+
+    def _drain_loop(self) -> None:
+        while True:
+            with self._cond:
+                while self._pending is None:
+                    self._cond.wait()
+                step, snap, metrics = self._pending
+                self._pending = None
+                self._busy = True
+            error: Optional[BaseException] = None
+            try:
+                self._write(step, self._host_tree(snap), metrics)
+            except Exception as exc:  # re-raised on the main thread by wait()
+                error = exc
+                logger.exception("Asynchronous checkpoint save failed at step %d", step)
+            del snap   # the device copy is not held while the thread idles
+            with self._cond:
+                self._busy = False
+                if error is not None and self._async_error is None:
+                    self._async_error = error
+                self._cond.notify_all()
+
+    def _drain(self, timeout_s: Optional[float]) -> bool:
+        """Rank 0's drain: True once the queue is empty and no save runs;
+        False if ``timeout_s`` passes first (the running save is abandoned:
+        the thread is a daemon). Raises the first background error."""
+        deadline = None if timeout_s is None else time.monotonic() + timeout_s
+        with self._cond:
+            while self._pending is not None or self._busy:
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    last = self._index.get("last") or {}
+                    best = self._index.get("best") or {}
+                    logger.error("Abandoning in-flight checkpoint save after %.0f s. On-disk "
+                                 "state is still usable: last=step %s, best=step %s (%s).",
+                                 timeout_s, last.get("step"), best.get("step"), self.directory)
+                    if self._async_error is not None:
+                        # Kept, so that a later wait() still raises it.
+                        logger.error("A previous asynchronous save had already failed: %r",
+                                     self._async_error)
+                    return False
+                self._cond.wait(timeout=remaining)
+            if self._async_error is not None:
+                error, self._async_error = self._async_error, None
+                raise error
+        return True
+
+    def wait(self, timeout_s: Optional[float] = None) -> bool:
+        """Block until every queued save is on disk, on every rank (each
+        calls it); re-raise the first background error. ``timeout_s``
+        bounds rank 0's drain: on timeout the running save is abandoned,
+        what survives on disk is logged, and every rank returns False.
+        True on a clean drain."""
+        return self._agree(self._drain(timeout_s) if multihost.is_main() else True)
 
     def restore(self, name: str) -> Dict[str, Any]:
         """The saved tree of checkpoint ``name`` (tensors on the CPU)."""

@@ -3,7 +3,9 @@ resume equality, bit-exact round trips, the save cadence with its pinned
 best, finetune loading and the JAX-params ``.npz`` route.
 
 The policy tests mirror ``tests/test_trainer.py`` (cadence, pinned best,
-``max_steps``) on the port's synchronous ``CheckpointManager``.
+``max_steps``) on the port's ``CheckpointManager`` and, for the cadence, on
+a recorder with the manager's protocol (``save_async``, ``snapshot``,
+``wait``), as the JAX tests' fakes have it.
 """
 
 from pathlib import Path
@@ -151,13 +153,21 @@ def test_checkpoint_round_trip_is_bit_exact(setup, tmp_path):
 
 
 class _Saves:
-    """Records what the trainer saves (step, monitored value)."""
+    """Records what the trainer saves (step, monitored value), through the
+    manager's protocol: ``save_async``, ``snapshot`` (the tree itself),
+    ``wait``."""
 
     def __init__(self):
         self.saves = []
 
-    def save(self, step, tree, metrics):
+    def save_async(self, step, tree, metrics, fresh=()):
         self.saves.append((step, metrics.get("val_molecular_accuracy")))
+
+    def snapshot(self, tree, fresh=()):
+        return tree
+
+    def wait(self, timeout_s=None):
+        return True
 
 
 def _scripted(trainer, accuracies):

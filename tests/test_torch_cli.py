@@ -86,6 +86,31 @@ def test_training_cli_forwards_profile_dir(port_run):
     assert len(traces) == 1 and traces[0].stat().st_size > 0
 
 
+@pytest.mark.parametrize("value,want", [("null", 600.0), ("0", 0.0), ("42.5", 42.5)])
+def test_training_cli_reads_checkpoint_wait_timeout(fixture_dataset, tmp_path, monkeypatch,
+                                                    value, want):
+    """``trainer.checkpoint_wait_timeout_s`` reaches the trainer as the JAX
+    CLI maps it: a YAML null takes 600 s, 0 stays 0 (abandon a running save
+    at once)."""
+    from multimodalanalytical_tpu_torch.cli import training
+
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    class Recording(training.Trainer):
+        def fit(self, *args, **kwargs):
+            seen.append(self.checkpoint_wait_timeout_s)
+            raise Stop
+
+    monkeypatch.setattr(training, "Trainer", Recording)
+    with pytest.raises(Stop):
+        training.main([f"working_dir={tmp_path}", "job_name=t", *DATA,
+                       f"trainer.checkpoint_wait_timeout_s={value}", *TINY_MODEL, CPU])
+    assert seen == [want]
+
+
 @pytest.mark.e2e
 @pytest.mark.parametrize("mode", ["true", "exact"])
 def test_guided_generation_runs(fixture_dataset, tmp_path, mode):

@@ -861,8 +861,62 @@ def test_validate_after_a_step_decodes_the_new_weights(gen):
     trainer.validate([batch])
     new, _ = beam_search(model, inputs, mask, 1, max_length=32, cuda_graph=False)
     assert trainer.decode_warmups == 1        # the K 1 graph was captured once
-    assert np.array_equal(decoded[1], new.cpu().numpy())
-    assert not np.array_equal(decoded[1], old.cpu().numpy())
+    assert torch.equal(decoded[1], new)
+    assert not torch.equal(decoded[1], old)
+
+
+def test_async_save_on_the_card_keeps_the_requested_state(gen, tmp_path):
+    """``save_async`` of a card state: the snapshot on the main stream, the
+    pinned copies on the saving thread's stream. The saved file holds the
+    state at the request, though an AdamW step updates it in place before
+    the thread copies; the pipelined validate and predict equal depth 0."""
+    import threading
+
+    import numpy as np
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+    from multimodalanalytical_tpu_torch.training import trainer as trainer_module
+    from multimodalanalytical_tpu_torch.training.checkpoint import CheckpointManager, to_cpu
+
+    class Tokenizer:
+        pad_token_id, bos_token_id, eos_token_id = 0, 2, 3
+
+        def batch_decode(self, ids, skip_special_tokens=True):
+            return [" ".join(str(int(i)) for i in row) for row in np.asarray(ids)]
+
+    inputs, mask = _request(4, 4)
+    rng = np.random.default_rng(0)
+    dec = rng.integers(4, 64, (4, 10))
+    batch = {"encoder_inputs": {k: v.cpu().numpy() for k, v in inputs.items()},
+             "encoder_mask": mask.cpu().numpy(), "decoder_ids": dec,
+             "decoder_mask": np.ones_like(dec), "labels": dec, "target_strings": ["x"] * 4,
+             "n_valid": 4}
+    trainer = Trainer(_small_decode_model(), Tokenizer(), optimiser="adamw", lr=5e-2,
+                      num_steps=10)
+    trainer.train_step(batch)
+    mgr = CheckpointManager(tmp_path / "ck")
+    stepped, write = threading.Event(), mgr._write
+    mgr._write = lambda *args: stepped.wait(30.0) and write(*args)
+    requested = to_cpu(trainer.state_tree())
+    trainer._save_state(mgr, {})
+    trainer.train_step(batch)
+    stepped.set()
+    assert mgr.wait(timeout_s=30.0)
+    saved = mgr.restore("last")
+    for name, value in requested["params"].items():
+        assert torch.equal(saved["params"][name], value), name
+    for got, want in zip(saved["opt_state"]["nu"], requested["opt_state"]["nu"]):
+        assert torch.equal(got, want)
+    assert not torch.equal(saved["params"]["lm_head.weight"],
+                           trainer.model.state_dict()["lm_head.weight"].cpu())
+    results = {}
+    for depth in (0, 8):
+        trainer_module.PIPELINE_DEPTH = depth
+        try:
+            results[depth] = (trainer.validate([batch] * 3), trainer.predict([batch] * 3, 4))
+        finally:
+            trainer_module.PIPELINE_DEPTH = 8
+    assert results[0] == results[8]
 
 
 def _small_preset_model(model_type, device, d_model=128, heads=2, max_length=32, **extra):

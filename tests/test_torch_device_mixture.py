@@ -231,7 +231,7 @@ def test_fit_on_the_device_route_matches_the_host_route():
     assert mix is not None
     host = _fit_losses(DataLoader(stream, collator, batch_size=4, prefetch=0), config, preps,
                        None)
-    device = _fit_losses(mix.loader, config, preps, (mix.premix, mix.consts))
+    device = _fit_losses(mix.loader, config, preps, mix.expand)
     assert len(device) == len(host) == 7
     assert np.all(np.isfinite(device))
     np.testing.assert_allclose(device, host, rtol=FIT_RTOL)

@@ -16,6 +16,13 @@ one-process run (rtol RTOL; metrics' counts exactly). A mean of per-rank
 mean losses, DDP's default, is shown to fail the same test. Each launch
 has its own time limit (``communicate(timeout=...)``).
 
+Each rank then fits twice more into one checkpoint directory shared by the
+ranks, with asynchronous saves (the trainer's route) and with the
+synchronous route, at a cadence that pins a rate-suppressed best and
+flushes it at the end: rank 0 alone writes, no collective runs off a
+rank's main thread, and every rank returns the same losses and reads the
+same ``best`` and index as the synchronous route and the one-process run.
+
 The one-process run is itself held against the JAX package's trainer, so
 every world size inherits that reference: its loader, collator and
 preprocessors give the same global batches, and its train step, started
@@ -40,6 +47,7 @@ import pickle
 import socket
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -103,12 +111,31 @@ def _worker(args: dict) -> None:
     from multimodalanalytical_tpu_torch.models.config import AlignConfig, ModelConfig
     from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
     from multimodalanalytical_tpu_torch.parallel import multihost
-    from multimodalanalytical_tpu_torch.training.checkpoint import CheckpointManager
+    from multimodalanalytical_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+        restore_params,
+    )
     from multimodalanalytical_tpu_torch.training.loader import DataLoader
     from multimodalanalytical_tpu_torch.training import trainer as trainer_module
     from multimodalanalytical_tpu_torch.training.trainer import Trainer, device_batch
 
     rank, world, workdir = args["rank"], args["world"], Path(args["workdir"])
+    # Every collective and every checkpoint write of this process, by thread.
+    off_main, writes = [], []
+    for name in ("all_reduce", "barrier"):
+        def on_main_thread(*a, _collective=getattr(dist, name), **k):
+            if threading.current_thread() is not threading.main_thread():
+                off_main.append(threading.current_thread().name)
+            return _collective(*a, **k)
+
+        setattr(dist, name, on_main_thread)
+    write = CheckpointManager._write
+
+    def recorded_write(self, step, *a):
+        writes.append(step)
+        return write(self, step, *a)
+
+    CheckpointManager._write = recorded_write
     if world:
         dist.init_process_group("gloo", init_method=f"file://{args['store']}", rank=rank,
                                 world_size=world)
@@ -185,8 +212,39 @@ def _worker(args: dict) -> None:
             pickle.dump(anchor, f)
     val = trainer.validate(evaluation)
     predictions = trainer.predict(evaluation, n_beams=2)
+
+    # One checkpoint directory for every rank of the run, each route.
+    shared = {}
+    for route in ("async", "sync"):
+        train._epoch = 0
+        fit_trainer = Trainer(model(), preps["Smiles"], num_steps=6, lr=1e-3, seed=0, n_beams=2,
+                              monitor="val_loss", checkpoint_every_n_vals=3)
+        manager = CheckpointManager(workdir / f"shared_{route}", monitor="val_loss", mode="min")
+        if route == "sync":
+            def sync_save(step, tree, metrics, fresh=(), manager=manager):
+                manager.wait()
+                manager.save(step, tree, metrics)
+
+            manager.save_async = sync_save
+        pinned, flush = [], fit_trainer._flush_pending_best
+
+        def recording_flush(checkpoints, trainer=fit_trainer, flush=flush, pinned=pinned):
+            if trainer._pending_best is not None:
+                pinned.append(trainer._pending_best[0])
+            flush(checkpoints)
+
+        fit_trainer._flush_pending_best = recording_flush
+        del writes[:]
+        losses = fit_trainer.fit(train, evaluation, epochs=2, checkpoints=manager)
+        best = restore_params(workdir / f"shared_{route}" / "best")
+        shared[route] = {"losses": losses, "pinned": pinned, "writes": list(writes),
+                         "index": manager._index, "best_step": manager.best_step,
+                         "best": torch.cat([v.reshape(-1).float() for v in best.values()]
+                                           ).numpy()}
+
     np.savez(workdir / f"params_rank{rank}.npz", grads=np.stack(grads),
-             params=torch.cat([p.detach().reshape(-1) for p in trainer.params]).numpy())
+             params=torch.cat([p.detach().reshape(-1) for p in trainer.params]).numpy(),
+             **{f"best_{route}": value.pop("best") for route, value in shared.items()})
 
     # The JAX package's dryrun_multichip at data parallelism: one step with
     # modality dropout on a fixed global batch, then a beam decode (K 2, 8 steps).
@@ -205,6 +263,7 @@ def _worker(args: dict) -> None:
         "avg_loss": predictions["avg_loss"], "predictions": predictions["predictions"],
         "targets": predictions["targets"],
         "wrote_checkpoints": sorted(p.name for p in ckpt_dir.iterdir()),
+        "shared": shared, "collectives_off_main_thread": off_main,
         "dryrun": {"loss": loss, "seqs": seqs[:n_valid].tolist(),
                    "scores": scores[:n_valid].tolist()}}))
     if world:
@@ -472,6 +531,29 @@ def test_only_rank_zero_writes_checkpoints(runs, world):
     assert {"last", "best", "index.json"} <= set(ranks[0]["wrote_checkpoints"])
     for rank in ranks[1:]:
         assert rank["wrote_checkpoints"] == []
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_async_saves_into_one_directory_write_from_rank_zero_alone(runs, world):
+    """Both routes into a directory shared by the ranks: rank 0 alone
+    writes, no collective runs off a main thread, and every rank returns
+    the losses and reads the ``best`` and index of the synchronous route;
+    the losses are the one-process run's (RTOL) and ``best`` is of its
+    step."""
+    ref = runs[0][0]["shared"]
+    assert ref["async"]["pinned"] == ref["sync"]["pinned"] == [6]
+    for r, rank in enumerate(runs[world]):
+        assert rank["collectives_off_main_thread"] == []
+        got, want = rank["shared"]["async"], rank["shared"]["sync"]
+        assert got["losses"] == want["losses"]
+        np.testing.assert_allclose(got["losses"], ref["async"]["losses"], rtol=RTOL)
+        assert got["pinned"] == want["pinned"] == [6]
+        assert got["index"] == want["index"] == runs[world][0]["shared"]["async"]["index"]
+        assert got["best_step"] == want["best_step"] == ref["async"]["best_step"]
+        np.testing.assert_array_equal(rank["best_async"], rank["best_sync"])
+        np.testing.assert_array_equal(rank["best_async"], runs[world][0]["best_async"])
+        for route in ("async", "sync"):
+            assert (rank["shared"][route]["writes"] == []) == (r > 0)
 
 
 @pytest.mark.parametrize("world", WORLDS)
