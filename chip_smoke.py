@@ -7,6 +7,7 @@
     python3 chip_smoke.py --time-ffn       # the decode FFN's times alone (one JSON line)
     python3 chip_smoke.py --tensor-parallel  # phase 11 alone
     python3 chip_smoke.py --eval-path      # phase 5 alone
+    python3 chip_smoke.py --time-host-copies  # the parts of a save's host copy, timed
     python3 chip_smoke.py --dp-rank SPEC   # one rank of phase 10's two-rank fit (the script starts it)
     python3 chip_smoke.py --tp-rank SPEC   # one rank of phase 11's tensor-parallel pair (likewise)
 
@@ -1951,19 +1952,21 @@ SMILES_REGEX = (r"(\[[^\]]+]|Br?|Cl?|N|O|S|P|F|I|b|c|n|o|s|p|\(|\)|\.|=|#|-|\+|\
 EVAL_TRAIN, EVAL_VAL, EVAL_TEST = 384, 128, 128
 EVAL_EPOCHS = 2
 EVAL_TARGET_LEN = 32      # longest corpus target (19 tokens) + BOS/EOS, padded
-# Phase 5 (a): how long the planted fault's saving thread waits for the
-# trainer's next step before it reads the live tensors.
-SAVE_HOLD_S = 2.0
-EVAL_FIT_ROUTES = ("async", "sync", "planted", "async, warm", "async, switch 1e-4")
+# Phase 5 (a): the planted fault's side stream sleeps this long before its
+# host copies of the live tensors, which the next train step (~0.1 s) has
+# updated by then; the fits' save routes.
+PLANTED_SLEEP_CYCLES = 2_000_000_000   # ~1 s at the H100's ~1.98 GHz boost clock
+EVAL_FIT_ROUTES = ("async", "sync", "planted", "async, copies on the saving thread")
 # Phase 5 (b), (c): predict and validation over PIPELINE_BATCHES batches of
-# spectra 640.. at the trainer's PIPELINE_DEPTH and PIPELINE_SWITCH_INTERVAL_S
-# ("module": the module's value; None: the interpreter's default), timed in
-# PIPELINE_ORDER.
+# spectra 640.. at the trainer's PIPELINE_DEPTH (patched), with the
+# interpreter's switch interval as it is (None) or set for the run, timed in
+# PIPELINE_ORDER; the PIPELINE_PROFILED ones also under torch.profiler.
 PIPELINE_BATCHES = 4
-PIPELINE_VARIANTS = {"depth 0": (0, "module"), "depth 8": (8, "module"),
-                     "depth 8, default switch interval": (8, None)}
-PIPELINE_ORDER = ("depth 0", "depth 8", "depth 8, default switch interval",
-                  "depth 8, default switch interval", "depth 8", "depth 0")
+PIPELINE_VARIANTS = {"depth 0": (0, None), "depth 8": (8, None),
+                     "depth 8, switch interval 1e-4 s": (8, 1e-4)}
+PIPELINE_ORDER = ("depth 0", "depth 8", "depth 8, switch interval 1e-4 s",
+                  "depth 8, switch interval 1e-4 s", "depth 8", "depth 0")
+PIPELINE_PROFILED = ("depth 0", "depth 8")
 
 
 SMILES_EXTRA_TOKENS = ("S", "P", "F", "I", "n", "o", "s", "[nH]", "=", "#", "(", ")")
@@ -2063,32 +2066,103 @@ def _synchronous(manager):
     return manager
 
 
-def _planted_live_snapshot(manager, trainer):
+def _planted_live_snapshot(manager):
     """The planted fault of phase 5 (a): ``manager.snapshot`` hands over the
-    live tensors uncopied, and the saving thread reads them only after the
-    trainer has taken its next step (or SAVE_HOLD_S has passed), so a save
-    publishes a later step's weights under its own step."""
+    live tensors uncopied (with its event, as a real snapshot has), and the
+    manager's side stream sleeps PLANTED_SLEEP_CYCLES before the host
+    copies, so that they read the tensors after the next train step has
+    updated them: a save publishes a later step's weights under its own."""
     import torch
 
     from multimodalanalytical_tpu_torch.training.checkpoint import Snapshot
 
-    host_tree, requested = manager._host_tree, []
+    start = manager._start_host_copy
 
     def live(tree, fresh=()):
-        requested.append(trainer.global_step)
-        return Snapshot(tree)
+        device = torch.device(DEVICE, torch.cuda.current_device())
+        event = torch.cuda.Event()
+        event.record()
+        return Snapshot(tree, event, device)
 
-    def held(snap):
-        deadline = time.monotonic() + SAVE_HOLD_S
-        while trainer.global_step <= requested[-1] and time.monotonic() < deadline:
-            time.sleep(0.01)
-        torch.cuda.synchronize()
-        return host_tree(snap)
+    def delayed(snap):
+        if manager._stream is None:
+            manager._stream = torch.cuda.Stream()
+        with torch.cuda.stream(manager._stream):
+            torch.cuda._sleep(PLANTED_SLEEP_CYCLES)
+        return start(snap)
 
-    manager.snapshot = live
-
-    manager._host_tree = held
+    manager.snapshot, manager._start_host_copy = live, delayed
     return manager
+
+
+def _copies_on_the_saving_thread(manager):
+    """The design first measured: the saving thread enqueues the host
+    copies itself (one call per tensor, beside the train steps' calls) and
+    waits for them, in place of the thread that requests the save."""
+    start, write = manager._start_host_copy, manager._write
+
+    def write_after_copying(step, snap, metrics):
+        tree, copied = start(snap)
+        copied.synchronize()
+        write(step, tree, metrics)
+
+    manager._start_host_copy = lambda snap: (snap, None)
+    manager._write = write_after_copying
+    return manager
+
+
+def time_host_copies() -> None:
+    """``--time-host-copies``: the parts of ``CheckpointManager``'s host
+    copy of the flagship's state (params and Adam moments, ~534 MB in ~600
+    tensors) on the calling thread, each timed on the host with the device
+    idle: the pinned allocations alone (first and second time), the
+    ``record_stream`` calls, the non-blocking copies into allocated pinned
+    buffers, and ``_start_host_copy`` whole (three times)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+    from multimodalanalytical_tpu_torch.training.checkpoint import CheckpointManager
+
+    trainer = Trainer(_flagship(), optimiser="adamw", lr=TRAIN_LR, num_steps=10)
+    inputs, mask = _request(seed=3, batch=BATCH)
+    trainer.train_step({"encoder_inputs": inputs, "encoder_mask": mask,
+                        **_targets(np.random.default_rng(4), BATCH)})
+    with tempfile.TemporaryDirectory() as tmp:
+        manager = CheckpointManager(Path(tmp))
+        snap = manager.snapshot(trainer.state_tree())
+        leaves = (list(snap.tree["params"].values()) + snap.tree["opt_state"]["mu"]
+                  + snap.tree["opt_state"]["nu"])
+        times = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            times.setdefault(name, []).append(round(time.perf_counter() - t0, 4))
+            torch.cuda.synchronize()
+            return out
+
+        for _ in range(2):
+            hosts = timed("pinned allocations", lambda: [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in leaves])
+            del hosts
+        stream = torch.cuda.Stream()
+        timed("record_stream", lambda: [t.record_stream(stream) for t in leaves])
+        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in leaves]
+        with torch.cuda.stream(stream):
+            timed("copies into allocated pinned buffers",
+                  lambda: [h.copy_(t, non_blocking=True) for h, t in zip(hosts, leaves)])
+        del hosts
+        for _ in range(3):
+            out = timed("_start_host_copy", lambda: manager._start_host_copy(snap))
+            out[1].synchronize()
+            del out
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        print(f"host copies of {len(leaves)} tensors, {nbytes / 2**20:.1f} MiB, on the calling "
+              f"thread, device idle (s): {times}", flush=True)
 
 
 def _checkpoint_files(directory) -> tuple:
@@ -2127,16 +2201,13 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
     """Phase 5's fit (2 epochs at B 128, validation each) into a fresh
     ``CheckpointManager`` at ``directory``, its saves on ``route``: "async"
     (the trainer's), "sync" (``_synchronous``) or "planted"
-    (``_planted_live_snapshot``); "async, warm" and "async, switch 1e-4"
-    are the asynchronous route again (pinned host memory cached by the
-    earlier fits; and with the interpreter's switch interval at 1e-4 s).
-    Returns the trainer, the manager, the losses, the fit's wall seconds
-    and the host seconds inside each ``validate``, each ``save_async``
-    call, the end-of-fit drain and each ``train_step`` call (no
-    synchronisation: the host's own time), and the saving thread's
-    seconds copying to the host and writing."""
-    import sys
-
+    (``_planted_live_snapshot``) or "async, copies on the saving thread"
+    (``_copies_on_the_saving_thread``). Returns the trainer, the manager,
+    the losses, the fit's wall seconds and the host seconds inside each
+    ``validate``, each ``save_async`` call, the end-of-fit drain and each
+    ``train_step`` call (no synchronisation: the host's own time), the
+    seconds enqueueing the host copies and the saving thread's seconds in
+    each write (with its copies where it makes them)."""
     import torch
 
     from multimodalanalytical_tpu_torch.training import Trainer
@@ -2149,7 +2220,9 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
     if route == "sync":
         _synchronous(checkpoints)
     elif route == "planted":
-        _planted_live_snapshot(checkpoints, trainer)
+        _planted_live_snapshot(checkpoints)
+    elif route == "async, copies on the saving thread":
+        _copies_on_the_saving_thread(checkpoints)
     spent = {"validate": [], "save_async": [], "drain": [], "train_step": [], "host_copy": [],
              "write": []}
 
@@ -2170,18 +2243,12 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
     checkpoints.save_async = timed("save_async", checkpoints.save_async, False)
     trainer._flush_pending_best = timed("drain", trainer._flush_pending_best, False)
     trainer.train_step = timed("train_step", trainer.train_step, False)
-    checkpoints._host_tree = timed("host_copy", checkpoints._host_tree, False)
+    checkpoints._start_host_copy = timed("host_copy", checkpoints._start_host_copy, False)
     checkpoints._write = timed("write", checkpoints._write, False)
-    interval = sys.getswitchinterval()
-    if route == "async, switch 1e-4":
-        sys.setswitchinterval(1e-4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
-        losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
-        torch.cuda.synchronize()
-    finally:
-        sys.setswitchinterval(interval)
+    losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
+    torch.cuda.synchronize()
     return {"trainer": trainer, "checkpoints": checkpoints, "losses": losses,
             "fit_s": time.perf_counter() - t0, **spent}
 
@@ -2189,14 +2256,18 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
 def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
     """``run()`` (a validate or predict over ``batches`` batches of
     ``owner``) under each of PIPELINE_VARIANTS (the trainer module's
-    constants, patched): unprofiled in PIPELINE_ORDER for the wall time,
-    then once each under ``torch.profiler`` for the device time (kernels
-    and copies). Prints s/batch, device s/batch, the busy share and the
-    replays of each, and where the host's seconds went in its first run
+    ``PIPELINE_DEPTH`` patched, the interpreter's switch interval set where
+    the variant gives one): unprofiled in PIPELINE_ORDER for the wall time,
+    then PIPELINE_PROFILED once each under ``torch.profiler`` for the
+    device time (kernels and copies). Prints s/batch, device s/batch and
+    the busy share where profiled, the replays of each, and where the
+    host's seconds went in its first run
     (the calling thread in ``eval_step``, in the search and its replay
     dispatch, waiting for scores; the detokenising, on whichever thread);
     requires every run's result equal to depth 0's. Returns {variant:
     result}."""
+    import sys
+
     import torch
 
     from multimodalanalytical_tpu_torch.training import trainer as trainer_module
@@ -2207,11 +2278,11 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
              "submit": (pipeline, pipeline.submit), "finish": (pipeline, pipeline.finish)}
 
     def at(variant):
-        saved = trainer_module.PIPELINE_DEPTH, trainer_module.PIPELINE_SWITCH_INTERVAL_S
+        saved = trainer_module.PIPELINE_DEPTH, sys.getswitchinterval()
         depth, interval = PIPELINE_VARIANTS[variant]
-        if interval == "module":
-            interval = saved[1]
-        trainer_module.PIPELINE_DEPTH, trainer_module.PIPELINE_SWITCH_INTERVAL_S = depth, interval
+        trainer_module.PIPELINE_DEPTH = depth
+        if interval is not None:
+            sys.setswitchinterval(interval)
         host = {name: 0.0 for name in hooks}
         host["dispatch"] = 0.0
 
@@ -2236,7 +2307,8 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
             torch.cuda.synchronize()
             return out, time.perf_counter() - t0, owner.decode_replays - before, host
         finally:
-            trainer_module.PIPELINE_DEPTH, trainer_module.PIPELINE_SWITCH_INTERVAL_S = saved
+            trainer_module.PIPELINE_DEPTH = saved[0]
+            sys.setswitchinterval(saved[1])
             for obj, fn in hooks.values():
                 if obj is pipeline:
                     setattr(obj, fn.__name__, fn)
@@ -2253,7 +2325,7 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
         walls.setdefault(variant, []).append(wall / batches)
         replays.setdefault(variant, []).append(count)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for variant in PIPELINE_VARIANTS:
+    for variant in PIPELINE_PROFILED:
         t0 = time.perf_counter()
         with torch.profiler.profile(activities=activities) as prof:
             at(variant)
@@ -2262,21 +2334,22 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
     for variant in PIPELINE_VARIANTS:
         wall = sum(walls[variant]) / len(walls[variant])
         host = {k: round(v / batches, 4) for k, v in hosts[variant].items()}
+        profiled = (f"device time {device[variant]:.4f} s/batch (kernels and copies, profiled "
+                    f"run); busy share {device[variant] / wall:.3f}" if variant in device
+                    else "not profiled")
         print(f"eval path pipeline, {what}, {variant}: {[round(x, 4) for x in walls[variant]]} "
-              f"s/batch over {batches} batches of {BATCH}; device time {device[variant]:.4f} "
-              f"s/batch (kernels and copies, profiled run); busy share "
-              f"{device[variant] / wall:.3f}; replays {replays[variant]} per run; host s/batch "
-              f"of its first run {host}", flush=True)
+              f"s/batch over {batches} batches of {BATCH}; {profiled}; replays "
+              f"{replays[variant]} per run; host s/batch of its first run {host}", flush=True)
     print(f"eval path pipeline, {what}: the last profiled run and its reading took "
           f"{profiled_s:.1f} s", flush=True)
     return results
 
 
 def run_eval_path() -> dict:
-    """Phase 5: (a) fit (2 epochs, validation each) with asynchronous saves,
-    then with synchronous ones and with the planted uncopied snapshot, each
-    from the same seeded weights: the asynchronous and synchronous routes'
-    checkpoints bit-equal, the planted fault's not; restore of ``best``
+    """Phase 5: (a) fit (2 epochs, validation each) on each of
+    EVAL_FIT_ROUTES from the same seeded weights: the asynchronous routes'
+    checkpoints bit-equal to the synchronous one's, the planted fault's
+    not; restore of ``best``
     into a fresh model; predict at K 30 and Table 4's scoring with
     rejection sampling off and on; (b) predict at K 30 and (c) validation
     over PIPELINE_BATCHES batches at each of PIPELINE_VARIANTS. Returns
@@ -2314,9 +2387,9 @@ def run_eval_path() -> dict:
                   f"{[round(x, 4) for x in fit['save_async']]} s; end-of-fit drain "
                   f"{[round(x, 4) for x in fit['drain']]} s; validation "
                   f"{[round(x, 4) for x in fit['validate']]} s/pass (K 1); host s in each "
-                  f"train_step call {[round(x, 4) for x in fit['train_step']]}; saving thread: "
-                  f"copies to the host {[round(x, 4) for x in fit['host_copy']]} s, writes "
-                  f"{[round(x, 4) for x in fit['write']]} s; losses "
+                  f"train_step call {[round(x, 4) for x in fit['train_step']]}; host copies "
+                  f"enqueued in {[round(x, 4) for x in fit['host_copy']]} s; saving thread's "
+                  f"writes {[round(x, 4) for x in fit['write']]} s; losses "
                   f"{[round(x, 4) for x in fit['losses']]}; best step "
                   f"{fit['checkpoints'].best_step}", flush=True)
             _require(len(fit["losses"]) == steps
@@ -4241,6 +4314,10 @@ def main() -> int:
     if "--tensor-parallel" in sys.argv[1:]:
         print(smi, flush=True)
         run_tensor_parallel()
+        return 0
+    if "--time-host-copies" in sys.argv[1:]:
+        print(smi, flush=True)
+        time_host_copies()
         return 0
     if "--eval-path" in sys.argv[1:]:
         print(smi, flush=True)

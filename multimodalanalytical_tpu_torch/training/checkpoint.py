@@ -206,32 +206,38 @@ class CheckpointManager:
     def save_async(self, step: int, tree: Any, metrics: Dict[str, float],
                    fresh: Iterable[torch.Tensor] = ()) -> None:
         """Asynchronous ``save``: a device snapshot now (unless ``tree`` is
-        a :class:`Snapshot` already; ``fresh`` as in :meth:`snapshot`), the
-        copy to the host and the writes on the saving thread. The queue has
-        depth 1: a request made while a save runs replaces any queued one.
-        Every rank may call it; only rank 0 queues (the others' trees are
-        not read). ``wait()`` drains the queue and raises what failed."""
+        a :class:`Snapshot` already; ``fresh`` as in :meth:`snapshot`) and
+        its copies to the host enqueued behind it; the saving thread waits
+        for them and writes. The queue has depth 1: a request made while a
+        save runs replaces any queued one. Every rank may call it; only rank
+        0 queues (the others' trees are not read). ``wait()`` drains the
+        queue and raises what failed."""
         if not multihost.is_main():
             return
         snap = tree if isinstance(tree, Snapshot) else self.snapshot(tree, fresh)
+        host, copied = self._start_host_copy(snap)
         with self._cond:
-            self._pending = (step, snap, dict(metrics))
+            self._pending = (step, host, copied, dict(metrics))
             if self._worker is None:
                 self._worker = threading.Thread(target=self._drain_loop, daemon=True,
                                                 name="checkpoint-save")
                 self._worker.start()
             self._cond.notify_all()
 
-    def _host_tree(self, snap: Snapshot) -> Any:
-        """The snapshot's tree on the host. CUDA tensors are copied into
-        pinned memory on a side stream that waits for the snapshot's event
-        (not for the whole device), and the thread waits for that stream
-        alone; ``record_stream`` keeps the caching allocator from handing
-        the snapshot's memory out before the copies have read it."""
+    def _start_host_copy(self, snap: Snapshot) -> Tuple[Any, Optional[torch.cuda.Event]]:
+        """The snapshot's tree with its CUDA tensors copied into pinned host
+        memory, and the event that marks the end of the copies (None when
+        the tree is on the CPU: the snapshot is private already). The
+        copies are enqueued without blocking on a side stream that waits
+        for the snapshot's event, not for the whole device, so they run
+        beside the next train step; ``record_stream`` keeps the caching
+        allocator from handing the snapshot's memory out before they have
+        read it. They are enqueued here, on the calling thread: one call
+        per tensor on the saving thread, beside a train step's, took the
+        interpreter lock back and forth at every call and slowed both
+        (``PERF.md``, PR 12)."""
         if snap.event is None:
-            return snap.tree
-        # A thread starts on device 0: pinned memory and the stream are
-        # taken on the snapshot's device.
+            return snap.tree, None
         with torch.cuda.device(snap.device):
             if self._stream is None:
                 self._stream = torch.cuda.Stream()
@@ -247,24 +253,27 @@ class CheckpointManager:
 
             with torch.cuda.stream(stream):
                 tree = _map_tensors(snap.tree, copy)
-            stream.synchronize()
-        return tree
+                copied = torch.cuda.Event()
+                copied.record(stream)
+        return tree, copied
 
     def _drain_loop(self) -> None:
         while True:
             with self._cond:
                 while self._pending is None:
                     self._cond.wait()
-                step, snap, metrics = self._pending
+                step, tree, copied, metrics = self._pending
                 self._pending = None
                 self._busy = True
             error: Optional[BaseException] = None
             try:
-                self._write(step, self._host_tree(snap), metrics)
+                if copied is not None:
+                    copied.synchronize()
+                self._write(step, tree, metrics)
             except Exception as exc:  # re-raised on the main thread by wait()
                 error = exc
                 logger.exception("Asynchronous checkpoint save failed at step %d", step)
-            del snap   # the device copy is not held while the thread idles
+            del tree   # the host copy is not held while the thread idles
             with self._cond:
                 self._busy = False
                 if error is not None and self._async_error is None:

@@ -18,7 +18,6 @@ pipeline depths 1 and 8 over 4 batches equal depth 0 and the JAX
 import dataclasses
 import json
 import logging
-import sys
 import threading
 import time
 
@@ -381,8 +380,7 @@ def pair4():
 
 
 def _at_depth(monkeypatch, trainer, depth, run):
-    """``run()`` at pipeline ``depth``, and the threads that detokenised;
-    the interpreter's switch interval is as it was afterwards."""
+    """``run()`` at pipeline ``depth``, and the threads that detokenised."""
     monkeypatch.setattr(trainer_module, "PIPELINE_DEPTH", depth)
     threads = []
     tokenizer = trainer.tokenizer
@@ -392,14 +390,11 @@ def _at_depth(monkeypatch, trainer, depth, run):
         threads.append(threading.current_thread().name)
         return decode(ids, skip_special_tokens=skip_special_tokens)
 
-    interval = sys.getswitchinterval()
     tokenizer.batch_decode = recording
     try:
-        result = run()
+        return run(), threads
     finally:
         del tokenizer.batch_decode
-    assert sys.getswitchinterval() == interval
-    return result, threads
 
 
 @pytest.mark.parametrize("depth", [1, 8])
