@@ -86,23 +86,24 @@ line each, any failure raises and exits non-zero:
    for the target tokenizer: the card's machine has no ``tokenizers``).
    (a) ``Trainer.fit`` takes 2 epochs (6 AdamW steps at B 128) with
    validation (greedy K 1 decode) every epoch and a ``CheckpointManager``,
-   three times from the same seeded weights: with asynchronous saves (the
-   trainer's route), with synchronous ones (``save_async`` made ``wait``
-   then ``save``) and with a planted fault (a snapshot that hands over the
-   live tensors, read after the next step); the main thread's seconds in
-   each ``save_async``, the end-of-fit drain and each fit's wall time are
-   printed; ``last``, ``best``, every ``step_N`` and the index of the first
-   two must be bit-equal, the planted fault's must not; ``best`` is
-   restored into a fresh model bit for bit; ``predict`` decodes the test
-   spectra at beam 30, scored with rejection sampling off and on (the
-   mixture paper's Table 4 recipe); (b) predict at K 30 and (c) validation
-   over 4 more batches of 128 at the trainer's ``PIPELINE_DEPTH`` 0 and 8
-   and at 8 with the interpreter's default switch interval (the module
-   constants patched), in turns: s/batch, device time, busy share and
-   replays of each, every result equal to depth 0's. Every decode kernel's
-   launches must equal 6 x the graph replays and capture warm-up steps of
-   phase 5's decodes; one batch of each also through the eager loop,
-   bit-equal;
+   four times from the same seeded weights: with a planted fault first (a
+   snapshot that hands over the live tensors, copied after the next step),
+   then with asynchronous saves (the trainer's route), with synchronous
+   ones (``save_async`` made ``wait`` then ``save``) and with the host
+   copies made on the saving thread; the main thread's seconds in each
+   ``save_async``, the end-of-fit drain, each step's host seconds and each
+   fit's wall time are printed; ``last``, ``best``, every ``step_N`` and
+   the index of the asynchronous routes must be bit-equal to the
+   synchronous route's, the planted fault's must not; ``best`` is restored
+   into a fresh model bit for bit; ``predict`` decodes the test spectra at
+   beam 30, scored with rejection sampling off and on (the mixture paper's
+   Table 4 recipe); (b) predict at K 30 and (c) validation over 4 more
+   batches of 128 at the trainer's ``PIPELINE_DEPTH`` 0 and 8 (the module
+   constant patched), in turns: s/batch, device time, busy share, replays
+   and the calling thread's host seconds by part, every result equal to
+   depth 0's. Every decode kernel's launches must equal 6 x the graph
+   replays and capture warm-up steps of phase 5's decodes; one batch of
+   each also through the eager loop, bit-equal;
 6. guided decoding: phase 5's restored model predicts at beam 10 with the
    surrogate formula guide (inside the captured step) on the corpus
    targets, graphs against the eager loop bit for bit, every finished beam
@@ -1956,17 +1957,15 @@ EVAL_TARGET_LEN = 32      # longest corpus target (19 tokens) + BOS/EOS, padded
 # host copies of the live tensors, which the next train step (~0.1 s) has
 # updated by then; the fits' save routes.
 PLANTED_SLEEP_CYCLES = 2_000_000_000   # ~1 s at the H100's ~1.98 GHz boost clock
-EVAL_FIT_ROUTES = ("async", "sync", "planted", "async, copies on the saving thread")
+# The planted fit runs first and carries the process's warm-up (cuBLAS, the
+# first graph captures, the pinned host memory of two saves in flight).
+EVAL_FIT_ROUTES = ("planted", "async", "sync", "async, copies on the saving thread")
 # Phase 5 (b), (c): predict and validation over PIPELINE_BATCHES batches of
-# spectra 640.. at the trainer's PIPELINE_DEPTH (patched), with the
-# interpreter's switch interval as it is (None) or set for the run, timed in
-# PIPELINE_ORDER; the PIPELINE_PROFILED ones also under torch.profiler.
+# spectra 640.. at each of the trainer's PIPELINE_DEPTHS (the module constant
+# patched), unprofiled in PIPELINE_ORDER, then once each under torch.profiler.
 PIPELINE_BATCHES = 4
-PIPELINE_VARIANTS = {"depth 0": (0, None), "depth 8": (8, None),
-                     "depth 8, switch interval 1e-4 s": (8, 1e-4)}
-PIPELINE_ORDER = ("depth 0", "depth 8", "depth 8, switch interval 1e-4 s",
-                  "depth 8, switch interval 1e-4 s", "depth 8", "depth 0")
-PIPELINE_PROFILED = ("depth 0", "depth 8")
+PIPELINE_DEPTHS = (0, 8)
+PIPELINE_ORDER = (0, 8, 8, 0)
 
 
 SMILES_EXTRA_TOKENS = ("S", "P", "F", "I", "n", "o", "s", "[nH]", "=", "#", "(", ")")
@@ -2117,7 +2116,9 @@ def time_host_copies() -> None:
     tensors) on the calling thread, each timed on the host with the device
     idle: the pinned allocations alone (first and second time), the
     ``record_stream`` calls, the non-blocking copies into allocated pinned
-    buffers, and ``_start_host_copy`` whole (three times)."""
+    buffers, and ``_start_host_copy`` whole (three times); then inside
+    ``save_async`` calls: two at a time, then after train steps, after a
+    first and a second validation, and by a second manager."""
     import tempfile
 
     import numpy as np
@@ -2160,6 +2161,40 @@ def time_host_copies() -> None:
             out = timed("_start_host_copy", lambda: manager._start_host_copy(snap))
             out[1].synchronize()
             del out
+        del snap
+        # Saves as a fit makes them: two at a time (the second requested
+        # while the first is written, then a drain), then one after each of
+        # two train steps, a first validation (its graphs captured), a second
+        # one, and one by a second manager.
+        trainer.tokenizer = FixedVocabTokenizer()
+        val = _eval_loader(trainer.tokenizer, EVAL_TRAIN, 2 * BATCH)
+        label = ["pair"]
+
+        def enqueue(snap, start=manager._start_host_copy):
+            t0 = time.perf_counter()
+            out = start(snap)
+            times.setdefault(f"_start_host_copy in save_async, {label[0]}", []).append(
+                round(time.perf_counter() - t0, 4))
+            return out
+
+        manager._start_host_copy = enqueue
+        manager.save_async(0, trainer.state_tree(), {})
+        manager.save_async(1, trainer.state_tree(), {})
+        manager.wait()
+        for label[0], work in (
+                ("after 2 train steps", lambda: [trainer.train_step({
+                    "encoder_inputs": inputs, "encoder_mask": mask,
+                    **_targets(np.random.default_rng(4), BATCH)}) for _ in range(2)]),
+                ("after a first validation", lambda: trainer.validate(val)),
+                ("after a second validation", lambda: trainer.validate(val))):
+            work()
+            manager.save_async(2, trainer.state_tree(), {})
+            manager.wait()
+        label[0] = "a second manager"
+        second = CheckpointManager(Path(tmp) / "second")
+        second._start_host_copy = lambda snap, start=second._start_host_copy: enqueue(snap, start)
+        second.save_async(3, trainer.state_tree(), {})
+        second.wait()
         nbytes = sum(t.numel() * t.element_size() for t in leaves)
         print(f"host copies of {len(leaves)} tensors, {nbytes / 2**20:.1f} MiB, on the calling "
               f"thread, device idle (s): {times}", flush=True)
@@ -2243,31 +2278,53 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
     checkpoints.save_async = timed("save_async", checkpoints.save_async, False)
     trainer._flush_pending_best = timed("drain", trainer._flush_pending_best, False)
     trainer.train_step = timed("train_step", trainer.train_step, False)
-    checkpoints._start_host_copy = timed("host_copy", checkpoints._start_host_copy, False)
     checkpoints._write = timed("write", checkpoints._write, False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
-    torch.cuda.synchronize()
+    # The host seconds in pinned allocations (torch.empty(pin_memory=True))
+    # within each enqueue of the host copies.
+    empty, pinned = torch.empty, [0.0]
+
+    def timed_empty(*args, **kwargs):
+        if not kwargs.get("pin_memory"):
+            return empty(*args, **kwargs)
+        t0 = time.perf_counter()
+        try:
+            return empty(*args, **kwargs)
+        finally:
+            pinned[0] += time.perf_counter() - t0
+
+    start = checkpoints._start_host_copy
+
+    def start_host_copy(snap):
+        before = pinned[0]
+        try:
+            return start(snap)
+        finally:
+            spent["pinned_alloc"].append(pinned[0] - before)
+
+    spent["pinned_alloc"] = []
+    checkpoints._start_host_copy = timed("host_copy", start_host_copy, False)
+    torch.empty = timed_empty
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
+        torch.cuda.synchronize()
+    finally:
+        torch.empty = empty
     return {"trainer": trainer, "checkpoints": checkpoints, "losses": losses,
             "fit_s": time.perf_counter() - t0, **spent}
 
 
 def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
     """``run()`` (a validate or predict over ``batches`` batches of
-    ``owner``) under each of PIPELINE_VARIANTS (the trainer module's
-    ``PIPELINE_DEPTH`` patched, the interpreter's switch interval set where
-    the variant gives one): unprofiled in PIPELINE_ORDER for the wall time,
-    then PIPELINE_PROFILED once each under ``torch.profiler`` for the
-    device time (kernels and copies). Prints s/batch, device s/batch and
-    the busy share where profiled, the replays of each, and where the
-    host's seconds went in its first run
-    (the calling thread in ``eval_step``, in the search and its replay
-    dispatch, waiting for scores; the detokenising, on whichever thread);
-    requires every run's result equal to depth 0's. Returns {variant:
-    result}."""
-    import sys
-
+    ``owner``) at each of PIPELINE_DEPTHS (the trainer module's
+    ``PIPELINE_DEPTH`` patched): unprofiled in PIPELINE_ORDER for the wall
+    time, then once each under ``torch.profiler`` for the device time
+    (kernels and copies). Prints s/batch, device s/batch, the busy share
+    and the replays of each, and where the calling thread's seconds went in
+    its first run (``eval_step``, the search and its replay dispatch, the
+    detokenising inside the search or in ``submit`` / ``finish``); requires
+    every run's result equal to depth 0's. Returns {depth: result}."""
     import torch
 
     from multimodalanalytical_tpu_torch.training import trainer as trainer_module
@@ -2277,12 +2334,8 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
              "detokenise": (tokenizer, tokenizer.batch_decode),
              "submit": (pipeline, pipeline.submit), "finish": (pipeline, pipeline.finish)}
 
-    def at(variant):
-        saved = trainer_module.PIPELINE_DEPTH, sys.getswitchinterval()
-        depth, interval = PIPELINE_VARIANTS[variant]
-        trainer_module.PIPELINE_DEPTH = depth
-        if interval is not None:
-            sys.setswitchinterval(interval)
+    def at(depth):
+        saved, trainer_module.PIPELINE_DEPTH = trainer_module.PIPELINE_DEPTH, depth
         host = {name: 0.0 for name in hooks}
         host["dispatch"] = 0.0
 
@@ -2307,8 +2360,7 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
             torch.cuda.synchronize()
             return out, time.perf_counter() - t0, owner.decode_replays - before, host
         finally:
-            trainer_module.PIPELINE_DEPTH = saved[0]
-            sys.setswitchinterval(saved[1])
+            trainer_module.PIPELINE_DEPTH = saved
             for obj, fn in hooks.values():
                 if obj is pipeline:
                     setattr(obj, fn.__name__, fn)
@@ -2316,32 +2368,26 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
                     delattr(obj, fn.__name__)
 
     results, walls, replays, device, hosts = {}, {}, {}, {}, {}
-    for variant in PIPELINE_ORDER:
-        out, wall, count, host = at(variant)
-        results.setdefault(variant, out)
-        hosts.setdefault(variant, host)
-        _require(out == results["depth 0"],
-                 f"{what} at {variant} returned other results than at depth 0")
-        walls.setdefault(variant, []).append(wall / batches)
-        replays.setdefault(variant, []).append(count)
+    for depth in PIPELINE_ORDER:
+        out, wall, count, host = at(depth)
+        results.setdefault(depth, out)
+        hosts.setdefault(depth, host)
+        _require(out == results[0], f"{what} at depth {depth} returned other results than at 0")
+        walls.setdefault(depth, []).append(wall / batches)
+        replays.setdefault(depth, []).append(count)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for variant in PIPELINE_PROFILED:
-        t0 = time.perf_counter()
+    for depth in PIPELINE_DEPTHS:
         with torch.profiler.profile(activities=activities) as prof:
-            at(variant)
-        device[variant] = _device_time(prof)[0] / batches
-        profiled_s = time.perf_counter() - t0
-    for variant in PIPELINE_VARIANTS:
-        wall = sum(walls[variant]) / len(walls[variant])
-        host = {k: round(v / batches, 4) for k, v in hosts[variant].items()}
-        profiled = (f"device time {device[variant]:.4f} s/batch (kernels and copies, profiled "
-                    f"run); busy share {device[variant] / wall:.3f}" if variant in device
-                    else "not profiled")
-        print(f"eval path pipeline, {what}, {variant}: {[round(x, 4) for x in walls[variant]]} "
-              f"s/batch over {batches} batches of {BATCH}; {profiled}; replays "
-              f"{replays[variant]} per run; host s/batch of its first run {host}", flush=True)
-    print(f"eval path pipeline, {what}: the last profiled run and its reading took "
-          f"{profiled_s:.1f} s", flush=True)
+            at(depth)
+        device[depth] = _device_time(prof)[0] / batches
+    for depth in PIPELINE_DEPTHS:
+        wall = sum(walls[depth]) / len(walls[depth])
+        host = {k: round(v / batches, 4) for k, v in hosts[depth].items()}
+        print(f"eval path pipeline, {what}, depth {depth}: {[round(x, 4) for x in walls[depth]]} "
+              f"s/batch over {batches} batches of {BATCH}; device time {device[depth]:.4f} "
+              f"s/batch (kernels and copies, profiled run); busy share "
+              f"{device[depth] / wall:.3f}; replays {replays[depth]} per run; host s/batch of "
+              f"its first run {host}", flush=True)
     return results
 
 
@@ -2352,7 +2398,7 @@ def run_eval_path() -> dict:
     not; restore of ``best``
     into a fresh model; predict at K 30 and Table 4's scoring with
     rejection sampling off and on; (b) predict at K 30 and (c) validation
-    over PIPELINE_BATCHES batches at each of PIPELINE_VARIANTS. Returns
+    over PIPELINE_BATCHES batches at each of PIPELINE_DEPTHS. Returns
     (the decode kernels' launches, the predicting trainer, the test
     batches) for the guided phase."""
     import math
@@ -2388,7 +2434,8 @@ def run_eval_path() -> dict:
                   f"{[round(x, 4) for x in fit['drain']]} s; validation "
                   f"{[round(x, 4) for x in fit['validate']]} s/pass (K 1); host s in each "
                   f"train_step call {[round(x, 4) for x in fit['train_step']]}; host copies "
-                  f"enqueued in {[round(x, 4) for x in fit['host_copy']]} s; saving thread's "
+                  f"enqueued in {[round(x, 4) for x in fit['host_copy']]} s (pinned "
+                  f"allocations {[round(x, 4) for x in fit['pinned_alloc']]} s); saving thread's "
                   f"writes {[round(x, 4) for x in fit['write']]} s; losses "
                   f"{[round(x, 4) for x in fit['losses']]}; best step "
                   f"{fit['checkpoints'].best_step}", flush=True)
@@ -2456,7 +2503,7 @@ def run_eval_path() -> dict:
     print(f"eval path decodes: validation {val_steps} decode steps in the fit; int8 KV cache "
           f"{cache_bytes} B per layer ({cache_bytes / 2**30:.3f} GiB, {LAYERS} layers) at K "
           f"{EVAL_BEAMS}; launches {launches} over {decode_steps} decode steps in {replays} "
-          f"graph replays and {warmups} eager steps of graph captures (the three fits' "
+          f"graph replays and {warmups} eager steps of graph captures (the fits' "
           f"validations, predict and the pipeline runs)", flush=True)
     for name, count in launches.items():
         _require(count == LAYERS * (replays + warmups),

@@ -318,6 +318,7 @@ class BeamDecoder:
         cuda_graph: bool = True,
         check_every: int = 8,
         stats: Optional[Dict[str, Any]] = None,
+        idle: Optional[Callable[[], bool]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (sequences (B, K, max_length) int64, scores (B, K) fp32).
 
@@ -339,6 +340,10 @@ class BeamDecoder:
         captured (:func:`collectives_capturable`), runs the step eagerly, as
         ``cuda_graph=False`` does.
         The host reads the ``done`` flag once every ``check_every`` steps.
+        ``idle``, if given, is other host work done before each read: one
+        piece per call, returning False once none is left. On a CUDA device
+        it is called for as long as the steps dispatched since the last read
+        are still running (an event query between pieces), elsewhere once.
 
         ``stats``, if given, receives ``steps`` (the device ``t`` at the end:
         the decode steps that counted, as the JAX loop counts them),
@@ -405,6 +410,8 @@ class BeamDecoder:
                 since_check += 1
                 if since_check == check_every:
                     since_check = 0
+                    if idle is not None:
+                        _idle_while_running(idle, device)
                     if bool(d.state["done"]):
                         exited = True
                         break
@@ -423,6 +430,19 @@ class BeamDecoder:
         final_scores, final_idx = _top_k(merged_scores, num_beams)
         final_seqs = merged_seqs.gather(1, final_idx[:, :, None].expand(-1, -1, max_length))
         return final_seqs, final_scores
+
+
+def _idle_while_running(idle: Callable[[], bool], device: torch.device) -> None:
+    """``idle()`` until the work queued on ``device``'s current stream has
+    run, or until it has nothing left to do; once where the device is not
+    a CUDA device (its steps ran as they were called)."""
+    if device.type != "cuda":
+        idle()
+        return
+    ready = torch.cuda.Event()
+    ready.record()
+    while not ready.query() and idle():
+        pass
 
 
 def beam_search(

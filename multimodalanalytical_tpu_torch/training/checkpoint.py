@@ -14,9 +14,9 @@ the request to one persistent daemon thread through a latest-wins queue of
 depth 1; the thread waits for the copies' event and writes, while the
 train steps go on. The snapshot is what makes that safe: the optimizer
 updates the parameters and moments in place, so copies read from them
-beside the next step would publish later weights under an earlier step. ``wait(timeout_s)`` drains the queue,
-re-raises the first background error and, on timeout, logs what is on disk
-and returns False.
+beside the next step would publish later weights under an earlier step.
+``wait(timeout_s)`` drains the queue, re-raises the first background error
+and, on timeout, logs what is on disk and returns False.
 
 Under several processes only rank 0 writes (as the JAX manager saves from
 process 0 only). The index is kept where the writes run: on rank 0, by the
@@ -96,12 +96,14 @@ class CheckpointManager:
         self._index: Dict[str, Any] = {"checkpoints": [], "last": None, "best": None}
         if self._index_path.exists():
             self._index = json.loads(self._index_path.read_text())
-        # The saving thread, started at the first save_async, and its queue
-        # of depth 1 (the latest request wins).
+        # The saving thread, started at the first save_async, its queue of
+        # depth 1 (the latest request wins: step, host tree, the event after
+        # its copies, metrics) and the side stream of the copies.
         self._worker: Optional[threading.Thread] = None
-        self._stream = None
+        self._stream: Optional[torch.cuda.Stream] = None
         self._cond = threading.Condition()
-        self._pending: Optional[Tuple[int, Snapshot, Dict[str, float]]] = None
+        self._pending: Optional[Tuple[int, Any, Optional[torch.cuda.Event],
+                                      Dict[str, float]]] = None
         self._busy = False
         self._async_error: Optional[BaseException] = None
 
@@ -235,7 +237,7 @@ class CheckpointManager:
         read it. They are enqueued here, on the calling thread: one call
         per tensor on the saving thread, beside a train step's, took the
         interpreter lock back and forth at every call and slowed both
-        (``PERF.md``, PR 12)."""
+        (``PERF.md``, Findings)."""
         if snap.event is None:
             return snap.tree, None
         with torch.cuda.device(snap.device):

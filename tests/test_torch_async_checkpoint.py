@@ -12,7 +12,9 @@ an in-place optimizer step saves the earlier weights (and an uncopied
 leaves the files and index of the synchronous route, tensor for tensor, a
 wedged saver does not hang ``fit``, and ``validate`` / ``predict`` at
 pipeline depths 1 and 8 over 4 batches equal depth 0 and the JAX
-``Trainer`` (as ``tests/test_torch_evaluate.py`` holds depth 8 on 2).
+``Trainer`` (as ``tests/test_torch_evaluate.py`` holds depth 8 on 2), each
+batch scored after the next batch's search has started, in pieces run by
+the search between its reads of ``done``.
 """
 
 import dataclasses
@@ -380,36 +382,62 @@ def pair4():
 
 
 def _at_depth(monkeypatch, trainer, depth, run):
-    """``run()`` at pipeline ``depth``, and the threads that detokenised."""
+    """``run()`` at pipeline ``depth``, and the order of the beam searches
+    ("search") and the detokenising ("decode", or "decode in search" where
+    the search ran it between its reads of ``done``)."""
     monkeypatch.setattr(trainer_module, "PIPELINE_DEPTH", depth)
-    threads = []
-    tokenizer = trainer.tokenizer
-    decode = tokenizer.batch_decode
+    events, searching = [], []
+    tokenizer, decode, search = trainer.tokenizer, trainer.tokenizer.batch_decode, trainer._decode
 
-    def recording(ids, skip_special_tokens=True):
-        threads.append(threading.current_thread().name)
+    def recording_decode(ids, skip_special_tokens=True):
+        events.append("decode in search" if searching else "decode")
         return decode(ids, skip_special_tokens=skip_special_tokens)
 
-    tokenizer.batch_decode = recording
+    def recording_search(*args, **kwargs):
+        events.append("search")
+        searching.append(True)
+        try:
+            return search(*args, **kwargs)
+        finally:
+            searching.pop()
+
+    tokenizer.batch_decode, trainer._decode = recording_decode, recording_search
     try:
-        return run(), threads
+        return run(), events
     finally:
-        del tokenizer.batch_decode
+        del tokenizer.batch_decode, trainer._decode
+
+
+def _assert_pipelined(events, depth, batches=4):
+    """Each batch, scored in one piece here, is detokenised after the next
+    batch's search has started and before the search ``depth`` + 1 batches
+    on; at depth 0 before the next search."""
+    searches = [i for i, e in enumerate(events) if e == "search"]
+    decodes = [i for i, e in enumerate(events) if e.startswith("decode")]
+    assert len(searches) == len(decodes) == batches
+    if depth == 0:
+        assert events == ["search", "decode"] * batches
+        return
+    for k, at in enumerate(decodes):
+        assert searches[k + 1] < at if k + 1 < batches else searches[-1] < at
+        if k + depth + 1 < batches:
+            assert at < searches[k + depth + 1]
+    assert "decode in search" in events
 
 
 @pytest.mark.parametrize("depth", [1, 8])
 def test_pipelined_validate_equals_depth_zero_and_jax(pair4, monkeypatch, depth):
     jt, state, trainer, batches = pair4
     want = jt.validate(state, batches, jt._build_eval_step())
-    serial, threads0 = _at_depth(monkeypatch, trainer, 0, lambda: trainer.validate(batches))
-    got, threads = _at_depth(monkeypatch, trainer, depth, lambda: trainer.validate(batches))
+    serial, events0 = _at_depth(monkeypatch, trainer, 0, lambda: trainer.validate(batches))
+    got, events = _at_depth(monkeypatch, trainer, depth, lambda: trainer.validate(batches))
     assert got == serial
     assert got.keys() == want.keys()
     np.testing.assert_allclose(got["val_loss"], want["val_loss"], rtol=1e-5)
     assert got["val_token_acc"] == want["val_token_acc"]
     assert got["val_molecular_accuracy"] == want["val_molecular_accuracy"] == 6 / 9
-    assert threads0 == ["MainThread"] * 4
-    assert len(threads) == 4 and all(t.startswith("eval-score") for t in threads)
+    _assert_pipelined(events0, 0)
+    _assert_pipelined(events, depth)
 
 
 @pytest.mark.parametrize("depth", [1, 8])
@@ -417,8 +445,8 @@ def test_pipelined_predict_equals_depth_zero_and_jax(pair4, monkeypatch, depth):
     jt, state, trainer, batches = pair4
     want = jt.predict(state, batches, n_beams=4)
     serial, _ = _at_depth(monkeypatch, trainer, 0, lambda: trainer.predict(batches, n_beams=4))
-    got, threads = _at_depth(monkeypatch, trainer, depth,
-                             lambda: trainer.predict(batches, n_beams=4))
+    got, events = _at_depth(monkeypatch, trainer, depth,
+                            lambda: trainer.predict(batches, n_beams=4))
     assert got == serial
     assert got.keys() == want.keys()
     assert len(got["predictions"]) == 9 and all(len(p) == 4 for p in got["predictions"])
@@ -427,10 +455,21 @@ def test_pipelined_predict_equals_depth_zero_and_jax(pair4, monkeypatch, depth):
     assert got["sample_id"] == want["sample_id"] == ["s0_0", "s0_1", "s0_2", "s1_0", "s1_1",
                                                      "s1_2", "s2_0", "s2_1", "s3_0"]
     np.testing.assert_allclose(got["avg_loss"], want["avg_loss"], rtol=1e-5)
-    assert len(threads) == 4 and all(t.startswith("eval-score") for t in threads)
+    _assert_pipelined(events, depth)
 
 
-def test_a_scoring_error_is_raised_on_the_calling_thread(pair4, monkeypatch):
+def test_scoring_is_split_into_pieces_of_score_rows(pair4, monkeypatch):
+    """At SCORE_ROWS 2, a batch's 12 beam rows (3 rows x K 4) are
+    detokenised in 6 pieces, the results unchanged."""
+    _, _, trainer, batches = pair4
+    want, _ = _at_depth(monkeypatch, trainer, 8, lambda: trainer.predict(batches, n_beams=4))
+    monkeypatch.setattr(trainer_module, "SCORE_ROWS", 2)
+    got, events = _at_depth(monkeypatch, trainer, 8, lambda: trainer.predict(batches, n_beams=4))
+    assert got == want
+    assert sum(e.startswith("decode") for e in events) == 6 + 6 + 4 + 2
+
+
+def test_a_scoring_error_is_raised_from_predict(pair4, monkeypatch):
     _, _, trainer, batches = pair4
     monkeypatch.setattr(trainer_module, "PIPELINE_DEPTH", 8)
 
