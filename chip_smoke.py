@@ -86,16 +86,18 @@ line each, any failure raises and exits non-zero:
    for the target tokenizer: the card's machine has no ``tokenizers``).
    (a) ``Trainer.fit`` takes 2 epochs (6 AdamW steps at B 128) with
    validation (greedy K 1 decode) every epoch and a ``CheckpointManager``,
-   four times from the same seeded weights: with a planted fault first (a
+   three times from the same seeded weights: with a planted fault first (a
    snapshot that hands over the live tensors, copied after the next step),
-   then with asynchronous saves (the trainer's route), with synchronous
-   ones (``save_async`` made ``wait`` then ``save``) and with the host
-   copies made on the saving thread; the main thread's seconds in each
-   ``save_async``, the end-of-fit drain, each step's host seconds and each
-   fit's wall time are printed; ``last``, ``best``, every ``step_N`` and
-   the index of the asynchronous routes must be bit-equal to the
-   synchronous route's, the planted fault's must not; ``best`` is restored
-   into a fresh model bit for bit; ``predict`` decodes the test spectra at
+   then with asynchronous saves (the trainer's route) and with synchronous
+   ones (``save_async`` made ``wait`` then ``save``); the main thread's
+   seconds in each ``save_async``, the end-of-fit drain, each step's host
+   seconds and each fit's wall time are printed; ``last``, ``best``, every
+   ``step_N`` and the index of the asynchronous route must be bit-equal to
+   the synchronous route's, the planted fault's must not; ``best`` is
+   restored into a fresh model bit for bit; two more requests to the
+   asynchronous fit's manager, each drained, print the main thread's
+   seconds once the manager holds its pinned buffers and must write the
+   trainer's weights; ``predict`` decodes the test spectra at
    beam 30, scored with rejection sampling off and on (the mixture paper's
    Table 4 recipe); (b) predict at K 30 and (c) validation over 4 more
    batches of 128 at the trainer's ``PIPELINE_DEPTH`` 0 and 8 (the module
@@ -1959,7 +1961,9 @@ EVAL_TARGET_LEN = 32      # longest corpus target (19 tokens) + BOS/EOS, padded
 PLANTED_SLEEP_CYCLES = 2_000_000_000   # ~1 s at the H100's ~1.98 GHz boost clock
 # The planted fit runs first and carries the process's warm-up (cuBLAS, the
 # first graph captures, the pinned host memory of two saves in flight).
-EVAL_FIT_ROUTES = ("planted", "async", "sync", "async, copies on the saving thread")
+EVAL_FIT_ROUTES = ("planted", "async", "sync")
+# Requests made to the asynchronous fit's manager after the fit, each drained.
+WARM_SAVES = 2
 # Phase 5 (b), (c): predict and validation over PIPELINE_BATCHES batches of
 # spectra 640.. at each of the trainer's PIPELINE_DEPTHS (the module constant
 # patched), unprofiled in PIPELINE_ORDER, then once each under torch.profiler.
@@ -2094,112 +2098,6 @@ def _planted_live_snapshot(manager):
     return manager
 
 
-def _copies_on_the_saving_thread(manager):
-    """The design first measured: the saving thread enqueues the host
-    copies itself (one call per tensor, beside the train steps' calls) and
-    waits for them, in place of the thread that requests the save."""
-    start, write = manager._start_host_copy, manager._write
-
-    def write_after_copying(step, snap, metrics):
-        tree, copied = start(snap)
-        copied.synchronize()
-        write(step, tree, metrics)
-
-    manager._start_host_copy = lambda snap: (snap, None)
-    manager._write = write_after_copying
-    return manager
-
-
-def time_host_copies() -> None:
-    """``--time-host-copies``: the parts of ``CheckpointManager``'s host
-    copy of the flagship's state (params and Adam moments, ~534 MB in ~600
-    tensors) on the calling thread, each timed on the host with the device
-    idle: the pinned allocations alone (first and second time), the
-    ``record_stream`` calls, the non-blocking copies into allocated pinned
-    buffers, and ``_start_host_copy`` whole (three times); then inside
-    ``save_async`` calls: two at a time, then after train steps, after a
-    first and a second validation, and by a second manager."""
-    import tempfile
-
-    import numpy as np
-    import torch
-
-    from multimodalanalytical_tpu_torch.training import Trainer
-    from multimodalanalytical_tpu_torch.training.checkpoint import CheckpointManager
-
-    trainer = Trainer(_flagship(), optimiser="adamw", lr=TRAIN_LR, num_steps=10)
-    inputs, mask = _request(seed=3, batch=BATCH)
-    trainer.train_step({"encoder_inputs": inputs, "encoder_mask": mask,
-                        **_targets(np.random.default_rng(4), BATCH)})
-    with tempfile.TemporaryDirectory() as tmp:
-        manager = CheckpointManager(Path(tmp))
-        snap = manager.snapshot(trainer.state_tree())
-        leaves = (list(snap.tree["params"].values()) + snap.tree["opt_state"]["mu"]
-                  + snap.tree["opt_state"]["nu"])
-        times = {}
-
-        def timed(name, fn):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            times.setdefault(name, []).append(round(time.perf_counter() - t0, 4))
-            torch.cuda.synchronize()
-            return out
-
-        for _ in range(2):
-            hosts = timed("pinned allocations", lambda: [
-                torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in leaves])
-            del hosts
-        stream = torch.cuda.Stream()
-        timed("record_stream", lambda: [t.record_stream(stream) for t in leaves])
-        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in leaves]
-        with torch.cuda.stream(stream):
-            timed("copies into allocated pinned buffers",
-                  lambda: [h.copy_(t, non_blocking=True) for h, t in zip(hosts, leaves)])
-        del hosts
-        for _ in range(3):
-            out = timed("_start_host_copy", lambda: manager._start_host_copy(snap))
-            out[1].synchronize()
-            del out
-        del snap
-        # Saves as a fit makes them: two at a time (the second requested
-        # while the first is written, then a drain), then one after each of
-        # two train steps, a first validation (its graphs captured), a second
-        # one, and one by a second manager.
-        trainer.tokenizer = FixedVocabTokenizer()
-        val = _eval_loader(trainer.tokenizer, EVAL_TRAIN, 2 * BATCH)
-        label = ["pair"]
-
-        def enqueue(snap, start=manager._start_host_copy):
-            t0 = time.perf_counter()
-            out = start(snap)
-            times.setdefault(f"_start_host_copy in save_async, {label[0]}", []).append(
-                round(time.perf_counter() - t0, 4))
-            return out
-
-        manager._start_host_copy = enqueue
-        manager.save_async(0, trainer.state_tree(), {})
-        manager.save_async(1, trainer.state_tree(), {})
-        manager.wait()
-        for label[0], work in (
-                ("after 2 train steps", lambda: [trainer.train_step({
-                    "encoder_inputs": inputs, "encoder_mask": mask,
-                    **_targets(np.random.default_rng(4), BATCH)}) for _ in range(2)]),
-                ("after a first validation", lambda: trainer.validate(val)),
-                ("after a second validation", lambda: trainer.validate(val))):
-            work()
-            manager.save_async(2, trainer.state_tree(), {})
-            manager.wait()
-        label[0] = "a second manager"
-        second = CheckpointManager(Path(tmp) / "second")
-        second._start_host_copy = lambda snap, start=second._start_host_copy: enqueue(snap, start)
-        second.save_async(3, trainer.state_tree(), {})
-        second.wait()
-        nbytes = sum(t.numel() * t.element_size() for t in leaves)
-        print(f"host copies of {len(leaves)} tensors, {nbytes / 2**20:.1f} MiB, on the calling "
-              f"thread, device idle (s): {times}", flush=True)
-
-
 def _checkpoint_files(directory) -> tuple:
     """{checkpoint name: its state on the host} and the index."""
     import torch
@@ -2236,13 +2134,13 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
     """Phase 5's fit (2 epochs at B 128, validation each) into a fresh
     ``CheckpointManager`` at ``directory``, its saves on ``route``: "async"
     (the trainer's), "sync" (``_synchronous``) or "planted"
-    (``_planted_live_snapshot``) or "async, copies on the saving thread"
-    (``_copies_on_the_saving_thread``). Returns the trainer, the manager,
-    the losses, the fit's wall seconds and the host seconds inside each
+    (``_planted_live_snapshot``). Returns the trainer, the manager, the
+    losses, the fit's wall seconds and the host seconds inside each
     ``validate``, each ``save_async`` call, the end-of-fit drain and each
-    ``train_step`` call (no synchronisation: the host's own time), the
-    seconds enqueueing the host copies and the saving thread's seconds in
-    each write (with its copies where it makes them)."""
+    ``train_step`` call (no synchronisation: the host's own time), in each
+    enqueue of the host copies and in getting their pinned buffers within
+    it, and the saving thread's seconds in each write. The manager's
+    timers stay on it after the fit."""
     import torch
 
     from multimodalanalytical_tpu_torch.training import Trainer
@@ -2256,10 +2154,8 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
         _synchronous(checkpoints)
     elif route == "planted":
         _planted_live_snapshot(checkpoints)
-    elif route == "async, copies on the saving thread":
-        _copies_on_the_saving_thread(checkpoints)
     spent = {"validate": [], "save_async": [], "drain": [], "train_step": [], "host_copy": [],
-             "write": []}
+             "pinned_alloc": [], "write": []}
 
     def timed(name, fn, synchronize):
         def wrapper(*args, **kwargs):
@@ -2279,38 +2175,12 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
     trainer._flush_pending_best = timed("drain", trainer._flush_pending_best, False)
     trainer.train_step = timed("train_step", trainer.train_step, False)
     checkpoints._write = timed("write", checkpoints._write, False)
-    # The host seconds in pinned allocations (torch.empty(pin_memory=True))
-    # within each enqueue of the host copies.
-    empty, pinned = torch.empty, [0.0]
-
-    def timed_empty(*args, **kwargs):
-        if not kwargs.get("pin_memory"):
-            return empty(*args, **kwargs)
-        t0 = time.perf_counter()
-        try:
-            return empty(*args, **kwargs)
-        finally:
-            pinned[0] += time.perf_counter() - t0
-
-    start = checkpoints._start_host_copy
-
-    def start_host_copy(snap):
-        before = pinned[0]
-        try:
-            return start(snap)
-        finally:
-            spent["pinned_alloc"].append(pinned[0] - before)
-
-    spent["pinned_alloc"] = []
-    checkpoints._start_host_copy = timed("host_copy", start_host_copy, False)
-    torch.empty = timed_empty
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
-        torch.cuda.synchronize()
-    finally:
-        torch.empty = empty
+    checkpoints._start_host_copy = timed("host_copy", checkpoints._start_host_copy, False)
+    checkpoints._host_buffers = timed("pinned_alloc", checkpoints._host_buffers, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.fit(train, val, epochs=EVAL_EPOCHS, checkpoints=checkpoints)
+    torch.cuda.synchronize()
     return {"trainer": trainer, "checkpoints": checkpoints, "losses": losses,
             "fit_s": time.perf_counter() - t0, **spent}
 
@@ -2393,10 +2263,10 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
 
 def run_eval_path() -> dict:
     """Phase 5: (a) fit (2 epochs, validation each) on each of
-    EVAL_FIT_ROUTES from the same seeded weights: the asynchronous routes'
+    EVAL_FIT_ROUTES from the same seeded weights: the asynchronous route's
     checkpoints bit-equal to the synchronous one's, the planted fault's
-    not; restore of ``best``
-    into a fresh model; predict at K 30 and Table 4's scoring with
+    not; restore of ``best`` into a fresh model; WARM_SAVES more requests
+    to the asynchronous manager; predict at K 30 and Table 4's scoring with
     rejection sampling off and on; (b) predict at K 30 and (c) validation
     over PIPELINE_BATCHES batches at each of PIPELINE_DEPTHS. Returns
     (the decode kernels' launches, the predicting trainer, the test
@@ -2435,7 +2305,7 @@ def run_eval_path() -> dict:
                   f"{[round(x, 4) for x in fit['validate']]} s/pass (K 1); host s in each "
                   f"train_step call {[round(x, 4) for x in fit['train_step']]}; host copies "
                   f"enqueued in {[round(x, 4) for x in fit['host_copy']]} s (pinned "
-                  f"allocations {[round(x, 4) for x in fit['pinned_alloc']]} s); saving thread's "
+                  f"buffers {[round(x, 4) for x in fit['pinned_alloc']]} s); saving thread's "
                   f"writes {[round(x, 4) for x in fit['write']]} s; losses "
                   f"{[round(x, 4) for x in fit['losses']]}; best step "
                   f"{fit['checkpoints'].best_step}", flush=True)
@@ -2453,11 +2323,6 @@ def run_eval_path() -> dict:
         _require(all(fit["losses"] == fits["sync"]["losses"] for fit in fits.values()),
                  "the fits took other steps")
         _require(same, "asynchronous saves wrote other checkpoints than synchronous ones")
-        for route in EVAL_FIT_ROUTES:
-            if route.startswith("async, "):
-                _require(_same_checkpoints(Path(tmp) / route.replace(" ", "_"),
-                                           Path(tmp) / "sync"),
-                         f"the {route} fit wrote other checkpoints than synchronous saves")
         _require(not planted, "the checkpoint check did not reject the planted uncopied snapshot")
         trainer, checkpoints = fits["async"]["trainer"], fits["async"]["checkpoints"]
         val_steps = trainer.decode_steps
@@ -2471,6 +2336,23 @@ def run_eval_path() -> dict:
         print(f"restore best (step {checkpoints.best_step}) into a fresh model: "
               f"{len(best)} tensors bit-identical {identical}", flush=True)
         _require(identical and set(restored) == set(best), "restored params differ")
+
+        # Requests once the manager holds its pinned buffers (the fit's two
+        # requests allocated them), each drained before the next.
+        fit = fits["async"]
+        requested = len(fit["save_async"])
+        for _ in range(WARM_SAVES):
+            trainer._save_state(checkpoints, {})
+            _require(checkpoints.wait(), "a save after the fit did not drain")
+        state = checkpoints.restore("last")
+        _require(state["step"] == trainer.global_step
+                 and all(torch.equal(state["params"][k], v.cpu())
+                         for k, v in trainer.model.state_dict().items()),
+                 "a save after the fit wrote other weights than the trainer's")
+        print(f"eval path saves after the fit: main thread in each save_async "
+              f"{[round(x, 4) for x in fit['save_async'][requested:]]} s (pinned buffers "
+              f"{[round(x, 4) for x in fit['pinned_alloc'][requested:]]} s); saving thread's "
+              f"writes {[round(x, 4) for x in fit['write'][-WARM_SAVES:]]} s", flush=True)
 
     predictor = Trainer(fresh, tokenizer, n_beams=EVAL_BEAMS)
     torch.cuda.synchronize()
@@ -4361,10 +4243,6 @@ def main() -> int:
     if "--tensor-parallel" in sys.argv[1:]:
         print(smi, flush=True)
         run_tensor_parallel()
-        return 0
-    if "--time-host-copies" in sys.argv[1:]:
-        print(smi, flush=True)
-        time_host_copies()
         return 0
     if "--eval-path" in sys.argv[1:]:
         print(smi, flush=True)

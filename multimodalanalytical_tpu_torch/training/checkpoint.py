@@ -15,6 +15,10 @@ depth 1; the thread waits for the copies' event and writes, while the
 train steps go on. The snapshot is what makes that safe: the optimizer
 updates the parameters and moments in place, so copies read from them
 beside the next step would publish later weights under an earlier step.
+The pinned buffers are the manager's: a written request gives them back
+and a replaced one hands them on, so at most two sets exist (one being
+written, one queued) and only the first saves allocate; a CUDA graph
+capture, which empties the allocators' caches, cannot drop them.
 ``wait(timeout_s)`` drains the queue, re-raises the first background error
 and, on timeout, logs what is on disk and returns False.
 
@@ -22,9 +26,11 @@ Under several processes only rank 0 writes (as the JAX manager saves from
 process 0 only). The index is kept where the writes run: on rank 0, by the
 writer. The saving thread never calls a collective; ``save`` and ``wait``
 end on every rank's main thread with one reduction that carries rank 0's
-outcome and doubles as the barrier, after which the other ranks reload
-``index.json``. So no rank reads ``last`` or ``best`` before they are on
-disk, and no rank's index names a step whose write the queue dropped.
+outcome (and whether it failed) and doubles as the barrier, after which
+the other ranks reload ``index.json``. So no rank reads ``last`` or
+``best`` before they are on disk, no rank's index names a step whose
+write the queue dropped, and a save that failed on rank 0 raises on every
+rank rather than leaving the others in the reduction.
 
 :func:`restore_params` also reads a JAX param tree flattened to an ``.npz``
 (keys joined with ``/``; see :func:`save_flax_npz`), converted by
@@ -98,12 +104,14 @@ class CheckpointManager:
             self._index = json.loads(self._index_path.read_text())
         # The saving thread, started at the first save_async, its queue of
         # depth 1 (the latest request wins: step, host tree, the event after
-        # its copies, metrics) and the side stream of the copies.
+        # its copies, the tree's pinned buffers, metrics), the side stream of
+        # the copies and the pinned buffer sets that no request holds.
         self._worker: Optional[threading.Thread] = None
         self._stream: Optional[torch.cuda.Stream] = None
         self._cond = threading.Condition()
         self._pending: Optional[Tuple[int, Any, Optional[torch.cuda.Event],
-                                      Dict[str, float]]] = None
+                                      List[torch.Tensor], Dict[str, float]]] = None
+        self._spare: List[List[torch.Tensor]] = []
         self._busy = False
         self._async_error: Optional[BaseException] = None
 
@@ -156,16 +164,33 @@ class CheckpointManager:
         staging.write_text(json.dumps(self._index, indent=1))
         os.replace(staging, self._index_path)
 
-    def _agree(self, ok: bool) -> bool:
-        """Rank 0's ``ok`` on every rank, by one reduction on each rank's
-        main thread that also serves as the barrier after rank 0's writes;
-        the other ranks then reload the index rank 0 wrote."""
-        if not multihost.initialized():
-            return ok
+    def _agree(self, on_main: Callable[[], bool]) -> bool:
+        """``on_main()`` on rank 0 and its outcome on every rank, by one
+        reduction on each rank's main thread that carries whether it
+        returned True and whether it raised, and serves as the barrier after
+        rank 0's writes; the other ranks then reload the index rank 0
+        wrote. What rank 0 raised is raised there after the reduction, and a
+        RuntimeError on the other ranks, which would otherwise wait in the
+        next reduction for a rank that has failed."""
         main = multihost.is_main()
-        ok = bool(multihost.sum_across_processes([float(ok and main)])[0])
-        if not main and self._index_path.exists():
-            self._index = json.loads(self._index_path.read_text())
+        ok, error = True, None
+        if main:
+            try:
+                ok = on_main()
+            except Exception as exc:  # raised below, once every rank knows
+                error = exc
+        if multihost.initialized():
+            ok, failed = multihost.sum_across_processes(
+                [float(main and ok and error is None), float(main and error is not None)])
+            ok = bool(ok)
+            if not main:
+                if self._index_path.exists():
+                    self._index = json.loads(self._index_path.read_text())
+                if failed:
+                    raise RuntimeError(f"A checkpoint save failed on rank 0 ({self.directory}); "
+                                       "its log has the error")
+        if error is not None:
+            raise error
         return ok
 
     def save(self, step: int, tree: Any, metrics: Dict[str, float]) -> None:
@@ -173,13 +198,14 @@ class CheckpointManager:
         warrants, synchronously. Every rank calls it; rank 0 first drains
         the asynchronous queue (so no queued request lands after this one),
         then writes (``tree`` is not read on the others); all of them leave
-        it together."""
-        if multihost.is_main():
+        it together, and all of them raise if rank 0 failed."""
+        def drain_and_write() -> bool:
             self._drain(None)
-            if isinstance(tree, Snapshot):
-                tree = tree.tree
-            self._write(step, to_cpu(tree), metrics)
-        self._agree(True)
+            host = tree.tree if isinstance(tree, Snapshot) else tree
+            self._write(step, to_cpu(host), metrics)
+            return True
+
+        self._agree(drain_and_write)
 
     # ----------------------------------------------------------- async save
     def snapshot(self, tree: Any, fresh: Iterable[torch.Tensor] = ()) -> Snapshot:
@@ -217,54 +243,74 @@ class CheckpointManager:
         if not multihost.is_main():
             return
         snap = tree if isinstance(tree, Snapshot) else self.snapshot(tree, fresh)
-        host, copied = self._start_host_copy(snap)
+        host, copied, buffers = self._start_host_copy(snap)
         with self._cond:
-            self._pending = (step, host, copied, dict(metrics))
+            self._pending = (step, host, copied, buffers, dict(metrics))
             if self._worker is None:
                 self._worker = threading.Thread(target=self._drain_loop, daemon=True,
                                                 name="checkpoint-save")
                 self._worker.start()
             self._cond.notify_all()
 
-    def _start_host_copy(self, snap: Snapshot) -> Tuple[Any, Optional[torch.cuda.Event]]:
+    def _start_host_copy(self, snap: Snapshot
+                         ) -> Tuple[Any, Optional[torch.cuda.Event], List[torch.Tensor]]:
         """The snapshot's tree with its CUDA tensors copied into pinned host
-        memory, and the event that marks the end of the copies (None when
-        the tree is on the CPU: the snapshot is private already). The
-        copies are enqueued without blocking on a side stream that waits
-        for the snapshot's event, not for the whole device, so they run
-        beside the next train step; ``record_stream`` keeps the caching
-        allocator from handing the snapshot's memory out before they have
-        read it. They are enqueued here, on the calling thread: one call
-        per tensor on the saving thread, beside a train step's, took the
-        interpreter lock back and forth at every call and slowed both
-        (``PERF.md``, Findings)."""
+        buffers (:meth:`_host_buffers`), the event that marks the end of the
+        copies and the buffers (the tree as it is, None and none when it is
+        on the CPU: the snapshot is private already). The copies are
+        enqueued without blocking on a side stream that waits for the
+        snapshot's event, not for the whole device, so they run beside the
+        next train step; ``record_stream`` keeps the caching allocator from
+        handing the snapshot's memory out before they have read it. They
+        are enqueued here, on the calling thread: one call per tensor on
+        the saving thread, beside a train step's, took the interpreter lock
+        back and forth at every call and slowed both (``PERF.md``,
+        Findings)."""
         if snap.event is None:
-            return snap.tree, None
+            return snap.tree, None, []
+        sources: List[torch.Tensor] = []
+        _map_tensors(snap.tree, lambda t: sources.append(t) if t.device.type == "cuda" else None)
+        buffers = self._host_buffers(sources)
         with torch.cuda.device(snap.device):
             if self._stream is None:
                 self._stream = torch.cuda.Stream()
             stream = self._stream
             stream.wait_event(snap.event)
-
-            def copy(t: torch.Tensor) -> torch.Tensor:
-                if t.device.type != "cuda":
-                    return t
-                t.record_stream(stream)
-                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                return host.copy_(t, non_blocking=True)
-
             with torch.cuda.stream(stream):
-                tree = _map_tensors(snap.tree, copy)
+                for host, t in zip(buffers, sources):
+                    t.record_stream(stream)
+                    host.copy_(t, non_blocking=True)
                 copied = torch.cuda.Event()
                 copied.record(stream)
-        return tree, copied
+        it = iter(buffers)
+        tree = _map_tensors(snap.tree, lambda t: next(it) if t.device.type == "cuda" else t)
+        return tree, copied, buffers
+
+    def _host_buffers(self, sources: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Pinned host buffers shaped as ``sources``: the queued request's,
+        which the new one replaces (its copies ran on the same stream,
+        before the new ones), or a set that a finished write gave back;
+        else new ones."""
+        layout = [(t.shape, t.dtype) for t in sources]
+
+        def fits(buffers: List[torch.Tensor]) -> bool:
+            return [(b.shape, b.dtype) for b in buffers] == layout
+
+        with self._cond:
+            if self._pending is not None and fits(self._pending[3]):
+                buffers, self._pending = self._pending[3], None
+                return buffers
+            for i, spare in enumerate(self._spare):
+                if fits(spare):
+                    return self._spare.pop(i)
+        return [torch.empty(shape, dtype=dtype, pin_memory=True) for shape, dtype in layout]
 
     def _drain_loop(self) -> None:
         while True:
             with self._cond:
                 while self._pending is None:
                     self._cond.wait()
-                step, tree, copied, metrics = self._pending
+                step, tree, copied, buffers, metrics = self._pending
                 self._pending = None
                 self._busy = True
             error: Optional[BaseException] = None
@@ -275,8 +321,11 @@ class CheckpointManager:
             except Exception as exc:  # re-raised on the main thread by wait()
                 error = exc
                 logger.exception("Asynchronous checkpoint save failed at step %d", step)
-            del tree   # the host copy is not held while the thread idles
+            del tree
             with self._cond:
+                if buffers:   # for the next request: one set queued, one written at most
+                    self._spare = (self._spare + [buffers])[-2:]
+                del buffers
                 self._busy = False
                 if error is not None and self._async_error is None:
                     self._async_error = error
@@ -313,7 +362,7 @@ class CheckpointManager:
         bounds rank 0's drain: on timeout the running save is abandoned,
         what survives on disk is logged, and every rank returns False.
         True on a clean drain."""
-        return self._agree(self._drain(timeout_s) if multihost.is_main() else True)
+        return self._agree(lambda: self._drain(timeout_s))
 
     def restore(self, name: str) -> Dict[str, Any]:
         """The saved tree of checkpoint ``name`` (tensors on the CPU)."""

@@ -867,7 +867,7 @@ def test_validate_after_a_step_decodes_the_new_weights(gen):
 
 def test_async_save_on_the_card_keeps_the_requested_state(gen, tmp_path):
     """``save_async`` of a card state: the snapshot on the main stream, the
-    pinned copies on the saving thread's stream. The saved file holds the
+    pinned copies on the manager's side stream. The saved file holds the
     state at the request, though an AdamW step updates it in place before
     the thread copies; the pipelined validate and predict equal depth 0."""
     import threading
@@ -917,6 +917,47 @@ def test_async_save_on_the_card_keeps_the_requested_state(gen, tmp_path):
         finally:
             trainer_module.PIPELINE_DEPTH = 8
     assert results[0] == results[8]
+
+
+def test_async_saves_on_the_card_reuse_the_managers_pinned_buffers(gen, tmp_path):
+    """Requests to one manager share two sets of pinned buffers: one being
+    written, one queued; a replaced request hands its set to the next, and
+    a written one gives its set back. Every file holds its own request's
+    state."""
+    import threading
+    import time
+
+    from multimodalanalytical_tpu_torch.training.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(tmp_path / "ck")
+    release, write = threading.Event(), mgr._write
+    mgr._write = lambda *args: release.wait(30.0) and write(*args)
+    sets = []
+    start = mgr._start_host_copy
+
+    def recording(snap):
+        out = start(snap)
+        sets.append(tuple(b.data_ptr() for b in out[2]))
+        return out
+
+    mgr._start_host_copy = recording
+    w = torch.zeros(1024, 256, device="cuda")
+    for step in range(4):   # 0 is written; 1 and 2 are replaced by 3
+        w.fill_(step)
+        mgr.save_async(step, {"w": w, "step": step}, {})
+        if step == 0:
+            while not mgr._busy:
+                time.sleep(0.01)
+    release.set()
+    assert mgr.wait(timeout_s=30.0)
+    assert sets[0] != sets[1] and sets[1] == sets[2] == sets[3]
+    saved = mgr.restore("last")
+    assert saved["step"] == 3 and torch.equal(saved["w"], torch.full((1024, 256), 3.0))
+    w.fill_(4)
+    mgr.save_async(4, {"w": w, "step": 4}, {})
+    assert mgr.wait(timeout_s=30.0)
+    assert sets[4] in (sets[0], sets[3]) and len(set(sets)) == 2
+    assert torch.equal(mgr.restore("last")["w"], torch.full((1024, 256), 4.0))
 
 
 def _small_preset_model(model_type, device, d_model=128, heads=2, max_length=32, **extra):

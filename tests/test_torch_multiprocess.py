@@ -22,6 +22,9 @@ synchronous route, at a cadence that pins a rate-suppressed best and
 flushes it at the end: rank 0 alone writes, no collective runs off a
 rank's main thread, and every rank returns the same losses and reads the
 same ``best`` and index as the synchronous route and the one-process run.
+A save whose write fails on rank 0, asynchronous or not, raises on every
+rank (rank 0's own error there, a RuntimeError on the others) rather than
+leaving the other ranks waiting in a collective.
 
 The one-process run is itself held against the JAX package's trainer, so
 every world size inherits that reference: its loader, collator and
@@ -242,6 +245,23 @@ def _worker(args: dict) -> None:
                          "best": torch.cat([v.reshape(-1).float() for v in best.values()]
                                            ).numpy()}
 
+    # A write that fails on rank 0: each route's error on every rank.
+    failing = CheckpointManager(workdir / "failing")
+
+    def broken_write(step, tree, metrics):
+        raise OSError("no space left on device")
+
+    failing._write = broken_write
+    failed = {}
+    for route, save in (("async", lambda: failing.save_async(1, trainer.state_tree(), {})
+                         or failing.wait()),
+                        ("sync", lambda: failing.save(2, trainer.state_tree(), {}))):
+        try:
+            save()
+            failed[route] = None
+        except Exception as exc:
+            failed[route] = f"{type(exc).__name__}: {exc}"
+
     np.savez(workdir / f"params_rank{rank}.npz", grads=np.stack(grads),
              params=torch.cat([p.detach().reshape(-1) for p in trainer.params]).numpy(),
              **{f"best_{route}": value.pop("best") for route, value in shared.items()})
@@ -263,7 +283,7 @@ def _worker(args: dict) -> None:
         "avg_loss": predictions["avg_loss"], "predictions": predictions["predictions"],
         "targets": predictions["targets"],
         "wrote_checkpoints": sorted(p.name for p in ckpt_dir.iterdir()),
-        "shared": shared, "collectives_off_main_thread": off_main,
+        "shared": shared, "failed_saves": failed, "collectives_off_main_thread": off_main,
         "dryrun": {"loss": loss, "seqs": seqs[:n_valid].tolist(),
                    "scores": scores[:n_valid].tolist()}}))
     if world:
@@ -554,6 +574,21 @@ def test_async_saves_into_one_directory_write_from_rank_zero_alone(runs, world):
         np.testing.assert_array_equal(rank["best_async"], runs[world][0]["best_async"])
         for route in ("async", "sync"):
             assert (rank["shared"][route]["writes"] == []) == (r > 0)
+
+
+@pytest.mark.parametrize("world", (0,) + WORLDS)
+def test_a_failed_save_on_rank_zero_raises_on_every_rank(runs, world):
+    """Rank 0's write error, from ``wait`` after ``save_async`` and from
+    ``save``, is raised there; every other rank raises a RuntimeError
+    after the same reduction (the run ended: no rank hung)."""
+    for r, rank in enumerate(runs[world]):
+        for route in ("async", "sync"):
+            got = rank["failed_saves"][route]
+            if r == 0:
+                assert got == "OSError: no space left on device", (route, got)
+            else:
+                assert got.startswith("RuntimeError: A checkpoint save failed on rank 0"), (
+                    route, got)
 
 
 @pytest.mark.parametrize("world", WORLDS)
