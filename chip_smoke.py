@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile-eval   # phase 5's decodes and a serving request, profiled
     python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
     python3 chip_smoke.py --time-ffn       # the decode FFN's times alone (one JSON line)
+    python3 chip_smoke.py --time-cross     # cross attention's plans and SDPA (one JSON line)
     python3 chip_smoke.py --tensor-parallel  # phase 11 alone
     python3 chip_smoke.py --eval-path      # phase 5 alone
     python3 chip_smoke.py --time-host-copies  # the parts of a save's host copy, timed
@@ -183,10 +184,22 @@ line each, any failure raises and exits non-zero:
    on each rank; s/step, s/request, the model all-reduces' ms and the peak
    memory per rank.
 
-Phase 1 also holds #2 at the multimodal encoder's Ls 279 (two passes over
-chunks of 256 and 23 keys, rows with a fully masked chunk) against its
-plain version, rejects either chunk left out, and times it at K 1, 10 and
-30 beside SDPA; and times fused dropout beside
+12. serving an RLE model (``run_rle_serving``): phase 3's flagship-width
+   RLE model (bf16, int8 KV cache, seeded weights) behind an
+   ``InferenceEngine`` built with a collator over RLE_DATA_CONFIG (its
+   warm batch, a record without a spectrum, is a fully masked 4090-token
+   row), three seeded 128-spectrum requests (rows of 2173-4090 tokens
+   padded to 4090, one full, one fully padded) at beam 10 and max length
+   128 through the decode graphs: #1-#3 launched 6 x the replays, flash #5
+   6 x the requests (the encoder at L >= 2048), bit-equal to the eager
+   loop; s/batch (the first request beside the steady ones), device time,
+   busy share, #2's share of it, the encoder's ms and the peak memory.
+
+Phase 1 also holds #2's split form at the multimodal encoder's Ls 279 and
+at an RLE encoder's Ls 4090 (B 128, K 1, 10 and 30; rows fully masked,
+rows with a masked first tile or with every later tile masked) against
+its plain version, two calls bit-equal, rejects one tile left out and one
+tile's stats dropped, and times it beside SDPA; and times fused dropout beside
 ``torch.nn.functional.dropout``. It also times #1 at positions 33, 96 and 127 of a 128-time stage,
 planned for the stage (as the decode loop launches it) and for pos + 1
 times. ``--profile-eval`` prints, per decode path, the wall and device
@@ -322,9 +335,6 @@ MM_DATA_CONFIG = {
 MM_ORDER = list(MM_DATA_CONFIG)
 MM_TRAIN_STEPS = 3
 MM_MODALITY_DROPOUT = ["Multiplets", "Carbon", "IR"]
-# Keys per chunk of the cross-attention kernel's two-pass form
-# (kCrossMaxChunk in csrc/beam_attention.cu): Ls 279 is 256 + 23 keys.
-CROSS_CHUNK = 256
 # The multimodal model's dropout-0 train step, bf16 against the same weights
 # in fp32: bf16 rounding of every product through 6 + 6 layers.
 MM_LOSS_RTOL, MM_GRAD_NORM_RTOL = 1e-2, 5e-2
@@ -752,60 +762,86 @@ def check_kernels() -> list:
     return records
 
 
-def check_cross_long() -> dict:
-    """#2 at the multimodal encoder's Ls 279 (two passes over chunks of 256
-    and 23 keys), at K 1, 10 and 30, on the padding masks of a multimodal
-    request: row 0 fully masked (batch padding), row 1 with every key of the
-    first chunk masked, row 2 with every key of the second. Held to ATTN_TOL
-    and ATTN_RMS_TOL against the plain version, with either chunk left out
-    as planted faults that must be rejected; timed eagerly and as device
-    time in turns with SDPA (additive mask). The bound counts each row's
-    valid keys only. Returns the record's ``long_encoder`` entry."""
+def _cross_tile(beams: int, ls: int) -> int:
+    """Keys per tile of #2's plan at the slice's widths (the split form's
+    unit of stats, of skipping and of its blocks)."""
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+
+    return ba.cross_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, 2).tile_keys
+
+
+def _cross_faults(qx, kx, vx, bias, beams: int, left_out: slice, dropped: slice) -> dict:
+    """Plain-math outputs of #2 with a planted fault of the split form: the
+    keys of one tile left out (as a value block that skipped a live tile
+    would), and one tile's stats dropped from each row's max m and sum l
+    (every key's P = exp(S - m) / l then taken over the other tiles' m and
+    l, as a fold that missed that tile's stats would)."""
     import torch
 
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(8)
-    ls = MM_LS
-    _, mask = _multimodal_request(seed=98)
-    keep = torch.as_tensor(mask, device=dev).bool()
-    keep[0] = False
-    keep[1, :CROSS_CHUNK] = False
-    keep[2, CROSS_CHUNK:] = False
-    bias = torch.where(keep, 0.0, -1e9).float()
+    cut = bias.clone()
+    cut[:, left_out] = -1e9
+    batch, ls, _ = kx.shape
+    head_dim = D_MODEL // HEADS
+    qh = (qx.float() * head_dim ** -0.5).to(kx.dtype).float().reshape(batch, beams, HEADS,
+                                                                      head_dim)
+    logits = torch.einsum("bnhd,blhd->bnhl", qh, kx.float().reshape(batch, ls, HEADS, head_dim))
+    logits = logits + bias.float()[:, None, None, :]
+    others = logits.clone()
+    others[..., dropped] = -torch.inf
+    m = others.amax(-1, keepdim=True)
+    probs = (torch.exp(logits - m) / torch.exp(others - m).sum(-1, keepdim=True)).to(kx.dtype)
+    out = torch.einsum("bnhl,blhd->bnhd", probs.float(),
+                       vx.float().reshape(batch, ls, HEADS, head_dim))
+    return {f"keys {left_out.start}-{left_out.stop - 1} (one tile) left out":
+            ba.beam_cross_attention_plain(qx, kx, vx, cut, HEADS, beams),
+            f"the stats of keys {dropped.start}-{dropped.stop - 1} (one tile) dropped":
+            out.to(qx.dtype).reshape(batch * beams, D_MODEL)}
+
+
+def _check_cross_at(name: str, kx, vx, bias, keep, g, fault_tiles: tuple) -> dict:
+    """#2 at K 1, 10 and 30 on these encoder rows: held to ATTN_TOL and
+    ATTN_RMS_TOL against the plain version, two calls bit-equal, the
+    planted faults of :func:`_cross_faults` at tiles ``fault_tiles`` (left
+    out, stats dropped) of each K's plan rejected, timed eagerly and as
+    device time in turns with SDPA (additive mask). The bound counts each
+    row's valid keys only: q.k and p.v over them, their K and V rows read
+    once, q read and out written, the bias. Returns the record entry."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+
+    ls = kx.shape[1]
     valid = int(keep.sum())
-    kx, vx = ((torch.randn(BATCH, ls, D_MODEL, generator=g, device=dev)).bfloat16()
-              for _ in range(2))
-    times, bounds, worst = {}, {}, 0.0
+    times, bounds, plans, worst = {}, {}, {}, 0.0
     for beams, _ in DECODE_BEAMS:
-        qx = torch.randn(BATCH * beams, D_MODEL, generator=g, device=dev).bfloat16()
+        qx = torch.randn(BATCH * beams, D_MODEL, generator=g, device=DEVICE).bfloat16()
         got = ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
+        again = ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams)
         want = ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS, beams)
         err, tol, rms, ok = _attn_err(got, want)
-        finite_rows = bool(torch.isfinite(got[: 3 * beams].float()).all())
-        print(f"kernel beam_cross_attention K={beams} Ls={ls} (two passes, chunks of "
-              f"{CROSS_CHUNK} and {ls - CROSS_CHUNK} keys): max_abs_err={err:.3e} tol={tol:.3e} "
-              f"rel_rms_err={rms:.3e} tol={ATTN_RMS_TOL:.0e}; the fully masked row and the rows "
-              f"with a fully masked chunk finite {finite_rows}", flush=True)
-        _require(ok and finite_rows,
-                 f"beam_cross_attention disagrees with its plain version at Ls {ls}")
+        equal = torch.equal(got, again)
+        plan = ba.cross_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, 2)
+        plans[f"K={beams}"] = plan.tile_keys
+        print(f"kernel beam_cross_attention K={beams} Ls={ls} ({name}; {plan}): max_abs_err="
+              f"{err:.3e} tol={tol:.3e} rel_rms_err={rms:.3e} tol={ATTN_RMS_TOL:.0e}; two calls "
+              f"bit-equal {equal}", flush=True)
+        _require(ok, f"beam_cross_attention disagrees with its plain version at Ls {ls}")
+        _require(equal, f"two beam_cross_attention calls differ at Ls {ls}")
         worst = max(worst, err)
-        faults = {}
-        for name, cut in (("first chunk left out", slice(0, CROSS_CHUNK)),
-                          ("second chunk left out", slice(CROSS_CHUNK, ls))):
-            dropped = bias.clone()
-            dropped[:, cut] = -1e9
-            faults[name] = ba.beam_cross_attention_plain(qx, kx, vx, dropped, HEADS, beams)
-        _rejected(f"beam_cross_attention K={beams} Ls={ls}", faults, want)
-
+        tile = plan.tile_keys
+        out_t, drop_t = fault_tiles
+        _rejected(f"beam_cross_attention K={beams} Ls={ls}",
+                  _cross_faults(qx, kx, vx, bias, beams,
+                                slice(out_t * tile, min(ls, out_t * tile + tile)),
+                                slice(drop_t * tile, min(ls, drop_t * tile + tile))), want)
+        del got, again
         turns = _cross_turns(qx, kx, vx, bias, beams)
         ms, library_ms, device_ms, library_device_ms = (
             sum(turns[x]) / 2 for x in ("kernel", "sdpa", "kernel_device", "sdpa_device"))
         plain_ms = _time_ms(lambda: ba.beam_cross_attention_plain(qx, kx, vx, bias, HEADS,
-                                                                  beams), iters=5)
-        # Valid keys only: q.k and p.v over each row's valid keys, those
-        # keys' K and V rows read once, q read and out written, the bias.
+                                                                  beams), iters=3)
         bound = _bound_ms(4 * beams * valid * D_MODEL,
                           (2 * BATCH * beams + 2 * valid) * D_MODEL * 2 + bias.numel() * 4)
         times[f"K={beams}"] = (ms, plain_ms, library_ms, device_ms, library_device_ms)
@@ -814,15 +850,66 @@ def check_cross_long() -> dict:
               f"{ms:.4f} ms {[round(x, 4) for x in turns['kernel']]}, SDPA {library_ms:.4f} ms "
               f"{[round(x, 4) for x in turns['sdpa']]}; device, CUDA graphs, in turns: kernel "
               f"{device_ms:.4f} ms {[round(x, 4) for x in turns['kernel_device']]}, SDPA "
-              f"{library_device_ms:.4f} ms {[round(x, 4) for x in turns['sdpa_device']]}; "
-              f"plain {plain_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]}, {valid} valid "
-              f"keys of {BATCH * ls}), {100 * bound[0] / device_ms:.1f}% of it in device time",
-              flush=True)
+              f"{library_device_ms:.4f} ms {[round(x, 4) for x in turns['sdpa_device']]} (no "
+              f"slower than SDPA: {device_ms <= library_device_ms}); plain {plain_ms:.4f} ms; "
+              f"bound {bound[0]:.5f} ms ({bound[1]}, {valid} valid keys of {BATCH * ls}), "
+              f"{100 * bound[0] / device_ms:.1f}% of it in device time", flush=True)
+        del qx, want
     return {"ls": ls, "valid_keys": valid, "max_abs_err": worst,
+            "tile_keys": plans,
             "times_ms_is": "(ms, plain_ms, library_ms, device_ms, library_device_ms)",
             "times_ms": {k: list(v) for k, v in times.items()},
             "bound_ms": {k: v[0] for k, v in bounds.items()},
             "bound_by": {k: v[1] for k, v in bounds.items()}}
+
+
+def check_cross_long() -> dict:
+    """#2 at the multimodal encoder's Ls 279 (the split form), on the
+    padding masks of a multimodal request: row 0 fully masked (batch
+    padding), row 1 with every key of the first tile masked, row 2 with
+    every key past it; planted faults at the first tile (left out) and
+    the second (stats dropped). Returns the record's ``long_encoder``
+    entry."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    ls = MM_LS
+    tile = _cross_tile(BEAMS, ls)
+    _, mask = _multimodal_request(seed=98)
+    keep = torch.as_tensor(mask, device=dev).bool()
+    keep[0] = False
+    keep[1, :tile] = False
+    keep[2, tile:] = False
+    bias = torch.where(keep, 0.0, -1e9).float()
+    kx, vx = ((torch.randn(BATCH, ls, D_MODEL, generator=g, device=dev)).bfloat16()
+              for _ in range(2))
+    return _check_cross_at("multimodal masks", kx, vx, bias, keep, g, (0, 1))
+
+
+def check_cross_rle() -> dict:
+    """#2 at an RLE encoder's Ls 4090 (the split form), B 128: valid
+    lengths drawn from RLE_MIN_LEN..RLE_MAX_LEN and tail-padded, row 0 fully
+    masked (batch padding), row 1 at full length, row 2 with valid keys
+    ending inside the first tile (every later tile's keys skipped); planted
+    faults at the first tile (left out) and the second (stats dropped).
+    Returns the record's ``rle_encoder`` entry."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    ls = RLE_MAX_LEN
+    lengths = torch.randint(RLE_MIN_LEN, RLE_MAX_LEN + 1, (BATCH, 1), generator=g, device=dev)
+    lengths[0], lengths[1] = 0, RLE_MAX_LEN
+    lengths[2] = min(_cross_tile(beams, ls) for beams, _ in DECODE_BEAMS) // 2
+    keep = torch.arange(ls, device=dev)[None, :] < lengths
+    bias = torch.where(keep, 0.0, -1e9).float()
+    kx, vx = ((torch.randn(BATCH, ls, D_MODEL, generator=g, device=dev)).bfloat16()
+              for _ in range(2))
+    entry = _check_cross_at("RLE masks", kx, vx, bias, keep, g, (0, 1))
+    del kx, vx
+    torch.cuda.empty_cache()
+    return entry
 
 
 def _ffn_err(got, want) -> tuple:
@@ -1056,6 +1143,75 @@ def time_ffn() -> None:
                                             "library_device_ms", "plain_ms")}
             times[key]["bound_ms"] = _ffn_bound(m, gated)[0]
     print(json.dumps({"ffn_times": times, "tree": str(REPO)}), flush=True)
+
+
+# ``--time-cross``: #2's plan and the alternatives it was chosen among.
+CROSS_TILE_CHOICES = (64, 128, 256)
+
+
+def _cross_time_inputs(g, ls: int) -> tuple:
+    """B 128 encoder rows at Ls as phase 1 takes them: the multimodal
+    request's masks at Ls 279, RLE lengths (RLE_MIN_LEN..RLE_MAX_LEN) at
+    4090, rows of 18-26 keys at the flagship's 26; (K, V, bias, valid keys)."""
+    import torch
+
+    if ls == MM_LS:
+        keep = torch.as_tensor(_multimodal_request(seed=98)[1], device=DEVICE).bool()
+    else:
+        low = RLE_MIN_LEN if ls == RLE_MAX_LEN else ls - 8
+        lengths = torch.randint(low, ls + 1, (BATCH, 1), generator=g, device=DEVICE)
+        keep = torch.arange(ls, device=DEVICE)[None, :] < lengths
+    kx, vx = (torch.randn(BATCH, ls, D_MODEL, generator=g, device=DEVICE).bfloat16()
+              for _ in range(2))
+    return kx, vx, torch.where(keep, 0.0, -1e9).float(), int(keep.sum())
+
+
+def time_cross() -> None:
+    """``--time-cross``: #2's device time (CUDA-graph replay) at B 128 and
+    Ls 26, 279 and 4090, K 1, 10 and 30, in turns with SDPA, with its bound
+    from the valid keys, on whatever ``multimodalanalytical_tpu_torch`` sits
+    beside this script (a copy of the script in an earlier tree times that
+    tree's kernel); where the tree plans #2 (``cross_plan``), also the split
+    form at every tile size of CROSS_TILE_CHOICES. One JSON line."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
+
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    times = {}
+    for ls in (FORMULA_LEN + N_PATCHES, MM_LS, RLE_MAX_LEN):
+        kx, vx, bias, valid = _cross_time_inputs(g, ls)
+        for beams, _ in DECODE_BEAMS:
+            qx = torch.randn(BATCH * beams, D_MODEL, generator=g, device=DEVICE).bfloat16()
+            qh = qx.reshape(BATCH, beams, HEADS, -1).transpose(1, 2)
+            kh, vh = (t.reshape(BATCH, ls, HEADS, -1).transpose(1, 2) for t in (kx, vx))
+            mask = bias[:, None, None, :].to(qx.dtype)
+            runs = {"kernel": lambda: ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams),
+                    "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)}
+            plan = None
+            if hasattr(ba, "cross_plan"):
+                plan = ba.cross_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, 2)
+                for tile in CROSS_TILE_CHOICES if plan.workspace_bytes else ():
+                    if ba.cross_plan_fits(beams, D_MODEL // HEADS, ls, 2, tile):
+                        alt = ba.split_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, tile)
+                        runs[f"tile {tile}"] = (
+                            lambda alt=alt: ba._cross_launch(qx, kx, vx, bias, HEADS, beams, alt))
+            turns = {name: [] for name in runs}
+            for _ in range(2):
+                for name, fn in runs.items():
+                    turns[name].append(round(_device_ms(fn, iters=20), 4))
+            bound = _bound_ms(4 * beams * valid * D_MODEL,
+                              (2 * BATCH * beams + 2 * valid) * D_MODEL * 2 + bias.numel() * 4)
+            times[f"Ls={ls} K={beams}"] = {
+                "tile_keys": None if plan is None else plan.tile_keys,
+                "valid_keys": valid, "bound_ms": bound[0], "bound_by": bound[1],
+                "device_ms": turns}
+            print(f"time_cross Ls={ls} K={beams}: {json.dumps(times[f'Ls={ls} K={beams}'])}",
+                  flush=True)
+            del qx, qh, runs
+        del kx, vx, bias
+    print(json.dumps({"cross_times": times, "tree": str(REPO)}), flush=True)
 
 
 def check_read_only_attention() -> dict:
@@ -1591,18 +1747,20 @@ def check_early_exit(model) -> None:
              f"no early exit ({steps} steps, {replays} replays)")
 
 
-def _serve_requests(engine, requests, what: str, model, kernels: bool = True) -> tuple:
+def _serve_requests(engine, requests, what: str, model, kernels: bool = True,
+                    encoder_counters: tuple = ()) -> tuple:
     """The requests through ``engine.decode_batch`` (its graphs, captured
     by an earlier request), the decode kernels' counts set to 0 just before
     and read just after: every kernel launched 6 x the replays (none at all
-    with ``kernels=False``), outputs of the expected shapes, finite, sorted
-    and BOS-started; then the same requests through the eager loop,
+    with ``kernels=False``), and each of ``encoder_counters`` (the encoder's
+    kernels) 6 x the requests; outputs of the expected shapes, finite,
+    sorted and BOS-started; then the same requests through the eager loop,
     bit-equal. Returns (launches, graph s/batch, results as (seqs, scores,
     stats, s))."""
     import numpy as np
 
     counters = _decode_counters()
-    for fn in counters:
+    for fn in counters + tuple(encoder_counters):
         fn.launches = 0
     results, seconds, steps, replays = [], [], 0, 0
     for inputs, mask in requests:
@@ -1616,12 +1774,18 @@ def _serve_requests(engine, requests, what: str, model, kernels: bool = True) ->
         replays += stats["replays"]
         results.append((seqs, scores, dict(stats), seconds[-1]))
     launches = {fn.__name__: fn.launches for fn in counters}
+    encoder = {fn.__name__: fn.launches for fn in encoder_counters}
     print(f"{what}: {len(requests)} requests x {BATCH} spectra, beam {BEAMS}, {steps} decode "
-          f"steps in {replays} graph replays, launches {launches}", flush=True)
+          f"steps in {replays} graph replays, launches {launches}"
+          + (f", encoder {encoder}" if encoder else ""), flush=True)
     for name, count in launches.items():
         want = LAYERS * replays if kernels else 0
         _require(count == want, f"{name} launched {count} times, want {want}"
                                 + (f" ({LAYERS} x the replays)" if kernels else ""))
+    for name, count in encoder.items():
+        _require(count == LAYERS * len(requests),
+                 f"{name} launched {count} times, want {LAYERS} x the requests")
+    launches.update(encoder)
     for seqs, scores, _, _ in results:
         _require(seqs.shape == (BATCH, BEAMS, MAX_LENGTH) and scores.shape == (BATCH, BEAMS),
                  "unexpected output shapes")
@@ -2495,7 +2659,9 @@ def _kernel_split(rows) -> dict:
              "other": 0.0}
     for ms, _, name in rows:
         key = ("#1 select attention" if "select_attention_kernel" in name
-               else "#2 cross attention" if "cross_attention_kernel" in name
+               else "#2 cross attention" if any(
+                   k in name for k in ("cross_attention_kernel", "cross_stats_kernel",
+                                       "cross_value_kernel"))
                else "#3 decode FFN" if "ffn_" in name else "other")
         split[key] += ms
     return split
@@ -2554,6 +2720,117 @@ def run_multimodal_path() -> dict:
     _require(graphs >= results[0][2]["replays"], "the profiled request did not replay graphs")
     del engine, model, dmodel, hidden
     torch.cuda.empty_cache()
+    return launches
+
+
+# Phase 12: beam-decoding the RLE model (phase 3's) on the card.
+RLE_REQUEST_SEEDS = (1201, 1202, 1203)
+
+
+def _rle_request(seed: int) -> tuple:
+    """A seeded 128-spectrum RLE request: row lengths drawn from
+    RLE_MIN_LEN..RLE_MAX_LEN and tail-padded to RLE_MAX_LEN, row 0 at full
+    length, the last row fully padded (batch padding)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(RLE_MIN_LEN, RLE_MAX_LEN + 1, BATCH)
+    lengths[0], lengths[-1] = RLE_MAX_LEN, 0
+    keep = np.arange(RLE_MAX_LEN)[None, :] < lengths[:, None]
+    ids = np.where(keep, rng.integers(4, RLE_VOCAB, (BATCH, RLE_MAX_LEN)), 0)
+    return {"RLE": ids.astype(np.int64)}, keep.astype(np.int32)
+
+
+def _rle_collator():
+    """(collator, tokenizer) as the serve CLI's artifact gives them for the
+    RLE recipe: a run-length preprocessor at its 4090-token cap (a stand-in
+    tokenizer carries its pad id: the card's machine has no ``tokenizers``,
+    and the engine's warm batch, a record without a spectrum, needs nothing
+    else of it) and the fixed-vocabulary SMILES stand-in, padded to B 128."""
+    from multimodalanalytical_tpu_torch.data.collator import MultiModalCollator
+    from multimodalanalytical_tpu_torch.data.preprocessing import RunLengthEncodingPreprocessor
+
+    rle = RunLengthEncodingPreprocessor()
+    rle.max_sequence_length = RLE_MAX_LEN
+    rle.tokenizer = FixedVocabTokenizer(r"\S+", (), (), RLE_VOCAB)
+    smiles = FixedVocabTokenizer()
+    collator = MultiModalCollator({"RLE": rle, "Smiles": smiles}, RLE_DATA_CONFIG,
+                                  max_target_length=MAX_LENGTH, pad_to_batch_size=BATCH)
+    return collator, smiles
+
+
+def run_rle_serving() -> dict:
+    """Phase 12, serving an RLE model: phase 3's flagship-width RLE model
+    (bf16, int8 KV cache, seeded weights) behind ``InferenceEngine`` built
+    as the serve CLI builds it (a collator over RLE_DATA_CONFIG: its
+    constructor decodes a warm batch, so the first request captures
+    nothing), three seeded requests at B 128, K 10, max length 128 through
+    the decode graphs (rows of 2173-4090 tokens padded to 4090), every
+    decode kernel launched 6 x the replays and flash #5 6 x the requests
+    (the encoder at L >= 2048), bit-equal to the eager loop; s/batch with
+    the first request beside the steady ones, the device time, busy share
+    and kernel split of one profiled request, the encoder's ms and the peak
+    device memory. Returns the launches of #1-#3 and of #5's forward."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+    from multimodalanalytical_tpu_torch.training.trainer import to_device
+
+    phase_t0 = time.perf_counter()
+    flash_fwd = _flash_counters()[0]
+    torch.cuda.reset_peak_memory_stats()
+    model = _rle_model(dropout=0.0, use_flash=True)
+    collator, tokenizer = _rle_collator()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH, collator=collator,
+                             tokenizer=tokenizer)
+    build_s = time.perf_counter() - t0
+    warm = engine.warm_stats
+    _require(warm["graph"] and warm["warmup_steps"] > 0,
+             "the RLE engine's warm-up captured no decode graphs")
+    requests = [_rle_request(seed) for seed in RLE_REQUEST_SEEDS]
+    t0 = time.perf_counter()
+    engine.decode_batch(*requests[0])
+    first_s = time.perf_counter() - t0
+    first = engine.last_stats
+    _require(first["capture_s"] == 0 and first["warmup_steps"] == 0 and first["graph"],
+             "the first RLE request captured its decode graphs: the warm-up missed its shape")
+    valid = [round(int(mask.sum()) / BATCH, 1) for _, mask in requests]
+    print(f"RLE serving: Ls {RLE_MAX_LEN}, {valid} valid keys per row; engine built in "
+          f"{build_s:.4f} s (warm batch: capture {warm['capture_s']:.4f} s for "
+          f"{warm['warmup_steps']} stages); first request {first_s:.4f} s", flush=True)
+    launches, per_batch, results = _serve_requests(engine, requests, "RLE", model,
+                                                   encoder_counters=(flash_fwd,))
+    print(f"RLE serving: first request {first_s:.4f} s against a steady {per_batch:.4f} "
+          f"s/batch", flush=True)
+
+    dmodel = engine.model
+    inputs, mask = requests[1]
+    inputs, mask = to_device(inputs, DEVICE), torch.as_tensor(mask, device=DEVICE)
+    with torch.no_grad():
+        encode_ms = _time_ms(lambda: dmodel.encode(inputs, mask), iters=3)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        engine.decode_batch(*requests[1])
+        torch.cuda.synchronize()
+    device_s, rows, _, graphs = _device_time(prof)
+    split = _kernel_split(rows)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"RLE serving, one request profiled: device time {device_s:.4f} s (kernels and "
+          f"copies only), busy share {device_s / per_batch:.3f} (device / unprofiled s/batch), "
+          f"{graphs} graph launches; #2 cross attention {split['#2 cross attention']:.2f} ms, "
+          f"{100 * split['#2 cross attention'] / (device_s * 1e3):.1f}% of device time; encoder "
+          f"{encode_ms:.4f} ms per request (CUDA events); device ms by kernel "
+          f"{ {k: round(v, 2) for k, v in split.items()} }; peak device memory {peak_gb:.2f} GiB",
+          flush=True)
+    for ms, calls, kernel in rows[:PROFILE_TOP]:
+        print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
+              f"{kernel[:100]}", flush=True)
+    _require(graphs >= results[1][2]["replays"], "the profiled request did not replay graphs")
+    del engine, model, dmodel, inputs, mask
+    torch.cuda.empty_cache()
+    print(f"phase 12 done in {time.perf_counter() - phase_t0:.1f} s", flush=True)
     return launches
 
 
@@ -4240,6 +4517,10 @@ def main() -> int:
         print(smi, flush=True)
         time_ffn()
         return 0
+    if "--time-cross" in sys.argv[1:]:
+        print(smi, flush=True)
+        time_cross()
+        return 0
     if "--tensor-parallel" in sys.argv[1:]:
         print(smi, flush=True)
         run_tensor_parallel()
@@ -4252,6 +4533,7 @@ def main() -> int:
     records = check_kernels() + [check_ffn()]
     records[-1]["partial_mode"] = check_ffn_partial()
     records[1]["long_encoder"] = check_cross_long()
+    records[1]["rle_encoder"] = check_cross_rle()
     read_only = check_read_only_attention()
     dropout, dropout_phase1 = check_fused_dropout()
     records += check_flash_kernels()
@@ -4275,6 +4557,8 @@ def main() -> int:
         by_phase[name]["10"] = n
     for name, n in run_tensor_parallel().items():
         by_phase[name]["11"] = n
+    for name, n in run_rle_serving().items():
+        by_phase[name]["12"] = n
     for rec in records:
         rec["launches_by_phase"] = by_phase[rec["name"]]
         rec["launches"] = sum(by_phase[rec["name"]].values())

@@ -77,19 +77,40 @@
 // register budget follows the plan: 3 blocks per SM where shared memory
 // allows (K 10), else 2 (K 30).
 //
-// Cross attention is small (per block K x Ls x Dh) and bound by latency:
-// block (b, h) stages q (K x Dh) and a chunk of the encoder's K/V rows with
-// 16-byte cp.async copies, all in flight together; for bf16 it computes
-// S = Q K^T and P V on the tensor cores (mma.sync m16n8k16, K padded to 16
-// rows, keys to 16, head_dim to 16), S goes through shared memory for the
-// exact fp32 softmax with the additive bias, and P is rounded to bf16
-// before P V, as the plain version does. fp32 (fp32 models, tests) runs the
-// same staged structure on the FMA pipes. Ls up to 256 keys (Ls 26 for the
-// flagship) is one chunk: one load of q, K, V and the bias, the logits kept
-// in shared memory, one pass. Longer encoders (an RLE source runs to 4090
-// tokens) take the two-pass form in chunks of 256 keys (fewer when shared
-// memory is short): first the running max and sum per beam, then S again,
-// P and P V.
+// Cross attention reads each batch row's encoder K/V once per head and does
+// ~4 K flops per element of it (K <= 30 beams): bound by bytes, and at the
+// flagship's Ls 26 by latency. A block stages q (K x Dh) and its keys' K/V
+// rows and bias with 16-byte cp.async copies, all in flight together; for
+// bf16 it computes S = Q K^T and P V on the tensor cores (mma.sync
+// m16n8k16, K padded to 16 rows, keys to 16, head_dim to 16), S goes through
+// shared memory for the exact fp32 softmax with the additive bias, and P =
+// exp(S - m) / l with the row's max m and sum l is rounded to bf16 before
+// P V, where the plain version and the Pallas kernel round it. fp32 (fp32
+// models, tests) runs the same staged structure on the FMA pipes.
+//
+// Ls up to the plan's one-pass limit (ops/beam_attention.py cross_plan; Ls
+// 26 for the flagship) is one pass: block (b, h) takes every key. Longer
+// encoders (the multimodal recipe's 279, an RLE source's up to 4090) take
+// the split form: tiles of the plan's keys, a block each, grid (tiles,
+// heads, batch), so that every block's copies are in flight at once and a
+// small batch still fills the card. The P rounding needs each row's global m
+// and l before any P V, so it is two launches. The first computes each
+// tile's logits and their max and sum (reading K and the bias only) and
+// writes the logits to the workspace (reading 8 K bytes a key back measured
+// faster than reading K again and recomputing them, at K 1, 10 and 30). The
+// second folds the stats into m and l, skips every tile whose largest logit
+// lies more than kSkipLogit below each beam's m (it adds exactly 0: the
+// padded tail of an RLE row reads no logits or V there), forms P and the
+// tile's fp32 P V partial, and the last block of each (row, head), found by
+// an atomic ticket, adds the live partials in tile order, so that two calls
+// are bit-equal. The workspace (tickets, stats, partials, logits) is a torch
+// tensor the wrapper allocates, so a captured decode graph holds it in its
+// pool. What bounds the split form on the H100 (PERF.md): instruction issue
+// more than the HBM rate. Each tile's block runs a serial chain of copies,
+// products, row reductions and the ticket, and about 8 blocks share an SM
+// (copies without index divisions and ldmatrix fragments measured faster
+// for that reason); at K 30 the workspace's logits and partials also
+// double the bytes of K and V. A ring of tiles per block measured slower.
 //
 // The TPU kernel's block-diagonal head packing, 64-row aligned append
 // window and lane-padded scale operands exist for the TPU's matrix unit and
@@ -106,7 +127,10 @@ constexpr int kStages = 2;
 constexpr int kStageBytes = 24 * 1024;
 constexpr int kRowPad = 16;
 constexpr int kCrossThreads = 256;
-constexpr int kCrossMaxChunk = 256;
+// A tile whose largest logit lies more than this below its row's max holds
+// only keys whose exp(S - max) is exactly 0 in fp32 (it underflows past
+// about -104; the margin leaves room for expf's last-bit error).
+constexpr float kSkipLogit = 128.f;
 constexpr int kMaxHeadDim = 256;
 constexpr size_t kMaxSmem = 232448;   // 227 KB of dynamic shared memory per block
 constexpr size_t kDefaultSmem = 48 * 1024;
@@ -189,13 +213,19 @@ __host__ __device__ inline SelectLayout select_layout(int beams, int head_dim, i
   return l;
 }
 
-// Shared-memory plan of the cross kernel for one chunk of keys.
+// Shared-memory plan of a cross-attention block over `chunk` keys: the
+// beams' q rows, the keys' K rows and bias (`keys`: the block computes the
+// logits; else it reads them back from the workspace), the V rows
+// (`values`), the logits, P and the output (`values`), the beams' max and
+// sum, and for the split form's value block (`tiles` > 0) a live flag per
+// tile of its (row, head) and the last-block flag.
 struct CrossLayout {
   int m_pad, dk, q_stride, k_stride, v_stride, s_stride, p_stride;
-  size_t off_k, off_v, off_bias, off_s, off_p, off_o, off_stat, total;
+  size_t off_k, off_v, off_bias, off_s, off_p, off_o, off_stat, off_live, total;
 };
 
-__host__ __device__ inline CrossLayout cross_layout(int beams, int head_dim, int chunk, int elt) {
+__host__ __device__ inline CrossLayout cross_layout(int beams, int head_dim, int chunk, int elt,
+                                                    bool keys, bool values, int tiles) {
   CrossLayout l;
   l.m_pad = round_up(beams, 16);
   l.dk = round_up(head_dim, 16);
@@ -204,23 +234,49 @@ __host__ __device__ inline CrossLayout cross_layout(int beams, int head_dim, int
   l.v_stride = head_dim + 8;
   l.s_stride = chunk + 4;
   l.p_stride = chunk + 8;
-  size_t off = align16(static_cast<size_t>(l.m_pad) * l.q_stride * elt);
+  size_t off = keys ? align16(static_cast<size_t>(l.m_pad) * l.q_stride * elt) : 0;  // q at 0
   l.off_k = off;
-  off += align16(static_cast<size_t>(chunk) * l.k_stride * elt);
+  off += keys ? align16(static_cast<size_t>(chunk) * l.k_stride * elt) : 0;
   l.off_v = off;
-  off += align16(static_cast<size_t>(chunk) * l.v_stride * elt);
+  off += values ? align16(static_cast<size_t>(chunk) * l.v_stride * elt) : 0;
   l.off_bias = off;
-  off += align16(static_cast<size_t>(chunk) * 4);
+  off += keys ? align16(static_cast<size_t>(chunk) * 4) : 0;
   l.off_s = off;
   off += align16(static_cast<size_t>(l.m_pad) * l.s_stride * 4);
   l.off_p = off;
-  off += align16(static_cast<size_t>(l.m_pad) * l.p_stride * elt);
+  off += values ? align16(static_cast<size_t>(l.m_pad) * l.p_stride * elt) : 0;
   l.off_o = off;
-  off += align16(static_cast<size_t>(l.m_pad) * head_dim * 4);
+  off += values ? align16(static_cast<size_t>(l.m_pad) * head_dim * 4) : 0;
   l.off_stat = off;
   off += align16(static_cast<size_t>(l.m_pad) * 2 * 4);
+  l.off_live = off;
+  off += tiles > 0 ? align16((static_cast<size_t>(tiles) + 1) * 4) : 0;
   l.total = off;
   return l;
+}
+
+// Global workspace of the split form (ops/beam_attention.py
+// cross_workspace_bytes computes the same bytes): one ticket per (row,
+// head), then per (row, head, tile, beam) the tile's logit max and sum of
+// exp(S - max), its fp32 P V partial and its logits, tile_keys of them.
+struct CrossWorkspace {
+  size_t off_stats, off_part, off_logits, total;
+};
+
+__host__ __device__ inline CrossWorkspace cross_workspace(int batch, int beams, int heads,
+                                                          int head_dim, int tiles,
+                                                          int tile_keys) {
+  CrossWorkspace w;
+  const size_t rows = static_cast<size_t>(batch) * heads * tiles * beams;
+  size_t off = align16(static_cast<size_t>(batch) * heads * 4);
+  w.off_stats = off;
+  off += align16(rows * 8);
+  w.off_part = off;
+  off += align16(rows * head_dim * 4);
+  w.off_logits = off;
+  off += align16(rows * tile_keys * 4);
+  w.total = off;
+  return w;
 }
 
 // ---------------------------------------------------------------- copies
@@ -607,13 +663,29 @@ __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, u
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Fragments of 8 x 8 bf16 matrices from shared memory: each lane gives one
+// 16-byte row address (lanes 0-7 matrix 0, 8-15 matrix 1, ...), each lane
+// receives its pair of every matrix as mma.sync lays A and B out (.trans:
+// of the transposed matrix).
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t r[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
 }
 
 // S[m][j] = q_s[m] . k_s[j] + bias[j] for the chunk's nk keys (-inf past
@@ -626,14 +698,20 @@ __device__ __forceinline__ void cross_logits(const CrossLayout& l, const T* q_s,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, gc = lane & 3;
     const int mt = l.m_pad / 16, ntl = nk_pad / 8;
+    // ldmatrix row addresses: lane l names row l & 7 of 8 x 8 matrix l >> 3
+    // (A: rows m0.., m0 + 8.. at columns kk, kk + 8; B: keys n0.. at kk, kk + 8).
+    const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+    const int b_row = lane & 7, b_col = ((lane >> 3) & 1) * 8;
     for (int tile = warp; tile < mt * ntl; tile += blockDim.x >> 5) {
       const int m0 = (tile / ntl) * 16, n0 = (tile % ntl) * 8;
+      const T* qa = q_s + (m0 + a_row) * l.q_stride + a_col;
+      const T* kb = k_s + (n0 + b_row) * l.k_stride + b_col;
       float c[4] = {0.f, 0.f, 0.f, 0.f};
       for (int kk = 0; kk < l.dk; kk += 16) {
-        const T* qa = q_s + (m0 + gr) * l.q_stride + kk + 2 * gc;
-        const T* kb = k_s + (n0 + gr) * l.k_stride + kk + 2 * gc;
-        mma_bf16(c, ld_pair(qa), ld_pair(qa + 8 * l.q_stride), ld_pair(qa + 8),
-                 ld_pair(qa + 8 * l.q_stride + 8), ld_pair(kb), ld_pair(kb + 8));
+        uint32_t a[4], b[2];
+        ldsm_x4(a, qa + kk);
+        ldsm_x2(b, kb + kk);
+        mma_bf16(c, a[0], a[1], a[2], a[3], b[0], b[1]);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -665,19 +743,24 @@ __device__ __forceinline__ void cross_values(const CrossLayout& l, const T* p_s,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, gc = lane & 3;
     const int mt = l.m_pad / 16, ntl = head_dim / 8;
+    // ldmatrix row addresses as in cross_logits; V's matrices are keys kk..
+    // and kk + 8.. at columns n0.., transposed into the B fragment.
+    const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+    const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
     for (int tile = warp; tile < mt * ntl; tile += blockDim.x >> 5) {
       const int m0 = (tile / ntl) * 16, n0 = (tile % ntl) * 8;
+      const T* pa = p_s + (m0 + a_row) * l.p_stride + a_col;
+      const T* vb = v_s + b_row * l.v_stride + n0;
       float c[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         c[e] = o_s[(m0 + gr + (e >= 2 ? 8 : 0)) * head_dim + n0 + 2 * gc + (e & 1)];
       }
       for (int kk = 0; kk < nk_pad; kk += 16) {
-        const T* pa = p_s + (m0 + gr) * l.p_stride + kk + 2 * gc;
-        const T* vb = v_s + (kk + 2 * gc) * l.v_stride + n0 + gr;
-        mma_bf16(c, ld_pair(pa), ld_pair(pa + 8 * l.p_stride), ld_pair(pa + 8),
-                 ld_pair(pa + 8 * l.p_stride + 8), pack_pair(vb[0], vb[l.v_stride]),
-                 pack_pair(vb[8 * l.v_stride], vb[9 * l.v_stride]));
+        uint32_t a[4], b[2];
+        ldsm_x4(a, pa + kk);
+        ldsm_x2_trans(b, vb + kk * l.v_stride);
+        mma_bf16(c, a[0], a[1], a[2], a[3], b[0], b[1]);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -696,81 +779,92 @@ __device__ __forceinline__ void cross_values(const CrossLayout& l, const T* p_s,
   }
 }
 
-// Grid (heads, batch), kCrossThreads threads; `chunk` keys per pass (a
-// multiple of 16), one pass when ls <= chunk.
+// exp(x) (over l) where it is not exactly 0 in fp32: below -kSkipLogit it
+// underflows, so a masked key (bias -1e9) costs no exponential or division.
+__device__ __forceinline__ float exp_or_zero(float x) {
+  return x < -kSkipLogit ? 0.f : expf(x);
+}
+__device__ __forceinline__ float prob(float x, float l) {
+  return x < -kSkipLogit ? 0.f : expf(x) / l;
+}
+
+// `rows` rows of one head's slice (head_dim elements at src + j * d_model)
+// staged at dst, pitch `stride`, with 16-byte cp.async copies (not
+// committed): each thread copies one 16-byte piece of every step-th row, so
+// that no copy pays an index division; rows [rows, rows_pad) and columns
+// [head_dim, width) zero.
 template <typename T>
-__global__ void __launch_bounds__(kCrossThreads) cross_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, T* __restrict__ out, int beams, int heads, int head_dim,
-    int ls, int chunk, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const CrossLayout l = cross_layout(beams, head_dim, chunk, sizeof(T));
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = reinterpret_cast<T*>(smem + l.off_k);
-  T* v_s = reinterpret_cast<T*>(smem + l.off_v);
-  float* bias_s = reinterpret_cast<float*>(smem + l.off_bias);
-  float* s_s = reinterpret_cast<float*>(smem + l.off_s);
-  T* p_s = reinterpret_cast<T*>(smem + l.off_p);
-  float* o_s = reinterpret_cast<float*>(smem + l.off_o);
-  float* m_s = reinterpret_cast<float*>(smem + l.off_stat);
-  float* l_s = m_s + l.m_pad;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int nwarps = nthreads >> 5;
-  const int d_model = heads * head_dim;
-  const size_t head_off = static_cast<size_t>(h) * head_dim;
-  const size_t row0 = static_cast<size_t>(b) * beams;
+__device__ __forceinline__ void stage_head_rows(T* dst, int stride, const T* src, int d_model,
+                                                int rows, int rows_pad, int head_dim,
+                                                int width) {
   constexpr int kPer = 16 / sizeof(T);
   const int pieces = head_dim / kPer;
-  const int n_chunks = (ls + chunk - 1) / chunk;
-  const bool one_pass = n_chunks == 1;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
+  const int step = blockDim.x / pieces;   // rows per pass
+  const int row = tid / pieces;
+  const int col = (tid - row * pieces) * kPer;
+  if (row < step) {
+    const T* s = src + static_cast<size_t>(row) * d_model + col;
+    T* d = dst + row * stride + col;
+    for (int j = row; j < rows; j += step) {
+      cp_async<16>(d, s);
+      s += static_cast<size_t>(step) * d_model;
+      d += step * stride;
+    }
+  }
   const T zero = from_f32<T>(0.f);
-
-  // Stage the keys [c * chunk, ...) (and their values) and the bias, all
-  // copies in flight together; rows past the chunk's keys and columns past
-  // head_dim are zero (a warp per row, lanes over columns).
-  auto stage = [&](int c, bool with_v) {
-    const int j0 = c * chunk;
-    const int nk = imin(chunk, ls - j0);
-    const T* ksrc = k + (static_cast<size_t>(b) * ls + j0) * d_model + head_off;
-    const T* vsrc = v + (static_cast<size_t>(b) * ls + j0) * d_model + head_off;
-    for (int i = tid; i < nk * pieces; i += nthreads) {
-      const int j = i / pieces, e = (i - j * pieces) * kPer;
-      cp_async<16>(k_s + j * l.k_stride + e, ksrc + static_cast<size_t>(j) * d_model + e);
-      if (with_v) cp_async<16>(v_s + j * l.v_stride + e, vsrc + static_cast<size_t>(j) * d_model + e);
-    }
-    for (int j = tid; j < nk; j += nthreads) cp_async<4>(bias_s + j, bias + static_cast<size_t>(b) * ls + j0 + j);
-    cp_async_commit();
-    const int nk_pad = round_up(nk, 16);
-    for (int j = warp; j < nk_pad; j += nwarps) {
-      for (int d = (j < nk ? head_dim : 0) + lane; d < l.dk; d += 32) k_s[j * l.k_stride + d] = zero;
-      if (with_v && j >= nk) {
-        for (int d = lane; d < head_dim; d += 32) v_s[j * l.v_stride + d] = zero;
-      }
-    }
-    return nk;
-  };
-
-  // q rows (scaled and rounded below), their pad, the first chunk.
-  for (int i = tid; i < beams * pieces; i += nthreads) {
-    const int n = i / pieces, e = (i - n * pieces) * kPer;
-    cp_async<16>(q_s + n * l.q_stride + e, q + (row0 + n) * d_model + head_off + e);
+  for (int j = rows + warp; j < rows_pad; j += nwarps) {
+    for (int c = lane; c < width; c += 32) dst[j * stride + c] = zero;
   }
-  for (int m = warp; m < l.m_pad; m += nwarps) {
-    for (int d = (m < beams ? head_dim : 0) + lane; d < l.dk; d += 32) q_s[m * l.q_stride + d] = zero;
-    for (int d = lane; d < head_dim; d += 32) o_s[m * head_dim + d] = 0.f;
-    if (lane == 0) {
-      m_s[m] = -INFINITY;
-      l_s[m] = 0.f;
+  if (width > head_dim) {
+    for (int j = warp; j < rows; j += nwarps) {
+      for (int c = head_dim + lane; c < width; c += 32) dst[j * stride + c] = zero;
     }
   }
-  int nk = stage(0, one_pass);
-  cp_async_wait<0>();
-  __syncthreads();
+}
+
+// The beams' q rows of head h and keys [j0, j0 + nk) of batch row b (K rows
+// and bias), staged (not committed).
+template <typename T>
+__device__ __forceinline__ void stage_keys(const CrossLayout& l, unsigned char* smem, const T* q,
+                                           const T* k, const float* bias, int b, int h,
+                                           int beams, int heads, int head_dim, int ls, int j0,
+                                           int nk) {
+  const int d_model = heads * head_dim;
+  const size_t head_off = static_cast<size_t>(h) * head_dim;
+  stage_head_rows(reinterpret_cast<T*>(smem), l.q_stride,
+                  q + static_cast<size_t>(b) * beams * d_model + head_off, d_model, beams,
+                  l.m_pad, head_dim, l.dk);
+  stage_head_rows(reinterpret_cast<T*>(smem + l.off_k), l.k_stride,
+                  k + (static_cast<size_t>(b) * ls + j0) * d_model + head_off, d_model, nk,
+                  round_up(nk, 16), head_dim, l.dk);
+  float* bias_s = reinterpret_cast<float*>(smem + l.off_bias);
+  for (int j = threadIdx.x; j < nk; j += blockDim.x) {
+    cp_async<4>(bias_s + j, bias + static_cast<size_t>(b) * ls + j0 + j);
+  }
+}
+
+// Keys [j0, j0 + nk) of batch row b's V rows of head h, staged (not
+// committed).
+template <typename T>
+__device__ __forceinline__ void stage_values(const CrossLayout& l, unsigned char* smem,
+                                             const T* v, int b, int h, int heads, int head_dim,
+                                             int ls, int j0, int nk) {
+  const int d_model = heads * head_dim;
+  stage_head_rows(reinterpret_cast<T*>(smem + l.off_v), l.v_stride,
+                  v + (static_cast<size_t>(b) * ls + j0) * d_model +
+                      static_cast<size_t>(h) * head_dim,
+                  d_model, nk, round_up(nk, 16), head_dim, head_dim);
+}
+
+// Once stage_keys' copies have landed: q * scale rounded to T (as the plain
+// version rounds q * Dh^-0.5), then the nk keys' logits with the bias.
+template <typename T>
+__device__ __forceinline__ void scaled_logits(const CrossLayout& l, unsigned char* smem,
+                                              int beams, int head_dim, int nk, float scale) {
+  T* q_s = reinterpret_cast<T*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   for (int m = warp; m < beams; m += nwarps) {
     for (int d = lane; d < head_dim; d += 32) {
       T* x = q_s + m * l.q_stride + d;
@@ -778,71 +872,237 @@ __global__ void __launch_bounds__(kCrossThreads) cross_attention_kernel(
     }
   }
   __syncthreads();
+  cross_logits(l, q_s, reinterpret_cast<const T*>(smem + l.off_k),
+               reinterpret_cast<const float*>(smem + l.off_bias),
+               reinterpret_cast<float*>(smem + l.off_s), beams, head_dim, nk, round_up(nk, 16));
+  __syncthreads();
+}
 
-  // Pass 1: the running max and sum of every beam's row (with one chunk,
-  // also its probabilities, rounded to T).
-  for (int c = 0; c < n_chunks; ++c) {
-    if (c > 0) {
-      nk = stage(c, false);
-      cp_async_wait<0>();
-      __syncthreads();
+// P = exp(S - m) / l rounded to T for the nk keys of each beam row, given
+// the row's max and sum (m_s, l_s); zero past them and on the pad rows.
+template <typename T>
+__device__ __forceinline__ void cross_probs(const CrossLayout& l, unsigned char* smem, int beams,
+                                            int nk, const float* m_s, const float* l_s) {
+  const float* s_s = reinterpret_cast<const float*>(smem + l.off_s);
+  T* p_s = reinterpret_cast<T*>(smem + l.off_p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int nk_pad = round_up(nk, 16);
+  for (int m = warp; m < l.m_pad; m += nwarps) {
+    const float* s = s_s + m * l.s_stride;
+    for (int j = lane; j < nk_pad; j += 32) {
+      p_s[m * l.p_stride + j] =
+          from_f32<T>(m < beams && j < nk ? prob(s[j] - m_s[m], l_s[m]) : 0.f);
     }
-    const int nk_pad = round_up(nk, 16);
-    cross_logits(l, q_s, k_s, bias_s, s_s, beams, head_dim, nk, nk_pad);
-    __syncthreads();
-    for (int m = warp; m < l.m_pad; m += nwarps) {
-      const float* s = s_s + m * l.s_stride;
-      T* pr = p_s + m * l.p_stride;
-      if (m >= beams) {
-        for (int j = lane; j < nk_pad; j += 32) pr[j] = zero;
-        continue;
-      }
-      float mx = -INFINITY;
-      for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, s[j]);
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m_s[m], mx);
-      float sum = 0.f;
-      for (int j = lane; j < nk; j += 32) sum += expf(s[j] - m_new);
-      sum = warp_sum(sum);
-      if (one_pass) {
-        for (int j = lane; j < nk_pad; j += 32) {
-          pr[j] = from_f32<T>(j < nk ? expf(s[j] - m_new) / sum : 0.f);
-        }
-      } else if (lane == 0) {
-        l_s[m] = (m_s[m] == -INFINITY ? 0.f : l_s[m] * expf(m_s[m] - m_new)) + sum;
-        m_s[m] = m_new;
-      }
-    }
-    __syncthreads();
   }
-  // Pass 2 (several chunks): S again, P = exp(S - max) / sum rounded to T;
-  // then O += P V.
-  for (int c = 0; c < n_chunks; ++c) {
-    const int nk_pad = round_up(nk, 16);
-    if (!one_pass) {
-      nk = stage(c, true);
-      cp_async_wait<0>();
-      __syncthreads();
-      const int nk_pad2 = round_up(nk, 16);
-      cross_logits(l, q_s, k_s, bias_s, s_s, beams, head_dim, nk, nk_pad2);
-      __syncthreads();
-      for (int m = warp; m < l.m_pad; m += nwarps) {
-        const float* s = s_s + m * l.s_stride;
-        for (int j = lane; j < nk_pad2; j += 32) {
-          p_s[m * l.p_stride + j] = from_f32<T>(
-              m < beams && j < nk ? expf(s[j] - m_s[m]) / l_s[m] : 0.f);
-        }
-      }
-      __syncthreads();
-      cross_values(l, p_s, v_s, o_s, beams, head_dim, nk, nk_pad2);
-    } else {
-      cross_values(l, p_s, v_s, o_s, beams, head_dim, nk, nk_pad);
-    }
-    __syncthreads();
-  }
+}
+
+// Per beam row of the logits: their max and the sum of exp(S - max) over
+// the nk keys (held by every lane of the row's warp), by `fn(m, max, sum)`.
+template <typename Fn>
+__device__ __forceinline__ void row_stats(const CrossLayout& l, const float* s_s, int beams,
+                                          int nk, Fn fn) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   for (int m = warp; m < beams; m += nwarps) {
-    T* o = out + (row0 + m) * d_model + head_off;
+    const float* s = s_s + m * l.s_stride;
+    float mx = -INFINITY;
+    for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, s[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < nk; j += 32) sum += exp_or_zero(s[j] - mx);
+    sum = warp_sum(sum);
+    fn(m, mx, sum);
+  }
+}
+
+// One pass (Ls up to the plan's one-pass limit): grid (heads, batch). q, K,
+// V and the bias staged together, the exact softmax of each beam's logits,
+// P rounded to T, P V.
+template <typename T>
+__global__ void __launch_bounds__(kCrossThreads) cross_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, T* __restrict__ out, int beams, int heads, int head_dim,
+    int ls, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const CrossLayout l = cross_layout(beams, head_dim, round_up(ls, 16), sizeof(T), true, true, 0);
+  float* o_s = reinterpret_cast<float*>(smem + l.off_o);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
+  const int d_model = heads * head_dim;
+
+  stage_keys(l, smem, q, k, bias, b, h, beams, heads, head_dim, ls, 0, ls);
+  stage_values(l, smem, v, b, h, heads, head_dim, ls, 0, ls);
+  cp_async_commit();
+  for (int i = tid; i < l.m_pad * head_dim; i += blockDim.x) o_s[i] = 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  scaled_logits<T>(l, smem, beams, head_dim, ls, scale);
+  // Each warp's rows: the max and sum, then P, rounded to T.
+  const int nk_pad = round_up(ls, 16);
+  for (int m = warp; m < l.m_pad; m += nwarps) {
+    const float* s = reinterpret_cast<const float*>(smem + l.off_s) + m * l.s_stride;
+    T* p = reinterpret_cast<T*>(smem + l.off_p) + m * l.p_stride;
+    if (m >= beams) {
+      for (int j = lane; j < nk_pad; j += 32) p[j] = from_f32<T>(0.f);
+      continue;
+    }
+    float mx = -INFINITY;
+    for (int j = lane; j < ls; j += 32) mx = fmaxf(mx, s[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < ls; j += 32) sum += exp_or_zero(s[j] - mx);
+    sum = warp_sum(sum);
+    for (int j = lane; j < nk_pad; j += 32) {
+      p[j] = from_f32<T>(j < ls ? prob(s[j] - mx, sum) : 0.f);
+    }
+  }
+  __syncthreads();
+  cross_values(l, reinterpret_cast<const T*>(smem + l.off_p),
+               reinterpret_cast<const T*>(smem + l.off_v), o_s, beams, head_dim, ls,
+               round_up(ls, 16));
+  __syncthreads();
+  for (int m = warp; m < beams; m += nwarps) {
+    T* o = out + (static_cast<size_t>(b) * beams + m) * d_model + static_cast<size_t>(h) * head_dim;
     for (int d = lane; d < head_dim; d += 32) o[d] = from_f32<T>(o_s[m * head_dim + d]);
+  }
+}
+
+// The split form, launch 1 of 2: grid (tiles, heads, batch), block (t, h, b)
+// takes tile t (keys [t * tile_keys, ...)) of (b, h): its logits, then per
+// beam their max and sum of exp(S - max) into the workspace (and, with
+// the logits themselves). Block (0, h, b) resets (b, h)'s ticket.
+template <typename T>
+__global__ void __launch_bounds__(kCrossThreads) cross_stats_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const float* __restrict__ bias,
+    unsigned char* __restrict__ ws, int beams, int head_dim, int ls, int tile_keys, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = gridDim.x, heads = gridDim.y;
+  const CrossLayout l = cross_layout(beams, head_dim, tile_keys, sizeof(T), true, false, 0);
+  const CrossWorkspace w =
+      cross_workspace(gridDim.z, beams, heads, head_dim, tiles, tile_keys);
+  const size_t pair = static_cast<size_t>(b) * heads + h;
+  const size_t row0 = (pair * tiles + t) * beams;   // workspace row of beam 0
+  const int j0 = t * tile_keys;
+  const int nk = imin(tile_keys, ls - j0);
+  const int lane = threadIdx.x & 31;
+  const float* s_s = reinterpret_cast<const float*>(smem + l.off_s);
+
+  stage_keys(l, smem, q, k, bias, b, h, beams, heads, head_dim, ls, j0, nk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  scaled_logits<T>(l, smem, beams, head_dim, nk, scale);
+  float2* stats = reinterpret_cast<float2*>(ws + w.off_stats) + row0;
+  float* logits = reinterpret_cast<float*>(ws + w.off_logits) + row0 * tile_keys;
+  row_stats(l, s_s, beams, nk, [&](int m, float mx, float sum) {
+    if (lane == 0) stats[m] = make_float2(mx, sum);
+    for (int j = lane; j < nk; j += 32) {
+      logits[static_cast<size_t>(m) * tile_keys + j] = s_s[m * l.s_stride + j];
+    }
+  });
+  if (t == 0 && threadIdx.x == 0) reinterpret_cast<unsigned*>(ws)[pair] = 0u;
+}
+
+// The split form, launch 2 of 2: grid and tiles as cross_stats_kernel. Every
+// block first folds all tiles' stats into each beam's row max m and sum l
+// (the same fixed order in every block) and marks live the tiles whose
+// largest logit lies within kSkipLogit of some beam's m; the others hold
+// only keys whose exp(S - m) is exactly 0 in fp32, and their blocks read
+// nothing. A live block reads its logits back from the workspace, forms P =
+// exp(S - m) / l rounded to T, and writes its fp32 P V partial (its V rows
+// are the only rows of the encoder it reads); the last block of (b, h) to
+// take a ticket
+// adds the live tiles' partials in tile order (so that two calls are
+// bit-equal) and writes the output.
+template <typename T>
+__global__ void __launch_bounds__(kCrossThreads) cross_value_kernel(
+    const T* __restrict__ v, T* __restrict__ out, unsigned char* __restrict__ ws, int beams,
+    int head_dim, int ls, int tile_keys) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = gridDim.x, heads = gridDim.y;
+  const CrossLayout l = cross_layout(beams, head_dim, tile_keys, sizeof(T), false, true, tiles);
+  const CrossWorkspace w = cross_workspace(gridDim.z, beams, heads, head_dim, tiles, tile_keys);
+  const size_t pair = static_cast<size_t>(b) * heads + h;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
+  float* s_s = reinterpret_cast<float*>(smem + l.off_s);
+  float* o_s = reinterpret_cast<float*>(smem + l.off_o);
+  float* m_s = reinterpret_cast<float*>(smem + l.off_stat);
+  float* l_s = m_s + l.m_pad;
+  int* live_s = reinterpret_cast<int*>(smem + l.off_live);
+  int* last_s = live_s + tiles;
+  float* part = reinterpret_cast<float*>(ws + w.off_part) + pair * tiles * beams * head_dim;
+
+  for (int i = tid; i < tiles; i += blockDim.x) live_s[i] = 0;
+  __syncthreads();
+  const float2* stats =
+      reinterpret_cast<const float2*>(ws + w.off_stats) + pair * tiles * beams;
+  for (int m = warp; m < beams; m += nwarps) {
+    float mx = -INFINITY;
+    for (int i = lane; i < tiles; i += 32) mx = fmaxf(mx, stats[i * beams + m].x);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int i = lane; i < tiles; i += 32) {
+      const float2 st = stats[i * beams + m];
+      sum += st.y * expf(st.x - mx);
+      if (!(st.x < mx - kSkipLogit)) live_s[i] = 1;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      m_s[m] = mx;
+      l_s[m] = sum;
+    }
+  }
+  __syncthreads();
+
+  if (live_s[t]) {
+    const int j0 = t * tile_keys;
+    const int nk = imin(tile_keys, ls - j0);
+    const float* logits = reinterpret_cast<const float*>(ws + w.off_logits) +
+                          (pair * tiles + t) * beams * tile_keys;
+    // One 16-byte piece of every step-th beam's row per thread (the
+    // workspace rows hold tile_keys floats; pieces past nk are not read).
+    const int pieces = (nk + 3) / 4;
+    const int step = blockDim.x / (tile_keys / 4);
+    const int m0 = tid / (tile_keys / 4), c = 4 * (tid - m0 * (tile_keys / 4));
+    for (int m = m0; m0 < step && c < 4 * pieces && m < beams; m += step) {
+      cp_async<16>(s_s + m * l.s_stride + c, logits + static_cast<size_t>(m) * tile_keys + c);
+    }
+    cp_async_commit();
+    stage_values(l, smem, v, b, h, heads, head_dim, ls, j0, nk);
+    cp_async_commit();
+    for (int i = tid; i < l.m_pad * head_dim; i += blockDim.x) o_s[i] = 0.f;
+    cp_async_wait<1>();
+    __syncthreads();
+    cross_probs<T>(l, smem, beams, nk, m_s, l_s);
+    cp_async_wait<0>();
+    __syncthreads();
+    cross_values(l, reinterpret_cast<const T*>(smem + l.off_p),
+                 reinterpret_cast<const T*>(smem + l.off_v), o_s, beams, head_dim, nk,
+                 round_up(nk, 16));
+    __syncthreads();
+    float* mine = part + static_cast<size_t>(t) * beams * head_dim;
+    for (int i = tid; i < beams * head_dim; i += blockDim.x) mine[i] = o_s[i];
+  }
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    *last_s = atomicAdd(reinterpret_cast<unsigned*>(ws) + pair, 1u) ==
+              static_cast<unsigned>(tiles - 1);
+  }
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
+  const int d_model = heads * head_dim;
+  for (int i = tid; i < beams * head_dim; i += blockDim.x) {
+    const int m = i / head_dim, d = i - m * head_dim;
+    float o = 0.f;
+    for (int j = 0; j < tiles; ++j) {
+      if (live_s[j]) o += __ldcg(part + static_cast<size_t>(j) * beams * head_dim + i);
+    }
+    out[(static_cast<size_t>(b) * beams + m) * d_model + static_cast<size_t>(h) * head_dim + d] =
+        from_f32<T>(o);
   }
 }
 
@@ -900,30 +1160,74 @@ int launch_select(const void* q, const void* k_new, const void* v_new, void* cac
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cross plan (ops/beam_attention.py cross_plan): tile_keys >= Ls
+// rounded to 16 is the one-pass form; otherwise tile_keys is a multiple of
+// 16, at most 512, and the split form takes ceil(Ls / tile_keys) tiles per
+// (row, head), a block each. Returns the workspace bytes the plan needs (0 for one
+// pass), or -1 if the kernels do not take it.
+long long cross_workspace_bytes(int elt, int batch, int beams, int heads, int head_dim, int ls,
+                                int tile_keys) {
+  if (head_dim > kMaxHeadDim || head_dim % 8 != 0 || ls < 1 || beams < 1 || beams > 256 ||
+      batch < 1 || heads < 1 || tile_keys < 16 || tile_keys % 16 != 0) {
+    return -1;
+  }
+  if (tile_keys >= round_up(ls, 16)) {
+    return cross_layout(beams, head_dim, round_up(ls, 16), elt, true, true, 0).total <= kMaxSmem
+               ? 0 : -1;
+  }
+  const int tiles = (ls + tile_keys - 1) / tile_keys;
+  if (tile_keys > 512 || batch > 65535 || heads > 65535 ||
+      cross_layout(beams, head_dim, tile_keys, elt, true, false, 0).total > kMaxSmem ||
+      cross_layout(beams, head_dim, tile_keys, elt, false, true, tiles).total > kMaxSmem) {
+    return -1;
+  }
+  return static_cast<long long>(
+      cross_workspace(batch, beams, heads, head_dim, tiles, tile_keys).total);
+}
+
 template <typename T>
 int launch_cross(const void* q, const void* k, const void* v, const void* bias, void* out,
-                 int batch, int beams, int heads, int head_dim, int ls, float scale,
-                 cudaStream_t s) {
-  if (head_dim > kMaxHeadDim || head_dim % 8 != 0 || ls < 1) {
+                 void* workspace, long long workspace_bytes, int batch, int beams, int heads,
+                 int head_dim, int ls, int tile_keys, float scale, cudaStream_t s) {
+  const long long need =
+      cross_workspace_bytes(sizeof(T), batch, beams, heads, head_dim, ls, tile_keys);
+  if (need < 0 || workspace_bytes < need || (need > 0 && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int chunk = imin(round_up(ls, 16), kCrossMaxChunk);
-  while (chunk > 16 && cross_layout(beams, head_dim, chunk, sizeof(T)).total > kMaxSmem) {
-    chunk = round_up(chunk / 2, 16);
-  }
-  const size_t smem = cross_layout(beams, head_dim, chunk, sizeof(T)).total;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = cross_attention_kernel<T>;
-  static size_t reserved = 0;
-  const cudaError_t err = reserve_smem(kernel, smem, &reserved);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Half the threads where the beams fill one 16-row tile: the blocks of a
-  // flagship-sized grid then fit on the card at once.
+  // Half the threads where the beams fill one 16-row tile: more blocks then
+  // share an SM.
   const int threads = beams <= 16 ? kCrossThreads / 2 : kCrossThreads;
-  kernel<<<dim3(heads, batch), threads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<T*>(out), beams, heads, head_dim, ls, chunk,
-      scale);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const float* bt = static_cast<const float*>(bias);
+  if (need == 0) {
+    const size_t smem =
+        cross_layout(beams, head_dim, round_up(ls, 16), sizeof(T), true, true, 0).total;
+    static size_t reserved = 0;
+    const cudaError_t err = reserve_smem(cross_attention_kernel<T>, smem, &reserved);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cross_attention_kernel<T><<<dim3(heads, batch), threads, smem, s>>>(
+        qt, kt, vt, bt, static_cast<T*>(out), beams, heads, head_dim, ls, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int tiles = (ls + tile_keys - 1) / tile_keys;
+  const size_t stats_smem =
+      cross_layout(beams, head_dim, tile_keys, sizeof(T), true, false, 0).total;
+  const size_t value_smem =
+      cross_layout(beams, head_dim, tile_keys, sizeof(T), false, true, tiles).total;
+  static size_t reserved[2] = {0, 0};
+  cudaError_t err = reserve_smem(cross_stats_kernel<T>, stats_smem, &reserved[0]);
+  if (err == cudaSuccess) err = reserve_smem(cross_value_kernel<T>, value_smem, &reserved[1]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  const dim3 grid(tiles, heads, batch);
+  cross_stats_kernel<T><<<grid, threads, stats_smem, s>>>(qt, kt, bt, ws, beams, head_dim, ls,
+                                                          tile_keys, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cross_value_kernel<T><<<grid, threads, value_smem, s>>>(vt, static_cast<T*>(out), ws, beams,
+                                                          head_dim, ls, tile_keys);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1010,17 +1314,31 @@ int mmt_beam_select_attention(int quantized, const void* q, const void* cache,
       beams, heads, head_dim, flat, flat_pad, anc_row_stride, pos, length, scale, s);
 }
 
-// is_bf16: 1 for bf16 q/k/v/out, 0 for float32.
+// Bytes of global workspace a cross-attention launch needs for this plan
+// (0 for the one-pass form), -1 for a shape or plan the kernels do not
+// take; is_bf16 as mmt_beam_cross_attention's.
+long long mmt_beam_cross_workspace_bytes(int is_bf16, int batch, int beams, int heads,
+                                         int head_dim, int ls, int tile_keys) {
+  return mmt::cross_workspace_bytes(is_bf16 ? 2 : 4, batch, beams, heads, head_dim, ls,
+                                    tile_keys);
+}
+
+// is_bf16: 1 for bf16 q/k/v/out, 0 for float32. `tile_keys`: the plan
+// (cross_workspace_bytes); `workspace` holds `workspace_bytes` bytes, at
+// least what the plan needs. Returns the cudaError_t of the launches (0 on
+// success).
 int mmt_beam_cross_attention(int is_bf16, const void* q, const void* k, const void* v,
-                             const void* bias, void* out, int batch, int beams, int heads,
-                             int head_dim, int ls, float scale, void* stream) {
+                             const void* bias, void* out, void* workspace,
+                             long long workspace_bytes, int batch, int beams, int heads,
+                             int head_dim, int ls, int tile_keys, float scale, void* stream) {
   using namespace mmt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return launch_cross<__nv_bfloat16>(q, k, v, bias, out, batch, beams, heads, head_dim, ls,
-                                       scale, s);
+    return launch_cross<__nv_bfloat16>(q, k, v, bias, out, workspace, workspace_bytes, batch,
+                                       beams, heads, head_dim, ls, tile_keys, scale, s);
   }
-  return launch_cross<float>(q, k, v, bias, out, batch, beams, heads, head_dim, ls, scale, s);
+  return launch_cross<float>(q, k, v, bias, out, workspace, workspace_bytes, batch, beams,
+                             heads, head_dim, ls, tile_keys, scale, s);
 }
 
 }  // extern "C"

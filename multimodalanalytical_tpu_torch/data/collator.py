@@ -38,6 +38,27 @@ logger = logging.getLogger(__name__)
 TOKENIZED_TYPES = ("multiplets", "carbon", "msms_text", "msms_number")
 
 
+def _run_length_rows(prep, rows: Sequence[Any]) -> Dict[str, np.ndarray]:
+    """The run-length preprocessor's ids and mask, every row at its fixed
+    length (``max_sequence_length``, at most 4090). A None row (a record
+    without this modality, as the serve engine's warm batch sends one) is a
+    fully masked row of pad ids, the fully masked segment every other
+    modality gives a missing value; the preprocessor itself cannot encode
+    it (the JAX package's collator raises there)."""
+    rows = list(rows)
+    present = [i for i, row in enumerate(rows) if row is not None]
+    if len(present) == len(rows):
+        return prep(rows)
+    width = prep.max_sequence_length
+    out = {"input_ids": np.full((len(rows), width), prep.tokenizer.pad_token_id, np.int32),
+           "attention_mask": np.zeros((len(rows), width), np.int32)}
+    if present:
+        encoded = prep([rows[i] for i in present])
+        for key, value in out.items():
+            value[present] = encoded[key]
+    return out
+
+
 class MultiModalCollator:
     def __init__(
         self,
@@ -166,7 +187,7 @@ class MultiModalCollator:
                 mask_parts.append(out["attention_mask"])
 
             elif mtype == "run_length_encoding":
-                out = prep(columns[modality])
+                out = _run_length_rows(prep, columns[modality])
                 encoder_inputs[modality] = out["input_ids"]
                 mask_parts.append(out["attention_mask"])
 

@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from multimodalanalytical_tpu_torch.ops import _cuda  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import beam_attention as ba  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import decode_ffn  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import flash_attention as flash  # noqa: E402
@@ -89,9 +90,9 @@ def test_select_attention_update_matches_plain(gen, rows, head_dim, k):
     (4, 2, 16, 11), (1, 8, 64, 26), (10, 8, 64, 26), (30, 8, 64, 26), (10, 2, 8, 300),
     (10, 2, 64, 2100), (30, 2, 128, 2048)])
 def test_cross_attention_matches_plain(gen, dtype, k, heads, head_dim, ls):
-    """One pass up to 256 keys (the flagship's Ls 26), two passes beyond
-    (an RLE encoder's 2048-4090); batch row 2 is fully masked (the uniform
-    average, as the plain version gives)."""
+    """One pass up to 256 keys (the flagship's Ls 26), the split form
+    beyond (an RLE encoder's 2048-4090); batch row 2 is fully masked (the
+    uniform average, as the plain version gives)."""
     b = 3
     d = heads * head_dim
     q = torch.randn(b * k, d, generator=gen, device="cuda").to(dtype)
@@ -108,32 +109,109 @@ def test_cross_attention_matches_plain(gen, dtype, k, heads, head_dim, ls):
     _close(got, want, TOL if dtype == torch.bfloat16 else 1e-5)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("k", [1, 10, 30])
-@pytest.mark.parametrize("ls", [257, 271, 279, 300])
-def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
-    """Ls just past one 256-key chunk (the multimodal recipe's encoder is
-    279): a second chunk of 1-44 keys, not a multiple of 16. Row 0 is fully
-    masked (batch padding), row 1 has every key of the first chunk masked,
-    row 2 every key of the second, row 3 ragged padding: all finite, within
-    chip_smoke.py's max-error and error-norm limits of the plain version."""
-    b, heads, head_dim = 4, 8, 64
-    d = heads * head_dim
+def _cross_rows(gen, b, k, ls, d, dtype, tile):
+    """q, K, V and a bias over B rows: row 0 fully masked (batch padding),
+    row 1 with every key of the first tile masked, row 2 with every key
+    past the first tile masked, later rows ragged (whole tiles masked at
+    their tails)."""
     q = torch.randn(b * k, d, generator=gen, device="cuda").to(dtype)
     kv = [torch.randn(b, ls, d, generator=gen, device="cuda").to(dtype) for _ in range(2)]
     keep = torch.rand(b, ls, generator=gen, device="cuda") < 0.6
     keep[0] = False
-    keep[1, :256] = False
-    keep[1, 256] = True
-    keep[2, 256:] = False
+    keep[1, :tile] = False
+    keep[1, min(tile, ls - 1)] = True
+    keep[2, tile:] = False
     keep[2, 0] = True
-    bias = torch.where(keep, 0.0, -1e9).float()
+    keep[3:, ls // 3:] = False
+    return q, kv, torch.where(keep, 0.0, -1e9).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 10, 30])
+@pytest.mark.parametrize("ls", [257, 279, 300, 511, 1025, 2100, 4090])
+def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
+    """The split form (its stats and value launches) past the one-pass
+    limit: the multimodal recipe's Ls 279, an RLE encoder's 2100 and 4090,
+    and lengths whose last tile holds 1-127 keys. Row 0 is fully masked,
+    row 1 has its first tile masked, row 2 every tile past the first (their
+    blocks skip), later rows ragged: all finite, within chip_smoke.py's
+    max-error and error-norm limits of the plain version, and two calls
+    bit-equal."""
+    b, heads, head_dim = 5, 8, 64
+    d = heads * head_dim
+    plan = ba.cross_plan(b, k, heads, head_dim, ls, 2 if dtype == torch.bfloat16 else 4)
+    assert plan.workspace_bytes > 0
+    q, kv, bias = _cross_rows(gen, b, k, ls, d, dtype, plan.tile_keys)
     got = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    again = ba.beam_cross_attention(q, *kv, bias, heads, k)
     want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
     assert bool(torch.isfinite(got.float()).all())
+    assert torch.equal(got, again)
     _close(got, want, TOL if dtype == torch.bfloat16 else 1e-5)
     rms = ((got.float() - want.float()).norm() / want.float().norm()).item()
     assert rms <= (1e-3 if dtype == torch.bfloat16 else 1e-6), rms
+
+
+@pytest.mark.parametrize("tile_keys", [16, 64, 256, 512])
+def test_cross_attention_every_tile_size(gen, tile_keys):
+    """Plans the planner does not pick at the flagship widths: 16- to
+    512-key tiles at K 10 and Ls 1025 (ragged last tile), within the limits
+    of the plain version."""
+    b, k, heads, head_dim, ls = 5, 10, 8, 64, 1025
+    q, kv, bias = _cross_rows(gen, b, k, ls, heads * head_dim, torch.bfloat16, tile_keys)
+    plan = ba.split_plan(b, k, heads, head_dim, ls, tile_keys)
+    got = ba._cross_launch(q, *kv, bias, heads, k, plan)
+    want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
+    _close(got, want)
+    assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("elt", [2, 4])
+@pytest.mark.parametrize("beams,head_dim,ls", [(1, 64, 279), (10, 64, 279), (30, 64, 4090),
+                                               (10, 128, 2100), (128, 64, 300), (256, 32, 600),
+                                               (4, 256, 1025), (10, 64, 26)])
+def test_cross_workspace_bytes_match_the_c_side(gen, elt, beams, head_dim, ls):
+    """cross_plan's workspace bytes (its mirror of cross_workspace) are what
+    the launcher requires, for the plan and for every other tile size, or
+    -1 where cross_plan_fits refuses the tiles."""
+    lib = _cuda.library()
+    plan = ba.cross_plan(3, beams, 4, head_dim, ls, elt)
+    assert lib.mmt_beam_cross_workspace_bytes(int(elt == 2), 3, beams, 4, head_dim, ls,
+                                              plan.tile_keys) == plan.workspace_bytes
+    for tile in (16, 64, 128, 256, 512, 1024):
+        if tile < -(-ls // 16) * 16:
+            want = (ba.split_plan(3, beams, 4, head_dim, ls, tile).workspace_bytes
+                    if ba.cross_plan_fits(beams, head_dim, ls, elt, tile) else -1)
+            assert lib.mmt_beam_cross_workspace_bytes(int(elt == 2), 3, beams, 4, head_dim, ls,
+                                                      tile) == want, tile
+
+
+@pytest.mark.parametrize("ls", [279, 4090])
+def test_cross_attention_replays_in_a_cuda_graph(gen, ls):
+    """#2 captured in a CUDA graph (its workspace from the graph's pool) and
+    replayed on new inputs copied into the captured ones: equal to the eager
+    call on those inputs, bit for bit."""
+    b, k, heads, head_dim = 4, 10, 8, 64
+    d = heads * head_dim
+    q, kv, bias = _cross_rows(gen, b, k, ls, d, torch.bfloat16, 128)
+    static = [q.clone(), kv[0].clone(), kv[1].clone(), bias.clone()]
+    ba.beam_cross_attention(*static[:3], static[3], heads, k)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ba.beam_cross_attention(*static[:3], static[3], heads, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ba.beam_cross_attention(*static[:3], static[3], heads, k)
+    for seed in (1, 2):
+        gen.manual_seed(seed)
+        q2, kv2, bias2 = _cross_rows(gen, b, k, ls, d, torch.bfloat16, 64 * seed)
+        for dst, src in zip(static, [q2, *kv2, bias2]):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, ba.beam_cross_attention(q2, *kv2, bias2, heads, k))
 
 
 def _ffn_args(gen, m, d, f, gated, dtype=torch.float32):
@@ -805,7 +883,7 @@ def _multimodal_request(batch, seed, xval, carbon=54):
 
 @pytest.mark.parametrize("xval", [False, True], ids=["ids", "xval"])
 def test_multimodal_graph_decode_equals_eager_decode(gen, xval):
-    """The multimodal recipe's encoder (Ls 279, the cross kernel's two-pass
+    """The multimodal recipe's encoder (Ls 279, the cross kernel's split
     form) through the serving engine's graphs against its eager loop: two
     requests, then one with a shorter carbon width (Ls 255, one pass) that
     the engine captures apart; sequences and scores bit-equal, each decode
