@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile-eval   # phase 5's decodes and a serving request, profiled
     python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
     python3 chip_smoke.py --time-ffn       # the decode FFN's times alone (one JSON line)
-    python3 chip_smoke.py --time-cross     # cross attention's plans and SDPA (one JSON line)
+    python3 chip_smoke.py --time-cross     # cross attention and SDPA, device times (one JSON line)
     python3 chip_smoke.py --tensor-parallel  # phase 11 alone
     python3 chip_smoke.py --eval-path      # phase 5 alone
     python3 chip_smoke.py --time-host-copies  # the parts of a save's host copy, timed
@@ -193,7 +193,9 @@ line each, any failure raises and exits non-zero:
    128 through the decode graphs: #1-#3 launched 6 x the replays, flash #5
    6 x the requests (the encoder at L >= 2048), bit-equal to the eager
    loop; s/batch (the first request beside the steady ones), device time,
-   busy share, #2's share of it, the encoder's ms and the peak memory.
+   busy share, #2's share of it, the encoder's ms and the peak memory
+   with its parts (held between requests, a standalone encode, #2's
+   workspace).
 
 Phase 1 also holds #2's split form at the multimodal encoder's Ls 279 and
 at an RLE encoder's Ls 4090 (B 128, K 1, 10 and 30; rows fully masked,
@@ -1145,10 +1147,6 @@ def time_ffn() -> None:
     print(json.dumps({"ffn_times": times, "tree": str(REPO)}), flush=True)
 
 
-# ``--time-cross``: #2's plan and the alternatives it was chosen among.
-CROSS_TILE_CHOICES = (64, 128, 256)
-
-
 def _cross_time_inputs(g, ls: int) -> tuple:
     """B 128 encoder rows at Ls as phase 1 takes them: the multimodal
     request's masks at Ls 279, RLE lengths (RLE_MIN_LEN..RLE_MAX_LEN) at
@@ -1171,8 +1169,7 @@ def time_cross() -> None:
     Ls 26, 279 and 4090, K 1, 10 and 30, in turns with SDPA, with its bound
     from the valid keys, on whatever ``multimodalanalytical_tpu_torch`` sits
     beside this script (a copy of the script in an earlier tree times that
-    tree's kernel); where the tree plans #2 (``cross_plan``), also the split
-    form at every tile size of CROSS_TILE_CHOICES. One JSON line."""
+    tree's kernel). One JSON line."""
     import torch
     import torch.nn.functional as F
 
@@ -1189,14 +1186,6 @@ def time_cross() -> None:
             mask = bias[:, None, None, :].to(qx.dtype)
             runs = {"kernel": lambda: ba.beam_cross_attention(qx, kx, vx, bias, HEADS, beams),
                     "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)}
-            plan = None
-            if hasattr(ba, "cross_plan"):
-                plan = ba.cross_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, 2)
-                for tile in CROSS_TILE_CHOICES if plan.workspace_bytes else ():
-                    if ba.cross_plan_fits(beams, D_MODEL // HEADS, ls, 2, tile):
-                        alt = ba.split_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, tile)
-                        runs[f"tile {tile}"] = (
-                            lambda alt=alt: ba._cross_launch(qx, kx, vx, bias, HEADS, beams, alt))
             turns = {name: [] for name in runs}
             for _ in range(2):
                 for name, fn in runs.items():
@@ -1204,7 +1193,6 @@ def time_cross() -> None:
             bound = _bound_ms(4 * beams * valid * D_MODEL,
                               (2 * BATCH * beams + 2 * valid) * D_MODEL * 2 + bias.numel() * 4)
             times[f"Ls={ls} K={beams}"] = {
-                "tile_keys": None if plan is None else plan.tile_keys,
                 "valid_keys": valid, "bound_ms": bound[0], "bound_by": bound[1],
                 "device_ms": turns}
             print(f"time_cross Ls={ls} K={beams}: {json.dumps(times[f'Ls={ls} K={beams}'])}",
@@ -2770,10 +2758,13 @@ def run_rle_serving() -> dict:
     (the encoder at L >= 2048), bit-equal to the eager loop; s/batch with
     the first request beside the steady ones, the device time, busy share
     and kernel split of one profiled request, the encoder's ms and the peak
-    device memory. Returns the launches of #1-#3 and of #5's forward."""
+    device memory beside what is held between requests, a standalone
+    encode's peak and #2's workspace. Returns the launches of #1-#3 and of
+    #5's forward."""
     import torch
 
     from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
     from multimodalanalytical_tpu_torch.training.trainer import to_device
 
     phase_t0 = time.perf_counter()
@@ -2808,15 +2799,25 @@ def run_rle_serving() -> dict:
     dmodel = engine.model
     inputs, mask = requests[1]
     inputs, mask = to_device(inputs, DEVICE), torch.as_tensor(mask, device=DEVICE)
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    held_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         encode_ms = _time_ms(lambda: dmodel.encode(inputs, mask), iters=3)
+    encode_gb = torch.cuda.max_memory_allocated() / 2 ** 30 - held_gb
+    cross_ws = ba.cross_plan(BATCH, BEAMS, HEADS, D_MODEL // HEADS, RLE_MAX_LEN, 2)
+    print(f"RLE serving memory: peak {serve_peak_gb:.2f} GiB over the engine's build and the "
+          f"graph and eager requests; held between requests {held_gb:.2f} GiB (weights, "
+          f"request tensors, graph pools); a standalone encode adds {encode_gb:.2f} GiB at its "
+          f"peak; #2's split-form workspace {cross_ws.workspace_bytes} bytes a call (K "
+          f"{BEAMS}, Ls {RLE_MAX_LEN}, {cross_ws.tile_keys}-key tiles)", flush=True)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         engine.decode_batch(*requests[1])
         torch.cuda.synchronize()
     device_s, rows, _, graphs = _device_time(prof)
     split = _kernel_split(rows)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gb = max(serve_peak_gb, torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"RLE serving, one request profiled: device time {device_s:.4f} s (kernels and "
           f"copies only), busy share {device_s / per_batch:.3f} (device / unprofiled s/batch), "
           f"{graphs} graph launches; #2 cross attention {split['#2 cross attention']:.2f} ms, "

@@ -88,7 +88,7 @@
 // P V, where the plain version and the Pallas kernel round it. fp32 (fp32
 // models, tests) runs the same staged structure on the FMA pipes.
 //
-// Ls up to the plan's one-pass limit (ops/beam_attention.py cross_plan; Ls
+// Ls up to the plan's one-pass limit (cross_plan below; Ls
 // 26 for the flagship) is one pass: block (b, h) takes every key. Longer
 // encoders (the multimodal recipe's 279, an RLE source's up to 4090) take
 // the split form: tiles of the plan's keys, a block each, grid (tiles,
@@ -127,6 +127,8 @@ constexpr int kStages = 2;
 constexpr int kStageBytes = 24 * 1024;
 constexpr int kRowPad = 16;
 constexpr int kCrossThreads = 256;
+constexpr int kCrossOnePassKeys = 256;
+constexpr int kCrossTileKeys = 128;
 // A tile whose largest logit lies more than this below its row's max holds
 // only keys whose exp(S - max) is exactly 0 in fp32 (it underflows past
 // about -104; the margin leaves room for expf's last-bit error).
@@ -255,10 +257,9 @@ __host__ __device__ inline CrossLayout cross_layout(int beams, int head_dim, int
   return l;
 }
 
-// Global workspace of the split form (ops/beam_attention.py
-// cross_workspace_bytes computes the same bytes): one ticket per (row,
-// head), then per (row, head, tile, beam) the tile's logit max and sum of
-// exp(S - max), its fp32 P V partial and its logits, tile_keys of them.
+// Global workspace of the split form: one ticket per (row, head), then per
+// (row, head, tile, beam) the tile's logit max and sum of exp(S - max), its
+// fp32 P V partial and its logits, tile_keys of them.
 struct CrossWorkspace {
   size_t off_stats, off_part, off_logits, total;
 };
@@ -1160,38 +1161,48 @@ int launch_select(const void* q, const void* k_new, const void* v_new, void* cac
   return static_cast<int>(cudaGetLastError());
 }
 
-// The cross plan (ops/beam_attention.py cross_plan): tile_keys >= Ls
-// rounded to 16 is the one-pass form; otherwise tile_keys is a multiple of
-// 16, at most 512, and the split form takes ceil(Ls / tile_keys) tiles per
-// (row, head), a block each. Returns the workspace bytes the plan needs (0 for one
-// pass), or -1 if the kernels do not take it.
-long long cross_workspace_bytes(int elt, int batch, int beams, int heads, int head_dim, int ls,
-                                int tile_keys) {
+// The cross plan: an encoder of up to kCrossOnePassKeys keys (rounded to
+// 16) whose block fits shared memory takes the one-pass form; a longer one
+// the split form, in tiles of kCrossTileKeys keys (halved while a block
+// would pass kMaxSmem), a block each. tile_keys is -1 for a shape the
+// kernels do not take; workspace is 0 for the one-pass form.
+struct CrossPlan {
+  int tile_keys;
+  long long workspace;
+};
+
+CrossPlan cross_plan(int elt, int batch, int beams, int heads, int head_dim, int ls) {
+  CrossPlan p{-1, 0};
   if (head_dim > kMaxHeadDim || head_dim % 8 != 0 || ls < 1 || beams < 1 || beams > 256 ||
-      batch < 1 || heads < 1 || tile_keys < 16 || tile_keys % 16 != 0) {
-    return -1;
+      batch < 1 || heads < 1 || batch > 65535 || heads > 65535) {
+    return p;
   }
-  if (tile_keys >= round_up(ls, 16)) {
-    return cross_layout(beams, head_dim, round_up(ls, 16), elt, true, true, 0).total <= kMaxSmem
-               ? 0 : -1;
+  const int one_pass = round_up(ls, 16);
+  if (one_pass <= kCrossOnePassKeys &&
+      cross_layout(beams, head_dim, one_pass, elt, true, true, 0).total <= kMaxSmem) {
+    p.tile_keys = one_pass;
+    return p;
   }
-  const int tiles = (ls + tile_keys - 1) / tile_keys;
-  if (tile_keys > 512 || batch > 65535 || heads > 65535 ||
-      cross_layout(beams, head_dim, tile_keys, elt, true, false, 0).total > kMaxSmem ||
-      cross_layout(beams, head_dim, tile_keys, elt, false, true, tiles).total > kMaxSmem) {
-    return -1;
+  for (int tile = kCrossTileKeys; tile >= 16; tile /= 2) {
+    const int tiles = (ls + tile - 1) / tile;
+    if (cross_layout(beams, head_dim, tile, elt, true, false, 0).total <= kMaxSmem &&
+        cross_layout(beams, head_dim, tile, elt, false, true, tiles).total <= kMaxSmem) {
+      p.tile_keys = tile;
+      p.workspace = static_cast<long long>(
+          cross_workspace(batch, beams, heads, head_dim, tiles, tile).total);
+      return p;
+    }
   }
-  return static_cast<long long>(
-      cross_workspace(batch, beams, heads, head_dim, tiles, tile_keys).total);
+  return p;
 }
 
 template <typename T>
 int launch_cross(const void* q, const void* k, const void* v, const void* bias, void* out,
                  void* workspace, long long workspace_bytes, int batch, int beams, int heads,
-                 int head_dim, int ls, int tile_keys, float scale, cudaStream_t s) {
-  const long long need =
-      cross_workspace_bytes(sizeof(T), batch, beams, heads, head_dim, ls, tile_keys);
-  if (need < 0 || workspace_bytes < need || (need > 0 && workspace == nullptr)) {
+                 int head_dim, int ls, float scale, cudaStream_t s) {
+  const CrossPlan plan = cross_plan(sizeof(T), batch, beams, heads, head_dim, ls);
+  if (plan.tile_keys < 0 || workspace_bytes < plan.workspace ||
+      (plan.workspace > 0 && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // Half the threads where the beams fill one 16-row tile: more blocks then
@@ -1201,7 +1212,7 @@ int launch_cross(const void* q, const void* k, const void* v, const void* bias, 
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const float* bt = static_cast<const float*>(bias);
-  if (need == 0) {
+  if (plan.workspace == 0) {
     const size_t smem =
         cross_layout(beams, head_dim, round_up(ls, 16), sizeof(T), true, true, 0).total;
     static size_t reserved = 0;
@@ -1211,6 +1222,7 @@ int launch_cross(const void* q, const void* k, const void* v, const void* bias, 
         qt, kt, vt, bt, static_cast<T*>(out), beams, heads, head_dim, ls, scale);
     return static_cast<int>(cudaGetLastError());
   }
+  const int tile_keys = plan.tile_keys;
   const int tiles = (ls + tile_keys - 1) / tile_keys;
   const size_t stats_smem =
       cross_layout(beams, head_dim, tile_keys, sizeof(T), true, false, 0).total;
@@ -1314,31 +1326,33 @@ int mmt_beam_select_attention(int quantized, const void* q, const void* cache,
       beams, heads, head_dim, flat, flat_pad, anc_row_stride, pos, length, scale, s);
 }
 
-// Bytes of global workspace a cross-attention launch needs for this plan
-// (0 for the one-pass form), -1 for a shape or plan the kernels do not
-// take; is_bf16 as mmt_beam_cross_attention's.
-long long mmt_beam_cross_workspace_bytes(int is_bf16, int batch, int beams, int heads,
-                                         int head_dim, int ls, int tile_keys) {
-  return mmt::cross_workspace_bytes(is_bf16 ? 2 : 4, batch, beams, heads, head_dim, ls,
-                                    tile_keys);
+// The cross plan for this shape: returns its keys per tile (at least Ls
+// rounded to 16 for the one-pass form, else the split form's tiles), or -1
+// for a shape the kernels do not take, and stores the bytes of global
+// workspace a launch needs (0 for the one-pass form) in *workspace_bytes;
+// is_bf16 as mmt_beam_cross_attention's.
+int mmt_beam_cross_plan(int is_bf16, int batch, int beams, int heads, int head_dim, int ls,
+                        long long* workspace_bytes) {
+  const mmt::CrossPlan p = mmt::cross_plan(is_bf16 ? 2 : 4, batch, beams, heads, head_dim, ls);
+  *workspace_bytes = p.workspace;
+  return p.tile_keys;
 }
 
-// is_bf16: 1 for bf16 q/k/v/out, 0 for float32. `tile_keys`: the plan
-// (cross_workspace_bytes); `workspace` holds `workspace_bytes` bytes, at
-// least what the plan needs. Returns the cudaError_t of the launches (0 on
-// success).
+// is_bf16: 1 for bf16 q/k/v/out, 0 for float32. `workspace` holds
+// `workspace_bytes` bytes, at least what mmt_beam_cross_plan gives. Returns
+// the cudaError_t of the launches (0 on success).
 int mmt_beam_cross_attention(int is_bf16, const void* q, const void* k, const void* v,
                              const void* bias, void* out, void* workspace,
                              long long workspace_bytes, int batch, int beams, int heads,
-                             int head_dim, int ls, int tile_keys, float scale, void* stream) {
+                             int head_dim, int ls, float scale, void* stream) {
   using namespace mmt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return launch_cross<__nv_bfloat16>(q, k, v, bias, out, workspace, workspace_bytes, batch,
-                                       beams, heads, head_dim, ls, tile_keys, scale, s);
+                                       beams, heads, head_dim, ls, scale, s);
   }
   return launch_cross<float>(q, k, v, bias, out, workspace, workspace_bytes, batch, beams,
-                             heads, head_dim, ls, tile_keys, scale, s);
+                             heads, head_dim, ls, scale, s);
 }
 
 }  // extern "C"

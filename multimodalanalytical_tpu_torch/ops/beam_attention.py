@@ -41,6 +41,7 @@ the kernel or raises. The update is IN PLACE on ``cache`` and ``scales``
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional
@@ -318,82 +319,26 @@ def beam_cross_attention_plain(q, k, v, bias, num_heads, beams) -> torch.Tensor:
     return out.to(q.dtype).reshape(batch * beams, d_model)
 
 
-# The cross kernels' plan (csrc/beam_attention.cu cross_layout and
-# cross_workspace, mirrored here): encoders up to CROSS_ONE_PASS_KEYS keys
-# take the one-pass form; longer ones the split form, in tiles of
-# CROSS_TILE_KEYS keys (fewer where a block's shared memory would pass the
-# H100's 227 KB), a block each.
-CROSS_ONE_PASS_KEYS = 256
-CROSS_TILE_KEYS = 128
-SMEM_LIMIT = 232448       # kMaxSmem
-
-
-def _align16(x: int) -> int:
-    return (x + 15) // 16 * 16
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-def cross_smem(beams: int, head_dim: int, chunk: int, elt: int, keys: bool, values: bool,
-               tiles: int) -> int:
-    """Shared-memory bytes of a cross block (cross_layout's total)."""
-    m_pad, dk = _round_up(beams, 16), _round_up(head_dim, 16)
-    parts = [m_pad * (dk + 8) * elt if keys else 0, chunk * (dk + 8) * elt if keys else 0,
-             chunk * 4 if keys else 0, chunk * (head_dim + 8) * elt if values else 0,
-             m_pad * (chunk + 4) * 4, m_pad * (chunk + 8) * elt if values else 0,
-             m_pad * head_dim * 4 if values else 0, m_pad * 8, (tiles + 1) * 4 if tiles else 0]
-    return sum(_align16(p) for p in parts)
-
-
 @dataclasses.dataclass(frozen=True)
 class CrossPlan:
-    """How :func:`beam_cross_attention` takes an encoder of Ls keys: in
-    tiles of ``tile_keys`` keys, a block each (``tile_keys`` >= Ls rounded
-    to 16: the one-pass form), and the split form's workspace bytes."""
+    """How the cross kernels take an encoder of Ls keys (the C side's
+    cross_plan): in tiles of ``tile_keys`` keys, a block each
+    (``tile_keys`` >= Ls rounded to 16: the one-pass form), and the bytes
+    of workspace the split form needs."""
     tile_keys: int
     workspace_bytes: int
-
-
-def cross_workspace_bytes(batch: int, beams: int, heads: int, head_dim: int, tiles: int,
-                          tile_keys: int) -> int:
-    """The split form's workspace (cross_workspace): a ticket per (row,
-    head); per (row, head, tile, beam) the logits' max and sum, the fp32 P
-    V partial and the tile's logits."""
-    rows = batch * heads * tiles * beams
-    return (_align16(batch * heads * 4) + _align16(rows * 8) + _align16(rows * head_dim * 4)
-            + _align16(rows * tile_keys * 4))
-
-
-def split_plan(batch: int, beams: int, heads: int, head_dim: int, ls: int,
-               tile_keys: int) -> CrossPlan:
-    """The split form's plan at these tiles."""
-    return CrossPlan(tile_keys, cross_workspace_bytes(batch, beams, heads, head_dim,
-                                                      -(-ls // tile_keys), tile_keys))
-
-
-def cross_plan_fits(beams: int, head_dim: int, ls: int, elt: int, tile_keys: int) -> bool:
-    """Whether the split form takes these tiles (at most 512 keys) and its
-    blocks fit a block's shared memory."""
-    return tile_keys <= 512 and max(
-        cross_smem(beams, head_dim, tile_keys, elt, True, False, 0),
-        cross_smem(beams, head_dim, tile_keys, elt, False, True, -(-ls // tile_keys))
-    ) <= SMEM_LIMIT
 
 
 @functools.lru_cache(maxsize=None)
 def cross_plan(batch: int, beams: int, heads: int, head_dim: int, ls: int, elt: int) -> CrossPlan:
     """The plan for K beams against (B, Ls) encoder rows of ``heads`` heads
     of ``head_dim`` in ``elt``-byte elements (2 bf16, 4 fp32)."""
-    one_pass = _round_up(ls, 16)
-    if (one_pass <= CROSS_ONE_PASS_KEYS
-            and cross_smem(beams, head_dim, one_pass, elt, True, True, 0) <= SMEM_LIMIT):
-        return CrossPlan(one_pass, 0)
-    tile_keys = CROSS_TILE_KEYS
-    while tile_keys > 16 and not cross_plan_fits(beams, head_dim, ls, elt, tile_keys):
-        tile_keys //= 2
-    return split_plan(batch, beams, heads, head_dim, ls, tile_keys)
+    nbytes = ctypes.c_longlong()
+    tile_keys = _cuda.library().mmt_beam_cross_plan(int(elt == 2), batch, beams, heads,
+                                                    head_dim, ls, ctypes.byref(nbytes))
+    _cuda.require(tile_keys > 0, f"beam_cross_attention: no plan for K={beams} "
+                                 f"head_dim={head_dim} Ls={ls}")
+    return CrossPlan(tile_keys, nbytes.value)
 
 
 def beam_cross_attention(
@@ -428,23 +373,16 @@ def beam_cross_attention(
     require(all(t.is_cuda and t.device == q.device and t.data_ptr() % 16 == 0
                 for t in (q, k, v, bias)),
             "beam_cross_attention: operands must be 16-byte aligned on one device")
-    plan = cross_plan(batch, beams, num_heads, d_model // num_heads, ls, k.element_size())
-    out = _cross_launch(q, k, v, bias, num_heads, beams, plan)
-    beam_cross_attention.launches += 1
-    return out
-
-
-def _cross_launch(q, k, v, bias, num_heads, beams, plan: CrossPlan) -> torch.Tensor:
-    """Launch the cross kernels of ``plan`` on checked operands."""
-    batch, ls, d_model = k.shape
+    head_dim = d_model // num_heads
+    plan = cross_plan(batch, beams, num_heads, head_dim, ls, k.element_size())
     workspace = (torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=q.device)
                  if plan.workspace_bytes else None)
     out = torch.empty_like(q)
     _cuda.check(_cuda.library().mmt_beam_cross_attention(
         int(q.dtype == BF16), _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(bias),
         _cuda.ptr(out), _cuda.ptr(workspace), plan.workspace_bytes, batch, beams, num_heads,
-        d_model // num_heads, ls, plan.tile_keys,
-        (d_model // num_heads) ** -0.5, _cuda.stream()), "beam_cross_attention")
+        head_dim, ls, head_dim ** -0.5, _cuda.stream()), "beam_cross_attention")
+    beam_cross_attention.launches += 1
     return out
 
 

@@ -112,108 +112,33 @@ def _cross_operands(rng, ls, dtype):
     return (qj, kj, vj), (qt, kt, vt), bias
 
 
+@pytest.mark.parametrize("masks", ["ragged", "padded tails"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("ls", [11, 279, 600])
-def test_cross_matches_pallas_interpret(ls, dtype):
+@pytest.mark.parametrize("ls", [11, 256, 257, 279, 300, 600, 1025, 2100, 4090])
+def test_cross_matches_pallas_interpret(ls, dtype, masks):
     """The Pallas cross kernel in interpret mode against the port's plain
     version (what the kernels are held to on the card), at the flagship's
-    one-pass length and at split-form lengths (the multimodal recipe's 279,
-    and 600), in bf16 and fp32 (products in fp32, sums in another order)."""
+    one-pass length and its limit (256), and at split-form lengths (a last
+    tile of one key at 257, the multimodal recipe's 279, 300, 600, 1025, an
+    RLE encoder's 2100 and 4090), in bf16 and fp32 (products in fp32, sums
+    in another order). The masks: :func:`_cross_operands`' ragged rows, or
+    a run-length-encoded batch's padding (row 0 at full length, row 1 with
+    its valid keys ending at key 10, inside the split form's first tile,
+    row 2 fully masked); a fully masked row gives the uniform average."""
     rng = np.random.default_rng(3)
     jax_ops, port_ops, bias = _cross_operands(rng, ls, dtype)
+    if masks == "padded tails":
+        lengths = np.array([[ls], [min(ls, 10)], [0]])
+        bias = np.where(np.arange(ls)[None, :] < lengths, 0.0, -1e9).astype(np.float32)
     want = jax_beam.beam_cross_attention(*jax_ops, jnp.asarray(bias), H, K)
     got = port_beam.beam_cross_attention(*port_ops, torch.from_numpy(bias), H, K)
     assert port_beam.beam_cross_attention.launches == 0       # CPU: the plain version
+    tol = TOL if dtype == "bfloat16" else 1e-5
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               rtol=0, atol=TOL if dtype == "bfloat16" else 1e-5)
-
-
-@pytest.mark.parametrize("elt", [2, 4])
-@pytest.mark.parametrize("batch,beams,heads,head_dim,ls", [
-    (128, 10, 8, 64, 26), (128, 1, 8, 64, 279), (128, 10, 8, 64, 279), (128, 30, 8, 64, 279),
-    (128, 10, 8, 64, 4090), (128, 30, 8, 64, 4090), (3, 4, 2, 128, 2100), (2, 128, 8, 64, 300),
-    (2, 256, 16, 32, 600), (1, 32, 4, 256, 1025), (4, 10, 8, 64, 256), (4, 10, 8, 64, 257)])
-def test_cross_plan_covers_every_key_once(elt, batch, beams, heads, head_dim, ls):
-    """The plan's tiles cover the Ls keys once (a last tile of 1-tile_keys
-    keys), in multiples of 16 keys; one pass up to 256 keys; every block
-    within a block's shared memory; the workspace as cross_workspace lays
-    it out (a ticket per (row, head); per (row, head, tile, beam) stats,
-    a partial and the logits). ``tests/test_torch_cuda.py`` holds these
-    bytes to the C side's."""
-    plan = port_beam.cross_plan(batch, beams, heads, head_dim, ls, elt)
-    tiles = -(-ls // plan.tile_keys)
-    assert plan.tile_keys % 16 == 0 and (tiles - 1) * plan.tile_keys < ls <= tiles * plan.tile_keys
-    if ls <= port_beam.CROSS_ONE_PASS_KEYS:
-        assert tiles == 1 and plan.workspace_bytes == 0
-        assert port_beam.cross_smem(beams, head_dim, plan.tile_keys, elt, True, True, 0) \
-            <= port_beam.SMEM_LIMIT
-        return
-    assert tiles > 1 and port_beam.cross_plan_fits(beams, head_dim, ls, elt, plan.tile_keys)
-    rows = batch * heads * tiles * beams
-
-    def a16(x):
-        return -(-x // 16) * 16
-
-    assert plan.workspace_bytes == (a16(batch * heads * 4) + a16(rows * 8)
-                                    + a16(rows * head_dim * 4) + a16(rows * plan.tile_keys * 4))
-
-
-def _split_form(q, k, v, bias, heads, beams, tile_keys, skip=128.0):
-    """The split form's arithmetic in fp32 torch: per tile the logits' max
-    and sum of exp(S - max); each row's max m and sum l folded from them;
-    the tiles whose max lies more than ``skip`` below every beam's m left
-    out; P = exp(S - m) / l rounded to the K/V dtype per live tile, its
-    P V partial, and the live partials added in tile order. Returns (out,
-    live tiles per (row, head))."""
-    batch, ls, d_model = k.shape
-    head_dim = d_model // heads
-    qh = (q.float() * head_dim ** -0.5).to(k.dtype).float().reshape(batch, beams, heads, head_dim)
-    kh = k.float().reshape(batch, ls, heads, head_dim)
-    vh = v.float().reshape(batch, ls, heads, head_dim)
-    s = torch.einsum("bnhd,blhd->bnhl", qh, kh) + bias.float()[:, None, None, :]
-    cuts = [slice(j, min(ls, j + tile_keys)) for j in range(0, ls, tile_keys)]
-    t_max = torch.stack([s[..., c].amax(-1) for c in cuts], -1)                # (B, K, H, T)
-    t_sum = torch.stack([torch.exp(s[..., c] - t_max[..., i:i + 1]).sum(-1)
-                         for i, c in enumerate(cuts)], -1)
-    m = t_max.amax(-1, keepdim=True)
-    l = (t_sum * torch.exp(t_max - m)).sum(-1, keepdim=True)
-    live = (t_max >= m - skip).any(dim=1)                                      # (B, H, T)
-    out = torch.zeros(batch, beams, heads, head_dim)
-    for i, c in enumerate(cuts):
-        p = (torch.exp(s[..., c] - m) / l).to(k.dtype).float()
-        part = torch.einsum("bnhl,blhd->bnhd", p, vh[:, c])
-        out = out + torch.where(live[:, None, :, i, None], part, torch.zeros_like(part))
-    return out.to(q.dtype).reshape(batch * beams, d_model), live
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_split_form_arithmetic_matches_the_plain_version(dtype):
-    """The split form's fold of tile stats, its skipped tiles and its
-    ordered partial sums give the plain version's result: the padded tail
-    of a row (tiles of -1e9 keys) is skipped and adds nothing, a fully
-    masked row keeps every tile live and gives the uniform average, and a
-    tile left out of the sum is caught."""
-    rng = np.random.default_rng(11)
-    batch, beams, heads, ls, tile = 4, 3, 2, 600, 64
-    d = heads * 64
-    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
-               for shape in ((batch * beams, d), (batch, ls, d), (batch, ls, d)))
-    keep = np.arange(ls)[None, :] < np.array([[600], [130], [0], [10]])
-    bias = torch.from_numpy(np.where(keep, 0.0, -1e9).astype(np.float32))
-    got, live = _split_form(q, k, v, bias, heads, beams, tile)
-    want = port_beam.beam_cross_attention_plain(q, k, v, bias, heads, beams)
-    tol = 1e-5 if dtype == torch.float32 else TOL
-    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=0, atol=tol)
-    assert live[0].all() and live[2].all()                 # full row; fully masked row
-    assert live[1, :, :3].all() and not live[1, :, 3:].any()
-    assert live[3, :, 0].all() and not live[3, :, 1:].any()
-    uniform = v[2].float().reshape(ls, heads, 64).mean(0).reshape(d)
-    np.testing.assert_allclose(want[2 * beams:3 * beams].float().numpy(),
-                               np.broadcast_to(uniform.numpy(), (beams, d)), atol=tol)
-    cut = bias.clone()
-    cut[:, :tile] = -1e9
-    dropped, _ = _split_form(q, k, v, cut, heads, beams, tile)
-    assert np.abs(dropped.float().numpy() - want.float().numpy()).max() > 10 * tol
+                               rtol=0, atol=tol)
+    uniform = port_ops[2][2].float().mean(0).numpy()
+    np.testing.assert_allclose(got[2 * K:].float().numpy(),
+                               np.broadcast_to(uniform, (K, D)), rtol=0, atol=tol)
 
 
 def test_quantize_kv_heads_matches_jax():

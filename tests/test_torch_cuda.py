@@ -9,7 +9,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from multimodalanalytical_tpu_torch.ops import _cuda  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import beam_attention as ba  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import decode_ffn  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import flash_attention as flash  # noqa: E402
@@ -128,7 +127,7 @@ def _cross_rows(gen, b, k, ls, d, dtype, tile):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k", [1, 10, 30])
-@pytest.mark.parametrize("ls", [257, 279, 300, 511, 1025, 2100, 4090])
+@pytest.mark.parametrize("ls", [257, 271, 279, 300, 511, 1025, 2100, 4090])
 def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
     """The split form (its stats and value launches) past the one-pass
     limit: the multimodal recipe's Ls 279, an RLE encoder's 2100 and 4090,
@@ -152,38 +151,44 @@ def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
     assert rms <= (1e-3 if dtype == torch.bfloat16 else 1e-6), rms
 
 
-@pytest.mark.parametrize("tile_keys", [16, 64, 256, 512])
-def test_cross_attention_every_tile_size(gen, tile_keys):
-    """Plans the planner does not pick at the flagship widths: 16- to
-    512-key tiles at K 10 and Ls 1025 (ragged last tile), within the limits
-    of the plain version."""
-    b, k, heads, head_dim, ls = 5, 10, 8, 64, 1025
-    q, kv, bias = _cross_rows(gen, b, k, ls, heads * head_dim, torch.bfloat16, tile_keys)
-    plan = ba.split_plan(b, k, heads, head_dim, ls, tile_keys)
-    got = ba._cross_launch(q, *kv, bias, heads, k, plan)
-    want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
-    _close(got, want)
-    assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 1e-3
-
-
 @pytest.mark.parametrize("elt", [2, 4])
-@pytest.mark.parametrize("beams,head_dim,ls", [(1, 64, 279), (10, 64, 279), (30, 64, 4090),
-                                               (10, 128, 2100), (128, 64, 300), (256, 32, 600),
-                                               (4, 256, 1025), (10, 64, 26)])
-def test_cross_workspace_bytes_match_the_c_side(gen, elt, beams, head_dim, ls):
-    """cross_plan's workspace bytes (its mirror of cross_workspace) are what
-    the launcher requires, for the plan and for every other tile size, or
-    -1 where cross_plan_fits refuses the tiles."""
-    lib = _cuda.library()
-    plan = ba.cross_plan(3, beams, 4, head_dim, ls, elt)
-    assert lib.mmt_beam_cross_workspace_bytes(int(elt == 2), 3, beams, 4, head_dim, ls,
-                                              plan.tile_keys) == plan.workspace_bytes
-    for tile in (16, 64, 128, 256, 512, 1024):
-        if tile < -(-ls // 16) * 16:
-            want = (ba.split_plan(3, beams, 4, head_dim, ls, tile).workspace_bytes
-                    if ba.cross_plan_fits(beams, head_dim, ls, elt, tile) else -1)
-            assert lib.mmt_beam_cross_workspace_bytes(int(elt == 2), 3, beams, 4, head_dim, ls,
-                                                      tile) == want, tile
+@pytest.mark.parametrize("batch,beams,heads,head_dim,ls", [
+    (128, 10, 8, 64, 26), (128, 1, 8, 64, 279), (128, 10, 8, 64, 279), (128, 30, 8, 64, 279),
+    (128, 10, 8, 64, 4090), (128, 30, 8, 64, 4090), (3, 4, 2, 128, 2100), (2, 128, 8, 64, 300),
+    (2, 256, 16, 32, 600), (1, 32, 4, 256, 1025), (4, 10, 8, 64, 256), (4, 10, 8, 64, 257)])
+def test_cross_plan_covers_every_key_once(gen, elt, batch, beams, heads, head_dim, ls):
+    """The C side's plan: its tiles cover the Ls keys once (a last tile of
+    1-tile_keys keys), in multiples of 16 keys; one pass without workspace
+    up to 256 keys, the split form with workspace past them."""
+    plan = ba.cross_plan(batch, beams, heads, head_dim, ls, elt)
+    tiles = -(-ls // plan.tile_keys)
+    assert plan.tile_keys % 16 == 0 and (tiles - 1) * plan.tile_keys < ls <= tiles * plan.tile_keys
+    assert (tiles == 1 and plan.workspace_bytes == 0) if ls <= 256 else (
+        tiles > 1 and plan.workspace_bytes > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cross_attention_skips_padded_tails(gen, dtype):
+    """Rows of 600, 130, 0 and 10 valid keys at Ls 600: the split form's
+    padded tails (whole tiles of -1e9 keys, skipped) add nothing, the
+    fully masked row gives the uniform average, and a call on the same
+    inputs with the first tile masked differs (a left-out tile shows)."""
+    b, k, heads, head_dim, ls = 4, 3, 2, 64, 600
+    d = heads * head_dim
+    q = torch.randn(b * k, d, generator=gen, device="cuda").to(dtype)
+    kv = [torch.randn(b, ls, d, generator=gen, device="cuda").to(dtype) for _ in range(2)]
+    lengths = torch.tensor([[600], [130], [0], [10]], device="cuda")
+    bias = torch.where(torch.arange(ls, device="cuda")[None, :] < lengths, 0.0, -1e9).float()
+    tol = TOL if dtype == torch.bfloat16 else 1e-5
+    got = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
+    _close(got, want, tol)
+    uniform = kv[1][2].float().mean(0)
+    _close(got[2 * k:3 * k].float(), uniform.expand(k, d), tol)
+    cut = bias.clone()
+    cut[:, :ba.cross_plan(b, k, heads, head_dim, ls, q.element_size()).tile_keys] = -1e9
+    dropped = ba.beam_cross_attention(q, *kv, cut, heads, k)
+    assert (dropped.float() - want.float()).abs().max().item() > 10 * tol
 
 
 @pytest.mark.parametrize("ls", [279, 4090])
