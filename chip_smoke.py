@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # the checks below
     python3 chip_smoke.py --profile-eval   # phase 5's decodes and a serving request, profiled
-    python3 chip_smoke.py --profile-train  # phase 3's train step under torch.profiler
+    python3 chip_smoke.py --profile-train [eager|graph]  # phases 3 and 4's train steps, profiled
     python3 chip_smoke.py --time-ffn       # the decode FFN's times alone (one JSON line)
     python3 chip_smoke.py --time-cross     # cross attention and SDPA, device times (one JSON line)
     python3 chip_smoke.py --tensor-parallel  # phase 11 alone
@@ -75,22 +75,33 @@ line each, any failure raises and exits non-zero:
    batch. One dropout-0 step of the flash route against the
    ``use_flash_attention=False`` route (loss and gradient norm), then
    ``Trainer.fit`` takes 10 AdamW steps (dropout 0.1, clip 1.0) on the
-   repeated batch: every loss finite, the last below the first, and each
-   flash kernel launched 6 x the steps; then the same fit with every
-   dropout site routed through fused dropout (this script's substitution,
-   as ``benchmarks/exp_remat.py`` routes the JAX sites), with its s/step
-   and peak memory beside the default route's;
-4. training, the flagship IR recipe (Formula + IR patches, B 128): three
-   AdamW steps, finite losses, no flash launch;
+   repeated batch on each train-step route in turns (ROUTE_TURNS: the eager
+   body, ``cuda_graph=False``, and the step replayed from its CUDA graph):
+   every step's metrics and the final parameters and Adam moments
+   bit-equal across routes, every loss finite, the last below the first,
+   and each flash kernel launched 6 x the steps (a replay adds what its
+   capture recorded); then the same fits (eager, graph) with every dropout
+   site routed through fused dropout (this script's substitution, as
+   ``benchmarks/exp_remat.py`` routes the JAX sites), launched forward and
+   backward at every site of every step; s/step of steps 2-10 and 3-10,
+   the capture's seconds, the graph pool and the peak memory of each;
+4. training, the flagship IR recipe (Formula + IR patches, B 128): ten
+   AdamW steps on each train-step route in turns, bit-equal at every step,
+   s/step of steps 2-10 and 3-10, the capture's seconds and the graph
+   pool's bytes; three more steps of each route profiled for the busy
+   share and the kernels and launches per step; no flash launch;
 5. evaluation: the flagship model, 640 seeded spectra (384 train, 128
    validation, 128 test, real SMILES targets, a fixed-vocabulary stand-in
    for the target tokenizer: the card's machine has no ``tokenizers``).
    (a) ``Trainer.fit`` takes 2 epochs (6 AdamW steps at B 128) with
    validation (greedy K 1 decode) every epoch and a ``CheckpointManager``,
-   three times from the same seeded weights: with a planted fault first (a
+   four times from the same seeded weights: with a planted fault first (a
    snapshot that hands over the live tensors, copied after the next step),
    then with asynchronous saves (the trainer's route) and with synchronous
-   ones (``save_async`` made ``wait`` then ``save``); the main thread's
+   ones (``save_async`` made ``wait`` then ``save``), each replaying the
+   train step's graph, and with asynchronous saves on the eager body
+   (``cuda_graph=False``), whose checkpoints must be bit-equal to the graph
+   route's; the main thread's
    seconds in each ``save_async``, the end-of-fit drain, each step's host
    seconds and each fit's wall time are printed; ``last``, ``best``, every
    ``step_N`` and the index of the asynchronous route must be bit-equal to
@@ -161,12 +172,17 @@ line each, any failure raises and exits non-zero:
    MIX_FLOAT_TOL of their largest magnitude); ``Trainer.fit`` takes 6 AdamW
    steps in fp32 (dropout 0) on the device route and on the host generator,
    losses within MIX_FIT_RTOL; the recipe in bf16 on both routes for s/step,
-   the device route with one validation (K 1) through the decode graphs,
+   each through the train step's graph and again on its eager body
+   (bit-equal), the device route with one validation (K 1) through the decode graphs,
    #1-#3 launched 6 x its replays; the loaders' host ms per batch, the pool
    bytes and the peak memory; (b) a world-1 NCCL process group drives the
-   fp32 device-route fit again, bit-equal to the fit with no group (cuDNN's
+   fp32 device-route fit again through the train step's graph (a data
+   group of one rank runs no collective, so this graph holds none;
+   ``tests/test_torch_cuda.py`` captures NCCL all-reduces in a train
+   step on a forced two-rank data mesh), bit-equal to the fit with no group (cuDNN's
    deterministic algorithms for the phase), and DP_RANKS processes of this
-   script (``--dp-rank``) share the card over gloo on the host route (the
+   script (``--dp-rank``) share the card over gloo, whose train step runs
+   eagerly (printed), on the host route (the
    device route refused there, as in the JAX package) at the same global
    batch, held to the one-process fit as DP_RTOL says, with their s/step and
    the gradient all-reduce's ms per step.
@@ -174,7 +190,8 @@ line each, any failure raises and exits non-zero:
 11. tensor parallelism (``run_tensor_parallel``): the flagship at full
    width on the (1, 2) layout, two ranks of this script (``--tp-rank``)
    sharing the card over gloo, against one process on the same weights:
-   one fp32 AdamW step of the IR recipe at B 128 (loss within TP_LOSS_TOL,
+   one fp32 AdamW step of the IR recipe at B 128 on the eager body (gloo's
+   collectives are not captured; printed) (loss within TP_LOSS_TOL,
    gathered parameters within TP_PARAM_RTOL / TP_PARAM_ATOL), then bf16
    with the int8 cache at K 10: teacher-forced logits within LOGIT_TOL and
    phase 2's three requests decoded with eager steps (gloo collectives are
@@ -281,7 +298,11 @@ RLE_VOCAB = 105
 # route rounds q*scale and the probabilities to bf16, the flash route keeps
 # fp32 (as the JAX package does), through 6 + 6 bf16 layers.
 ROUTE_LOSS_RTOL, ROUTE_GRAD_NORM_RTOL = 1e-2, 2e-2
-IR_RECIPE_BATCH, IR_RECIPE_STEPS = 128, 3
+IR_RECIPE_BATCH, IR_RECIPE_STEPS = 128, 10
+# The train-step routes in turns within a call (phases 3 and 4): the eager
+# body (cuda_graph=False), the replayed graph, the graph, the eager body.
+ROUTE_TURNS = (False, True, True, False)
+PROFILED_STEPS = 3             # phase 4: steps under torch.profiler per route, for the busy share
 # Fused dropout (#7): the model's rate at the JAX docstring's train-site
 # shapes (FFN output and hidden at B 128, 48 tokens) and the RLE encoder's.
 DROPOUT = 0.1
@@ -1942,12 +1963,14 @@ def _rle_batch(seed: int = 7) -> dict:
 
 def _step_twice(model, batch) -> tuple:
     """(loss, grad_norm) of one dropout-0 train step, and the seconds of a
-    second step (its time only), with the peak device memory."""
+    second step (its time only), with the peak device memory; both steps on
+    the eager body (a graph's second step would capture)."""
     import torch
 
     from multimodalanalytical_tpu_torch.training import Trainer
 
-    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=TRAIN_STEPS)
+    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=TRAIN_STEPS,
+                      cuda_graph=False)
     torch.cuda.reset_peak_memory_stats()
     metrics = trainer.train_step(batch)
     loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -1958,9 +1981,63 @@ def _step_twice(model, batch) -> tuple:
     return loss, grad_norm, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
 
 
-def _fit_rle(batch, real_tokens: int, route: str) -> tuple:
-    """Ten dropout-0.1 AdamW steps of the RLE model on the repeated batch;
-    returns (losses, s/step, peak GiB) after checking the losses."""
+def _timed_fit(trainer, loader, **fit_kwargs) -> dict:
+    """``trainer.fit(loader, **fit_kwargs)`` with a CUDA event recorded after
+    each train step. Returns the losses, each step's metrics, the seconds
+    per step of steps 2-n and of steps 3-n between the events (the graph
+    route's second step captures, its later ones replay), device copies of
+    the parameters and Adam moments after the fit, the route's stats and
+    its graph pool's GiB."""
+    import torch
+
+    steps, ends = [], []
+    train_step = trainer.train_step
+
+    def timed_step(batch):
+        steps.append(train_step(batch))
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return steps[-1]
+
+    trainer.train_step = timed_step
+    try:
+        losses = trainer.fit(loader, **fit_kwargs)
+    finally:
+        del trainer.train_step
+    torch.cuda.synchronize()
+    n, opt = len(ends), trainer.optimizer
+    return {"losses": losses, "steps": [{k: float(v) for k, v in m.items()} for m in steps],
+            "step_s": ends[0].elapsed_time(ends[-1]) / 1e3 / (n - 1),
+            "replay_s": ends[1].elapsed_time(ends[-1]) / 1e3 / (n - 2),
+            "state": [t.detach().clone() for t in trainer.params + opt.mu + opt.nu],
+            "stats": dict(trainer.step_stats), "pool_gib": trainer.graph_pool_bytes() / 2**30}
+
+
+def _route_name(graph: bool) -> str:
+    return "graph" if graph else "eager"
+
+
+def _require_same_route(what: str, got: dict, want: dict) -> None:
+    """Every step's metrics and the state after bit-equal across routes."""
+    import torch
+
+    same = (got["steps"] == want["steps"] and len(got["state"]) == len(want["state"])
+            and all(torch.equal(a, b) for a, b in zip(got["state"], want["state"])))
+    _require(same, f"{what}: the graph route's steps or state differ from the eager route's")
+
+
+def _route_line(run: dict) -> str:
+    stats = run["stats"]
+    return (f"{run['step_s']:.5f} s/step (steps 2-{len(run['steps'])}; steps "
+            f"3-{len(run['steps'])} {run['replay_s']:.5f}), {stats['captures']} captures in "
+            f"{stats['capture_s']:.3f} s, {stats['replays']} replays, {stats['eager_steps']} "
+            f"eager steps, graph pool {run['pool_gib']:.3f} GiB")
+
+
+def _fit_rle(batch, real_tokens: int, route: str, graph: bool) -> dict:
+    """Ten dropout-0.1 AdamW steps of the RLE model on the repeated batch on
+    one train-step route; returns ``_timed_fit``'s record with the peak GiB
+    after checking the losses."""
     import math
 
     import torch
@@ -1969,24 +2046,24 @@ def _fit_rle(batch, real_tokens: int, route: str) -> tuple:
 
     model = _rle_model(dropout=DROPOUT, use_flash=True)
     trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=TRAIN_STEPS,
-                      clip_grad=1.0)
+                      clip_grad=1.0, cuda_graph=graph)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    losses = trainer.fit([batch], epochs=TRAIN_STEPS, max_steps=TRAIN_STEPS)
-    torch.cuda.synchronize()
-    seconds = (time.perf_counter() - t0) / TRAIN_STEPS
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train fit ({route}): {TRAIN_STEPS} AdamW steps, B {TRAIN_BATCH}, dropout "
-          f"{DROPOUT}: {seconds:.4f} s/step ({real_tokens / seconds:.1f} encoder tokens/s "
-          f"real, {TRAIN_BATCH * RLE_MAX_LEN / seconds:.1f} padded); peak {peak:.2f} GiB; "
-          f"losses {[round(x, 4) for x in losses]}", flush=True)
+    run = _timed_fit(trainer, [batch], epochs=TRAIN_STEPS, max_steps=TRAIN_STEPS)
+    run["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    losses, seconds = run["losses"], run["step_s"]
+    print(f"train fit ({route}, {_route_name(graph)} route): {TRAIN_STEPS} AdamW steps, B "
+          f"{TRAIN_BATCH}, dropout {DROPOUT}: {_route_line(run)} ({real_tokens / seconds:.1f} "
+          f"encoder tokens/s real, {TRAIN_BATCH * RLE_MAX_LEN / seconds:.1f} padded); peak "
+          f"{run['peak']:.2f} GiB; losses {[round(x, 4) for x in losses]}", flush=True)
     _require(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
              "non-finite training loss")
     _require(losses[-1] < losses[0], "the training loss did not fall")
+    _require(run["stats"]["graph"] == graph and run["stats"]["captures"] == int(graph),
+             f"the fit did not take the {_route_name(graph)} route: {run['stats']}")
     del model, trainer
     torch.cuda.empty_cache()
-    return losses, seconds, peak
+    return run
 
 
 @contextlib.contextmanager
@@ -2038,60 +2115,114 @@ def run_training_slice() -> tuple:
     _require(loss_rel <= ROUTE_LOSS_RTOL and norm_rel <= ROUTE_GRAD_NORM_RTOL,
              "the flash and plain training routes disagree")
 
-    counters = _flash_counters()
-    for fn in counters:
-        fn.launches = 0
-    _, default_s, default_peak = _fit_rle(batch, real_tokens, "ops/dropout.py")
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"train fit launches {launches}", flush=True)
-    for name, count in launches.items():
-        _require(count == LAYERS * TRAIN_STEPS,
-                 f"{name} launched {count} times, want {LAYERS * TRAIN_STEPS}")
+    # The fits on each train-step route, in turns, from the same seeded
+    # weights: bit-equal, each flash kernel launched 6 x the steps (a replay
+    # adds what its capture recorded), every fused-dropout site launched
+    # forward and backward at every step.
+    from contextlib import nullcontext
 
-    sites = [0]
-    fd.fused_dropout.launches = 0
-    with _fused_dropout_sites(sites):
-        _, fused_s, fused_peak = _fit_rle(batch, real_tokens, "fused_dropout")
-    fused_launches = fd.fused_dropout.launches
-    print(f"train fit fused_dropout vs ops/dropout.py: {fused_s:.4f} vs {default_s:.4f} s/step, "
-          f"peak {fused_peak:.2f} vs {default_peak:.2f} GiB; {sites[0]} dropout calls, "
-          f"{fused_launches} fused_dropout launches (forward and backward)", flush=True)
-    _require(sites[0] > 0 and fused_launches == 2 * sites[0],
+    counters = _flash_counters()
+    fits = {}
+    for route, fused, turns in (("ops/dropout.py", False, ROUTE_TURNS),
+                                ("fused_dropout", True, (False, True))):
+        runs = []
+        for graph in turns:
+            sites = [0]
+            for fn in counters + (fd.fused_dropout,):
+                fn.launches = 0
+            with _fused_dropout_sites(sites) if fused else nullcontext():
+                run = _fit_rle(batch, real_tokens, route, graph)
+            run["launches"] = {fn.__name__: fn.launches for fn in counters}
+            run["fused"], run["sites"] = fd.fused_dropout.launches, sites[0]
+            for name, count in run["launches"].items():
+                _require(count == LAYERS * TRAIN_STEPS,
+                         f"{name} launched {count} times, want {LAYERS * TRAIN_STEPS}")
+            if runs:
+                _require_same_route(f"train fit {route}", run, runs[0])
+                run["state"] = None
+            runs.append(run)
+        fits[route] = runs
+        eager = [r for r, g in zip(runs, turns) if not g]
+        graphs = [r for r, g in zip(runs, turns) if g]
+        print(f"train fit {route}: graph route {[round(r['step_s'], 5) for r in graphs]} s/step "
+              f"(steps 2-{TRAIN_STEPS}; steps 3-{TRAIN_STEPS} "
+              f"{[round(r['replay_s'], 5) for r in graphs]}) against eager "
+              f"{[round(r['step_s'], 5) for r in eager]} ({[round(r['replay_s'], 5) for r in eager]}), "
+              f"in turns {[_route_name(g) for g in turns]}; every step and the final state "
+              f"bit-equal; launches per fit {runs[0]['launches']} (6 x the steps)", flush=True)
+
+    # Fused dropout: Python calls each dropout site at every eager step, and
+    # at the graph route's first (eager) step and its capture only.
+    eager_fused, graph_fused = fits["fused_dropout"]
+    per_step = eager_fused["sites"] // TRAIN_STEPS
+    want = 2 * per_step * TRAIN_STEPS
+    default_graph = fits["ops/dropout.py"][1]
+    print(f"train fit fused_dropout vs ops/dropout.py (graph route): {graph_fused['step_s']:.5f} "
+          f"vs {default_graph['step_s']:.5f} s/step, peak {graph_fused['peak']:.2f} vs "
+          f"{default_graph['peak']:.2f} GiB; {per_step} dropout sites a step; fused_dropout "
+          f"launches (forward and backward) eager {eager_fused['fused']}, graph "
+          f"{graph_fused['fused']} (want {want})", flush=True)
+    _require(per_step > 0 and eager_fused["sites"] == per_step * TRAIN_STEPS
+             and graph_fused["sites"] == 2 * per_step
+             and eager_fused["fused"] == graph_fused["fused"] == want,
              "fused_dropout did not launch at every dropout site, forward and backward")
-    return launches, fused_launches
+    return default_graph["launches"], graph_fused["fused"]
 
 
 def run_ir_recipe() -> None:
-    """Phase 4: the flagship IR recipe's optimizer at B 128."""
+    """Phase 4: the flagship IR recipe's train step at B 128, IR_RECIPE_STEPS
+    AdamW steps (dropout 0.1) on each train-step route in ROUTE_TURNS from
+    the same seeded weights: every step's metrics and the final parameters
+    and moments bit-equal; s/step of steps 2-n and 3-n, the capture's
+    seconds and the graph pool's bytes; then PROFILED_STEPS more steps of
+    the last fit of each route under ``torch.profiler``: the busy share
+    (device time per step over the fit's s/step of steps 3-n) and the
+    kernels and host launches per step. No kernel of the package runs."""
     import math
 
-    import numpy as np
     import torch
 
     from multimodalanalytical_tpu_torch.training import Trainer
 
-    inputs, mask = _request(seed=11, batch=IR_RECIPE_BATCH)
-    batch = {"encoder_inputs": inputs, "encoder_mask": mask,
-             **_targets(np.random.default_rng(12), IR_RECIPE_BATCH)}
-    model = _flagship()
-    trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=IR_RECIPE_STEPS,
-                      clip_grad=1.0)
+    batch = _ir_recipe_batch()
     counters = _flash_counters() + _decode_counters()
     for fn in counters:
         fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = trainer.fit([batch], epochs=IR_RECIPE_STEPS, max_steps=IR_RECIPE_STEPS)
-    torch.cuda.synchronize()
-    seconds = (time.perf_counter() - t0) / IR_RECIPE_STEPS
+    runs = {False: [], True: []}
+    for turn, graph in enumerate(ROUTE_TURNS):
+        trainer = Trainer(_flagship(), optimiser="adamw", lr=TRAIN_LR,
+                          num_steps=IR_RECIPE_STEPS, clip_grad=1.0, cuda_graph=graph)
+        run = _timed_fit(trainer, [batch], epochs=IR_RECIPE_STEPS, max_steps=IR_RECIPE_STEPS)
+        _require(len(run["losses"]) == IR_RECIPE_STEPS
+                 and all(math.isfinite(x) for x in run["losses"]), "non-finite training loss")
+        if turn:
+            _require_same_route("IR recipe", run, runs[False][0])
+            run["state"] = None
+        if turn >= len(ROUTE_TURNS) - 2:     # the last fit of each route
+            run["profile"] = _profile_steps(trainer, batch, PROFILED_STEPS)
+        runs[graph].append(run)
+        print(f"IR recipe fit ({_route_name(graph)} route): {IR_RECIPE_STEPS} AdamW steps, B "
+              f"{IR_RECIPE_BATCH}: {_route_line(run)}; losses "
+              f"{[round(x, 4) for x in run['losses']]}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
     launched = {fn.__name__: fn.launches for fn in counters if fn.launches}
-    print(f"IR recipe: {IR_RECIPE_STEPS} AdamW steps, B {IR_RECIPE_BATCH}: {seconds:.4f} s/step "
-          f"(first step included); losses {[round(x, 4) for x in losses]}; kernel launches "
-          f"{launched or 'none'}", flush=True)
-    _require(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    for graph, route_runs in runs.items():
+        prof, run = route_runs[-1]["profile"], route_runs[-1]
+        print(f"IR recipe {_route_name(graph)} route: s/step (steps 2-{IR_RECIPE_STEPS}) "
+              f"{[round(r['step_s'], 5) for r in route_runs]}, (steps 3-{IR_RECIPE_STEPS}) "
+              f"{[round(r['replay_s'], 5) for r in route_runs]}; profiled {PROFILED_STEPS} "
+              f"steps: device {prof['device_s']:.5f} s/step, busy share "
+              f"{prof['device_s'] / run['replay_s']:.3f} (of steps 3-{IR_RECIPE_STEPS}), "
+              f"{prof['kernels']:.0f} device kernels "
+              f"and copies a step; host launches a step: {prof['graph_launches']:.0f} graph + "
+              f"{prof['launches']:.0f} kernel", flush=True)
+    print(f"IR recipe: both routes bit-equal at every step, in turns "
+          f"{[_route_name(g) for g in ROUTE_TURNS]}; kernel launches {launched or 'none'}",
+          flush=True)
+    _require(runs[True][-1]["profile"]["graph_launches"] >= 1,
+             "the graph route launched no graph")
     _require(not launched, "a kernel ran in the IR recipe's train step")
-    del model, trainer
-    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2113,7 +2244,7 @@ EVAL_TARGET_LEN = 32      # longest corpus target (19 tokens) + BOS/EOS, padded
 PLANTED_SLEEP_CYCLES = 2_000_000_000   # ~1 s at the H100's ~1.98 GHz boost clock
 # The planted fit runs first and carries the process's warm-up (cuBLAS, the
 # first graph captures, the pinned host memory of two saves in flight).
-EVAL_FIT_ROUTES = ("planted", "async", "sync")
+EVAL_FIT_ROUTES = ("planted", "async", "sync", "eager")
 # Requests made to the asynchronous fit's manager after the fit, each drained.
 WARM_SAVES = 2
 # Phase 5 (b), (c): predict and validation over PIPELINE_BATCHES batches of
@@ -2286,7 +2417,9 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
     """Phase 5's fit (2 epochs at B 128, validation each) into a fresh
     ``CheckpointManager`` at ``directory``, its saves on ``route``: "async"
     (the trainer's), "sync" (``_synchronous``) or "planted"
-    (``_planted_live_snapshot``). Returns the trainer, the manager, the
+    (``_planted_live_snapshot``), or "eager" (the trainer's saves, the train
+    step on its eager body: ``cuda_graph=False``; the others replay its
+    graph). Returns the trainer, the manager, the
     losses, the fit's wall seconds and the host seconds inside each
     ``validate``, each ``save_async`` call, the end-of-fit drain and each
     ``train_step`` call (no synchronisation: the host's own time), in each
@@ -2300,7 +2433,7 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
 
     steps = EVAL_EPOCHS * len(train)
     trainer = Trainer(_flagship(), tokenizer, optimiser="adamw", lr=TRAIN_LR, num_steps=steps,
-                      clip_grad=1.0, n_beams=EVAL_BEAMS)
+                      clip_grad=1.0, n_beams=EVAL_BEAMS, cuda_graph=route != "eager")
     checkpoints = CheckpointManager(directory)
     if route == "sync":
         _synchronous(checkpoints)
@@ -2460,7 +2593,8 @@ def run_eval_path() -> dict:
                   f"buffers {[round(x, 4) for x in fit['pinned_alloc']]} s); saving thread's "
                   f"writes {[round(x, 4) for x in fit['write']]} s; losses "
                   f"{[round(x, 4) for x in fit['losses']]}; best step "
-                  f"{fit['checkpoints'].best_step}", flush=True)
+                  f"{fit['checkpoints'].best_step}; train step route "
+                  f"{fit['trainer'].step_stats}", flush=True)
             _require(len(fit["losses"]) == steps
                      and all(math.isfinite(x) for x in fit["losses"]), "non-finite training loss")
             _require(len(fit["validate"]) == EVAL_EPOCHS, "validation did not run every epoch")
@@ -2468,10 +2602,17 @@ def run_eval_path() -> dict:
                 _require((fit["checkpoints"].directory / name).is_dir(), f"no {name} checkpoint")
         same = _same_checkpoints(Path(tmp) / "async", Path(tmp) / "sync")
         planted = _same_checkpoints(Path(tmp) / "planted", Path(tmp) / "sync")
+        eager = _same_checkpoints(Path(tmp) / "eager", Path(tmp) / "async")
         names = sorted(_checkpoint_files(Path(tmp) / "sync")[0])
         print(f"eval path checkpoints {names}: asynchronous against synchronous saves "
               f"bit-equal {same}; the planted uncopied snapshot bit-equal {planted} (must be "
-              f"rejected)", flush=True)
+              f"rejected); the eager train step's fit (its last and every other checkpoint) "
+              f"against the graph route's bit-equal {eager}", flush=True)
+        _require(eager, "the eager train step's fit wrote other checkpoints than the graph's")
+        _require(all(fits[r]["trainer"].step_stats["captures"] == 1
+                     for r in EVAL_FIT_ROUTES if r != "eager")
+                 and not fits["eager"]["trainer"].step_stats["graph"],
+                 "a fit did not take its train-step route")
         _require(all(fit["losses"] == fits["sync"]["losses"] for fit in fits.values()),
                  "the fits took other steps")
         _require(same, "asynchronous saves wrote other checkpoints than synchronous ones")
@@ -2877,9 +3018,9 @@ def run_multimodal_training() -> None:
     dropped_spans = []
     original = trainer_module.apply_modality_dropout
 
-    def recording(encoder_mask, droppable, generator):
+    def recording(encoder_mask, droppable, keep):
         dropped_spans.append(list(droppable))
-        return original(encoder_mask, droppable, generator)
+        return original(encoder_mask, droppable, keep)
 
     model = _multimodal_model()
     trainer = Trainer(model, optimiser="adamw", lr=TRAIN_LR, num_steps=MM_TRAIN_STEPS + 1,
@@ -2902,9 +3043,13 @@ def run_multimodal_training() -> None:
           f"on the XVal batch: loss {xval_loss:.4f}", flush=True)
     _require(len(losses) == MM_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
              and math.isfinite(xval_loss), "non-finite multimodal training loss")
-    _require(len(dropped_spans) == MM_TRAIN_STEPS + 1
+    # The body runs in Python at each key's first (eager) step and at its
+    # capture; a replay draws on the host and runs the captured mask.
+    stats = trainer.step_stats
+    _require(len(dropped_spans) == stats["eager_steps"] + stats["captures"]
+             and stats["eager_steps"] + stats["replays"] == MM_TRAIN_STEPS + 1
              and all(spans == want for spans in dropped_spans),
-             f"modality dropout spans {dropped_spans} are not the segments {want}")
+             f"modality dropout spans {dropped_spans} are not the segments {want} ({stats})")
 
     model.eval()
     unit = dict(xval, Multiplets=dict(xval["Multiplets"], numerical_values=np.ones_like(
@@ -3551,7 +3696,8 @@ def _host_loader(setup):
                          DEFAULT_SETTINGS.default_seed)["train"]
 
 
-def _mix_fit(setup, route: str, dtype: str, dropout=None, val=None) -> dict:
+def _mix_fit(setup, route: str, dtype: str, dropout=None, val=None,
+             cuda_graph: bool = True) -> dict:
     """``Trainer.fit`` of custom_model_align (at ``dtype``, and ``dropout``
     where given) for MIX_STEPS AdamW steps on a route ("device" or "host"),
     as ``cli/training.py`` builds it (one accumulation step); with ``val``,
@@ -3559,7 +3705,8 @@ def _mix_fit(setup, route: str, dtype: str, dropout=None, val=None) -> dict:
     final parameters (on the host), the seconds per train step (from the
     end of the first step, which carries the warm-up, to the end of the
     last, between CUDA events: the host's loader time within it counts),
-    the learning rates and the trainer."""
+    the learning rates and the trainer. ``cuda_graph``: the train step's
+    route (the replayed graph, or its eager body)."""
     import torch
 
     from multimodalanalytical_tpu_torch.cli.common import build_model
@@ -3579,7 +3726,8 @@ def _mix_fit(setup, route: str, dtype: str, dropout=None, val=None) -> dict:
     model, _ = build_model(config, data_config, "Smiles", preps["Smiles"],
                            torch.device(DEVICE), seed)
     trainer = Trainer(model, preps["Smiles"], optimiser="adamw", lr=ALIGN_MODEL_CONFIG["lr"],
-                      num_steps=MIX_STEPS, clip_grad=1.0, seed=seed, batch_transform=transform)
+                      num_steps=MIX_STEPS, clip_grad=1.0, seed=seed, batch_transform=transform,
+                      cuda_graph=cuda_graph)
     steps, ends = [], []
     train_step = trainer.train_step
 
@@ -3593,8 +3741,11 @@ def _mix_fit(setup, route: str, dtype: str, dropout=None, val=None) -> dict:
     trainer.fit(loader, val, epochs=1)
     torch.cuda.synchronize()
     step_s = ends[0].elapsed_time(ends[-1]) / 1e3 / (len(ends) - 1)
+    replay_s = ends[1].elapsed_time(ends[-1]) / 1e3 / (len(ends) - 2)
+    opt = trainer.optimizer
     return {"steps": [{k: float(v) for k, v in m.items()} for m in steps],
             "params": [p.detach().cpu() for p in trainer.params], "step_s": step_s,
+            "replay_s": replay_s, "moments": [t.detach().cpu() for t in opt.mu + opt.nu],
             "trainer": trainer, "lrs": [trainer.optimizer.schedule(t) for t in range(len(steps))]}
 
 
@@ -3702,6 +3853,18 @@ def run_mixture_path() -> tuple:
     launches = {fn.__name__: fn.launches for fn in counters}
     trainer = device["trainer"]
     host = _mix_fit(binary_setup, "host", "bfloat16")
+    # The same fits on the eager body: bit-equal to the graphs'.
+    eager = {route: _mix_fit(binary_setup, route, "bfloat16", cuda_graph=False)
+             for route in ("device", "host")}
+    for route, fit in (("device", device), ("host", host)):
+        other = eager[route]
+        _require(fit["steps"] == other["steps"] and all(
+            torch.equal(a, b) for a, b in zip(fit["params"] + fit["moments"],
+                                              other["params"] + other["moments"])),
+                 f"mixture {route} route: the graph's fit differs from the eager body's")
+        _require(fit["trainer"].step_stats["captures"] >= 1
+                 and not other["trainer"].step_stats["graph"],
+                 f"mixture {route} route: a fit did not take its train-step route")
     replays, warmups = trainer.decode_replays, trainer.decode_warmups
     for name, count in launches.items():
         _require(count == LAYERS * (replays + warmups),
@@ -3712,11 +3875,17 @@ def run_mixture_path() -> tuple:
           f"2-{MIX_STEPS}) device route {device['step_s']:.5f}, host generator "
           f"{host['step_s']:.5f}; losses device "
           f"{[round(s['loss'], 4) for s in device['steps']]}, host "
-          f"{[round(s['loss'], 4) for s in host['steps']]}; validation (K 1) "
+          f"{[round(s['loss'], 4) for s in host['steps']]}; train step routes: graph "
+          f"(steps 3-{MIX_STEPS}: device {device['replay_s']:.5f}, host "
+          f"{host['replay_s']:.5f}) against the eager body's s/step (steps 2-{MIX_STEPS}) "
+          f"device {eager['device']['step_s']:.5f}, host {eager['host']['step_s']:.5f} "
+          f"(steps 3-{MIX_STEPS}: {eager['device']['replay_s']:.5f}, "
+          f"{eager['host']['replay_s']:.5f}), bit-equal; capture "
+          f"{trainer.step_stats['capture_s']:.3f} s; validation (K 1) "
           f"{trainer.decode_steps} decode steps in {replays} graph replays and {warmups} "
           f"eager capture steps, launches {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    del device, host, trainer
+    del device, host, trainer, eager
     torch.cuda.empty_cache()
     return launches, fp32
 
@@ -3756,8 +3925,10 @@ def run_dp_rank(spec: dict) -> None:
         Trainer._sum_over_ranks = staticmethod(timed)
         fit = _mix_fit(setup, "host", "float32", 0.0)
         out = Path(spec["out"])
+        stats = fit["trainer"].step_stats
         (out / f"rank{spec['rank']}.json").write_text(json.dumps(
-            {"steps": fit["steps"], "step_s": fit["step_s"],
+            {"steps": fit["steps"], "step_s": fit["step_s"], "graph": stats["graph"],
+             "eager_reason": stats["eager_reason"],
              "reduce_ms": 1e3 * sum(reduce_s[1:]) / len(reduce_s[1:])}))
         if spec["rank"] == 0:
             torch.save(fit["params"], out / "params.pt")
@@ -3822,9 +3993,12 @@ def run_distributed_path(fp32: dict) -> None:
     print(f"distributed: a world-1 NCCL group's fit (device route, fp32) against no group: "
           f"losses bit-equal {grouped['steps'] == alone['steps']}, {len(alone['params'])} "
           f"parameter tensors bit-equal {same_params}; s/step (steps 2-{MIX_STEPS}) "
-          f"{grouped['step_s']:.5f} against {alone['step_s']:.5f}", flush=True)
+          f"{grouped['step_s']:.5f} against {alone['step_s']:.5f}; train step route "
+          f"{grouped['trainer'].step_stats}", flush=True)
     _require(grouped["steps"] == alone["steps"] and same_params,
              "the world-1 NCCL fit differs from the fit with no group")
+    _require(grouped["trainer"].step_stats["captures"] >= 1,
+             "the world-1 NCCL fit did not replay its train step's graph")
     del grouped
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3857,6 +4031,9 @@ def run_distributed_path(fp32: dict) -> None:
                                   DP_RTOL) for rank in ranks)
     _require(all(rank["steps"] == ranks[0]["steps"] for rank in ranks),
              "the ranks report different steps")
+    print(f"distributed: the gloo ranks' train step ran eagerly: "
+          f"{[(r['graph'], r['eager_reason']) for r in ranks]}", flush=True)
+    _require(not any(rank["graph"] for rank in ranks), "a gloo rank captured its train step")
     got = torch.cat([p.reshape(-1) for p in params]).double()
     want = torch.cat([p.reshape(-1) for p in ref["params"]]).double()
     diff = (got - want).abs()
@@ -3993,55 +4170,98 @@ def profile_eval() -> None:
                   f"{kernel[:100]}", flush=True)
 
 
-def profile_train() -> None:
-    """Phase 3's train step under ``torch.profiler``: the flagship-width RLE
-    model (B 8, L 4090, dropout 0.1, flash route), with ``ops/dropout.py``
-    and then with every dropout site through fused dropout, as phase 3's
-    two fits. Each takes two warm-up steps, four unprofiled steps for the
-    wall time and two profiled ones; prints device time per step by kernel
-    (device events only, as ``--profile-eval``), host time per step in the
-    dropout calls, the busy share and the peak memory."""
+def _ir_recipe_batch() -> dict:
+    """Phase 4's batch: the flagship IR recipe's inputs at B 128."""
+    import numpy as np
+
+    inputs, mask = _request(seed=11, batch=IR_RECIPE_BATCH)
+    return {"encoder_inputs": inputs, "encoder_mask": mask,
+            **_targets(np.random.default_rng(12), IR_RECIPE_BATCH)}
+
+
+def _profile_steps(trainer, batch, steps: int) -> dict:
+    """``steps`` train steps under ``torch.profiler`` (CPU and CUDA): per
+    step, the device seconds (device events only, as ``--profile-eval``),
+    the kernels the device ran, and the host's kernel and graph launches;
+    with the rows by kernel."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    device_s, rows, launches, graphs = _device_time(prof)
+    host_ms = {}
+    for row in prof.key_averages():
+        if "dropout" in row.key.lower() and row.cpu_time_total > 0:
+            host_ms[row.key] = round(row.cpu_time_total / 1e3 / steps, 3)
+    return {"device_s": device_s / steps, "kernels": sum(calls for _, calls, _ in rows) / steps,
+            "launches": launches / steps, "graph_launches": graphs / steps, "rows": rows,
+            "steps": steps, "dropout_host_ms": host_ms}
+
+
+def profile_train(routes=("eager", "graph")) -> None:
+    """The train steps under ``torch.profiler``, on each of ``routes`` (the
+    eager body, ``cuda_graph=False``, and the replayed graph): phase 3's
+    (the flagship-width RLE model, B 8, L 4090, dropout 0.1, flash route)
+    with ``ops/dropout.py`` and with every dropout site through fused
+    dropout, and phase 4's (the flagship IR recipe, B 128, dropout 0.1).
+    Each takes two warm-up steps (the graph route's first step runs
+    eagerly, the second captures), four unprofiled steps for the wall time
+    and two profiled ones; prints device time per step by kernel (device
+    events only, as ``--profile-eval``), the kernels per step, the host's
+    launches per step, host time per step in the dropout calls, the busy
+    share and the peak memory. Copied into a ``git archive`` of an earlier
+    commit, whose ``Trainer`` has no graph route, it profiles that
+    commit's (eager) step with ``--profile-train eager``."""
+    import inspect
+
     import torch
 
     from multimodalanalytical_tpu_torch.training import Trainer
 
-    batch = _rle_batch()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for route in ("ops/dropout.py", "fused_dropout"):
-        trainer = Trainer(_rle_model(dropout=DROPOUT, use_flash=True), optimiser="adamw",
-                          lr=TRAIN_LR, num_steps=100, clip_grad=1.0)
-        steps = 2
-        with _fused_dropout_sites([0]) if route == "fused_dropout" else contextlib.nullcontext():
-            for _ in range(steps):
-                trainer.train_step(batch)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            for _ in range(2 * steps):
-                trainer.train_step(batch)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / (2 * steps)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            with torch.profiler.profile(activities=activities) as prof:
+    has_routes = "cuda_graph" in inspect.signature(Trainer).parameters
+    _require(has_routes or routes == ("eager",),
+             "this commit's Trainer has no graph route: profile it with --profile-train eager")
+    cases = [("RLE ops/dropout.py", lambda: _rle_model(dropout=DROPOUT, use_flash=True),
+              _rle_batch(), False),
+             ("RLE fused_dropout", lambda: _rle_model(dropout=DROPOUT, use_flash=True),
+              _rle_batch(), True),
+             ("IR recipe", _flagship, _ir_recipe_batch(), False)]
+    for name, make_model, batch, fused in cases:
+        for route in routes:
+            route_kwargs = {"cuda_graph": route == "graph"} if has_routes else {}
+            trainer = Trainer(make_model(), optimiser="adamw", lr=TRAIN_LR, num_steps=100,
+                              clip_grad=1.0, **route_kwargs)
+            steps = 2
+            with _fused_dropout_sites([0]) if fused else contextlib.nullcontext():
                 for _ in range(steps):
                     trainer.train_step(batch)
                 torch.cuda.synchronize()
-        device_s, rows, launches, _ = _device_time(prof)
-        device_s /= steps
-        host_ms = {}
-        for row in prof.key_averages():
-            if "dropout" in row.key.lower() and row.cpu_time_total > 0:
-                host_ms[row.key] = round(row.cpu_time_total / 1e3 / steps, 3)
-        print(f"profile train step (RLE, B {TRAIN_BATCH}, L {RLE_MAX_LEN}, dropout {DROPOUT}, "
-              f"{route}): wall {wall:.4f} s/step unprofiled; device time {device_s:.4f} s/step "
-              f"(kernels and copies only); busy share {device_s / wall:.3f}; "
-              f"{launches // steps} kernel launches per step; peak {peak:.2f} GiB; host ms per "
-              f"step in dropout calls {host_ms}", flush=True)
-        for ms, calls, kernel in rows[:PROFILE_TOP]:
-            print(f"  {100 * ms / (device_s * steps * 1e3):5.1f}% {ms / steps:10.2f} ms x "
-                  f"{calls // steps:6d} per step  {kernel[:100]}", flush=True)
-        del trainer, prof
-        torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(2 * steps):
+                    trainer.train_step(batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / (2 * steps)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                prof = _profile_steps(trainer, batch, steps)
+            device_s = prof["device_s"]
+            pool = trainer.graph_pool_bytes() if has_routes else 0
+            stats = trainer.step_stats if has_routes else {}
+            print(f"profile train step ({name}, route {route}): wall {wall:.4f} s/step "
+                  f"unprofiled; device time {device_s:.4f} s/step (kernels and copies only); "
+                  f"busy share {device_s / wall:.3f}; {prof['kernels']:.0f} device kernels and "
+                  f"copies per step; host launches per step: {prof['launches']:.0f} kernel, "
+                  f"{prof['graph_launches']:.0f} graph; peak {peak:.2f} GiB; graph pool "
+                  f"{pool / 2**30:.2f} GiB; host ms per step in dropout "
+                  f"calls {prof['dropout_host_ms']}; {stats}", flush=True)
+            for ms, calls, kernel in prof["rows"][:PROFILE_TOP]:
+                print(f"  {100 * ms / (device_s * steps * 1e3):5.1f}% {ms / steps:10.2f} ms x "
+                      f"{calls // steps:6d} per step  {kernel[:100]}", flush=True)
+            del trainer, prof
+            torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- phase 11
@@ -4234,6 +4454,8 @@ def run_tp_rank(spec: dict) -> None:
             trainer.train_step(batch)
         report["step_reduce_ms"], report["step_reduces"] = 1e3 * sum(seconds), len(seconds)
         report["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        report["train_graph"] = trainer.step_stats["graph"]
+        report["train_eager_reason"] = trainer.step_stats["eager_reason"]
         del trainer, model
         torch.cuda.empty_cache()
 
@@ -4402,6 +4624,11 @@ def run_tensor_parallel() -> dict:
           f"{[round(r['train_peak_gib'], 3) for r in ranks]} GiB", flush=True)
     _require(all(r["local_heads"] == HEADS // TP_RANKS and r["local_ffn"] == FFN // TP_RANKS
                  for r in ranks), "the ranks do not hold their shares of the heads and the FFN")
+    print(f"tensor parallel train step route: "
+          f"{[('graph' if r['train_graph'] else 'eager', r['train_eager_reason']) for r in ranks]}",
+          flush=True)
+    _require(not any(r["train_graph"] for r in ranks),
+             "a tensor-parallel rank over gloo captured its train step")
     _require(loss_err <= TP_LOSS_TOL and outside == 0,
              "the tensor-parallel step differs from the one-process step")
 
@@ -4512,7 +4739,8 @@ def main() -> int:
         return 0
     if "--profile-train" in sys.argv[1:]:
         print(smi, flush=True)
-        profile_train()
+        route = sys.argv[sys.argv.index("--profile-train") + 1:][:1]
+        profile_train(tuple(route) if route else ("eager", "graph"))
         return 0
     if "--time-ffn" in sys.argv[1:]:
         print(smi, flush=True)

@@ -93,13 +93,19 @@ def decode_model(model: Seq2SeqModel) -> Seq2SeqModel:
     return copy.deepcopy(model, memo)
 
 
-def collectives_capturable(model: Seq2SeqModel) -> bool:
-    """Whether a decode step's collectives can be captured in a CUDA graph:
-    none to capture (no model axis), or a model group over NCCL."""
-    mesh = model.mesh
-    if mesh is None or mesh.n_model == 1:
-        return True
-    return dist.get_backend(mesh.model_group) == "nccl"
+def collectives_capturable(model: Seq2SeqModel, mesh=None) -> bool:
+    """Whether a step's collectives can be captured in a CUDA graph: each
+    group either has none to run or runs over NCCL. A decode step runs the
+    model group's (``model.mesh``); a train step also sums over the data
+    group of ``mesh``, the trainer's."""
+    groups = []
+    if model.mesh is not None and model.mesh.n_model > 1:
+        groups.append(model.mesh.model_group)
+    if mesh is not None and mesh.n_model > 1:
+        groups.append(mesh.model_group)
+    if mesh is not None and mesh.n_data > 1:
+        groups.append(mesh.data_group)
+    return all(dist.get_backend(group) == "nccl" for group in groups)
 
 
 def kv_cache_quantized(cfg, num_beams: int, max_length: int) -> bool:

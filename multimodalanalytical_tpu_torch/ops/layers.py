@@ -133,7 +133,32 @@ class Embed(nn.Module):
         self.weight = nn.Parameter(table)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.weight.to(self.dtype))
+        return _GatherRows.apply(self.weight.to(self.dtype), ids.long())
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]``, whose backward sums each row's gradients as one fp32
+    product of a one-hot matrix (rows x ids) with the gradient, rounded to
+    the table's dtype once. Its order is fixed, so it gives the same bits at
+    every call, as a train step's graph and its eager body must agree;
+    on the card ``F.embedding``'s backward does not, run to run, and
+    indexing's (a sorted ``index_put``) adds an id's rows one after
+    another, which a padded batch's thousands of pad ids make take
+    milliseconds."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        ids, = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=ids.device)
+        one_hot = (rows[:, None] == ids.reshape(1, -1)).float()
+        summed = one_hot @ grad.reshape(-1, grad.shape[-1]).float()
+        return summed.to(grad.dtype), None
 
 
 def make_generator(generator: Optional[torch.Generator], device) -> torch.Generator:

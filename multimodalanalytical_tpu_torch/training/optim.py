@@ -19,6 +19,15 @@ rest: the update is elementwise, so it runs on the slices as they are, and
 the global norm counts the sharded gradients' squares summed over the model
 group and the replicated ones once (the optimizer's ``sharded`` and
 ``mesh``), so that the clip equals the one-process clip.
+
+A step has a host half and a device half, so that the device half can be
+captured once in a CUDA graph and replayed, as ``jax.jit`` compiles the
+JAX step once: :meth:`Optimizer.plan` takes every value that depends on
+the update count (the schedule's learning rate, optax's float32 bias
+corrections, the accumulation's running-mean divisor, and whether this
+gradient completes an accumulation) and writes the numbers into the
+device tensor :attr:`Optimizer.scalars`; :meth:`Optimizer.step` runs the
+update and reads those numbers only from that tensor.
 """
 
 from __future__ import annotations
@@ -66,11 +75,11 @@ def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool
     norms = torch._foreach_norm([t.float() for t in tensors])
     if mesh is None or mesh.n_model == 1 or not any(sharded or ()):
         return torch.linalg.vector_norm(torch.stack(norms))
-    squares = torch.stack(norms).square()
-    mask = torch.tensor(list(sharded), device=squares.device)
-    split = squares[mask].sum().reshape(1)
+    # Selected on the host, so that nothing here reads the device.
+    split = torch.stack([n for n, s in zip(norms, sharded) if s]).square().sum().reshape(1)
     mesh.all_reduce_model_(split)
-    return (split[0] + squares[~mask].sum()).sqrt()
+    whole = [n for n, s in zip(norms, sharded) if not s]
+    return (split[0] + torch.stack(whole).square().sum()).sqrt() if whole else split[0].sqrt()
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
@@ -83,13 +92,29 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 
 
+def copy_from_host_(dst: torch.Tensor, src) -> torch.Tensor:
+    """Copy ``src`` (an array, or a tensor on the host or on ``dst``'s
+    device) into ``dst``, in place. Into a CUDA tensor the host data goes
+    through pinned memory without blocking: the copy is ordered on the
+    current stream, and the host does not wait for the device."""
+    src = torch.as_tensor(src)
+    if dst.is_cuda and src.device.type == "cpu":
+        return dst.copy_(src.pin_memory(), non_blocking=True)
+    return dst.copy_(src)
+
+
 class Optimizer:
     """``chain(clip_by_global_norm(clip_grad), adam | adamw(schedule))``,
     in ``MultiSteps(every_k=acc_batches)`` when ``acc_batches > 1``.
 
     ``count`` is the number of updates applied (the schedule's and the bias
     correction's step); ``mini_step`` counts the gradients accumulated
-    towards the next update, whose mean it applies."""
+    towards the next update, whose mean it applies. Both live on the host:
+    :meth:`plan` turns them into :attr:`scalars` (the learning rate, the
+    bias corrections ``1 - b1**count`` and ``1 - b2**count`` in float32,
+    and the running mean's divisor ``mini_step + 1``) on the parameters'
+    device, which is all :meth:`step` reads of them. ``grad_norm`` is the
+    global norm of the gradient :meth:`step` took last, before clipping."""
 
     def __init__(self, params: Sequence[torch.Tensor], schedule: Callable[[int], float],
                  b1: float = 0.9, b2: float = 0.999,
@@ -108,6 +133,12 @@ class Optimizer:
                     if self.acc_batches > 1 else None)
         self.count = 0
         self.mini_step = 0
+        # lr, bias1, bias2, divisor (plan() writes them, step() reads them).
+        self.scalars = torch.zeros(4, dtype=torch.float32, device=self.params[0].device)
+        self.grad_norm: Optional[torch.Tensor] = None
+        # Whether the gradient planned last completes an accumulation, until
+        # step() takes that plan (None: no plan waiting).
+        self.planned: Optional[bool] = None
 
     def state_dict(self) -> dict:
         """The moments, the accumulator and the two counts (what a
@@ -130,22 +161,51 @@ class Optimizer:
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
 
+    def plan(self) -> bool:
+        """The host half of the next gradient's step: write its values into
+        :attr:`scalars` and advance the counts. Returns whether the
+        gradient completes an accumulation (every gradient without
+        accumulation): :meth:`step` then clips and updates."""
+        divisor = self.mini_step + 1
+        completes = divisor == self.acc_batches
+        lr = 0.0
+        if completes:
+            lr = self.schedule(self.count)
+            self.count += 1
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
+        # optax forms the bias corrections 1 - b**count in float32.
+        count = np.float32(max(self.count, 1))
+        values = np.array([lr, 1 - np.float32(self.b1) ** count,
+                           1 - np.float32(self.b2) ** count, divisor], dtype=np.float32)
+        copy_from_host_(self.scalars, values)
+        self.planned = completes
+        return completes
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        """Take one gradient; update the parameters when it completes an
-        accumulation (every gradient without accumulation)."""
+        """Take one gradient: add it to the running mean when gradients are
+        accumulated, and clip and update when it completes an update. The
+        device half of the step, under the plan :meth:`plan` made (one is
+        made here when none waits); it reads the count's values from
+        :attr:`scalars` only, so a CUDA graph of it stays right at every
+        count. Sets :attr:`grad_norm`."""
+        completes = self.plan() if self.planned is None else self.planned
+        self.planned = None
         grads = [g.float() for g in grads]
+        self.grad_norm = self.norm(grads)
+        norm = self.grad_norm
         if self.acc is not None:
             # Welford running mean, as MultiSteps(use_grad_mean=True).
-            n = self.mini_step
+            divisor = self.scalars[3]
             for acc, g in zip(self.acc, grads):
-                acc.add_((g - acc) / (n + 1))
-            if n < self.acc_batches - 1:
-                self.mini_step += 1
+                acc.add_((g - acc) / divisor)
+            if not completes:
                 return
             grads = self.acc
-            self.mini_step = 0
-        self._update(clip_by_global_norm(grads, self.clip_grad, self.norm(grads)))
+            norm = self.norm(grads)
+        self._update(clip_by_global_norm(grads, self.clip_grad, norm))
         if self.acc is not None:
             for acc in self.acc:
                 acc.zero_()
@@ -156,22 +216,22 @@ class Optimizer:
         return global_norm(grads, self.sharded, self.mesh)
 
     def _update(self, grads: List[torch.Tensor]) -> None:
-        lr = self.schedule(self.count)
-        self.count += 1
+        lr, bias1, bias2 = self.scalars[0], self.scalars[1], self.scalars[2]
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - b1)
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
-        # optax forms the bias corrections 1 - b**count in float32.
-        mu_hat = torch._foreach_div(self.mu, float(1 - np.float32(b1) ** np.float32(self.count)))
-        denom = torch._foreach_div(self.nu, float(1 - np.float32(b2) ** np.float32(self.count)))
+        mu_hat = torch._foreach_div(self.mu, bias1)
+        denom = torch._foreach_div(self.nu, bias2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, ADAM_EPS)
         updates = torch._foreach_div(mu_hat, denom)
         if self.weight_decay is not None:
             torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, updates, alpha=-lr)
+        # optax scales by -lr and adds: p + (-lr * u) == p - lr * u exactly.
+        torch._foreach_mul_(updates, lr)
+        torch._foreach_sub_(self.params, updates)
 
 
 def build_optimizer(params: Sequence[torch.Tensor], optimiser: str, lr: float, num_steps: int,

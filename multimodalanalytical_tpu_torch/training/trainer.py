@@ -9,6 +9,25 @@ step folds the step count into its dropout key, the generators are seeded
 from (seed, step) at every step, so a resumed run draws what the
 uninterrupted one drew.
 
+A step is a host plan and a device body. The plan holds every value that
+depends on the step count: the dropout seed, the modality keep vector
+(drawn on the host, as the JAX step draws it in its jitted program), the
+schedule's learning rate, the bias corrections and whether the step
+completes an accumulation (``Optimizer.plan``). The body (the mixture
+expand, the modality mask, forward, backward, the sum over the data group,
+the clip and the update) reads them only from small device tensors, so on
+a CUDA device it is captured once per (batch shape, accumulation phase) as
+a CUDA graph and replayed, as ``jax.jit`` compiles the JAX step once per
+shape (``Trainer(cuda_graph=True)``, the default). The first step of each
+key is the real step run eagerly on the capture stream (lazy set-up:
+cuBLAS workspaces, kernel attributes); from the second on, the body is
+captured once and replayed, its inputs copied into the graph's static
+buffers and its dropout generator (registered with every graph) reseeded
+before each replay. ``cuda_graph=False``, the CPU, and process groups
+whose collectives a graph cannot hold (gloo; ``collectives_capturable``)
+run the same body eagerly: the routes launch the same kernels on the same
+inputs, so they agree bit for bit wherever each kernel does run to run.
+
 Across processes (``torch.distributed``, ``parallel/``) the trainer takes
 the model's mesh (``parallel/mesh.py``; pure data parallelism over the
 process group for a model built without one): a **data** group of ranks
@@ -82,6 +101,7 @@ import logging
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from pathlib import Path
 from typing import Any, Callable, Dict, Generator, Iterable, List, Optional, Sequence, Tuple
@@ -89,17 +109,22 @@ from typing import Any, Callable, Dict, Generator, Iterable, List, Optional, Seq
 import numpy as np
 import torch
 
-from ..generation.beam_search import BeamDecoder
+from ..generation.beam_search import BeamDecoder, collectives_capturable
 from ..models.weights import gather_state_dict, shard_state_dict
+from ..ops import _cuda
 from ..parallel import multihost
 from ..parallel.mesh import default_mesh, gather_slices, local_slice, param_shardings
-from .optim import build_optimizer
+from .optim import build_optimizer, copy_from_host_
 
 logger = logging.getLogger(__name__)
 
 BATCH_KEYS = ("encoder_inputs", "encoder_mask", "decoder_ids", "decoder_mask", "labels")
 # A device-mixture index batch's sampling decisions (``data/device_mixture.py``).
 MIX_KEYS = ("mix_idx", "comp_slot", "mix_weights", "mix_normalize", "row_valid")
+# The fields of a batch that go to the device.
+DEVICE_KEYS = BATCH_KEYS + ("align_target",) + MIX_KEYS
+# What train_step returns, in the order of the body's output.
+METRIC_KEYS = ("loss", "model_only_loss", "alignment_loss", "grad_norm")
 # Added to the element-dropout seed per data index (an odd 63-bit constant).
 RANK_SEED_STRIDE = 0x1E3779B97F4A7C15
 # Collated fields that predict does not return as extra columns.
@@ -130,21 +155,34 @@ def modality_segments(encoder_inputs: Dict[str, Any], order: Sequence[str]
     return segments
 
 
-def apply_modality_dropout(encoder_mask: torch.Tensor, droppable: Sequence[Tuple[int, int]],
-                           generator: torch.Generator) -> torch.Tensor:
-    """Zero the mask over a random subset of the ``droppable`` (start, end)
-    segments: k is drawn from [0, n) and the first k of a random order are
+def modality_keep(n: int, generator: torch.Generator) -> np.ndarray:
+    """Which of ``n`` droppable segments a step keeps (1) and drops (0), as
+    float32: k is drawn from [0, n) and the first k of a random order are
     dropped, so every listed modality is never dropped at once."""
+    k = int(torch.randint(0, n, (1,), generator=generator))
+    order = torch.randperm(n, generator=generator).numpy()
+    return (order >= k).astype(np.float32)
+
+
+def apply_modality_dropout(encoder_mask: torch.Tensor, droppable: Sequence[Tuple[int, int]],
+                           keep) -> torch.Tensor:
+    """Zero the mask over the dropped ones of the ``droppable`` (start, end)
+    segments. ``keep`` holds 1 (kept) or 0 (dropped) for each segment, as a
+    tensor on the mask's device (the train step's, drawn on the host by
+    :func:`modality_keep`), or is a generator to draw them from. Each
+    segment is multiplied by its entry, so the ops are the same whatever
+    the draw."""
     if not droppable:
         return encoder_mask
-    n = len(droppable)
-    k = int(torch.randint(0, n, (1,), generator=generator))
-    order = torch.randperm(n, generator=generator).tolist()
-    mask = encoder_mask.clone()
-    for rank, (start, end) in zip(order, droppable):
-        if rank < k:
-            mask[:, start:end] = 0
-    return mask
+    if isinstance(keep, torch.Generator):
+        keep = torch.as_tensor(modality_keep(len(droppable), keep), device=encoder_mask.device)
+    keep = keep.to(encoder_mask.dtype)
+    pieces, at = [], 0
+    for j, (start, end) in enumerate(droppable):
+        pieces += [encoder_mask[:, at:start], encoder_mask[:, start:end] * keep[j]]
+        at = end
+    pieces.append(encoder_mask[:, at:])
+    return torch.cat(pieces, dim=1)
 
 
 def to_device(tree: Any, device: torch.device) -> Any:
@@ -160,8 +198,26 @@ def device_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     ``align_target`` where the batch has one, and a device-mixture index
     batch's sampling decisions. Host-only fields such as ``n_valid`` and
     ``target_strings`` are dropped."""
-    return {key: to_device(batch[key], device)
-            for key in BATCH_KEYS + ("align_target",) + MIX_KEYS if key in batch}
+    return {key: to_device(batch[key], device) for key in DEVICE_KEYS if key in batch}
+
+
+def _signature(tree: Any) -> Any:
+    """The shapes and dtypes of arrays, and dicts of them at any depth (a
+    captured step's key, as ``jax.jit`` keys its programs by shape)."""
+    if isinstance(tree, dict):
+        return tuple((key, _signature(tree[key])) for key in sorted(tree))
+    value = tree if isinstance(tree, torch.Tensor) else np.asarray(tree)
+    return tuple(value.shape), str(value.dtype)
+
+
+def _fill(static: Any, host: Any) -> None:
+    """Copy a batch's arrays into the same-shaped device tensors ``static``
+    (one copy per field, from pinned memory, without blocking the host)."""
+    if isinstance(static, dict):
+        for key, value in static.items():
+            _fill(value, host[key])
+    else:
+        copy_from_host_(static, host)
 
 
 def calculate_training_steps(train_len: int, batch_size: int, acc_batches: int,
@@ -282,6 +338,17 @@ class _StepProfiler:
         logger.info("Profiler trace written to %s", path)
 
 
+class _StepGraph:
+    """One captured train step: the graph, the static tensors it reads (the
+    batch's fields and the modality keep vector, None without droppable
+    segments), its (4,) output (``METRIC_KEYS``) and the kernel launches
+    its capture recorded, added at every replay."""
+
+    def __init__(self, graph, inputs, keep, out, launches):
+        self.graph, self.inputs, self.keep = graph, inputs, keep
+        self.out, self.launches = out, launches
+
+
 class Trainer:
     def __init__(self, model: torch.nn.Module, target_tokenizer=None, optimiser: str = "adam",
                  lr: float = 1e-3, weight_decay: float = 0.0, adam_beta1: float = 0.9,
@@ -289,7 +356,8 @@ class Trainer:
                  clip_grad: float = 1.0, modality_dropout: Optional[Sequence[str]] = None,
                  seed: int = 0, n_beams: int = 10, monitor: str = "val_molecular_accuracy",
                  checkpoint_every_n_vals: int = 1, checkpoint_wait_timeout_s: float = 600.0,
-                 batch_transform: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]] = None):
+                 batch_transform: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]] = None,
+                 cuda_graph: bool = True):
         """As the JAX ``Trainer``'s arguments. ``target_tokenizer`` (anything
         with ``batch_decode(ids, skip_special_tokens=True)``) is needed by
         ``validate`` and ``predict`` only. ``seed`` seeds the dropout stream
@@ -297,7 +365,10 @@ class Trainer:
         ``checkpoint_wait_timeout_s`` bounds each end-of-fit drain of the
         asynchronous saves. ``batch_transform``: ``train_step`` turns a
         batch with ``mix_idx`` into ``batch_transform(batch)`` on the device
-        (``DeviceMixture.expand``: the premix over its staged pool)."""
+        (``DeviceMixture.expand``: the premix over its staged pool).
+        ``cuda_graph``: on a CUDA device, replay each (batch shape,
+        accumulation phase)'s step from a CUDA graph (see the module's
+        docstring); False runs the same body eagerly."""
         self.model = model
         self.tokenizer = target_tokenizer
         self.params = list(model.parameters())
@@ -340,6 +411,27 @@ class Trainer:
         # the log thread, and whether logging turned itself off this fit.
         self._log_queue: Optional[queue.Queue] = None
         self._log_dead = False
+        # The captured steps by (batch signature, completes an accumulation),
+        # the keys whose first (eager) step ran, the graphs' one memory pool
+        # and their capture stream.
+        self._graphs: Dict[Any, _StepGraph] = {}
+        self._warm: set = set()
+        self._graph_pool = None
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        eager_reason = None
+        if not cuda_graph:
+            eager_reason = "cuda_graph=False"
+        elif self.device.type != "cuda":
+            eager_reason = f"{self.device.type} device"
+        elif not collectives_capturable(model, self.mesh):
+            eager_reason = "collectives a CUDA graph cannot hold (not NCCL)"
+            logger.info("The train step runs eagerly: its process groups' collectives are "
+                        "not NCCL's, and a CUDA graph cannot hold them")
+        # The train step's route: captures, replays, eager steps (the first
+        # step of each graph key included) and the host seconds capturing.
+        self.step_stats: Dict[str, Any] = {"graph": eager_reason is None,
+                                           "eager_reason": eager_reason, "captures": 0,
+                                           "replays": 0, "eager_steps": 0, "capture_s": 0.0}
 
     # ------------------------------------------------------------- state
     def state_tree(self) -> Dict[str, Any]:
@@ -408,15 +500,55 @@ class Trainer:
         returns 0-d tensors (no host sync): loss, model_only_loss,
         alignment_loss and grad_norm (the global norm of this batch's
         gradients, before clipping), each of the global batch under data
-        parallelism."""
+        parallelism. They are views of one tensor of this step's own: a
+        later step leaves them as they are."""
         self._seed_step()
-        batch = device_batch(batch, self.device)
+        completes = self.optimizer.plan()
+        if self.step_stats["graph"]:
+            metrics = self._graph_step(batch, completes)
+        else:
+            metrics = self._eager_step(device_batch(batch, self.device))
+        self.global_step += 1
+        return dict(zip(METRIC_KEYS, metrics))
+
+    def _droppable(self, batch: Dict[str, Any]) -> List[Tuple[int, int]]:
+        segments = modality_segments(batch["encoder_inputs"], self.model.embedding.modalities)
+        return [(start, end) for m, start, end in segments if m in self.modality_dropout]
+
+    def _draw_keep(self, keep: Optional[torch.Tensor]) -> None:
+        """This step's modality keep vector, drawn on the host (after
+        ``_seed_step``) into ``keep``."""
+        if keep is not None:
+            copy_from_host_(keep, modality_keep(len(keep), self.modality_generator))
+
+    def _eager_step(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The step body run eagerly on a device batch."""
+        self.step_stats["eager_steps"] += 1
+        return self._body(batch, self._keep_buffer(), draw=True)[0]
+
+    def _keep_buffer(self) -> torch.Tensor:
+        """Room for a step's modality keep vector: one entry per modality
+        that may be dropped. A capture takes it from outside the graph's
+        pool, where no op of the graph can write over what the host draws
+        into it before a replay."""
+        return torch.empty(len(self.modality_dropout), dtype=torch.float32, device=self.device)
+
+    def _body(self, batch: Dict[str, Any], keep: torch.Tensor, draw: bool
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The device half of a step (the ops a graph captures): expand an
+        index batch, mask the dropped modalities, forward, gradients, the
+        sum over the data group, then the optimizer's step under its plan.
+        Returns the ``METRIC_KEYS`` as one fp32 tensor, and the modality
+        keep vector the mask reads (the head of ``keep``, one entry per
+        droppable segment; None without any), drawn into it when ``draw``
+        (a capture leaves it to be drawn before each replay)."""
         if "mix_idx" in batch:
             batch = self.batch_transform(batch)
-        segments = modality_segments(batch["encoder_inputs"], self.model.embedding.modalities)
-        droppable = [(start, end) for m, start, end in segments if m in self.modality_dropout]
-        encoder_mask = apply_modality_dropout(batch["encoder_mask"], droppable,
-                                              self.modality_generator)
+        droppable = self._droppable(batch)
+        keep = keep[:len(droppable)] if droppable else None
+        if draw:
+            self._draw_keep(keep)
+        encoder_mask = apply_modality_dropout(batch["encoder_mask"], droppable, keep)
         counts = self.loss_counts(batch["labels"], encoder_mask)
         out = self.model(batch["encoder_inputs"], encoder_mask, batch["decoder_ids"],
                          batch["decoder_mask"], batch["labels"], batch.get("align_target"),
@@ -427,11 +559,85 @@ class Trainer:
         losses = [out[key].detach() for key in ("loss", "model_only_loss", "alignment_loss")]
         if counts is not None:
             grads, losses = self._sum_over_ranks(grads, losses, self.mesh)
-        grad_norm = self.optimizer.norm(grads)
+        # Sets optimizer.grad_norm, the norm the clip takes without
+        # accumulation (one global norm, one model-group reduce).
         self.optimizer.step(grads)
-        self.global_step += 1
-        return {"loss": losses[0], "model_only_loss": losses[1], "alignment_loss": losses[2],
-                "grad_norm": grad_norm}
+        return torch.stack([x.float() for x in losses] + [self.optimizer.grad_norm]), keep
+
+    def _stream(self) -> torch.cuda.Stream:
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(device=self.device)
+        self._capture_stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self._capture_stream
+
+    def _graph_step(self, batch: Dict[str, Any], completes: bool) -> torch.Tensor:
+        """The step through the graph of its key: the first step of a key
+        eagerly on the capture stream, the second captures, then replays."""
+        host = {key: batch[key] for key in DEVICE_KEYS if key in batch}
+        key = (_signature(host), completes)
+        entry = self._graphs.get(key)
+        if entry is None and key not in self._warm:
+            stream = self._stream()
+            with torch.cuda.stream(stream):
+                metrics = self._eager_step(device_batch(host, self.device))
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            self._warm.add(key)
+            return metrics
+        if entry is None:
+            entry = self._graphs[key] = self._capture(host)
+        else:
+            _fill(entry.inputs, host)
+            self.optimizer.planned = None     # taken by the replay, as step() takes it
+        self._draw_keep(entry.keep)
+        entry.graph.replay()
+        for fn, count in entry.launches.items():
+            fn.launches += count
+        self.step_stats["replays"] += 1
+        return entry.out.clone()
+
+    def _capture(self, host: Dict[str, Any]) -> _StepGraph:
+        """Capture the step body on static copies of ``host`` (the batch the
+        replay that follows takes) into the trainer's graph pool. The
+        device's cached free blocks are released first (the warm-up's
+        activations), for the pool; the host's pinned cache stays warm. A
+        capture launches nothing, so the launch counts it ticked are taken
+        back and recorded, to be added at every replay. A failed capture
+        raises."""
+        t0 = time.perf_counter()
+        inputs = device_batch(host, self.device)
+        keep = self._keep_buffer()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.dropout_generator)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        stream = self._stream()
+        before = _cuda.launch_counts()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=self._graph_pool)
+                try:
+                    out, keep = self._body(inputs, keep, draw=False)
+                finally:
+                    graph.capture_end()
+            after = _cuda.launch_counts()
+        finally:
+            for fn, count in before.items():
+                fn.launches = count
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self._graph_pool = graph.pool()
+        self.step_stats["captures"] += 1
+        self.step_stats["capture_s"] += time.perf_counter() - t0
+        return _StepGraph(graph, inputs, keep, out,
+                          {fn: after[fn] - before[fn] for fn in after if after[fn] != before[fn]})
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes held by the memory pool of the captured train steps
+        (their activations, gradients and outputs between steps)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
 
     @staticmethod
     def _sum_over_ranks(grads: Sequence[torch.Tensor], scalars: Sequence[torch.Tensor],
@@ -626,8 +832,10 @@ class Trainer:
             return
         if self._log_queue is None:
             self._log_queue = queue.Queue(maxsize=LOG_QUEUE_SIZE)
-            threading.Thread(target=self._log_loop, args=(self._log_queue,), daemon=True,
-                             name="train-metrics-log").start()
+            # The thread holds the trainer weakly: it outlives the fit, and
+            # must not keep the trainer (its state, its graphs' memory) alive.
+            threading.Thread(target=Trainer._log_loop, args=(weakref.ref(self), self._log_queue),
+                             daemon=True, name="train-metrics-log").start()
         try:
             self._log_queue.put_nowait((writer, epoch, step, metrics))
         except queue.Full:
@@ -635,14 +843,18 @@ class Trainer:
             logger.warning("Train-metric log queue full (fetch thread stuck?): train-metric "
                            "logging is off for the rest of this fit")
 
-    def _log_loop(self, events: queue.Queue) -> None:
+    @staticmethod
+    def _log_loop(trainer_ref: Callable[[], Optional["Trainer"]], events: queue.Queue) -> None:
         while True:
             event = events.get()
+            trainer = trainer_ref()
             try:
-                self._log_train(*event)
+                if trainer is not None:
+                    trainer._log_train(*event)
             except Exception:  # logging must not end the fit
                 logger.exception("Train-metric logging failed")
             finally:
+                del trainer
                 events.task_done()
 
     def _drain_logs(self, timeout_s: float = LOG_DRAIN_TIMEOUT_S) -> None:

@@ -1237,3 +1237,322 @@ def test_world_one_nccl_step_is_bit_equal_to_no_group(gen, monkeypatch):
         dist.destroy_process_group()
     assert grouped[0] == alone[0]
     assert all(torch.equal(a, b) for a, b in zip(grouped[1], alone[1]))
+
+
+# ------------------------------------------------------ the train step's graph
+TRAIN_DATA_CONFIG = {
+    "Formula": {"type": "text", "vocab_size": 32, "target": False},
+    "IR": {"type": "1D_patches", "target": False,
+           "preprocessor_arguments": {"patch_size": 125}},
+    "Smiles": {"type": "text", "vocab_size": 64, "target": True},
+}
+RLE_TRAIN_CONFIG = {
+    "RLE": {"type": "run_length_encoding", "vocab_size": 105, "target": False},
+    "Smiles": {"type": "text", "vocab_size": 64, "target": True},
+}
+MIX_TRAIN_CONFIG = {
+    "Formula": {"type": "text", "vocab_size": 30, "target": False},
+    "IR": {"type": "1D_patches", "target": False,
+           "preprocessor_arguments": {"patch_size": 75}},
+    "Smiles": {"type": "text", "vocab_size": 30, "target": True},
+}
+GRAPH_STEPS = 5
+
+
+def _train_model(data_config, dropout=0.1, dtype="float32", use_flash=False, vocab=64):
+    from multimodalanalytical_tpu_torch.models.config import ModelConfig
+    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
+
+    cfg = ModelConfig(d_model=128, encoder_layers=2, decoder_layers=2,
+                      encoder_attention_heads=2, decoder_attention_heads=2,
+                      encoder_ffn_dim=256, decoder_ffn_dim=256, vocab_size=vocab, dtype=dtype,
+                      dropout=dropout, use_flash_attention=use_flash,
+                      max_position_embeddings=4096)
+    return Seq2SeqModel(cfg, data_config, "Smiles", device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def _train_batch(seed, rows=4, source=None, vocab=64):
+    """A host batch of the Formula + IR recipe (or ``source``: modality ->
+    (ids, mask) of a long source), targets of 10 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if source is None:
+        inputs = {"Formula": rng.integers(4, 32, (rows, 12)),
+                  "IR": rng.random((rows, 14, 125)).astype(np.float32)}
+        mask = np.ones((rows, 26), np.int32)
+        mask[0, 8:12] = 0
+    else:
+        inputs, mask = source
+    dec = rng.integers(4, vocab, (rows, 10))
+    labels = dec.copy()
+    labels[1, 6:] = -100
+    return {"encoder_inputs": inputs, "encoder_mask": mask, "decoder_ids": dec,
+            "decoder_mask": (labels != -100).astype(np.int32), "labels": labels}
+
+
+def _rle_source(rows=2, length=2100):
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    mask = (np.arange(length)[None] < np.array([length, length - 77])[:rows, None])
+    ids = np.where(mask, rng.integers(4, 105, (rows, length)), 0)
+    return {"RLE": ids}, mask.astype(np.int32)
+
+
+def _train_state(trainer):
+    opt = trainer.optimizer
+    return [t.detach().clone() for t in trainer.params + opt.mu + opt.nu]
+
+
+def _steps(trainer, batches, steps=GRAPH_STEPS):
+    """Each step's metrics read at once and again after the last step (the
+    returned tensors must keep their values), and the state after."""
+    kept, now = [], []
+    for t in range(steps):
+        kept.append(trainer.train_step(batches[t % len(batches)]))
+        now.append({k: v.item() for k, v in kept[-1].items()})
+    assert [{k: v.item() for k, v in m.items()} for m in kept] == now
+    return now, _train_state(trainer)
+
+
+def _require_same_steps(graph, eager):
+    assert graph[0] == eager[0]
+    assert len(graph[1]) == len(eager[1])
+    assert all(torch.equal(a, b) for a, b in zip(graph[1], eager[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_embedding_backward_gives_the_same_bits_every_call(gen, dtype):
+    """The embedding's gradient at an RLE encoder's shape (B 8, L 4090, a
+    105-token vocabulary, width 512) is the same bits at every call, so
+    that a train step's graph and its eager body can agree bit for bit
+    (``F.embedding``'s backward did not, run to run, on the card)."""
+    from multimodalanalytical_tpu_torch.ops.layers import Embed
+
+    embed = Embed(105, 512, dtype=dtype, device="cuda", generator=gen)
+    ids = torch.randint(0, 105, (8, 4090), generator=gen, device="cuda")
+    grad_out = torch.randn(8, 4090, 512, generator=gen, device="cuda").to(dtype)
+    grads = [torch.autograd.grad(embed(ids), embed.weight, grad_out)[0] for _ in range(50)]
+    assert all(torch.equal(g, grads[0]) for g in grads[1:])
+    assert torch.equal(embed(ids), embed.weight.to(dtype)[ids])
+
+
+@pytest.mark.parametrize("case", ["dropout", "acc2", "two_shapes", "flash", "fused_dropout",
+                                  "device_mixture"])
+def test_graph_train_step_is_bit_equal_to_eager(gen, monkeypatch, case):
+    """5 steps through ``Trainer(cuda_graph=True)``'s replayed graphs and
+    through the same body eagerly (``cuda_graph=False``): losses, gradient
+    norms, parameters and Adam moments bit-equal; the returned metrics
+    keep their values after later replays; each graph key's first step
+    runs eagerly, the second captures. Cases: dropout 0.1 with modality
+    dropout; ``acc_batches`` 2 (a graph per phase); two batch shapes (a
+    graph per shape); the flash route at L 2100 (#5/#6 in the graph,
+    launched 2 layers x steps); every dropout site through fused dropout
+    (#7 in the graph, its seed drawn on the card from the registered
+    generator); the device-mixture premix inside the graph."""
+    from multimodalanalytical_tpu_torch.models import transformer
+    from multimodalanalytical_tpu_torch.ops import fused_dropout as fd
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    kwargs, keys, counted = {}, 1, ()
+    make_model = lambda: _train_model(TRAIN_DATA_CONFIG)  # noqa: E731
+    batches = [_train_batch(11), _train_batch(12)]
+    if case == "dropout":
+        kwargs["modality_dropout"] = ["Formula", "IR"]
+    elif case == "acc2":
+        kwargs.update(acc_batches=2, modality_dropout=["IR"])
+        keys = 2
+    elif case == "two_shapes":
+        batches = [_train_batch(11), _train_batch(13, rows=3)]
+        keys = 2
+    elif case == "flash":
+        make_model = lambda: _train_model(RLE_TRAIN_CONFIG, dtype="bfloat16",  # noqa: E731
+                                          use_flash=True)
+        batches = [_train_batch(11, rows=2, source=_rle_source())]
+        counted = (flash.flash_attention_fwd, flash.flash_attention_bwd)
+    elif case == "fused_dropout":
+        def fused(x, rate, generator, columns=None):
+            assert columns is None
+            return fd.dropout(x, rate, generator)
+
+        monkeypatch.setattr(transformer, "dropout", fused)
+        make_model = lambda: _train_model(TRAIN_DATA_CONFIG, dtype="bfloat16")  # noqa: E731
+        counted = (fd.fused_dropout,)
+    else:
+        premix, arrays, index_batch = _premix_inputs()
+        consts = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+        kwargs.update(batch_transform=lambda batch: premix(consts, batch),
+                      modality_dropout=["Formula", "IR"])
+        make_model = lambda: _train_model(MIX_TRAIN_CONFIG, vocab=30)  # noqa: E731
+        batches = [index_batch]
+
+    runs, launched = {}, {}
+    for graph in (False, True):
+        trainer = Trainer(make_model(), optimiser="adamw", lr=1e-3, num_steps=10,
+                          cuda_graph=graph, **kwargs)
+        for fn in counted:
+            fn.launches = 0
+        runs[graph] = _steps(trainer, batches)
+        launched[graph] = [fn.launches for fn in counted]
+        stats = trainer.step_stats
+        if graph:
+            assert stats["graph"] and stats["captures"] == keys
+            assert stats["eager_steps"] == keys
+            assert stats["replays"] == GRAPH_STEPS - keys
+            assert trainer.graph_pool_bytes() > 0
+        else:
+            assert not stats["graph"] and stats["eager_steps"] == GRAPH_STEPS
+        del trainer
+    _require_same_steps(runs[True], runs[False])
+    assert launched[True] == launched[False]
+    if case == "flash":
+        assert launched[True] == [2 * GRAPH_STEPS, 2 * GRAPH_STEPS]
+    elif case == "fused_dropout":
+        assert launched[True][0] > 0
+
+
+def test_graph_train_step_resumes_from_last_mid_fit(gen, tmp_path):
+    """Dropout 0.1 with modality dropout, 3 batches an epoch: a graph-route
+    fit cut at step 3 and resumed from ``last`` in a new trainer, and a
+    trainer whose graphs are captured loading that ``last`` in place
+    (``load_state_tree`` copies into the parameters and moments the graphs
+    read) and training on from it, both take the eager uninterrupted fit's
+    losses and end at its state, bit for bit."""
+    import shutil
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+    from multimodalanalytical_tpu_torch.training.checkpoint import CheckpointManager
+
+    batches = [_train_batch(11 + i) for i in range(3)]
+
+    def trainer(graph):
+        return Trainer(_train_model(TRAIN_DATA_CONFIG), optimiser="adamw", lr=1e-3,
+                       num_steps=6, cuda_graph=graph, modality_dropout=["Formula", "IR"])
+
+    straight = trainer(False)
+    want = straight.fit(batches, None, epochs=2)
+    first = trainer(True)
+    head = first.fit(batches, None, epochs=2, checkpoints=CheckpointManager(tmp_path / "a"),
+                     max_steps=3)
+    shutil.copytree(tmp_path / "a", tmp_path / "b")    # each resume saves over its last
+    resumed = trainer(True)
+    tail = resumed.fit(batches, None, epochs=2, checkpoints=CheckpointManager(tmp_path / "a"),
+                       resume=True)
+    assert head + tail == want
+    captured = trainer(True)
+    captured.fit(batches, None, epochs=2)
+    assert captured.step_stats["captures"] == 1
+    again = captured.fit(batches, None, epochs=2, checkpoints=CheckpointManager(tmp_path / "b"),
+                         resume=True)
+    assert again == want[3:] and captured.step_stats["captures"] == 1
+    for got in (resumed, captured):
+        assert all(torch.equal(a, b) for a, b in zip(_train_state(got), _train_state(straight)))
+
+
+def test_graph_train_step_in_a_world_one_nccl_group(gen, monkeypatch):
+    """5 steps of the graph route in a world-1 NCCL process group (whose
+    collectives a graph may hold) against the eager route with no group:
+    bit-equal; a gloo group would run the step eagerly."""
+    import socket
+
+    import torch.distributed as dist
+
+    from multimodalanalytical_tpu_torch.parallel import initialize_multihost
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    batches = [_train_batch(11), _train_batch(12)]
+
+    def run(graph):
+        trainer = Trainer(_train_model(TRAIN_DATA_CONFIG), optimiser="adamw", lr=1e-3,
+                          num_steps=10, cuda_graph=graph)
+        return _steps(trainer, batches), trainer.step_stats
+
+    alone, _ = run(False)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(AFM_MULTIHOST="1", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(key, value)
+    assert initialize_multihost(torch.device("cuda")) == torch.device("cuda", 0)
+    try:
+        grouped, stats = run(True)
+    finally:
+        dist.destroy_process_group()
+    assert stats["graph"] and stats["captures"] == 1
+    _require_same_steps(grouped, alone)
+
+
+def test_graph_train_step_captures_an_nccl_all_reduce(gen, monkeypatch):
+    """A graph holds NCCL's collectives. In a world-1 NCCL group: (1)
+    ``dist.all_reduce`` between two ops, captured on a side stream, sums
+    (over the one rank) what each replay's new input gives; (2) a trainer
+    on a data mesh of two ranks forced onto the one process, so that its
+    step sums the loss counts and the gradients over the group by
+    ``all_reduce`` inside the captured body, takes 5 steps on the graph
+    route bit-equal to the same mesh's eager route."""
+    import socket
+
+    import torch.distributed as dist
+
+    from multimodalanalytical_tpu_torch.parallel import initialize_multihost
+    from multimodalanalytical_tpu_torch.parallel.mesh import Mesh
+    from multimodalanalytical_tpu_torch.training import Trainer
+    from multimodalanalytical_tpu_torch.training import trainer as trainer_module
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(AFM_MULTIHOST="1", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(key, value)
+    assert initialize_multihost(torch.device("cuda")) == torch.device("cuda", 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        x = torch.zeros(1000, device="cuda")
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            y = x * 2                       # the communicator's setup, before capture
+            dist.all_reduce(y)
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            y = x * 2
+            dist.all_reduce(y)
+            z = y + 1
+        for _ in range(3):
+            x.copy_(torch.randn(1000, generator=gen, device="cuda"))
+            graph.replay()
+            assert torch.equal(z, x * 2 + 1)
+
+        calls = []
+        all_reduce = dist.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            calls.append(tuple(tensor.shape))
+            return all_reduce(tensor, *args, **kwargs)
+
+        monkeypatch.setattr(dist, "all_reduce", counted)
+        monkeypatch.setattr(trainer_module, "default_mesh", lambda: Mesh(n_data=2))
+        batches = [_train_batch(11), _train_batch(12)]
+        runs, reduced = {}, {}
+        for graph_route in (False, True):
+            trainer = Trainer(_train_model(TRAIN_DATA_CONFIG), optimiser="adamw", lr=1e-3,
+                              num_steps=10, cuda_graph=graph_route,
+                              modality_dropout=["Formula", "IR"])
+            calls.clear()
+            runs[graph_route] = _steps(trainer, batches)
+            reduced[graph_route] = len(calls)
+            stats = trainer.step_stats
+            del trainer
+        assert stats["graph"] and stats["captures"] == 1 and stats["replays"] == GRAPH_STEPS - 1
+        # Two all_reduces a step body (the loss counts, then the gradients):
+        # each eager step's, and the capture's, which the replays run.
+        assert reduced == {False: 2 * GRAPH_STEPS, True: 2 * 2}
+        _require_same_steps(runs[True], runs[False])
+    finally:
+        dist.destroy_process_group()
