@@ -8,6 +8,7 @@
     python3 chip_smoke.py --time-cross     # cross attention and SDPA, device times (one JSON line)
     python3 chip_smoke.py --tensor-parallel  # phase 11 alone
     python3 chip_smoke.py --eval-path      # phase 5 alone
+    python3 chip_smoke.py --serving        # phases 2, 7 and 12 alone (the serving paths)
     python3 chip_smoke.py --time-host-copies  # the parts of a save's host copy, timed
     python3 chip_smoke.py --dp-rank SPEC   # one rank of phase 10's two-rank fit (the script starts it)
     python3 chip_smoke.py --tp-rank SPEC   # one rank of phase 11's tensor-parallel pair (likewise)
@@ -63,10 +64,18 @@ line each, any failure raises and exits non-zero:
    seeded 128-spectrum requests (Formula 12 tokens + IR 14 x 125) through
    ``InferenceEngine.decode_batch`` at beam 10 and max length 128, each
    decode stage a replayed CUDA graph.
+   Each decode is three parts on static buffers, each replayed from its
+   graph: the prologue (the encoder, the cross K/V projection, the state
+   reset), the stage steps and the epilogue (the final merge).
    Every decode kernel's launch count must equal 6 x the graph replays
    (each replay adds what its capture recorded). The same requests then run
-   through the eager loop (``cuda_graph=False``: the same step, launched
-   eagerly), bit-equal and timed; a model whose lm_head bias favours EOS
+   through the eager loop (``cuda_graph=False``: the same parts, launched
+   eagerly), bit-equal and timed; per route, each request's prologue span
+   (CUDA events), the device memory held after the requests and at their
+   peak, and one request profiled for its device time and busy share; a
+   planted fault, a request decoded with the previous request's IR patches
+   left in the static inputs, must be rejected by the bit-equality check;
+   a model whose lm_head bias favours EOS
    (EXIT_EOS_BIAS) must exit early, graphs and eager loop bit-equal; then
    ``use_beam_kernel=False`` for the time and top-1 agreement;
 3. training, long sequences: the flagship-width model on one run-length-
@@ -113,10 +122,15 @@ line each, any failure raises and exits non-zero:
    beam 30, scored with rejection sampling off and on (the mixture paper's
    Table 4 recipe); (b) predict at K 30 and (c) validation over 4 more
    batches of 128 at the trainer's ``PIPELINE_DEPTH`` 0 and 8 (the module
-   constant patched), in turns: s/batch, device time, busy share, replays
-   and the calling thread's host seconds by part, every result equal to
-   depth 0's. Every decode kernel's launches must equal 6 x the graph
-   replays and capture warm-up steps of phase 5's decodes; one batch of
+   constant patched), in turns with a twin trainer on the eager route
+   (``cuda_graph=False``: ``eval_step`` and the decodes launched eagerly,
+   at depth 8): s/batch, device time, busy share, replays, the calling
+   thread's host seconds by part (``eval_step``'s of every run printed in
+   turns), the prologue span per batch and the device memory held and at
+   its peak, every result equal to the graph route's at depth 0; one
+   ``eval_step`` through its graph and eagerly, bit-equal. Every decode
+   kernel's launches must equal 6 x the steps run (graph replays, eager
+   steps and capture warm-up steps) of phase 5's decodes; one batch of
    each also through the eager loop, bit-equal;
 6. guided decoding: phase 5's restored model predicts at beam 10 with the
    surrogate formula guide (inside the captured step) on the corpus
@@ -130,7 +144,8 @@ line each, any failure raises and exits non-zero:
    requests through ``InferenceEngine.decode_batch`` at beam 10 through the
    decode graphs (capture apart), every decode kernel launched 6 x the
    replays, bit-equal to the eager loop, with s/batch, device time, busy
-   share and the kernel split; one dropout-0 train step of the bf16 model
+   share, prologue span and memory per route and the kernel split; one
+   dropout-0 train step of the bf16 model
    against its fp32 twin, three AdamW steps at B 128 with modality dropout
    over the dict-aware segments; the multiplets as XVal dicts through the
    forward and a train step;
@@ -208,11 +223,12 @@ line each, any failure raises and exits non-zero:
    row), three seeded 128-spectrum requests (rows of 2173-4090 tokens
    padded to 4090, one full, one fully padded) at beam 10 and max length
    128 through the decode graphs: #1-#3 launched 6 x the replays, flash #5
-   6 x the requests (the encoder at L >= 2048), bit-equal to the eager
-   loop; s/batch (the first request beside the steady ones), device time,
-   busy share, #2's share of it, the encoder's ms and the peak memory
-   with its parts (held between requests, a standalone encode, #2's
-   workspace).
+   6 x the requests (the encoder at L >= 2048, inside the prologue's
+   graph), bit-equal to the eager loop; s/batch (the first request beside
+   the steady ones), device time, busy share, prologue span and memory
+   per route, #2's share of device time, a standalone encode's ms and the
+   peak memory with its parts (held between requests, a standalone encode,
+   #2's workspace).
 
 Phase 1 also holds #2's split form at the multimodal encoder's Ls 279 and
 at an RLE encoder's Ls 4090 (B 128, K 1, 10 and 30; rows fully masked,
@@ -1588,7 +1604,9 @@ def _request(seed: int, batch: int = BATCH):
     formula = np.where(formula_keep, rng.integers(4, 32, (batch, FORMULA_LEN)), 0)
     ir = rng.random((batch, N_PATCHES, PATCH)).astype(np.float32)
     mask = np.concatenate([formula_keep, np.ones((batch, N_PATCHES), bool)], axis=1)
-    return {"Formula": formula.astype(np.int64), "IR": ir}, mask.astype(np.int32)
+    # int32 ids, as the collator gives them: a decode is captured per
+    # inputs' dtypes, and the engine's warm batch comes from the collator.
+    return {"Formula": formula.astype(np.int32), "IR": ir}, mask.astype(np.int32)
 
 
 def _multimodal_model(dtype: str = "bfloat16", dropout: float = 0.1):
@@ -1726,6 +1744,37 @@ def _require_bit_equal(what: str, graph: tuple, eager: tuple) -> None:
     _require(equal, f"{what}: the graph decode differs from the eager decode")
 
 
+def check_stale_inputs(engine, requests) -> None:
+    """The planted fault of a graph that reads a previous request's inputs:
+    one request decoded through the engine's graphs, then the next with its
+    IR patches' copy into the static inputs skipped (``_Decode.load``
+    patched), against that request's eager decode: the bit-equality check
+    must reject it, and pass again once the copy is back."""
+    import numpy as np
+
+    from multimodalanalytical_tpu_torch.generation import beam_search
+
+    decoder, load = engine.decoder, beam_search._Decode.load
+    eager = _eager_decode(decoder, *requests[1], BEAMS)
+    _graph_decode(decoder, *requests[0], BEAMS)
+
+    def skipping(self, encoder_inputs, encoder_mask, hook_init):
+        load(self, dict(encoder_inputs, IR=self.inputs["IR"]), encoder_mask, hook_init)
+
+    beam_search._Decode.load = skipping
+    try:
+        stale = _graph_decode(decoder, *requests[1], BEAMS)
+    finally:
+        beam_search._Decode.load = load
+    fixed = _graph_decode(decoder, *requests[1], BEAMS)
+    same = [np.array_equal(got[0], eager[0]) and np.array_equal(got[1], eager[1])
+            for got in (stale, fixed)]
+    print(f"planted stale input (the IR patches' copy skipped): bit-equal to the request's "
+          f"eager decode {same[0]} (must be rejected); with the copy {same[1]}", flush=True)
+    _require(not same[0], "the check did not reject a decode of the previous request's IR")
+    _require(same[1], "the decode with every input copied differs from the eager decode")
+
+
 # A planted early exit: random weights decode all 127 steps, so an lm_head
 # bias that favours EOS this much makes the decode exit early (finished
 # hypotheses ~ -EXIT_EOS_BIAS / 2, live sums falling ~EXIT_EOS_BIAS a step:
@@ -1772,16 +1821,20 @@ def _serve_requests(engine, requests, what: str, model, kernels: bool = True,
     for fn in counters + tuple(encoder_counters):
         fn.launches = 0
     results, seconds, steps, replays = [], [], 0, 0
-    for inputs, mask in requests:
-        t0 = time.perf_counter()
-        seqs, scores = engine.decode_batch(inputs, mask)
-        seconds.append(time.perf_counter() - t0)
-        stats = engine.last_stats
-        _require(stats["graph"] and stats["warmup_steps"] == 0,
-                 f"a {what} request did not replay the engine's graphs")
-        steps += stats["steps"]
-        replays += stats["replays"]
-        results.append((seqs, scores, dict(stats), seconds[-1]))
+    routes = {}
+    _reset_peak()
+    with _prologue_spans(engine.decoder) as spans:
+        for inputs, mask in requests:
+            t0 = time.perf_counter()
+            seqs, scores = engine.decode_batch(inputs, mask)
+            seconds.append(time.perf_counter() - t0)
+            stats = engine.last_stats
+            _require(stats["graph"] and stats["prologue_graph"] and stats["warmup_steps"] == 0,
+                     f"a {what} request did not replay the engine's graphs")
+            steps += stats["steps"]
+            replays += stats["replays"]
+            results.append((seqs, scores, dict(stats), seconds[-1]))
+    routes["graph"] = _route_record(seconds, spans, engine.decoder)
     launches = {fn.__name__: fn.launches for fn in counters}
     encoder = {fn.__name__: fn.launches for fn in encoder_counters}
     print(f"{what}: {len(requests)} requests x {BATCH} spectra, beam {BEAMS}, {steps} decode "
@@ -1810,16 +1863,103 @@ def _serve_requests(engine, requests, what: str, model, kernels: bool = True,
     # The same requests through the eager loop (the same step, launched
     # eagerly): bit-equal, timed.
     eager_seconds = []
-    for (inputs, mask), graph in zip(requests, results):
-        eager = _eager_decode(engine.decoder, inputs, mask, BEAMS)
-        eager_seconds.append(eager[3])
-        _require_bit_equal(f"{what} request", graph, eager)
+    _reset_peak()
+    with _prologue_spans(engine.decoder) as spans:
+        for (inputs, mask), graph in zip(requests, results):
+            eager = _eager_decode(engine.decoder, inputs, mask, BEAMS)
+            eager_seconds.append(eager[3])
+            _require(not eager[2]["prologue_graph"], "the eager decode replayed its prologue")
+            _require_bit_equal(f"{what} request", graph, eager)
+    routes["eager"] = _route_record(eager_seconds, spans, engine.decoder)
     eager_per_batch = sum(eager_seconds) / len(eager_seconds)
     print(f"{what} kernel path, eager loop (cuda_graph=False): {eager_per_batch:.4f} s/batch "
           f"({BATCH / eager_per_batch:.2f} spectra/s), per request "
           f"{[round(x, 4) for x in eager_seconds]}; graphs / eager "
           f"{per_batch / eager_per_batch:.3f}", flush=True)
-    return launches, per_batch, results
+    print(f"{what} per route: prologue (encoder, cross K/V projection, state reset) span per "
+          f"request, CUDA events: graph {routes['graph']['span_ms']} ms, eager "
+          f"{routes['eager']['span_ms']} ms; device memory after the requests (peak over "
+          f"them): graph {_memory_text(routes['graph'])}; eager "
+          f"{_memory_text(routes['eager'])}", flush=True)
+    return launches, per_batch, results, routes
+
+
+def _reset_peak() -> None:
+    """The device's peak-memory counter reset, once its queued work has run."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def _prologue_spans(decoder):
+    """CUDA events around every prologue ``decoder`` runs (the encoder,
+    the cross K/V projection and the state reset: one graph replay, or the
+    same calls eagerly), recorded on the launching stream; yields the
+    list of (start, end) pairs."""
+    import torch
+
+    pairs, run = [], decoder._run
+
+    def timed(d, part, use_graph, fn):
+        if part != "prologue":
+            return run(d, part, use_graph, fn)
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        run(d, part, use_graph, fn)
+        pair[1].record()
+        pairs.append(pair)
+
+    decoder._run = timed
+    try:
+        yield pairs
+    finally:
+        del decoder._run
+
+
+def _route_record(seconds: list, spans: list, decoder, trainer=None) -> dict:
+    """A route's s/batch, its prologue spans (ms), and the device memory:
+    allocated now and at the peak since the last :func:`_reset_peak`,
+    reserved now, and the bytes in ``decoder``'s decode graphs' pools (and
+    in ``trainer``'s evaluation graphs' pool)."""
+    import torch
+
+    torch.cuda.synchronize()
+    pools = decoder.graph_pool_bytes() + (trainer.eval_pool_bytes() if trainer else 0)
+    return {"per_batch": sum(seconds) / len(seconds),
+            "span_ms": [round(start.elapsed_time(end), 4) for start, end in spans],
+            "held_gib": torch.cuda.memory_allocated() / 2 ** 30,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+            "pools_gib": pools / 2 ** 30}
+
+
+def _memory_text(record: dict) -> str:
+    return (f"allocated {record['held_gib']:.3f} GiB (peak {record['peak_gib']:.3f}), reserved "
+            f"{record['reserved_gib']:.3f}, graph pools {record['pools_gib']:.3f} GiB")
+
+
+def _route_busy(engine, request, what: str, routes: dict) -> dict:
+    """``request`` profiled once on each route (``torch.profiler``): device
+    time (kernels and copies) and the busy share against the route's
+    unprofiled s/batch. Returns {route: _device_time's tuple}."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiled = {}
+    for route in routes:
+        decode = _graph_decode if route == "graph" else _eager_decode
+        with torch.profiler.profile(activities=activities) as prof:
+            decode(engine.decoder, *request, BEAMS)
+            torch.cuda.synchronize()
+        profiled[route] = _device_time(prof)
+    print(f"{what} per route, one request profiled: " + "; ".join(
+        f"{route} device time {device_s:.4f} s (kernels and copies), busy share "
+        f"{device_s / routes[route]['per_batch']:.3f} (of the unprofiled s/batch), host "
+        f"launches {graphs} graph + {launches} kernel"
+        for route, (device_s, _, launches, graphs) in profiled.items()), flush=True)
+    return profiled
 
 
 def _serving_collator():
@@ -1869,18 +2009,21 @@ def run_slice() -> dict:
     engine.decode_batch(*_request(seed=100))
     first_s = time.perf_counter() - t0
     first = engine.last_stats
-    print(f"slice warm-up in the engine's constructor: graph capture {warm['capture_s']:.4f} s "
-          f"for {warm['warmup_steps']} stages, {build_s:.4f} s in all; first request "
-          f"{first_s:.4f} s (capture_s {first['capture_s']}, warmup_steps "
-          f"{first['warmup_steps']}, graph {first['graph']})", flush=True)
-    _require(warm["graph"] and warm["warmup_steps"] > 0,
+    print(f"slice warm-up in the engine's constructor: graph capture (prologue, "
+          f"{warm['warmup_steps']} stages, epilogue) {warm['capture_s']:.4f} s, {build_s:.4f} s "
+          f"in all; first request {first_s:.4f} s (capture_s {first['capture_s']}, "
+          f"warmup_steps {first['warmup_steps']}, graph {first['graph']}, prologue_graph "
+          f"{first['prologue_graph']})", flush=True)
+    _require(warm["graph"] and warm["prologue_graph"] and warm["warmup_steps"] > 0,
              "the engine's warm-up captured no decode graphs")
     _require(first["capture_s"] == 0 and first["warmup_steps"] == 0 and first["graph"],
              "the first request captured its decode graphs: the warm-up missed its shape")
     requests = [_request(seed) for seed in (1, 2, 3)]
-    launches, per_batch, results = _serve_requests(engine, requests, "slice", model)
+    launches, per_batch, results, routes = _serve_requests(engine, requests, "slice", model)
     print(f"slice first request {first_s:.4f} s against a steady {per_batch:.4f} s/batch",
           flush=True)
+    _route_busy(engine, requests[0], "slice", routes)
+    check_stale_inputs(engine, requests)
     check_early_exit(model)
 
     plain_engine = InferenceEngine(plain_model, n_beams=BEAMS, batch_size=BATCH)
@@ -2470,26 +2613,41 @@ def _eval_fit(tokenizer, train, val, directory, route: str) -> dict:
             "fit_s": time.perf_counter() - t0, **spent}
 
 
-def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
-    """``run()`` (a validate or predict over ``batches`` batches of
-    ``owner``) at each of PIPELINE_DEPTHS (the trainer module's
-    ``PIPELINE_DEPTH`` patched): unprofiled in PIPELINE_ORDER for the wall
-    time, then once each under ``torch.profiler`` for the device time
-    (kernels and copies). Prints s/batch, device s/batch, the busy share
-    and the replays of each, and where the calling thread's seconds went in
-    its first run (``eval_step``, the search and its replay dispatch, the
-    detokenising inside the search or in ``submit`` / ``finish``); requires
-    every run's result equal to depth 0's. Returns {depth: result}."""
+# Phase 5 (b), (c): (route, depth) of the unprofiled runs, in turns, and of
+# the profiled ones. The eager route (a trainer with cuda_graph=False: its
+# eval_step and decodes launched eagerly) runs at the trainer's depth only,
+# and is profiled over its first batch (~30,000 device events a batch).
+PIPELINE_RUNS = (("graph", 0), ("eager", 8), ("graph", 8), ("graph", 8), ("eager", 8),
+                 ("graph", 0))
+PIPELINE_PROFILED = {("graph", 0): None, ("graph", 8): None, ("eager", 8): 1}
+
+
+def _pipeline_runs(what: str, owners: dict, run, loader: list) -> dict:
+    """``run(owner, batches)`` (a validate or predict over the batches of
+    ``loader``) of ``owners[route]`` at each (route, depth) of PIPELINE_RUNS
+    (the trainer module's ``PIPELINE_DEPTH`` patched): unprofiled for the
+    wall time, then once each of PIPELINE_PROFILED under ``torch.profiler``
+    (over the first n batches where it names n) for the device time
+    (kernels and copies). Prints, per route and depth, s/batch, device
+    s/batch, the busy share, the replays, where the calling thread's seconds
+    went in its first run (``eval_step``, the search and its replay
+    dispatch, the detokenising inside the search or in ``submit`` /
+    ``finish``), each batch's prologue span (CUDA events) and the device
+    memory held after a run and at its peak; then ``eval_step``'s host s
+    per batch of every run of each route. Requires every run's result equal
+    to the graph route's at depth 0. Returns {(route, depth): result}."""
     import torch
 
     from multimodalanalytical_tpu_torch.training import trainer as trainer_module
 
-    pipeline, tokenizer = trainer_module._Pipeline, owner.tokenizer
-    hooks = {"eval_step": (owner, owner.eval_step), "search": (owner, owner._decode),
-             "detokenise": (tokenizer, tokenizer.batch_decode),
-             "submit": (pipeline, pipeline.submit), "finish": (pipeline, pipeline.finish)}
+    pipeline = trainer_module._Pipeline
 
-    def at(depth):
+    def at(route, depth, batches):
+        owner = owners[route]
+        tokenizer = owner.tokenizer
+        hooks = {"eval_step": (owner, owner.eval_step), "search": (owner, owner._decode),
+                 "detokenise": (tokenizer, tokenizer.batch_decode),
+                 "submit": (pipeline, pipeline.submit), "finish": (pipeline, pipeline.finish)}
         saved, trainer_module.PIPELINE_DEPTH = trainer_module.PIPELINE_DEPTH, depth
         host = {name: 0.0 for name in hooks}
         host["dispatch"] = 0.0
@@ -2509,11 +2667,15 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
             setattr(obj, fn.__name__, timed(name, fn))
         try:
             before = owner.decode_replays
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = run()
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0, owner.decode_replays - before, host
+            _reset_peak()
+            decoder = owner.beam_decoder()
+            with _prologue_spans(decoder) as spans:
+                t0 = time.perf_counter()
+                out = run(owner, batches)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            record = _route_record([wall / len(batches)], spans, decoder, owner)
+            return out, wall, owner.decode_replays - before, host, record
         finally:
             trainer_module.PIPELINE_DEPTH = saved
             for obj, fn in hooks.values():
@@ -2522,28 +2684,64 @@ def _pipeline_runs(what: str, owner, run, batches: int) -> dict:
                 else:
                     delattr(obj, fn.__name__)
 
-    results, walls, replays, device, hosts = {}, {}, {}, {}, {}
-    for depth in PIPELINE_ORDER:
-        out, wall, count, host = at(depth)
-        results.setdefault(depth, out)
-        hosts.setdefault(depth, host)
-        _require(out == results[0], f"{what} at depth {depth} returned other results than at 0")
-        walls.setdefault(depth, []).append(wall / batches)
-        replays.setdefault(depth, []).append(count)
+    batches = len(loader)
+    results, walls, replays, device, hosts, records = {}, {}, {}, {}, {}, {}
+    for key in PIPELINE_RUNS:
+        out, wall, count, host, record = at(*key, loader)
+        results.setdefault(key, out)
+        hosts.setdefault(key, []).append(host)
+        records.setdefault(key, record)
+        _require(out == results[PIPELINE_RUNS[0]],
+                 f"{what} on the {key[0]} route at depth {key[1]} returned other results than "
+                 f"the graph route at depth 0")
+        walls.setdefault(key, []).append(wall / batches)
+        replays.setdefault(key, []).append(count)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for depth in PIPELINE_DEPTHS:
+    for key, first in PIPELINE_PROFILED.items():
         with torch.profiler.profile(activities=activities) as prof:
-            at(depth)
-        device[depth] = _device_time(prof)[0] / batches
-    for depth in PIPELINE_DEPTHS:
-        wall = sum(walls[depth]) / len(walls[depth])
-        host = {k: round(v / batches, 4) for k, v in hosts[depth].items()}
-        print(f"eval path pipeline, {what}, depth {depth}: {[round(x, 4) for x in walls[depth]]} "
-              f"s/batch over {batches} batches of {BATCH}; device time {device[depth]:.4f} "
-              f"s/batch (kernels and copies, profiled run); busy share "
-              f"{device[depth] / wall:.3f}; replays {replays[depth]} per run; host s/batch of "
-              f"its first run {host}", flush=True)
+            at(*key, loader[:first])
+        device[key] = _device_time(prof)[0] / (first or batches)
+    for key in PIPELINE_PROFILED:
+        wall = sum(walls[key]) / len(walls[key])
+        host = {k: round(v / batches, 4) for k, v in hosts[key][0].items()}
+        record = records[key]
+        print(f"eval path pipeline, {what}, {key[0]} route, depth {key[1]}: "
+              f"{[round(x, 4) for x in walls[key]]} s/batch over {batches} batches of {BATCH}; "
+              f"device time {device[key]:.4f} s/batch (kernels and copies, profiled run over "
+              f"{PIPELINE_PROFILED[key] or batches} batches); busy "
+              f"share {device[key] / wall:.3f}; replays {replays[key]} per run; host s/batch of "
+              f"its first run {host}; prologue span per batch {record['span_ms']} ms; device "
+              f"memory {_memory_text(record)}", flush=True)
+    turns, taken = [], {key: 0 for key in hosts}
+    for key in PIPELINE_RUNS:
+        turns.append((*key, round(hosts[key][taken[key]]["eval_step"] / batches, 5)))
+        taken[key] += 1
+    print(f"eval path eval_step, {what}: the calling thread's host s/batch in eval_step, runs "
+          f"in turns (route, depth, s/batch) {turns}; graph route {owners['graph'].eval_stats}; "
+          f"eager route {owners['eager'].eval_stats}", flush=True)
     return results
+
+
+def check_eval_step(graph, eager, batch) -> None:
+    """One ``eval_step`` of ``batch`` through ``graph``'s replayed graph
+    and ``eager``'s eager forward (the same model): every output bit-equal;
+    the first call's outputs left as they were by a second call of another
+    batch."""
+    import torch
+
+    from multimodalanalytical_tpu_torch.training.trainer import device_batch
+
+    dev = device_batch(batch, graph.device)
+    got, want = graph.eval_step(dev), eager.eval_step(dev)
+    kept = {k: v.clone() for k, v in got.items()}
+    other = dict(dev, decoder_ids=dev["decoder_ids"].flip(0))
+    graph.eval_step(other)
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    held = all(torch.equal(got[k], kept[k]) for k in kept)
+    print(f"eval path eval_step: graph route against eager bit-equal {same}; outputs kept "
+          f"through the next replay {held}; {graph.eval_stats}", flush=True)
+    _require(same and held and graph.eval_stats["graph"] and graph.eval_stats["replays"] > 0,
+             "eval_step's graph differs from its eager forward")
 
 
 def run_eval_path() -> dict:
@@ -2664,12 +2862,18 @@ def run_eval_path() -> dict:
           f"{predictor.decode_steps} decode steps, avg_loss {predictions['avg_loss']:.4f}",
           flush=True)
 
-    # (b) and (c): the pipeline at depth 0 and 8 (the graphs are captured).
-    _pipeline_runs(f"predict K {EVAL_BEAMS}", predictor,
-                   lambda: predictor.predict(extra, n_beams=EVAL_BEAMS), PIPELINE_BATCHES)
-    _pipeline_runs("validation K 1", trainer, lambda: trainer.validate(extra), PIPELINE_BATCHES)
+    # (b) and (c): the pipeline at depth 0 and 8 (the graphs are captured),
+    # in turns with twins on the eager route (the same weights).
+    eager_predictor = Trainer(fresh, tokenizer, n_beams=EVAL_BEAMS, cuda_graph=False)
+    eager_trainer = Trainer(trainer.model, tokenizer, cuda_graph=False)
+    _pipeline_runs(f"predict K {EVAL_BEAMS}", {"graph": predictor, "eager": eager_predictor},
+                   lambda owner, batches: owner.predict(batches, n_beams=EVAL_BEAMS), extra)
+    _pipeline_runs("validation K 1", {"graph": trainer, "eager": eager_trainer},
+                   lambda owner, batches: owner.validate(batches), extra)
+    check_eval_step(trainer, eager_trainer, extra[0])
 
-    owners = [fit["trainer"] for fit in fits.values()] + [predictor]
+    owners = ([fit["trainer"] for fit in fits.values()]
+              + [predictor, eager_predictor, eager_trainer])
     launches = {fn.__name__: fn.launches for fn in counters}
     decode_steps = sum(t.decode_steps for t in owners)
     replays = sum(t.decode_replays for t in owners)
@@ -2821,9 +3025,12 @@ def run_multimodal_path() -> dict:
     real = [round(int(mask.sum()) / BATCH, 1) for _, mask in requests]
     print(f"multimodal serving: Formula {MM_FORMULA} + Multiplets {MM_MULTIPLETS} + Carbon "
           f"{MM_CARBON} + IR {MM_PATCHES} x {MM_PATCH} = Ls {MM_LS}, {real} valid keys per "
-          f"row; graph capture (first request): {capture['capture_s']:.4f} s for "
-          f"{capture['warmup_steps']} stages, first request {first_s:.4f} s in all", flush=True)
-    launches, per_batch, results = _serve_requests(engine, requests, "multimodal", model)
+          f"row; graph capture (first request: prologue, {capture['warmup_steps']} stages, "
+          f"epilogue): {capture['capture_s']:.4f} s, first request {first_s:.4f} s in all",
+          flush=True)
+    _require(capture["prologue_graph"], "the multimodal request captured no prologue graph")
+    launches, per_batch, results, routes = _serve_requests(engine, requests, "multimodal",
+                                                           model)
 
     dmodel = engine.model
     inputs, mask = requests[0]
@@ -2832,16 +3039,22 @@ def run_multimodal_path() -> dict:
         encode_ms = _time_ms(lambda: dmodel.encode(inputs, mask), iters=5)
         hidden = dmodel.encode(inputs, mask)
         project_ms = _time_ms(lambda: dmodel.decoder.project_cross_kv(hidden), iters=5)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        engine.decode_batch(*requests[0])
-        torch.cuda.synchronize()
-    device_s, rows, _, graphs = _device_time(prof)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            dmodel.encode(inputs, mask)
+            torch.cuda.synchronize()
+    encode_s, encode_rows, encode_launches, _ = _device_time(prof)
+    print(f"multimodal encoder, a standalone encode profiled: device time "
+          f"{1e3 * encode_s:.4f} ms in {sum(c for _, c, _ in encode_rows)} device events from "
+          f"{encode_launches} kernel launches; the largest: "
+          + "; ".join(f"{ms:.3f} ms x {calls} {kernel[:60]}"
+                      for ms, calls, kernel in encode_rows[:6]), flush=True)
+    device_s, rows, _, graphs = _route_busy(engine, requests[0], "multimodal", routes)["graph"]
     split = _kernel_split(rows)
     print(f"multimodal serving, one request profiled: device time {device_s:.4f} s (kernels "
           f"and copies only), busy share {device_s / per_batch:.3f} (device / unprofiled "
-          f"s/batch), {graphs} graph launches; encoder {encode_ms:.4f} ms and cross K/V "
-          f"projection {project_ms:.4f} ms per request (CUDA events); device ms by kernel "
+          f"s/batch), {graphs} graph launches; a standalone eager encode {encode_ms:.4f} ms "
+          f"and cross K/V projection {project_ms:.4f} ms (CUDA events); device ms by kernel "
           f"{ {k: round(v, 2) for k, v in split.items()} }", flush=True)
     for ms, calls, kernel in rows[:PROFILE_TOP]:
         print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
@@ -2867,7 +3080,7 @@ def _rle_request(seed: int) -> tuple:
     lengths[0], lengths[-1] = RLE_MAX_LEN, 0
     keep = np.arange(RLE_MAX_LEN)[None, :] < lengths[:, None]
     ids = np.where(keep, rng.integers(4, RLE_VOCAB, (BATCH, RLE_MAX_LEN)), 0)
-    return {"RLE": ids.astype(np.int64)}, keep.astype(np.int32)
+    return {"RLE": ids.astype(np.int32)}, keep.astype(np.int32)     # the collator's dtypes
 
 
 def _rle_collator():
@@ -2926,21 +3139,23 @@ def run_rle_serving() -> dict:
     engine.decode_batch(*requests[0])
     first_s = time.perf_counter() - t0
     first = engine.last_stats
-    _require(first["capture_s"] == 0 and first["warmup_steps"] == 0 and first["graph"],
+    _require(first["capture_s"] == 0 and first["warmup_steps"] == 0 and first["graph"]
+             and first["prologue_graph"] and warm["prologue_graph"],
              "the first RLE request captured its decode graphs: the warm-up missed its shape")
     valid = [round(int(mask.sum()) / BATCH, 1) for _, mask in requests]
     print(f"RLE serving: Ls {RLE_MAX_LEN}, {valid} valid keys per row; engine built in "
           f"{build_s:.4f} s (warm batch: capture {warm['capture_s']:.4f} s for "
           f"{warm['warmup_steps']} stages); first request {first_s:.4f} s", flush=True)
-    launches, per_batch, results = _serve_requests(engine, requests, "RLE", model,
-                                                   encoder_counters=(flash_fwd,))
+    build_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, per_batch, results, routes = _serve_requests(engine, requests, "RLE", model,
+                                                           encoder_counters=(flash_fwd,))
     print(f"RLE serving: first request {first_s:.4f} s against a steady {per_batch:.4f} "
           f"s/batch", flush=True)
 
     dmodel = engine.model
     inputs, mask = requests[1]
     inputs, mask = to_device(inputs, DEVICE), torch.as_tensor(mask, device=DEVICE)
-    serve_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    serve_peak_gb = max(build_peak_gb, *(r["peak_gib"] for r in routes.values()))
     held_gb = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -2952,18 +3167,14 @@ def run_rle_serving() -> dict:
           f"request tensors, graph pools); a standalone encode adds {encode_gb:.2f} GiB at its "
           f"peak; #2's split-form workspace {cross_ws.workspace_bytes} bytes a call (K "
           f"{BEAMS}, Ls {RLE_MAX_LEN}, {cross_ws.tile_keys}-key tiles)", flush=True)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        engine.decode_batch(*requests[1])
-        torch.cuda.synchronize()
-    device_s, rows, _, graphs = _device_time(prof)
+    device_s, rows, _, graphs = _route_busy(engine, requests[1], "RLE", routes)["graph"]
     split = _kernel_split(rows)
     peak_gb = max(serve_peak_gb, torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"RLE serving, one request profiled: device time {device_s:.4f} s (kernels and "
           f"copies only), busy share {device_s / per_batch:.3f} (device / unprofiled s/batch), "
           f"{graphs} graph launches; #2 cross attention {split['#2 cross attention']:.2f} ms, "
-          f"{100 * split['#2 cross attention'] / (device_s * 1e3):.1f}% of device time; encoder "
-          f"{encode_ms:.4f} ms per request (CUDA events); device ms by kernel "
+          f"{100 * split['#2 cross attention'] / (device_s * 1e3):.1f}% of device time; a "
+          f"standalone eager encode {encode_ms:.4f} ms (CUDA events); device ms by kernel "
           f"{ {k: round(v, 2) for k, v in split.items()} }; peak device memory {peak_gb:.2f} GiB",
           flush=True)
     for ms, calls, kernel in rows[:PROFILE_TOP]:
@@ -3345,8 +3556,8 @@ def _serve_preset(name: str) -> dict:
     print(f"preset {name}: graph capture (first request) {capture['capture_s']:.4f} s for "
           f"{capture['warmup_steps']} stages, first request {first_s:.4f} s in all", flush=True)
     request = _request(seed=PRESET_REQUEST_SEEDS[1])
-    launches, per_batch, results = _serve_requests(engine, [request], f"preset {name}", model,
-                                                   kernels=kernels)
+    launches, per_batch, results, _ = _serve_requests(engine, [request], f"preset {name}",
+                                                      model, kernels=kernels)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         engine.decode_batch(*request)
@@ -4108,9 +4319,10 @@ def profile_eval() -> None:
     of 128 spectra, one greedy (K 1) validation pass over 128, and one
     128-spectrum serving request at beam 10 (phase 2's), on a fresh
     flagship model (random weights, so every row decodes all steps), each
-    through its CUDA graphs. Each runs once to capture and warm up, once
-    unprofiled for its wall time and once profiled; prints device time by
-    kernel, the busy share (device time / unprofiled wall time), the host's
+    through its CUDA graphs (the trainer's eval_step, and each decode's
+    prologue, stage steps and epilogue). Each runs once to capture and warm
+    up, once unprofiled for its wall time and once profiled; prints device
+    time by kernel, the busy share (device time / unprofiled wall time), the host's
     ms per decode step launching it and the launches per step as the host
     makes them (graph launches plus eager kernel launches), beside the
     host-side loop's (EAGER_LOOP_PROFILE)."""
@@ -4158,8 +4370,12 @@ def profile_eval() -> None:
               f"per decode step launching it; launches as the host makes them: {graphs} graph "
               f"launches + {launches} kernel launches = {(graphs + launches) / replays:.2f} per "
               f"step (host-side loop: {old_launches} kernel launches per step)", flush=True)
-        _require(stats["graph"] and graphs >= replays,
-                 f"profile {name}: the decode did not replay its graphs")
+        _require(stats["graph"] and stats["prologue_graph"] and graphs >= replays + 2,
+                 f"profile {name}: the decode did not replay its graphs (prologue, steps, "
+                 f"epilogue)")
+        if name != f"serve K {BEAMS}":
+            print(f"profile {name}: eval_step route {trainer.eval_stats}", flush=True)
+            _require(trainer.eval_stats["replays"] > 0, f"profile {name}: no eval_step replay")
         ffn = [(ms, calls) for ms, calls, kernel in rows if "ffn_" in kernel]
         ffn_ms = sum(ms for ms, _ in ffn)
         print(f"profile {name}: decode FFN (#3) kernels {ffn_ms:.2f} ms "
@@ -4757,6 +4973,12 @@ def main() -> int:
     if "--eval-path" in sys.argv[1:]:
         print(smi, flush=True)
         run_eval_path()
+        return 0
+    if "--serving" in sys.argv[1:]:
+        print(smi, flush=True)
+        run_slice()
+        run_multimodal_path()
+        run_rle_serving()
         return 0
 
     records = check_kernels() + [check_ffn()]

@@ -22,13 +22,17 @@ on ``t``:
   finished hypotheses, ``num_return_sequences = num_beams``, beams sorted
   by normalised score.
 
-On a CUDA device the step of each stage is captured once as a CUDA graph
-(:class:`BeamDecoder` keeps the graphs and their static buffers per shape)
-and the host replays it ``bound - 1 - t0`` times per stage, reading ``done``
-once every ``check_every`` replays and skipping the rest of the decode once
-it is set: one graph per stage, as the JAX package runs one ``while_loop``
-per stage. Elsewhere, or with ``cuda_graph=False``, the same step runs
-eagerly in the same loop.
+A decode is three parts on static buffers: the prologue (the encoder, the
+cross K/V projection, the state reset), the steps, and the epilogue (the
+final merge into static outputs, which the search returns copies of). On a
+CUDA device each part is captured once per shape as a CUDA graph
+(:class:`BeamDecoder` keeps the graphs and their static buffers per shape),
+as ``jax.jit`` compiles the JAX package's whole decode: the prologue is
+replayed once, then each stage's step ``bound - 1 - t0`` times, the host
+reading ``done`` once every ``check_every`` replays and skipping the rest
+of the decode once it is set (one graph per stage, as the JAX package runs
+one ``while_loop`` per stage), then the epilogue. Elsewhere, or with
+``cuda_graph=False``, the same parts run eagerly in the same loop.
 
 Under tensor parallelism (a model built on a mesh with a model axis) each
 rank decodes with its slices: the decode copy and :meth:`BeamDecoder.refresh`
@@ -48,6 +52,7 @@ not needed.
 from __future__ import annotations
 
 import copy
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -133,18 +138,27 @@ def stage_bounds(stage_size: Optional[int], max_length: int) -> List[int]:
 
 
 class _Decode:
-    """The static buffers of one decode shape (self caches, cross K/V and
-    bias, the loop state, constants) and, on a CUDA device, the captured
-    step of each stage with the kernel launches its capture recorded."""
+    """The static buffers of one decode shape (the request's encoder inputs,
+    mask and hook state, the self caches, cross K/V and bias, the loop
+    state, the outputs, constants) and, on a CUDA device, the captured
+    prologue, step of each stage and epilogue, with the kernel launches
+    each capture recorded and the weights' addresses they read."""
 
     def __init__(self, dmodel: Seq2SeqModel, batch: int, beams: int, max_length: int,
-                 bounds: List[int], encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor,
+                 bounds: List[int], encoder_inputs: Dict[str, Any], encoder_mask: torch.Tensor,
                  hook_init: Optional[Dict[str, torch.Tensor]]):
         cfg = dmodel.config
-        device = encoder_hidden.device
+        device = encoder_mask.device
         self.bounds = bounds
-        self.cache = dmodel.init_beam_cache(batch, beams, max_length, encoder_hidden,
-                                            encoder_mask,
+        # What search copies each request into, and the prologue reads.
+        self.inputs = _cuda.static_like(encoder_inputs)
+        self.mask = torch.empty_like(encoder_mask)
+        self.hook_init = _cuda.static_like(hook_init or {})
+        # Cross K/V of the request's length (each prologue writes its own
+        # over them), sized by projecting a zero encoder output once.
+        zeros = torch.zeros((batch, encoder_mask.shape[1], cfg.d_model), dtype=cfg.compute_dtype,
+                            device=device)
+        self.cache = dmodel.init_beam_cache(batch, beams, max_length, zeros, encoder_mask,
                                             kv_cache_quantized(cfg, beams, max_length))
         seqs = torch.empty((batch, beams, max_length), dtype=torch.long, device=device)
         scores = torch.empty((batch, beams), device=device)
@@ -157,45 +171,33 @@ class _Decode:
                                     device=device),
             "hook": {name: torch.empty_like(leaf) for name, leaf in (hook_init or {}).items()},
         }
+        self.out_seqs, self.out_scores = torch.empty_like(seqs), torch.empty_like(scores)
         self.times = torch.arange(max_length, device=device)
         self.beam_ids = torch.arange(beams, dtype=torch.int32, device=device)
         self.eos_only = torch.full((cfg.vocab_size,), NEG_INF, device=device)
         self.eos_only[cfg.eos_token_id] = 0.0
-        self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, Dict[Callable, int]]] = {}
+        # By "prologue", each stage's bound and "epilogue".
+        self.graphs: Dict[Any, Tuple[torch.cuda.CUDAGraph, Dict[Callable, int]]] = {}
+        self.pool = None
+        self.weights: Tuple[int, ...] = ()
 
-    def load(self, dmodel: Seq2SeqModel, encoder_hidden, encoder_mask, hook_init) -> None:
-        """This request's encoder K/V and bias and its initial state, copied
-        into the static buffers. The self caches are not cleared: a step at
-        time t reads only rows of times <= t, all written in this request
-        (a step run past the exit rewrites its own time's rows, which no
-        step that counts reads)."""
-        cfg = dmodel.config
-        for (k, v), (k_new, v_new) in zip(self.cache["cross"],
-                                          dmodel.decoder.project_cross_kv(encoder_hidden)):
-            k.copy_(k_new)
-            v.copy_(v_new)
-        self.cache["cross_bias"].copy_(make_attention_bias(encoder_mask)[:, 0, 0])
-        s = self.state
-        s["t"].zero_()
-        s["done"].zero_()
-        s["live_seqs"].fill_(cfg.pad_token_id)
-        s["live_seqs"][:, :, 0] = cfg.decoder_start_token_id
-        s["live_scores"].fill_(NEG_INF)
-        s["live_scores"][:, 0] = 0.0
-        s["finished_seqs"].fill_(cfg.pad_token_id)
-        s["finished_scores"].fill_(NEG_INF)
-        s["ancestry"].zero_()
-        for name, leaf in (hook_init or {}).items():
-            s["hook"][name].copy_(leaf)
+    def load(self, encoder_inputs: Dict[str, Any], encoder_mask: torch.Tensor,
+             hook_init: Optional[Dict[str, torch.Tensor]]) -> None:
+        """This request's tensors into the static inputs, one copy per leaf."""
+        _cuda.copy_tree_(self.inputs, encoder_inputs)
+        self.mask.copy_(encoder_mask)
+        _cuda.copy_tree_(self.hook_init, hook_init or {})
 
 
 class BeamDecoder:
     """Beam search with one model: its decode copy (:func:`decode_model`)
-    and, per decode shape (batch, beams, max length, stages, encoder length,
-    logits hook), the static buffers and, on a CUDA device, the captured
-    step of each stage, kept for the decoder's life. :meth:`refresh` copies
-    the model's current weights into the decode copy in place, so that the
-    graphs, which hold its addresses, decode with them."""
+    and, per decode shape (batch, beams, max length, stages, the encoder
+    inputs' and mask's structure, shapes and dtypes, logits hook and its
+    state's), the static buffers and, on a CUDA device, the captured
+    prologue, step of each stage and epilogue, kept for the decoder's life.
+    :meth:`refresh` copies the model's current weights into the decode copy
+    in place, so that the graphs, which hold its addresses, decode with
+    them."""
 
     def __init__(self, model: Seq2SeqModel):
         self.model = model
@@ -213,6 +215,12 @@ class BeamDecoder:
         with torch.no_grad():
             for name, dst in [*self.dmodel.named_parameters(), *self.dmodel.named_buffers()]:
                 dst.copy_(sources[name])
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes held by the memory pools of the captured decodes
+        (one per shape: what the prologue, the steps and the epilogue keep
+        between requests)."""
+        return sum(_cuda.pool_bytes(d.pool) for d in self._decodes.values())
 
     # ---------------------------------------------------------------- step
     def _step(self, d: _Decode, bound: int, max_length: int, length_penalty: float,
@@ -280,34 +288,81 @@ class BeamDecoder:
             s["hook"][name].copy_(torch.where(freeze, s["hook"][name], value))
         s["done"].copy_(done)
 
-    def _capture(self, d: _Decode, run_step: Callable[[int], None]) -> int:
-        """Capture the step of every stage as a CUDA graph (one memory pool
-        for all): each is first run once eagerly on the capture stream (lazy
-        initialisation, shared-memory limits: nothing may allocate or set up
-        during capture). Those warm-up steps change the state, which the
-        caller loads again. A capture launches nothing, so the launch counts
-        it ticked are taken back and recorded per graph, to be added at
-        every replay. Returns the warm-up steps run."""
-        stream = torch.cuda.Stream(device=d.times.device)
+    # ------------------------------------------------- prologue, epilogue
+    def _prologue(self, d: _Decode) -> None:
+        """The decode's start, on the static inputs: the encoder, the
+        cross K/V projected into the cache, the cross bias and the loop
+        state reset. The encoder runs on the model's own weights, as the
+        JAX package encodes before its pre-cast: its Dense layers round
+        them to bf16 per call all the same, and fp32 tables (learned
+        positions, T5's relative bias) stay fp32. The self caches are not
+        cleared: a step at time t reads only rows of times <= t, all
+        written in this request (a step run past the exit rewrites its own
+        time's rows, which no step that counts reads)."""
+        cfg = self.dmodel.config
+        hidden = self.model.encode(d.inputs, d.mask)
+        self.dmodel.decoder.project_cross_kv(hidden, out=d.cache["cross"])
+        d.cache["cross_bias"].copy_(make_attention_bias(d.mask)[:, 0, 0])
+        s = d.state
+        s["t"].zero_()
+        s["done"].zero_()
+        s["live_seqs"].fill_(cfg.pad_token_id)
+        s["live_seqs"][:, :, 0] = cfg.decoder_start_token_id
+        s["live_scores"].fill_(NEG_INF)
+        s["live_scores"][:, 0] = 0.0
+        s["finished_seqs"].fill_(cfg.pad_token_id)
+        s["finished_scores"].fill_(NEG_INF)
+        s["ancestry"].zero_()
+        for name, leaf in d.hook_init.items():
+            s["hook"][name].copy_(leaf)
+
+    @staticmethod
+    def _epilogue(d: _Decode, max_length: int, length_penalty: float) -> None:
+        """The decode's end: surviving live beams compete with the finished
+        pool, the best ``K`` written into the static outputs."""
+        s = d.state
+        live_norm = float(max_length) ** length_penalty
+        merged_scores = torch.cat([s["finished_scores"], s["live_scores"] / live_norm], 1)
+        merged_seqs = torch.cat([s["finished_seqs"], s["live_seqs"]], 1)
+        scores, idx = _top_k(merged_scores, d.out_scores.shape[1])
+        d.out_scores.copy_(scores)
+        d.out_seqs.copy_(merged_seqs.gather(1, idx[:, :, None].expand(-1, -1, max_length)))
+
+    def _run(self, d: _Decode, part: Any, use_graph: bool, run: Callable[[], None]) -> None:
+        """One part of the decode (the prologue, a stage's step or the
+        epilogue): its graph replayed, or ``run()`` eagerly."""
+        if use_graph:
+            _cuda.replay(*d.graphs[part])
+        else:
+            run()
+
+    def _weights(self) -> Tuple[int, ...]:
+        """The addresses of the weights the graphs read: the model's (the
+        encoder) and the decode copy's (the steps)."""
+        if self.dmodel is self.model:
+            return _cuda.addresses(self.model)
+        return _cuda.addresses(self.model, self.dmodel)
+
+    def _capture(self, d: _Decode, parts: List[Tuple[Any, Callable[[], None]]]) -> None:
+        """Capture each of ``parts`` (the prologue, the step of every stage,
+        the epilogue) as a CUDA graph, all on one side stream into one
+        memory pool, each first run once eagerly on that stream (lazy
+        initialisation, workspaces, shared-memory limits). Sharing the pool
+        is sound only because the graphs replay one after another on one
+        stream, the prologue first: none reads what another left in the
+        pool (the state, caches, inputs and outputs lie outside it). The
+        warm-up runs change the state, which the prologue's replay resets;
+        a capture that fails raises. Records the weights' addresses."""
+        stream = torch.cuda.Stream(device=d.mask.device)
         stream.wait_stream(torch.cuda.current_stream())
-        pool = None
-        for bound in d.bounds:
+        for part, run in parts:
             with torch.cuda.stream(stream):
-                run_step(bound)
-            graph = torch.cuda.CUDAGraph()
-            before = _cuda.launch_counts()
-            try:
-                with torch.cuda.graph(graph, pool=pool, stream=stream):
-                    run_step(bound)
-                after = _cuda.launch_counts()
-            finally:
-                for fn, count in before.items():
-                    fn.launches = count
-            d.graphs[bound] = (graph, {fn: after[fn] - before[fn] for fn in after
-                                       if after[fn] != before[fn]})
-            pool = graph.pool()
+                run()
+            graph, launches, _ = _cuda.capture(run, stream, d.pool)
+            d.graphs[part] = (graph, launches)
+            d.pool = graph.pool()
         torch.cuda.current_stream().wait_stream(stream)
-        return len(d.bounds)
+        d.weights = self._weights()
 
     # -------------------------------------------------------------- search
     @torch.no_grad()
@@ -326,7 +381,8 @@ class BeamDecoder:
         stats: Optional[Dict[str, Any]] = None,
         idle: Optional[Callable[[], bool]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (sequences (B, K, max_length) int64, scores (B, K) fp32).
+        """Returns (sequences (B, K, max_length) int64, scores (B, K) fp32),
+        new tensors of this call's own.
 
         Sequences start with BOS and are padded after EOS; beams are sorted
         best-first by normalised score. ``stage_size`` decodes in stages
@@ -338,13 +394,19 @@ class BeamDecoder:
         its state, a dict of (B, K, ...) tensors on the device, whose rows
         are reordered with the beams every step.
 
-        On a CUDA device with ``cuda_graph`` (the default) each stage's step
-        is replayed from a CUDA graph, captured at the first decode of this
-        shape; a capture that fails raises. A hook whose ``capturable``
-        attribute is False (the exact formula hook, which makes one host
-        call per step), or a model group whose collectives cannot be
-        captured (:func:`collectives_capturable`), runs the step eagerly, as
-        ``cuda_graph=False`` does.
+        The request's tensors are copied into the decode shape's static
+        inputs; the prologue (encoder, cross K/V, state reset), each
+        stage's step and the epilogue (the final merge) read and write
+        only static buffers. On a CUDA device with ``cuda_graph`` (the
+        default) each of them is replayed from a CUDA graph, captured at
+        the first decode of this shape (of its inputs' structure, shapes
+        and dtypes), as ``jax.jit`` compiles the JAX package's whole
+        decode; a capture that fails raises. A shape whose weights have
+        moved since its capture (a parameter rebound) is captured again. A
+        hook whose ``capturable`` attribute is False (the exact formula
+        hook, which makes one host call per step), or a model group whose
+        collectives cannot be captured (:func:`collectives_capturable`),
+        runs every part eagerly, as ``cuda_graph=False`` does.
         The host reads the ``done`` flag once every ``check_every`` steps.
         ``idle``, if given, is other host work done before each read: one
         piece per call, returning False once none is left. On a CUDA device
@@ -355,8 +417,11 @@ class BeamDecoder:
         the decode steps that counted, as the JAX loop counts them),
         ``replays`` (the steps run, replays past the exit included),
         ``warmup_steps`` (eager steps of a capture), ``graph`` (whether
-        graphs ran), ``capture_s`` and ``dispatch_s`` (host seconds spent
-        capturing and launching the steps).
+        the steps' graphs ran), ``prologue_graph`` (whether the prologue's
+        and epilogue's did), ``recaptured`` (whether this shape was
+        captured again for moved weights), ``capture_s`` and
+        ``dispatch_s`` (host seconds spent capturing and launching the
+        steps).
         """
         if check_every < 1:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
@@ -366,19 +431,25 @@ class BeamDecoder:
                      and collectives_capturable(self.model))
         batch = encoder_mask.shape[0]
         bounds = stage_bounds(stage_size, max_length)
-        # The encoder runs on the model's own weights, as the JAX package
-        # encodes before its pre-cast: its Dense layers round them to bf16
-        # per call all the same, and fp32 tables (learned positions, T5's
-        # relative bias) stay fp32.
-        encoder_hidden = self.model.encode(encoder_inputs, encoder_mask)
         key = (batch, num_beams, max_length, float(length_penalty), tuple(bounds),
-               tuple(encoder_hidden.shape), encoder_hidden.dtype, logits_hook,
-               tuple((n, tuple(v.shape), v.dtype) for n, v in sorted((hook_init or {}).items())))
+               _cuda.signature(encoder_inputs), _cuda.signature(encoder_mask), logits_hook,
+               _cuda.signature(hook_init or {}))
         d = self._decodes.get(key)
+        recaptured = bool(use_graph and d is not None and d.graphs
+                          and d.weights != self._weights())
+        if recaptured:
+            del self._decodes[key], d      # its buffers and graphs go first
+            d = None
         if d is None:
             d = self._decodes[key] = _Decode(self.dmodel, batch, num_beams, max_length, bounds,
-                                             encoder_hidden, encoder_mask, hook_init)
-        d.load(self.dmodel, encoder_hidden, encoder_mask, hook_init)
+                                             encoder_inputs, encoder_mask, hook_init)
+        d.load(encoder_inputs, encoder_mask, hook_init)
+
+        def prologue() -> None:
+            self._prologue(d)
+
+        def epilogue() -> None:
+            self._epilogue(d, max_length, length_penalty)
 
         def run_step(bound: int) -> None:
             self._step(d, bound, max_length, length_penalty, logits_hook)
@@ -386,27 +457,22 @@ class BeamDecoder:
         capture_s, warmup_steps = 0.0, 0
         if use_graph and not d.graphs:
             t0 = time.perf_counter()
+            parts = ([("prologue", prologue)]
+                     + [(bound, functools.partial(run_step, bound)) for bound in bounds]
+                     + [("epilogue", epilogue)])
             try:
-                warmup_steps = self._capture(d, run_step)
+                self._capture(d, parts)
             except BaseException:
                 del self._decodes[key]     # no half-captured shape is kept
                 raise
             torch.cuda.synchronize(device)
-            capture_s = time.perf_counter() - t0
-            d.load(self.dmodel, encoder_hidden, encoder_mask, hook_init)
+            capture_s, warmup_steps = time.perf_counter() - t0, len(bounds)
 
+        self._run(d, "prologue", use_graph, prologue)
         replays, since_check, dispatch_s, t_host = 0, 0, 0.0, 0
         for bound in bounds:
-            if use_graph:
-                graph, launches = d.graphs[bound]
-
-                def step(graph=graph, launches=launches) -> None:
-                    graph.replay()
-                    for fn, count in launches.items():
-                        fn.launches += count
-            else:
-                def step(bound=bound) -> None:
-                    run_step(bound)
+            step = functools.partial(self._run, d, bound, use_graph,
+                                     functools.partial(run_step, bound))
             exited = False
             for _ in range(bound - 1 - t_host):
                 t0 = time.perf_counter()
@@ -424,18 +490,13 @@ class BeamDecoder:
             if exited:
                 break
             t_host = bound - 1
+        self._run(d, "epilogue", use_graph, epilogue)
 
-        s = d.state
         if stats is not None:
-            stats.update(steps=int(s["t"]), replays=replays, warmup_steps=warmup_steps,
-                         graph=use_graph, capture_s=capture_s, dispatch_s=dispatch_s)
-        # Surviving live beams compete with the finished pool.
-        live_norm = float(max_length) ** length_penalty
-        merged_scores = torch.cat([s["finished_scores"], s["live_scores"] / live_norm], 1)
-        merged_seqs = torch.cat([s["finished_seqs"], s["live_seqs"]], 1)
-        final_scores, final_idx = _top_k(merged_scores, num_beams)
-        final_seqs = merged_seqs.gather(1, final_idx[:, :, None].expand(-1, -1, max_length))
-        return final_seqs, final_scores
+            stats.update(steps=int(d.state["t"]), replays=replays, warmup_steps=warmup_steps,
+                         graph=use_graph, prologue_graph=use_graph, recaptured=recaptured,
+                         capture_s=capture_s, dispatch_s=dispatch_s)
+        return d.out_seqs.clone(), d.out_scores.clone()
 
 
 def _idle_while_running(idle: Callable[[], bool], device: torch.device) -> None:

@@ -249,9 +249,18 @@ class Decoder(nn.Module):
     def layers(self) -> List[DecoderLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
-    def project_cross_kv(self, encoder_hidden: torch.Tensor):
-        """Per-layer flat (B, Ls, D) cross-attention K/V of the encoder output."""
-        return [layer.cross_attn.project_kv_flat(encoder_hidden) for layer in self.layers]
+    def project_cross_kv(self, encoder_hidden: torch.Tensor, out=None):
+        """Per-layer flat (B, Ls, D) cross-attention K/V of the encoder output.
+        With ``out`` (per-layer (k, v) tensors of those shapes) each layer's
+        are copied into it as they are projected, so that one layer's
+        projection is live at a time, and ``out`` is returned."""
+        if out is None:
+            return [layer.cross_attn.project_kv_flat(encoder_hidden) for layer in self.layers]
+        for layer, (k, v) in zip(self.layers, out):
+            k_new, v_new = layer.cross_attn.project_kv_flat(encoder_hidden)
+            k.copy_(k_new)
+            v.copy_(v_new)
+        return out
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         return self.final_norm(x).to(self.dtype) if self.final_norm is not None else x

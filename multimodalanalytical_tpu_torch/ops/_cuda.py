@@ -22,8 +22,9 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -157,3 +158,90 @@ def count_launches(*wrappers: Callable) -> None:
 
 def launch_counts() -> Dict[Callable, int]:
     return {fn: fn.launches for fn in COUNTED}
+
+
+# ------------------------------------------------------------ CUDA graphs
+def capture(fn: Callable[[], Any], stream: torch.cuda.Stream, pool=None,
+            generators: Sequence[torch.Generator] = ()
+            ) -> Tuple[torch.cuda.CUDAGraph, Dict[Callable, int], Any]:
+    """``fn()`` captured as a CUDA graph on ``stream`` into the memory pool
+    ``pool`` (None: a pool of the graph's own), each of ``generators``
+    registered with it. ``fn`` must have run once already on ``stream``
+    (lazy set-up, workspaces: nothing may allocate outside the pool or set
+    up during capture). The device's cached free blocks are released first
+    (a warm-up's activations), for the pool; the host's pinned cache stays
+    warm. A capture launches nothing, so the launch counts it ticked are
+    taken back and returned, to be added at every :func:`replay`. Returns
+    (graph, launches, ``fn``'s result); a failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    for generator in generators:
+        graph.register_generator_state(generator)
+    torch.cuda.synchronize(stream.device)
+    torch.cuda.empty_cache()
+    before = launch_counts()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        after = launch_counts()
+    finally:
+        for wrapper, count in before.items():
+            wrapper.launches = count
+    return graph, {f: after[f] - before[f] for f in after if after[f] != before[f]}, out
+
+
+def replay(graph: torch.cuda.CUDAGraph, launches: Dict[Callable, int]) -> None:
+    """Replay ``graph`` and add the kernel launches its capture recorded."""
+    graph.replay()
+    for wrapper, count in launches.items():
+        wrapper.launches += count
+
+
+def pool_bytes(pool) -> int:
+    """Device bytes held by a CUDA graph memory pool (``graph.pool()``; 0
+    for None): what its graphs keep between replays."""
+    if pool is None:
+        return 0
+    return sum(segment["total_size"] for segment in torch.cuda.memory_snapshot()
+               if tuple(segment["segment_pool_id"]) == tuple(pool))
+
+
+def addresses(*modules: torch.nn.Module) -> Tuple[int, ...]:
+    """The device addresses of the modules' parameters and buffers, which a
+    CUDA graph reads: a graph captured on weights whose addresses have
+    changed since (a parameter rebound, a ``.to()``) would read the old
+    storage. (Read from each submodule's own tables: half the host time of
+    ``parameters()`` and ``buffers()``, which a graph's every replay pays.)"""
+    return tuple(t.data_ptr() for module in modules for sub in module.modules()
+                 for t in (*sub._parameters.values(), *sub._buffers.values()) if t is not None)
+
+
+def static_like(tree: Any) -> Any:
+    """Room for a tree of tensors (dicts of them at any depth): one empty
+    tensor per leaf, of its shape, dtype and device."""
+    if isinstance(tree, dict):
+        return {key: static_like(value) for key, value in tree.items()}
+    return torch.empty_like(tree)
+
+
+def copy_tree_(static: Any, tree: Any) -> None:
+    """Copy ``tree`` into the same-shaped :func:`static_like` room
+    ``static``, one ``copy_`` per leaf."""
+    if isinstance(static, dict):
+        for key, value in static.items():
+            copy_tree_(value, tree[key])
+    else:
+        static.copy_(tree)
+
+
+def signature(tree: Any) -> Any:
+    """The structure, shapes and dtypes of a tree of tensors or arrays
+    (dicts of them at any depth): a captured graph's key, as ``jax.jit``
+    keys its programs by shape."""
+    if isinstance(tree, dict):
+        return tuple((key, signature(tree[key])) for key in sorted(tree))
+    value = tree if isinstance(tree, torch.Tensor) else np.asarray(tree)
+    return tuple(value.shape), str(value.dtype)

@@ -136,9 +136,6 @@ class Optimizer:
         # lr, bias1, bias2, divisor (plan() writes them, step() reads them).
         self.scalars = torch.zeros(4, dtype=torch.float32, device=self.params[0].device)
         self.grad_norm: Optional[torch.Tensor] = None
-        # Whether the gradient planned last completes an accumulation, until
-        # step() takes that plan (None: no plan waiting).
-        self.planned: Optional[bool] = None
 
     def state_dict(self) -> dict:
         """The moments, the accumulator and the two counts (what a
@@ -180,19 +177,18 @@ class Optimizer:
         values = np.array([lr, 1 - np.float32(self.b1) ** count,
                            1 - np.float32(self.b2) ** count, divisor], dtype=np.float32)
         copy_from_host_(self.scalars, values)
-        self.planned = completes
         return completes
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
+    def step(self, grads: Sequence[torch.Tensor], completes: Optional[bool] = None) -> None:
         """Take one gradient: add it to the running mean when gradients are
         accumulated, and clip and update when it completes an update. The
-        device half of the step, under the plan :meth:`plan` made (one is
-        made here when none waits); it reads the count's values from
-        :attr:`scalars` only, so a CUDA graph of it stays right at every
-        count. Sets :attr:`grad_norm`."""
-        completes = self.plan() if self.planned is None else self.planned
-        self.planned = None
+        device half of the step, under the plan :meth:`plan` made, which
+        returned ``completes`` (None: the plan is made here); it reads the
+        count's values from :attr:`scalars` only, so a CUDA graph of it
+        stays right at every count. Sets :attr:`grad_norm`."""
+        if completes is None:
+            completes = self.plan()
         grads = [g.float() for g in grads]
         self.grad_norm = self.norm(grads)
         norm = self.grad_norm

@@ -27,6 +27,11 @@ before each replay. ``cuda_graph=False``, the CPU, and process groups
 whose collectives a graph cannot hold (gloo; ``collectives_capturable``)
 run the same body eagerly: the routes launch the same kernels on the same
 inputs, so they agree bit for bit wherever each kernel does run to run.
+``eval_step``, the teacher-forced forward of ``validate`` and ``predict``,
+takes the same route: captured once per batch shape after one eager run
+(in a memory pool of its own, since it runs between train steps) and
+replayed, as the JAX trainer jits its ``eval_step``; so does every decode of
+the trainer's ``BeamDecoder`` (``cuda_graph`` is passed to its searches).
 
 Across processes (``torch.distributed``, ``parallel/``) the trainer takes
 the model's mesh (``parallel/mesh.py``; pure data parallelism over the
@@ -201,15 +206,6 @@ def device_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     return {key: to_device(batch[key], device) for key in DEVICE_KEYS if key in batch}
 
 
-def _signature(tree: Any) -> Any:
-    """The shapes and dtypes of arrays, and dicts of them at any depth (a
-    captured step's key, as ``jax.jit`` keys its programs by shape)."""
-    if isinstance(tree, dict):
-        return tuple((key, _signature(tree[key])) for key in sorted(tree))
-    value = tree if isinstance(tree, torch.Tensor) else np.asarray(tree)
-    return tuple(value.shape), str(value.dtype)
-
-
 def _fill(static: Any, host: Any) -> None:
     """Copy a batch's arrays into the same-shaped device tensors ``static``
     (one copy per field, from pinned memory, without blocking the host)."""
@@ -349,6 +345,18 @@ class _StepGraph:
         self.out, self.launches = out, launches
 
 
+class _EvalGraph:
+    """One captured evaluation step: the graph, the static tensors it reads
+    (the device batch's fields and the loss counts pair, None without), its
+    outputs (``eval_step``'s dict), the kernel launches its capture
+    recorded, added at every replay, and the addresses of the weights it
+    reads."""
+
+    def __init__(self, graph, inputs, counts, out, launches, weights):
+        self.graph, self.inputs, self.counts = graph, inputs, counts
+        self.out, self.launches, self.weights = out, launches, weights
+
+
 class Trainer:
     def __init__(self, model: torch.nn.Module, target_tokenizer=None, optimiser: str = "adam",
                  lr: float = 1e-3, weight_decay: float = 0.0, adam_beta1: float = 0.9,
@@ -367,8 +375,9 @@ class Trainer:
         batch with ``mix_idx`` into ``batch_transform(batch)`` on the device
         (``DeviceMixture.expand``: the premix over its staged pool).
         ``cuda_graph``: on a CUDA device, replay each (batch shape,
-        accumulation phase)'s step from a CUDA graph (see the module's
-        docstring); False runs the same body eagerly."""
+        accumulation phase)'s step, each batch shape's ``eval_step`` and
+        each decode shape's beam search from CUDA graphs (see the module's
+        docstring); False runs the same bodies eagerly."""
         self.model = model
         self.tokenizer = target_tokenizer
         self.params = list(model.parameters())
@@ -418,6 +427,11 @@ class Trainer:
         self._warm: set = set()
         self._graph_pool = None
         self._capture_stream: Optional[torch.cuda.Stream] = None
+        # The captured evaluation steps by (batch signature, loss counts
+        # given), in a pool of their own: they run between train steps.
+        self._eval_graphs: Dict[Any, _EvalGraph] = {}
+        self._eval_pool = None
+        self.cuda_graph = bool(cuda_graph)
         eager_reason = None
         if not cuda_graph:
             eager_reason = "cuda_graph=False"
@@ -432,6 +446,12 @@ class Trainer:
         self.step_stats: Dict[str, Any] = {"graph": eager_reason is None,
                                            "eager_reason": eager_reason, "captures": 0,
                                            "replays": 0, "eager_steps": 0, "capture_s": 0.0}
+        # The same for eval_step, whose route is the train step's; also the
+        # captures made again because the weights had moved.
+        self.eval_stats: Dict[str, Any] = {"graph": eager_reason is None,
+                                           "eager_reason": eager_reason, "captures": 0,
+                                           "recaptures": 0, "replays": 0, "eager_steps": 0,
+                                           "capture_s": 0.0}
 
     # ------------------------------------------------------------- state
     def state_tree(self) -> Dict[str, Any]:
@@ -507,7 +527,7 @@ class Trainer:
         if self.step_stats["graph"]:
             metrics = self._graph_step(batch, completes)
         else:
-            metrics = self._eager_step(device_batch(batch, self.device))
+            metrics = self._eager_step(device_batch(batch, self.device), completes)
         self.global_step += 1
         return dict(zip(METRIC_KEYS, metrics))
 
@@ -521,10 +541,10 @@ class Trainer:
         if keep is not None:
             copy_from_host_(keep, modality_keep(len(keep), self.modality_generator))
 
-    def _eager_step(self, batch: Dict[str, Any]) -> torch.Tensor:
+    def _eager_step(self, batch: Dict[str, Any], completes: bool) -> torch.Tensor:
         """The step body run eagerly on a device batch."""
         self.step_stats["eager_steps"] += 1
-        return self._body(batch, self._keep_buffer(), draw=True)[0]
+        return self._body(batch, self._keep_buffer(), completes, draw=True)[0]
 
     def _keep_buffer(self) -> torch.Tensor:
         """Room for a step's modality keep vector: one entry per modality
@@ -533,11 +553,12 @@ class Trainer:
         into it before a replay."""
         return torch.empty(len(self.modality_dropout), dtype=torch.float32, device=self.device)
 
-    def _body(self, batch: Dict[str, Any], keep: torch.Tensor, draw: bool
+    def _body(self, batch: Dict[str, Any], keep: torch.Tensor, completes: bool, draw: bool
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The device half of a step (the ops a graph captures): expand an
         index batch, mask the dropped modalities, forward, gradients, the
-        sum over the data group, then the optimizer's step under its plan.
+        sum over the data group, then the optimizer's step under its plan
+        (``completes``: whether the gradient completes an accumulation).
         Returns the ``METRIC_KEYS`` as one fp32 tensor, and the modality
         keep vector the mask reads (the head of ``keep``, one entry per
         droppable segment; None without any), drawn into it when ``draw``
@@ -561,7 +582,7 @@ class Trainer:
             grads, losses = self._sum_over_ranks(grads, losses, self.mesh)
         # Sets optimizer.grad_norm, the norm the clip takes without
         # accumulation (one global norm, one model-group reduce).
-        self.optimizer.step(grads)
+        self.optimizer.step(grads, completes)
         return torch.stack([x.float() for x in losses] + [self.optimizer.grad_norm]), keep
 
     def _stream(self) -> torch.cuda.Stream:
@@ -574,70 +595,51 @@ class Trainer:
         """The step through the graph of its key: the first step of a key
         eagerly on the capture stream, the second captures, then replays."""
         host = {key: batch[key] for key in DEVICE_KEYS if key in batch}
-        key = (_signature(host), completes)
+        key = (_cuda.signature(host), completes)
         entry = self._graphs.get(key)
         if entry is None and key not in self._warm:
             stream = self._stream()
             with torch.cuda.stream(stream):
-                metrics = self._eager_step(device_batch(host, self.device))
+                metrics = self._eager_step(device_batch(host, self.device), completes)
             torch.cuda.current_stream(self.device).wait_stream(stream)
             self._warm.add(key)
             return metrics
         if entry is None:
-            entry = self._graphs[key] = self._capture(host)
+            entry = self._graphs[key] = self._capture(host, completes)
         else:
             _fill(entry.inputs, host)
-            self.optimizer.planned = None     # taken by the replay, as step() takes it
         self._draw_keep(entry.keep)
-        entry.graph.replay()
-        for fn, count in entry.launches.items():
-            fn.launches += count
+        _cuda.replay(entry.graph, entry.launches)
         self.step_stats["replays"] += 1
         return entry.out.clone()
 
-    def _capture(self, host: Dict[str, Any]) -> _StepGraph:
+    def _capture(self, host: Dict[str, Any], completes: bool) -> _StepGraph:
         """Capture the step body on static copies of ``host`` (the batch the
-        replay that follows takes) into the trainer's graph pool. The
-        device's cached free blocks are released first (the warm-up's
-        activations), for the pool; the host's pinned cache stays warm. A
-        capture launches nothing, so the launch counts it ticked are taken
-        back and recorded, to be added at every replay. A failed capture
-        raises."""
+        replay that follows takes) into the trainer's graph pool, the
+        dropout generator registered with it (``ops/_cuda.py:capture``). A
+        failed capture raises."""
         t0 = time.perf_counter()
         inputs = device_batch(host, self.device)
         keep = self._keep_buffer()
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.dropout_generator)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
         stream = self._stream()
-        before = _cuda.launch_counts()
-        try:
-            with torch.cuda.stream(stream):
-                graph.capture_begin(pool=self._graph_pool)
-                try:
-                    out, keep = self._body(inputs, keep, draw=False)
-                finally:
-                    graph.capture_end()
-            after = _cuda.launch_counts()
-        finally:
-            for fn, count in before.items():
-                fn.launches = count
+        graph, launches, (out, keep) = _cuda.capture(
+            lambda: self._body(inputs, keep, completes, draw=False), stream, self._graph_pool,
+            generators=(self.dropout_generator,))
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self._graph_pool = graph.pool()
         self.step_stats["captures"] += 1
         self.step_stats["capture_s"] += time.perf_counter() - t0
-        return _StepGraph(graph, inputs, keep, out,
-                          {fn: after[fn] - before[fn] for fn in after if after[fn] != before[fn]})
+        return _StepGraph(graph, inputs, keep, out, launches)
 
     def graph_pool_bytes(self) -> int:
         """Device bytes held by the memory pool of the captured train steps
         (their activations, gradients and outputs between steps)."""
-        if self._graph_pool is None:
-            return 0
-        pool = tuple(self._graph_pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) == pool)
+        return _cuda.pool_bytes(self._graph_pool)
+
+    def eval_pool_bytes(self) -> int:
+        """Device bytes held by the memory pool of the captured evaluation
+        steps."""
+        return _cuda.pool_bytes(self._eval_pool)
 
     @staticmethod
     def _sum_over_ranks(grads: Sequence[torch.Tensor], scalars: Sequence[torch.Tensor],
@@ -657,13 +659,62 @@ class Trainer:
                   ) -> Dict[str, torch.Tensor]:
         """Teacher-forced forward in deterministic mode on a device batch:
         the losses (this rank's shares of the global batch's, given its
-        ``loss_counts``) and the argmax ids (B, Lt)."""
+        ``loss_counts``) and the argmax ids (B, Lt), tensors of this call's
+        own. On the train step's graph route it is replayed from a CUDA
+        graph captured once per (batch signature, whether ``loss_counts``
+        is given) after one eager run, as the JAX trainer jits its
+        ``eval_step``; a key whose weights have moved since its capture (a
+        parameter rebound) is captured again. Elsewhere it runs eagerly."""
+        if not self.eval_stats["graph"]:
+            self.eval_stats["eager_steps"] += 1
+            return self._eval_body(batch, loss_counts)
+        key = (_cuda.signature(batch), loss_counts is not None)
+        entry = self._eval_graphs.get(key)
+        if entry is not None and entry.weights != _cuda.addresses(self.model):
+            del self._eval_graphs[key], entry
+            entry = None
+            self.eval_stats["recaptures"] += 1
+        if entry is None:
+            entry = self._eval_graphs[key] = self._capture_eval(batch, loss_counts)
+        else:
+            _cuda.copy_tree_(entry.inputs, batch)
+            for static, count in zip(entry.counts or (), loss_counts or ()):
+                static.copy_(count)
+        _cuda.replay(entry.graph, entry.launches)
+        self.eval_stats["replays"] += 1
+        # Copies: the next replay writes over the graph's outputs.
+        return {name: value.clone() for name, value in entry.out.items()}
+
+    def _eval_body(self, batch: Dict[str, Any],
+                   loss_counts: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+        """The evaluation forward (the ops a graph captures)."""
         out = self.model(batch["encoder_inputs"], batch["encoder_mask"], batch["decoder_ids"],
                          batch["decoder_mask"], batch["labels"], batch.get("align_target"),
                          loss_counts=loss_counts)
         return {"loss": out["loss"], "model_only_loss": out["model_only_loss"],
                 "alignment_loss": out["alignment_loss"],
                 "predicted_ids": out["logits"].argmax(dim=-1)}
+
+    def _capture_eval(self, batch: Dict[str, Any],
+                      loss_counts: Optional[Tuple[torch.Tensor, torch.Tensor]]) -> _EvalGraph:
+        """Capture the evaluation forward on static copies of ``batch`` and
+        ``loss_counts`` into the evaluation graphs' pool, after one eager
+        run of it on the capture stream. A failed capture raises."""
+        t0 = time.perf_counter()
+        inputs = _cuda.static_like(batch)
+        _cuda.copy_tree_(inputs, batch)
+        counts = None if loss_counts is None else tuple(c.clone() for c in loss_counts)
+        stream = self._stream()
+        with torch.cuda.stream(stream):
+            self._eval_body(inputs, counts)
+        graph, launches, out = _cuda.capture(lambda: self._eval_body(inputs, counts), stream,
+                                             self._eval_pool)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self._eval_pool = graph.pool()
+        self.eval_stats["captures"] += 1
+        self.eval_stats["capture_s"] += time.perf_counter() - t0
+        return _EvalGraph(graph, inputs, counts, out, launches, _cuda.addresses(self.model))
 
     def beam_decoder(self) -> BeamDecoder:
         """The trainer's beam decoder, with the model's current weights: its
@@ -686,7 +737,7 @@ class Trainer:
         stats: Dict[str, Any] = {}
         seqs, _ = decoder.search(batch["encoder_inputs"], batch["encoder_mask"], num_beams,
                                  max_length=self.model.config.max_target_length, stats=stats,
-                                 idle=idle, **(hook_kwargs or {}))
+                                 cuda_graph=self.cuda_graph, idle=idle, **(hook_kwargs or {}))
         self.decode_steps += stats["steps"]
         self.decode_replays += stats["replays"]
         self.decode_warmups += stats["warmup_steps"]

@@ -785,10 +785,9 @@ def test_replayed_step_equals_eager_steps(gen):
     graph, launches = decode.graphs[32]
     counters = (ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn)
     assert {fn: launches.get(fn) for fn in counters} == {fn: 2 for fn in counters}
-    hidden = decoder.dmodel.encode(inputs, mask)
     states = []
     for replay in (True, False):
-        decode.load(decoder.dmodel, hidden, mask, None)
+        decoder._prologue(decode)        # the static inputs hold the request
         before = [fn.launches for fn in counters]
         for _ in range(8):
             if replay:
@@ -946,6 +945,229 @@ def test_validate_after_a_step_decodes_the_new_weights(gen):
     assert trainer.decode_warmups == 1        # the K 1 graph was captured once
     assert torch.equal(decoded[1], new)
     assert not torch.equal(decoded[1], old)
+
+
+class _Tokenizer:
+    pad_token_id, bos_token_id, eos_token_id = 0, 2, 3
+
+    def batch_decode(self, ids, skip_special_tokens=True):
+        import numpy as np
+
+        return [" ".join(str(int(i)) for i in row) for row in np.asarray(ids)]
+
+
+def _formula_hook():
+    """The surrogate formula guide over a seeded random token table."""
+    from multimodalanalytical_tpu_torch.chem import GUIDED_ATOM_LIST
+    from multimodalanalytical_tpu_torch.generation.guided import make_formula_hook
+
+    g = torch.Generator().manual_seed(5)
+    table = (torch.rand(64, len(GUIDED_ATOM_LIST), generator=g) < 0.2).int().numpy()
+    return make_formula_hook(table, 3)
+
+
+def _formula_targets(beams, seed, batch=3):
+    """A seeded hook state for :func:`_formula_hook`: target atom counts."""
+    from multimodalanalytical_tpu_torch.chem import GUIDED_ATOM_LIST
+
+    g = torch.Generator().manual_seed(seed)
+    target = torch.randint(0, 4, (batch, beams, len(GUIDED_ATOM_LIST)), generator=g,
+                           dtype=torch.int32)
+    return {"target": target.cuda()}
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["unguided", "surrogate"])
+@pytest.mark.parametrize("beams", [1, 10, 30])
+def test_prologue_graph_decode_equals_eager_decode(gen, beams, guided):
+    """``search`` with the encoder, cross K/V, state reset and final merge
+    replayed from graphs (captured once, by the first request) against the
+    eager route: two different requests in a row, each bit-equal to its own
+    eager result, with and without the surrogate formula guide. The first
+    request's outputs are the caller's own: the second decode leaves them
+    as they were."""
+    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+
+    decoder = BeamDecoder(_small_decode_model())
+    formula_hook = _formula_hook()
+    results = []
+    for seed in (1, 2):
+        inputs, mask = _request(3, seed)
+        hook = ({"logits_hook": formula_hook, "hook_init": _formula_targets(beams, seed)}
+                if guided else {})
+        got, want = {}, {}
+        graph = decoder.search(inputs, mask, beams, max_length=32, stage_size=8, stats=got,
+                               **hook)
+        kept = tuple(t.clone() for t in graph)
+        eager = decoder.search(inputs, mask, beams, max_length=32, stage_size=8,
+                               cuda_graph=False, stats=want, **hook)
+        assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
+        assert got["graph"] and got["prologue_graph"] and not want["prologue_graph"]
+        assert got["steps"] == want["steps"] and not got["recaptured"]
+        assert got["warmup_steps"] == (4 if seed == 1 else 0)
+        results.append((graph, kept))
+    first, kept = results[0]
+    assert torch.equal(first[0], kept[0]) and torch.equal(first[1], kept[1])
+    assert not torch.equal(first[1], results[1][0][1])
+    assert len(decoder._decodes) == 1
+
+
+def test_rle_encoder_replays_flash_in_the_prologue_graph(gen):
+    """An RLE model at L 2100 (flash #5 in both encoder layers): the
+    prologue graph replays the flash forward (its launches added at every
+    replay: 2 a request), bit-equal to the eager route, for two requests."""
+    import numpy as np
+
+    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+
+    model = _train_model(RLE_TRAIN_CONFIG, dropout=0.0, dtype="bfloat16", use_flash=True)
+    decoder = BeamDecoder(model)
+    source, mask = _rle_source(rows=2)
+    mask_t = torch.as_tensor(mask).cuda()
+    decoder.search({"RLE": torch.as_tensor(source["RLE"]).cuda()}, mask_t, 4,
+                   max_length=24)                                       # captures
+    for shift in (1, 2):
+        ids = torch.as_tensor(np.roll(source["RLE"], shift, axis=1)).cuda()
+        before = flash.flash_attention_fwd.launches
+        got, want = {}, {}
+        graph = decoder.search({"RLE": ids}, mask_t, 4, max_length=24, stats=got)
+        assert flash.flash_attention_fwd.launches - before == 2
+        eager = decoder.search({"RLE": ids}, mask_t, 4, max_length=24, cuda_graph=False,
+                               stats=want)
+        assert got["prologue_graph"] and got["warmup_steps"] == 0
+        assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
+
+
+def test_a_skipped_input_copy_is_rejected_on_the_card(gen, monkeypatch):
+    """The planted fault: the IR leaf of a request is not copied into the
+    static inputs, so the graphs decode the previous request's patches. The
+    comparison with the eager decode of the request must fail; with the
+    copy back, it passes."""
+    from multimodalanalytical_tpu_torch.generation import beam_search as port_beam
+
+    decoder = port_beam.BeamDecoder(_small_decode_model())
+    first, second = _request(3, 1), _request(3, 2)
+    want = decoder.search(*second, 4, max_length=32, stage_size=8, cuda_graph=False)
+    decoder.search(*first, 4, max_length=32, stage_size=8)        # captures
+    load = port_beam._Decode.load
+
+    def skipping(self, encoder_inputs, encoder_mask, hook_init):
+        load(self, dict(encoder_inputs, IR=self.inputs["IR"]), encoder_mask, hook_init)
+
+    monkeypatch.setattr(port_beam._Decode, "load", skipping)
+    stale = decoder.search(*second, 4, max_length=32, stage_size=8)
+    assert not (torch.equal(stale[0], want[0]) and torch.equal(stale[1], want[1]))
+    monkeypatch.setattr(port_beam._Decode, "load", load)
+    fixed = decoder.search(*second, 4, max_length=32, stage_size=8)
+    assert torch.equal(fixed[0], want[0]) and torch.equal(fixed[1], want[1])
+
+
+def _rebind_first(model, prefix):
+    """Give the first parameter under ``prefix`` new storage holding new
+    values (a parameter rebound, as ``load_state_dict(assign=True)`` or a
+    ``.to()`` would), and return its name."""
+    name = next(n for n, _ in model.named_parameters() if n.startswith(prefix))
+    owner, leaf = model.get_submodule(name.rpartition(".")[0]), name.rpartition(".")[2]
+    with torch.no_grad():
+        owner._parameters[leaf] = torch.nn.Parameter(owner._parameters[leaf].detach() * 1.5)
+    return name
+
+
+def test_a_rebound_parameter_is_captured_again(gen):
+    """A parameter of the encoder rebound after the capture: the next
+    search captures its shape again (``recaptured``) and equals the eager
+    decode of the new weights."""
+    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+
+    model = _small_decode_model()
+    decoder = BeamDecoder(model)
+    inputs, mask = _request(3, 1)
+    old = decoder.search(inputs, mask, 4, max_length=32, stage_size=8)
+    _rebind_first(model, "encoder.")
+    got = {}
+    graph = decoder.search(inputs, mask, 4, max_length=32, stage_size=8, stats=got)
+    eager = decoder.search(inputs, mask, 4, max_length=32, stage_size=8, cuda_graph=False)
+    assert got["recaptured"] and got["warmup_steps"] == 4
+    assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
+    assert not torch.equal(graph[1], old[1])
+    again = {}
+    decoder.search(inputs, mask, 4, max_length=32, stage_size=8, stats=again)
+    assert not again["recaptured"] and again["warmup_steps"] == 0
+
+
+def _eval_batch(seed, rows):
+    import numpy as np
+
+    inputs, mask = _request(rows, seed)
+    dec = np.random.default_rng(seed).integers(4, 64, (rows, 10))
+    labels = dec.copy()
+    labels[0, 7:] = -100
+    return {"encoder_inputs": {k: v.cpu().numpy() for k, v in inputs.items()},
+            "encoder_mask": mask.cpu().numpy(), "decoder_ids": dec,
+            "decoder_mask": (labels != -100).astype(np.int32), "labels": labels,
+            "target_strings": ["x"] * rows, "n_valid": rows}
+
+
+def test_graph_eval_step_validate_and_predict_equal_eager(gen, monkeypatch):
+    """``eval_step``, ``validate`` and ``predict`` (K 4) at pipeline depth 8
+    on the graph route (``eval_step`` captured once per batch shape, then
+    replayed) against a trainer with ``cuda_graph=False`` on the same
+    model: every output bit-equal; an ``eval_step``'s outputs are left as
+    they were by the next; a rebound parameter recaptures the key and gives
+    the eager result."""
+    from multimodalanalytical_tpu_torch.training import trainer as trainer_module
+
+    monkeypatch.setattr(trainer_module, "PIPELINE_DEPTH", 8)
+    model = _small_decode_model()
+    batches = [_eval_batch(1, 4), _eval_batch(2, 3), _eval_batch(3, 4)]
+    graph = trainer_module.Trainer(model, _Tokenizer(), n_beams=4)
+    eager = trainer_module.Trainer(model, _Tokenizer(), n_beams=4, cuda_graph=False)
+    assert graph.validate(batches) == eager.validate(batches)
+    assert graph.predict(batches) == eager.predict(batches)
+    assert graph.eval_stats["captures"] == 2 and graph.eval_stats["replays"] == 6
+    assert eager.eval_stats["eager_steps"] == 6 and not eager.last_decode_stats["graph"]
+    assert graph.last_decode_stats["prologue_graph"]
+
+    def both(batch):
+        dev = trainer_module.device_batch(batch, graph.device)
+        return graph.eval_step(dev), eager.eval_step(dev)
+
+    first, want = both(batches[0])
+    kept = {k: v.clone() for k, v in first.items()}
+    both(batches[2])
+    assert all(torch.equal(first[k], want[k]) and torch.equal(first[k], kept[k])
+               for k in want)
+    # Loss counts (a data-parallel step's global counts) take a key and a
+    # static pair of their own.
+    dev = trainer_module.device_batch(batches[1], graph.device)
+    for counts in ((30, 3.0), (41, 5.0)):
+        counts = (torch.tensor(counts[0], device="cuda"), torch.tensor(counts[1], device="cuda"))
+        got, want = graph.eval_step(dev, counts), eager.eval_step(dev, counts)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert graph.eval_stats["captures"] == 3
+    _rebind_first(model, "decoder.")
+    got, want = both(batches[0])
+    assert graph.eval_stats["recaptures"] == 1
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert not torch.equal(got["loss"], kept["loss"])
+
+
+def test_rle_eval_step_graph_equals_eager(gen):
+    """``eval_step`` of an RLE model at L 2100 (flash #5 inside the
+    captured forward) on the graph route against the eager route."""
+    from multimodalanalytical_tpu_torch.training import trainer as trainer_module
+
+    model = _train_model(RLE_TRAIN_CONFIG, dropout=0.0, dtype="bfloat16", use_flash=True)
+
+    batch = trainer_module.device_batch(_train_batch(4, rows=2, source=_rle_source()), "cuda")
+    graph = trainer_module.Trainer(model)
+    eager = trainer_module.Trainer(model, cuda_graph=False)
+    graph.eval_step(batch)                                              # captures
+    for _ in range(2):
+        before = flash.flash_attention_fwd.launches
+        got, want = graph.eval_step(batch), eager.eval_step(batch)
+        assert flash.flash_attention_fwd.launches - before == 4      # 2 layers, 2 routes
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert graph.eval_stats["captures"] == 1 and graph.eval_stats["replays"] == 3
 
 
 def test_async_save_on_the_card_keeps_the_requested_state(gen, tmp_path):

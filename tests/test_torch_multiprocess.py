@@ -181,9 +181,9 @@ def _worker(args: dict) -> None:
     steps, grads = [], []
     take_step, optimizer_step = trainer.train_step, trainer.optimizer.step
 
-    def recorded_update(step_grads):
+    def recorded_update(step_grads, completes=None):
         grads.append(torch.cat([g.reshape(-1) for g in step_grads]).numpy().copy())
-        optimizer_step(step_grads)
+        optimizer_step(step_grads, completes)
 
     # What the JAX package's trainer needs to take the same steps: the initial
     # weights, each step's host batch and the encoder mask after the modality
