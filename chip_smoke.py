@@ -1702,6 +1702,7 @@ def _eager_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
     step as the graphs, launched eagerly. Returns (seqs, scores, stats, s)."""
     import torch
 
+    from multimodalanalytical_tpu_torch.generation.beam_search import read_device_times
     from multimodalanalytical_tpu_torch.training.trainer import to_device
 
     inputs = to_device(inputs, DEVICE)
@@ -1712,13 +1713,16 @@ def _eager_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
     seqs, scores = decoder.search(inputs, mask, beams, max_length=MAX_LENGTH, cuda_graph=False,
                                   stats=stats, **kwargs)
     seqs, scores = seqs.cpu().numpy(), scores.cpu().numpy()
-    return seqs, scores, stats, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    read_device_times(stats)
+    return seqs, scores, stats, seconds
 
 
 def _graph_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
     """As :func:`_eager_decode`, through the decoder's CUDA graphs."""
     import torch
 
+    from multimodalanalytical_tpu_torch.generation.beam_search import read_device_times
     from multimodalanalytical_tpu_torch.training.trainer import to_device
 
     inputs = to_device(inputs, DEVICE)
@@ -1729,8 +1733,10 @@ def _graph_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
     seqs, scores = decoder.search(inputs, mask, beams, max_length=MAX_LENGTH, stats=stats,
                                   **kwargs)
     seqs, scores = seqs.cpu().numpy(), scores.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    read_device_times(stats)
     _require(stats["graph"], "the decode did not run through its CUDA graphs")
-    return seqs, scores, stats, time.perf_counter() - t0
+    return seqs, scores, stats, seconds
 
 
 def _require_bit_equal(what: str, graph: tuple, eager: tuple) -> None:
@@ -1823,18 +1829,18 @@ def _serve_requests(engine, requests, what: str, model, kernels: bool = True,
     results, seconds, steps, replays = [], [], 0, 0
     routes = {}
     _reset_peak()
-    with _prologue_spans(engine.decoder) as spans:
-        for inputs, mask in requests:
-            t0 = time.perf_counter()
-            seqs, scores = engine.decode_batch(inputs, mask)
-            seconds.append(time.perf_counter() - t0)
-            stats = engine.last_stats
-            _require(stats["graph"] and stats["prologue_graph"] and stats["warmup_steps"] == 0,
-                     f"a {what} request did not replay the engine's graphs")
-            steps += stats["steps"]
-            replays += stats["replays"]
-            results.append((seqs, scores, dict(stats), seconds[-1]))
-    routes["graph"] = _route_record(seconds, spans, engine.decoder)
+    for inputs, mask in requests:
+        t0 = time.perf_counter()
+        seqs, scores = engine.decode_batch(inputs, mask)
+        seconds.append(time.perf_counter() - t0)
+        stats = engine.last_stats
+        _require(stats["graph"] and stats["prologue_graph"] and stats["warmup_steps"] == 0,
+                 f"a {what} request did not replay the engine's graphs")
+        steps += stats["steps"]
+        replays += stats["replays"]
+        results.append((seqs, scores, dict(stats), seconds[-1]))
+    routes["graph"] = _route_record(seconds, [r[2]["prologue_ms"] for r in results],
+                                    engine.decoder)
     launches = {fn.__name__: fn.launches for fn in counters}
     encoder = {fn.__name__: fn.launches for fn in encoder_counters}
     print(f"{what}: {len(requests)} requests x {BATCH} spectra, beam {BEAMS}, {steps} decode "
@@ -1862,22 +1868,22 @@ def _serve_requests(engine, requests, what: str, model, kernels: bool = True,
           f"per step launching replays", flush=True)
     # The same requests through the eager loop (the same step, launched
     # eagerly): bit-equal, timed.
-    eager_seconds = []
+    eager_seconds, prologue_ms = [], []
     _reset_peak()
-    with _prologue_spans(engine.decoder) as spans:
-        for (inputs, mask), graph in zip(requests, results):
-            eager = _eager_decode(engine.decoder, inputs, mask, BEAMS)
-            eager_seconds.append(eager[3])
-            _require(not eager[2]["prologue_graph"], "the eager decode replayed its prologue")
-            _require_bit_equal(f"{what} request", graph, eager)
-    routes["eager"] = _route_record(eager_seconds, spans, engine.decoder)
+    for (inputs, mask), graph in zip(requests, results):
+        eager = _eager_decode(engine.decoder, inputs, mask, BEAMS)
+        eager_seconds.append(eager[3])
+        prologue_ms.append(eager[2]["prologue_ms"])
+        _require(not eager[2]["prologue_graph"], "the eager decode replayed its prologue")
+        _require_bit_equal(f"{what} request", graph, eager)
+    routes["eager"] = _route_record(eager_seconds, prologue_ms, engine.decoder)
     eager_per_batch = sum(eager_seconds) / len(eager_seconds)
     print(f"{what} kernel path, eager loop (cuda_graph=False): {eager_per_batch:.4f} s/batch "
           f"({BATCH / eager_per_batch:.2f} spectra/s), per request "
           f"{[round(x, 4) for x in eager_seconds]}; graphs / eager "
           f"{per_batch / eager_per_batch:.3f}", flush=True)
-    print(f"{what} per route: prologue (encoder, cross K/V projection, state reset) span per "
-          f"request, CUDA events: graph {routes['graph']['span_ms']} ms, eager "
+    print(f"{what} per route: prologue (encoder, cross K/V projection, state reset) device ms "
+          f"per request (the search's prologue_ms): graph {routes['graph']['span_ms']} ms, eager "
           f"{routes['eager']['span_ms']} ms; device memory after the requests (peak over "
           f"them): graph {_memory_text(routes['graph'])}; eager "
           f"{_memory_text(routes['eager'])}", flush=True)
@@ -1892,34 +1898,8 @@ def _reset_peak() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-@contextlib.contextmanager
-def _prologue_spans(decoder):
-    """CUDA events around every prologue ``decoder`` runs (the encoder,
-    the cross K/V projection and the state reset: one graph replay, or the
-    same calls eagerly), recorded on the launching stream; yields the
-    list of (start, end) pairs."""
-    import torch
-
-    pairs, run = [], decoder._run
-
-    def timed(d, part, use_graph, fn):
-        if part != "prologue":
-            return run(d, part, use_graph, fn)
-        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        pair[0].record()
-        run(d, part, use_graph, fn)
-        pair[1].record()
-        pairs.append(pair)
-
-    decoder._run = timed
-    try:
-        yield pairs
-    finally:
-        del decoder._run
-
-
-def _route_record(seconds: list, spans: list, decoder, trainer=None) -> dict:
-    """A route's s/batch, its prologue spans (ms), and the device memory:
+def _route_record(seconds: list, prologue_ms: list, decoder, trainer=None) -> dict:
+    """A route's s/batch, its prologues' device ms, and the device memory:
     allocated now and at the peak since the last :func:`_reset_peak`,
     reserved now, and the bytes in ``decoder``'s decode graphs' pools (and
     in ``trainer``'s evaluation graphs' pool)."""
@@ -1928,7 +1908,7 @@ def _route_record(seconds: list, spans: list, decoder, trainer=None) -> dict:
     torch.cuda.synchronize()
     pools = decoder.graph_pool_bytes() + (trainer.eval_pool_bytes() if trainer else 0)
     return {"per_batch": sum(seconds) / len(seconds),
-            "span_ms": [round(start.elapsed_time(end), 4) for start, end in spans],
+            "span_ms": [round(ms, 4) for ms in prologue_ms],
             "held_gib": torch.cuda.memory_allocated() / 2 ** 30,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
@@ -2638,6 +2618,7 @@ def _pipeline_runs(what: str, owners: dict, run, loader: list) -> dict:
     to the graph route's at depth 0. Returns {(route, depth): result}."""
     import torch
 
+    from multimodalanalytical_tpu_torch.generation.beam_search import read_device_times
     from multimodalanalytical_tpu_torch.training import trainer as trainer_module
 
     pipeline = trainer_module._Pipeline
@@ -2669,12 +2650,14 @@ def _pipeline_runs(what: str, owners: dict, run, loader: list) -> dict:
             before = owner.decode_replays
             _reset_peak()
             decoder = owner.beam_decoder()
-            with _prologue_spans(decoder) as spans:
-                t0 = time.perf_counter()
-                out = run(owner, batches)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            record = _route_record([wall / len(batches)], spans, decoder, owner)
+            t0 = time.perf_counter()
+            out = run(owner, batches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # The decode shape's events hold its last search's times.
+            last = dict(owner.last_decode_stats)
+            read_device_times(last)
+            record = _route_record([wall / len(batches)], [last["prologue_ms"]], decoder, owner)
             return out, wall, owner.decode_replays - before, host, record
         finally:
             trainer_module.PIPELINE_DEPTH = saved
@@ -2710,7 +2693,7 @@ def _pipeline_runs(what: str, owners: dict, run, loader: list) -> dict:
               f"device time {device[key]:.4f} s/batch (kernels and copies, profiled run over "
               f"{PIPELINE_PROFILED[key] or batches} batches); busy "
               f"share {device[key] / wall:.3f}; replays {replays[key]} per run; host s/batch of "
-              f"its first run {host}; prologue span per batch {record['span_ms']} ms; device "
+              f"its first run {host}; the last batch's prologue {record['span_ms']} ms; device "
               f"memory {_memory_text(record)}", flush=True)
     turns, taken = [], {key: 0 for key in hosts}
     for key in PIPELINE_RUNS:

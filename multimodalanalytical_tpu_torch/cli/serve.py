@@ -9,6 +9,17 @@ batch padded to ``batch_size`` and decoded together. Collation uses the JAX
 package's framework-free data layer (``data.collator``, ``data.data_utils``),
 imported only where the record path needs it.
 
+Each request is stamped when it is submitted and when its batch's
+collating starts; each batch of the record path leaves one entry in the
+bounded ``batch_log`` (its rows, the seconds it spent collating, decoding,
+detokenising and delivering, and when its group opened and closed). With
+the recorder of ``tracing`` on, the worker's waits and each batch's stages
+are spans carrying the batch's id: ``engine.queue_get`` (waiting for a
+first request), ``engine.fill`` (collecting up to ``max_wait_ms``),
+``engine.collate``, ``engine.decode`` with ``engine.copy_out`` inside,
+``engine.detokenise`` and ``engine.deliver``; the beam loop's spans nest in
+``engine.decode``.
+
 API (as in the JAX package): ``GET /healthz`` and ``POST /predict`` with
 body ``{"records": [{<column>: <value>, ...}, ...]}``, answered with
 ``{"results": [{"smiles": [...], "scores": [...]}, ...]}``.
@@ -27,6 +38,8 @@ for the CPU.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import json
 import logging
 import queue
@@ -40,11 +53,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..generation.beam_search import BeamDecoder
+from .. import tracing
+from ..generation.beam_search import BeamDecoder, read_device_times
 from ..models.seq2seq import Seq2SeqModel
 from ..training.trainer import to_device
 
 logger = logging.getLogger(__name__)
+# Entries kept in ``InferenceEngine.batch_log``: the newest batches.
+BATCH_LOG_SIZE = 4096
 
 
 def collator_from_artifact(artifact: Path, batch_size: int):
@@ -70,15 +86,19 @@ def collator_from_artifact(artifact: Path, batch_size: int):
 
 
 class _Pending:
-    """One request's slot: raw record in, decoded beams (or error) out."""
+    """One request's slot: raw record in, decoded beams (or error) out;
+    ``submitted`` and ``started`` (its batch's collating began) on
+    ``time.perf_counter()``."""
 
-    __slots__ = ("record", "event", "result", "error")
+    __slots__ = ("record", "event", "result", "error", "submitted", "started")
 
     def __init__(self, record: Dict[str, Any]):
         self.record = record
         self.event = threading.Event()
         self.result: Optional[Dict[str, Any]] = None
         self.error: Optional[str] = None
+        self.submitted = time.perf_counter()
+        self.started: Optional[float] = None
 
 
 class InferenceEngine:
@@ -99,8 +119,11 @@ class InferenceEngine:
         self.collator = collator
         self.tokenizer = tokenizer
         self.max_wait_s = max_wait_ms / 1e3
-        self.last_steps = 0
         self.last_stats: Dict[str, Any] = {}
+        self.batch_log: "collections.deque[Dict[str, Any]]" = collections.deque(
+            maxlen=BATCH_LOG_SIZE)
+        self._batch_ids = itertools.count()
+        self._group_id: Optional[int] = None     # the record path's batch being decoded
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._worker: Optional[threading.Thread] = None
         # As the JAX engine's __init__: one decode of a warm batch before any
@@ -118,16 +141,22 @@ class InferenceEngine:
                      encoder_mask) -> Tuple[np.ndarray, np.ndarray]:
         """Beam-decode one collated batch (a modality's input may be a dict
         payload: XVal values, peak indices); returns (sequences (B, K, L) int64,
-        scores (B, K) fp32) as numpy. ``last_steps`` records the decode steps
-        that counted, ``last_stats`` the beam search's ``stats``."""
-        inputs = to_device(encoder_inputs, self.device)
-        mask = torch.as_tensor(encoder_mask, device=self.device)
-        stats: Dict[str, Any] = {}
-        seqs, scores = self.decoder.search(inputs, mask, self.n_beams,
-                                           max_length=self.max_length, stats=stats)
-        self.last_steps = stats["steps"]
+        scores (B, K) fp32) as numpy. ``last_stats`` records the beam
+        search's ``stats``, on a CUDA device with its ``prologue_ms`` and
+        ``steps_ms`` (``read_device_times``, once the copy-out has waited
+        for the device)."""
+        batch_id = self._group_id if self._group_id is not None else next(self._batch_ids)
+        with tracing.span("engine.decode", batch_id):
+            inputs = to_device(encoder_inputs, self.device)
+            mask = torch.as_tensor(encoder_mask, device=self.device)
+            stats: Dict[str, Any] = {}
+            seqs, scores = self.decoder.search(inputs, mask, self.n_beams,
+                                               max_length=self.max_length, stats=stats)
+            with tracing.span("engine.copy_out"):
+                seqs, scores = seqs.cpu().numpy(), scores.cpu().numpy()
+        read_device_times(stats)
         self.last_stats = stats
-        return seqs.cpu().numpy(), scores.cpu().numpy()
+        return seqs, scores
 
     # --------------------------------------------------------- record path
     @property
@@ -187,49 +216,75 @@ class InferenceEngine:
 
     def _batch_loop(self) -> None:
         while True:
-            first = self._queue.get()
+            batch_id = next(self._batch_ids)
+            with tracing.span("engine.queue_get", batch_id):
+                first = self._queue.get()
             if first is None:
                 return
             group = [first]
-            deadline = time.monotonic() + self.max_wait_s
+            opened = time.perf_counter()
+            deadline = opened + self.max_wait_s
             stop = False
-            while len(group) < self.batch_size:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    item = self._queue.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if item is None:
-                    stop = True
-                    break
-                group.append(item)
+            with tracing.span("engine.fill", batch_id):
+                while len(group) < self.batch_size:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        item = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if item is None:
+                        stop = True
+                        break
+                    group.append(item)
+            entry = {"id": batch_id, "opened": opened, "closed": time.perf_counter()}
             try:
-                self._run_group(group)
+                self._run_group(group, entry)
             except Exception:  # noqa: BLE001 - isolated per request below
                 logger.exception("Batch failed; isolating per record")
                 for pending in group:
                     try:
-                        self._run_group([pending])
+                        self._run_group([pending], dict(entry))
                     except Exception as exc:  # noqa: BLE001
                         pending.error = str(exc)
                         pending.event.set()
             if stop:
                 return
 
-    def _run_group(self, group: List[_Pending]) -> None:
-        batch = self._collate([p.record for p in group])
-        seqs, scores = self.decode_batch(batch["encoder_inputs"], batch["encoder_mask"])
+    def _run_group(self, group: List[_Pending], entry: Dict[str, Any]) -> None:
+        """Collate, decode, detokenise and deliver ``group``; ``entry`` (the
+        batch's id and when its group opened and closed) goes to
+        ``batch_log`` with its rows and each stage's seconds."""
+        batch_id = entry["id"]
+        start = time.perf_counter()
+        for pending in group:
+            pending.started = start
+        with tracing.span("engine.collate", batch_id):
+            batch = self._collate([p.record for p in group])
+        collated = time.perf_counter()
+        self._group_id = batch_id
+        try:
+            seqs, scores = self.decode_batch(batch["encoder_inputs"], batch["encoder_mask"])
+        finally:
+            self._group_id = None
+        decoded_at = time.perf_counter()
         seqs, scores = seqs[: len(group)], scores[: len(group)]
-        decoded = self.tokenizer.batch_decode(seqs.reshape(-1, seqs.shape[-1]),
-                                              skip_special_tokens=True)
-        for i, pending in enumerate(group):
-            pending.result = {
-                "smiles": decoded[i * self.n_beams: (i + 1) * self.n_beams],
-                "scores": [float(s) for s in scores[i]],
-            }
-            pending.event.set()
+        with tracing.span("engine.detokenise", batch_id):
+            decoded = self.tokenizer.batch_decode(seqs.reshape(-1, seqs.shape[-1]),
+                                                  skip_special_tokens=True)
+        detokenised = time.perf_counter()
+        with tracing.span("engine.deliver", batch_id):
+            for i, pending in enumerate(group):
+                pending.result = {
+                    "smiles": decoded[i * self.n_beams: (i + 1) * self.n_beams],
+                    "scores": [float(s) for s in scores[i]],
+                }
+                pending.event.set()
+        entry.update(rows=len(group), collate_s=collated - start, decode_s=decoded_at - collated,
+                     detokenise_s=detokenised - decoded_at,
+                     deliver_s=time.perf_counter() - detokenised)
+        self.batch_log.append(entry)
 
 
 def make_handler(engine: InferenceEngine, model_name: str):

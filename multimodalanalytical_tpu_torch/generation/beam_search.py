@@ -34,6 +34,16 @@ of the decode once it is set (one graph per stage, as the JAX package runs
 one ``while_loop`` per stage), then the epilogue. Elsewhere, or with
 ``cuda_graph=False``, the same parts run eagerly in the same loop.
 
+With the recorder of ``tracing`` on, a search's host work is spans:
+``beam.load`` (the request into the static inputs), ``beam.capture`` (a
+shape's first decode), ``beam.prologue``, ``beam.dispatch`` (each run of up
+to ``check_every`` steps launched between two reads of ``done``),
+``beam.done_wait`` (each read, which waits for the device) and
+``beam.epilogue``. On a CUDA device three events per decode shape mark,
+on the stream, the prologue's start and end and the last step's end;
+:func:`read_device_times` turns them into device milliseconds once the
+caller has waited for the device.
+
 Under tensor parallelism (a model built on a mesh with a model axis) each
 rank decodes with its slices: the decode copy and :meth:`BeamDecoder.refresh`
 keep them, the self caches hold its heads, and the step's sums over the
@@ -59,6 +69,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..models.seq2seq import Seq2SeqModel
 from ..ops import _cuda
 from ..ops.attention import make_attention_bias
@@ -176,6 +187,10 @@ class _Decode:
         self.beam_ids = torch.arange(beams, dtype=torch.int32, device=device)
         self.eos_only = torch.full((cfg.vocab_size,), NEG_INF, device=device)
         self.eos_only[cfg.eos_token_id] = 0.0
+        # On a CUDA device: the prologue's start and end and the last
+        # step's end, recorded on the stream by each search of this shape.
+        self.events = (tuple(torch.cuda.Event(enable_timing=True) for _ in range(3))
+                       if device.type == "cuda" else ())
         # By "prologue", each stage's bound and "epilogue".
         self.graphs: Dict[Any, Tuple[torch.cuda.CUDAGraph, Dict[Callable, int]]] = {}
         self.pool = None
@@ -421,7 +436,10 @@ class BeamDecoder:
         and epilogue's did), ``recaptured`` (whether this shape was
         captured again for moved weights), ``capture_s`` and
         ``dispatch_s`` (host seconds spent capturing and launching the
-        steps).
+        steps) and, on a CUDA device, ``events``: the decode shape's three
+        events, which :func:`read_device_times` reads once the device has
+        run the search (the search itself waits for no more than its
+        ``done`` reads) and before the next search of the shape.
         """
         if check_every < 1:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
@@ -443,7 +461,8 @@ class BeamDecoder:
         if d is None:
             d = self._decodes[key] = _Decode(self.dmodel, batch, num_beams, max_length, bounds,
                                              encoder_inputs, encoder_mask, hook_init)
-        d.load(encoder_inputs, encoder_mask, hook_init)
+        with tracing.span("beam.load"):
+            d.load(encoder_inputs, encoder_mask, hook_init)
 
         def prologue() -> None:
             self._prologue(d)
@@ -460,43 +479,73 @@ class BeamDecoder:
             parts = ([("prologue", prologue)]
                      + [(bound, functools.partial(run_step, bound)) for bound in bounds]
                      + [("epilogue", epilogue)])
-            try:
-                self._capture(d, parts)
-            except BaseException:
-                del self._decodes[key]     # no half-captured shape is kept
-                raise
-            torch.cuda.synchronize(device)
+            with tracing.span("beam.capture"):
+                try:
+                    self._capture(d, parts)
+                except BaseException:
+                    del self._decodes[key]     # no half-captured shape is kept
+                    raise
+                torch.cuda.synchronize(device)
             capture_s, warmup_steps = time.perf_counter() - t0, len(bounds)
 
-        self._run(d, "prologue", use_graph, prologue)
-        replays, since_check, dispatch_s, t_host = 0, 0, 0.0, 0
-        for bound in bounds:
-            step = functools.partial(self._run, d, bound, use_graph,
-                                     functools.partial(run_step, bound))
-            exited = False
-            for _ in range(bound - 1 - t_host):
-                t0 = time.perf_counter()
-                step()
-                dispatch_s += time.perf_counter() - t0
-                replays += 1
-                since_check += 1
-                if since_check == check_every:
-                    since_check = 0
-                    if idle is not None:
-                        _idle_while_running(idle, device)
-                    if bool(d.state["done"]):
-                        exited = True
-                        break
-            if exited:
+        events = d.events if stats is not None else ()
+        if events:
+            events[0].record()
+        with tracing.span("beam.prologue"):
+            self._run(d, "prologue", use_graph, prologue)
+        if events:
+            events[1].record()
+        # The stage of each replay, in order: bound - prev replays of the
+        # stage ending at bound (times prev - 1 to bound - 2), prev the
+        # bound before it (1 before the first).
+        steps = {bound: functools.partial(self._run, d, bound, use_graph,
+                                          functools.partial(run_step, bound))
+                 for bound in bounds}
+        order = [bound for bound, prev in zip(bounds, [1] + bounds[:-1])
+                 for _ in range(bound - prev)]
+        replays, dispatch_s = 0, 0.0
+        for first in range(0, len(order), check_every):
+            run = order[first:first + check_every]
+            with tracing.span("beam.dispatch"):
+                for bound in run:
+                    t0 = time.perf_counter()
+                    steps[bound]()
+                    dispatch_s += time.perf_counter() - t0
+            replays += len(run)
+            if len(run) < check_every:
                 break
-            t_host = bound - 1
-        self._run(d, "epilogue", use_graph, epilogue)
+            if idle is not None:
+                _idle_while_running(idle, device)
+            with tracing.span("beam.done_wait"):
+                done = bool(d.state["done"])
+            if done:
+                break
+        if events:
+            events[2].record()
+        with tracing.span("beam.epilogue"):
+            self._run(d, "epilogue", use_graph, epilogue)
 
         if stats is not None:
             stats.update(steps=int(d.state["t"]), replays=replays, warmup_steps=warmup_steps,
                          graph=use_graph, prologue_graph=use_graph, recaptured=recaptured,
                          capture_s=capture_s, dispatch_s=dispatch_s)
+            if events:
+                stats["events"] = events
         return d.out_seqs.clone(), d.out_scores.clone()
+
+
+def read_device_times(stats: Dict[str, Any]) -> None:
+    """Into a search's ``stats``, once the device has run that search and
+    before the next search of its shape: ``prologue_ms`` (the encoder, the
+    cross K/V projection and the state reset) and ``steps_ms`` (from the
+    prologue's end to the last step's, the waits between steps included),
+    device milliseconds from its ``events``, which it removes. Stats
+    without them (a search off a CUDA device) are left as they are."""
+    events = stats.pop("events", None)
+    if events:
+        start, prologue_end, steps_end = events
+        stats["prologue_ms"] = start.elapsed_time(prologue_end)
+        stats["steps_ms"] = prologue_end.elapsed_time(steps_end)
 
 
 def _idle_while_running(idle: Callable[[], bool], device: torch.device) -> None:

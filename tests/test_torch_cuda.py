@@ -826,6 +826,35 @@ def test_graph_decode_equals_eager_decode(gen, eos_bias):
     assert len(decoder._decodes) == 1
 
 
+def test_search_times_its_prologue_and_steps_on_the_device(gen):
+    """The decode shape's three events: once the engine's copy-out has
+    waited for the device, ``last_stats`` holds ``prologue_ms`` and
+    ``steps_ms``, each > 0 and together within the call's wall time, on the
+    capturing decode, a replayed one and an eager search."""
+    import time
+
+    from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+    from multimodalanalytical_tpu_torch.generation.beam_search import read_device_times
+
+    engine = InferenceEngine(_small_decode_model(), n_beams=4, batch_size=3)
+    for seed in (1, 2, 3):
+        inputs, mask = _request(3, seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if seed < 3:
+            engine.decode_batch(inputs, mask)
+            stats = engine.last_stats
+        else:
+            stats = {}
+            engine.decoder.search(inputs, mask, 4, max_length=32, cuda_graph=False,
+                                  stats=stats)[0].cpu()
+            read_device_times(stats)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        assert stats["graph"] == (seed < 3) and "events" not in stats
+        assert stats["prologue_ms"] > 0 and stats["steps_ms"] > 0
+        assert stats["prologue_ms"] + stats["steps_ms"] <= wall_ms, (stats, wall_ms)
+
+
 def test_spilled_stage_decodes_under_capture(gen):
     """K 30 on a 576-time stage, past the ~520 times whose select tables fit
     in shared memory: the captured decode (the workspace a torch.empty of
@@ -1671,6 +1700,23 @@ def test_graph_train_step_resumes_from_last_mid_fit(gen, tmp_path):
     assert again == want[3:] and captured.step_stats["captures"] == 1
     for got in (resumed, captured):
         assert all(torch.equal(a, b) for a, b in zip(_train_state(got), _train_state(straight)))
+
+
+def test_profile_window_traces_the_replayed_train_step(gen, tmp_path):
+    """``fit(profile_dir=...)`` on the graph route: the Chrome trace of
+    steps 2-6 holds the trainer's spans beside the kernels, the replay's
+    among them, and ``host_s`` counted every step."""
+    import json
+
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    trainer = Trainer(_train_model(TRAIN_DATA_CONFIG), optimiser="adamw", lr=1e-3, num_steps=8)
+    batches = [_train_batch(21 + i) for i in range(2)] * 4
+    trainer.fit(batches, None, epochs=1, profile_dir=str(tmp_path))
+    (path,) = tmp_path.glob("train_steps_*.json")
+    names = {event.get("name") for event in json.loads(path.read_text())["traceEvents"]}
+    assert {"train.replay", "train.plan", "train.fetch"} <= names
+    assert trainer.step_stats["replays"] == 7 and trainer.step_stats["host_s"] > 0
 
 
 def test_graph_train_step_in_a_world_one_nccl_group(gen, monkeypatch):

@@ -135,7 +135,7 @@ def test_decode_batch_needs_no_collator(server):
     assert seqs.shape == (BATCH_SIZE, BEAMS, engine.max_length)
     assert scores.shape == (BATCH_SIZE, BEAMS)
     assert (seqs[:, :, 0] == engine.model.config.bos_token_id).all()
-    assert 1 <= bare.last_steps <= engine.max_length - 1
+    assert 1 <= bare.last_stats["steps"] <= engine.max_length - 1
 
 
 def test_warm_batch_is_decoded_before_the_first_request(server, records):
