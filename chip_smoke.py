@@ -144,7 +144,9 @@ line each, any failure raises and exits non-zero:
    requests through ``InferenceEngine.decode_batch`` at beam 10 through the
    decode graphs (capture apart), every decode kernel launched 6 x the
    replays, bit-equal to the eager loop, with s/batch, device time, busy
-   share, prologue span and memory per route and the kernel split; one
+   share, prologue span and memory per route and the kernel split, and
+   #2's wrapper calls by form (``beam_cross_attention.forms``: the cluster
+   form alone); one
    dropout-0 train step of the bf16 model
    against its fp32 twin, three AdamW steps at B 128 with modality dropout
    over the dict-aware segments; the multiplets as XVal dicts through the
@@ -230,11 +232,11 @@ line each, any failure raises and exits non-zero:
    peak memory with its parts (held between requests, a standalone encode,
    #2's workspace).
 
-Phase 1 also holds #2's split form at the multimodal encoder's Ls 279 and
-at an RLE encoder's Ls 4090 (B 128, K 1, 10 and 30; rows fully masked,
-rows with a masked first tile or with every later tile masked) against
-its plain version, two calls bit-equal, rejects one tile left out and one
-tile's stats dropped, and times it beside SDPA; and times fused dropout beside
+Phase 1 also holds #2's cluster form at the multimodal encoder's Ls 279 and
+its split form at an RLE encoder's Ls 4090 (B 128, K 1, 10 and 30; rows
+fully masked, rows with a masked first tile or with every later tile
+masked) against its plain version, two calls bit-equal, rejects one tile
+left out and one tile's stats dropped, and times it beside SDPA; and times fused dropout beside
 ``torch.nn.functional.dropout``. It also times #1 at positions 33, 96 and 127 of a 128-time stage,
 planned for the stage (as the decode loop launches it) and for pos + 1
 times. ``--profile-eval`` prints, per decode path, the wall and device
@@ -802,15 +804,15 @@ def check_kernels() -> list:
 
 
 def _cross_tile(beams: int, ls: int) -> int:
-    """Keys per tile of #2's plan at the slice's widths (the split form's
-    unit of stats, of skipping and of its blocks)."""
+    """Keys per tile of #2's plan at the slice's widths (the tiled forms'
+    unit of stats, of skipping and of their blocks)."""
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
 
     return ba.cross_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, 2).tile_keys
 
 
 def _cross_faults(qx, kx, vx, bias, beams: int, left_out: slice, dropped: slice) -> dict:
-    """Plain-math outputs of #2 with a planted fault of the split form: the
+    """Plain-math outputs of #2 with a planted fault of a tiled form: the
     keys of one tile left out (as a value block that skipped a live tile
     would), and one tile's stats dropped from each row's max m and sum l
     (every key's P = exp(S - m) / l then taken over the other tiles' m and
@@ -839,8 +841,9 @@ def _cross_faults(qx, kx, vx, bias, beams: int, left_out: slice, dropped: slice)
             out.to(qx.dtype).reshape(batch * beams, D_MODEL)}
 
 
-def _check_cross_at(name: str, kx, vx, bias, keep, g, fault_tiles: tuple) -> dict:
-    """#2 at K 1, 10 and 30 on these encoder rows: held to ATTN_TOL and
+def _check_cross_at(name: str, kx, vx, bias, keep, g, fault_tiles: tuple, form: str) -> dict:
+    """#2 at K 1, 10 and 30 on these encoder rows, each K planned in
+    ``form`` (a ``CrossPlan.form``): held to ATTN_TOL and
     ATTN_RMS_TOL against the plain version, two calls bit-equal, the
     planted faults of :func:`_cross_faults` at tiles ``fault_tiles`` (left
     out, stats dropped) of each K's plan rejected, timed eagerly and as
@@ -862,6 +865,8 @@ def _check_cross_at(name: str, kx, vx, bias, keep, g, fault_tiles: tuple) -> dic
         err, tol, rms, ok = _attn_err(got, want)
         equal = torch.equal(got, again)
         plan = ba.cross_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, 2)
+        _require(plan.form == form, f"beam_cross_attention at K {beams} Ls {ls} planned {plan}, "
+                                    f"not the {form} form")
         plans[f"K={beams}"] = plan.tile_keys
         print(f"kernel beam_cross_attention K={beams} Ls={ls} ({name}; {plan}): max_abs_err="
               f"{err:.3e} tol={tol:.3e} rel_rms_err={rms:.3e} tol={ATTN_RMS_TOL:.0e}; two calls "
@@ -903,7 +908,7 @@ def _check_cross_at(name: str, kx, vx, bias, keep, g, fault_tiles: tuple) -> dic
 
 
 def check_cross_long() -> dict:
-    """#2 at the multimodal encoder's Ls 279 (the split form), on the
+    """#2 at the multimodal encoder's Ls 279 (the cluster form), on the
     padding masks of a multimodal request: row 0 fully masked (batch
     padding), row 1 with every key of the first tile masked, row 2 with
     every key past it; planted faults at the first tile (left out) and
@@ -923,7 +928,7 @@ def check_cross_long() -> dict:
     bias = torch.where(keep, 0.0, -1e9).float()
     kx, vx = ((torch.randn(BATCH, ls, D_MODEL, generator=g, device=dev)).bfloat16()
               for _ in range(2))
-    return _check_cross_at("multimodal masks", kx, vx, bias, keep, g, (0, 1))
+    return _check_cross_at("multimodal masks", kx, vx, bias, keep, g, (0, 1), "cluster")
 
 
 def check_cross_rle() -> dict:
@@ -945,7 +950,7 @@ def check_cross_rle() -> dict:
     bias = torch.where(keep, 0.0, -1e9).float()
     kx, vx = ((torch.randn(BATCH, ls, D_MODEL, generator=g, device=dev)).bfloat16()
               for _ in range(2))
-    entry = _check_cross_at("RLE masks", kx, vx, bias, keep, g, (0, 1))
+    entry = _check_cross_at("RLE masks", kx, vx, bias, keep, g, (0, 1), "split")
     del kx, vx
     torch.cuda.empty_cache()
     return entry
@@ -1187,13 +1192,15 @@ def time_ffn() -> None:
 def _cross_time_inputs(g, ls: int) -> tuple:
     """B 128 encoder rows at Ls as phase 1 takes them: the multimodal
     request's masks at Ls 279, RLE lengths (RLE_MIN_LEN..RLE_MAX_LEN) at
-    4090, rows of 18-26 keys at the flagship's 26; (K, V, bias, valid keys)."""
+    4090, rows of 18-26 keys at the flagship's 26, rows of Ls / 2 to Ls
+    keys (tail-padded) at any other Ls; (K, V, bias, valid keys)."""
     import torch
 
     if ls == MM_LS:
         keep = torch.as_tensor(_multimodal_request(seed=98)[1], device=DEVICE).bool()
     else:
-        low = RLE_MIN_LEN if ls == RLE_MAX_LEN else ls - 8
+        low = (RLE_MIN_LEN if ls == RLE_MAX_LEN else ls - 8 if ls == FORMULA_LEN + N_PATCHES
+               else ls // 2)
         lengths = torch.randint(low, ls + 1, (BATCH, 1), generator=g, device=DEVICE)
         keep = torch.arange(ls, device=DEVICE)[None, :] < lengths
     kx, vx = (torch.randn(BATCH, ls, D_MODEL, generator=g, device=DEVICE).bfloat16()
@@ -1203,10 +1210,12 @@ def _cross_time_inputs(g, ls: int) -> tuple:
 
 def time_cross() -> None:
     """``--time-cross``: #2's device time (CUDA-graph replay) at B 128 and
-    Ls 26, 279 and 4090, K 1, 10 and 30, in turns with SDPA, with its bound
-    from the valid keys, on whatever ``multimodalanalytical_tpu_torch`` sits
-    beside this script (a copy of the script in an earlier tree times that
-    tree's kernel). One JSON line."""
+    Ls 26, 279, 1024 and 4090, K 1, 10 and 30, in turns with SDPA, with its
+    bound from the valid keys and the plan it ran, on whatever
+    ``multimodalanalytical_tpu_torch`` sits beside this script (a copy of
+    the script in an earlier tree times that tree's kernel at the same
+    shapes, which are therefore fixed, not taken from either tree's plan;
+    each record names the plan the tree ran). One JSON line."""
     import torch
     import torch.nn.functional as F
 
@@ -1214,7 +1223,7 @@ def time_cross() -> None:
 
     g = torch.Generator(device=DEVICE).manual_seed(13)
     times = {}
-    for ls in (FORMULA_LEN + N_PATCHES, MM_LS, RLE_MAX_LEN):
+    for ls in (FORMULA_LEN + N_PATCHES, MM_LS, 1024, RLE_MAX_LEN):
         kx, vx, bias, valid = _cross_time_inputs(g, ls)
         for beams, _ in DECODE_BEAMS:
             qx = torch.randn(BATCH * beams, D_MODEL, generator=g, device=DEVICE).bfloat16()
@@ -1230,6 +1239,7 @@ def time_cross() -> None:
             bound = _bound_ms(4 * beams * valid * D_MODEL,
                               (2 * BATCH * beams + 2 * valid) * D_MODEL * 2 + bias.numel() * 4)
             times[f"Ls={ls} K={beams}"] = {
+                "plan": str(ba.cross_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, 2)),
                 "valid_keys": valid, "bound_ms": bound[0], "bound_by": bound[1],
                 "device_ms": turns}
             print(f"time_cross Ls={ls} K={beams}: {json.dumps(times[f'Ls={ls} K={beams}'])}",
@@ -2983,7 +2993,7 @@ def _kernel_split(rows) -> dict:
     return split
 
 
-def run_multimodal_path() -> dict:
+def run_multimodal_path() -> tuple:
     """Phase 7, serving: three seeded 128-spectrum requests of the
     multimodal recipe (Ls 279) through ``InferenceEngine.decode_batch`` at
     beam 10 and max length 128, each decode stage a replayed CUDA graph
@@ -2991,12 +3001,15 @@ def run_multimodal_path() -> dict:
     launched 6 x the replays; the same requests through the eager loop, bit
     for bit; the encoder and the cross K/V projection timed per request; one
     request profiled for its device time, busy share and kernel split.
-    Returns the decode kernels' launches over the three requests."""
+    Returns the decode kernels' launches over the three requests and #2's
+    wrapper calls by form over the phase (all of them the cluster form)."""
     import torch
 
     from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
+    from multimodalanalytical_tpu_torch.ops import beam_attention as ba
     from multimodalanalytical_tpu_torch.training.trainer import to_device
 
+    forms = dict(ba.beam_cross_attention.forms)
     model = _multimodal_model()
     engine = InferenceEngine(model, n_beams=BEAMS, batch_size=BATCH)
     torch.cuda.synchronize()
@@ -3043,9 +3056,14 @@ def run_multimodal_path() -> dict:
         print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
               f"{kernel[:100]}", flush=True)
     _require(graphs >= results[0][2]["replays"], "the profiled request did not replay graphs")
+    forms = {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()}
+    print(f"multimodal #2 wrapper calls by form over the phase (eager steps and captures; "
+          f"replays run no wrapper): {forms}", flush=True)
+    _require(forms["cluster"] > 0 and forms["one_pass"] == forms["split"] == 0,
+             "the multimodal decode's cross attention did not run the cluster form alone")
     del engine, model, dmodel, hidden
     torch.cuda.empty_cache()
-    return launches
+    return launches, forms
 
 
 # Phase 12: beam-decoding the RLE model (phase 3's) on the card.
@@ -4981,8 +4999,10 @@ def main() -> int:
     for name, n in run_guided_path(predictor, predictor.tokenizer, test).items():
         by_phase[name]["6"] = n
     del predictor, test
-    for name, n in run_multimodal_path().items():
+    launches, forms = run_multimodal_path()
+    for name, n in launches.items():
         by_phase[name]["7"] = n
+    records[1]["forms_phase_7"] = forms
     run_multimodal_training()
     run_align_path()
     for name, n in run_presets().items():

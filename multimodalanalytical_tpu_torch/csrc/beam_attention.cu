@@ -90,11 +90,48 @@
 //
 // Ls up to the plan's one-pass limit (cross_plan below; Ls
 // 26 for the flagship) is one pass: block (b, h) takes every key. Longer
-// encoders (the multimodal recipe's 279, an RLE source's up to 4090) take
-// the split form: tiles of the plan's keys, a block each, grid (tiles,
-// heads, batch), so that every block's copies are in flight at once and a
-// small batch still fills the card. The P rounding needs each row's global m
-// and l before any P V, so it is two launches. The first computes each
+// encoders take tiles of the plan's keys, a block each, grid (tiles, heads,
+// batch), so that every block's copies are in flight at once and a small
+// batch still fills the card. The P rounding needs each row's global m and l
+// before any P V, and the tiles' P V partials have to be added: an exchange
+// between the blocks of one (row, head).
+//
+// Up to kClusterKeys keys in bf16 at head_dim 64 and up to 32 beams (the
+// multimodal recipe's Ls 279 at K 10 is 2 tiles of 160 keys), the blocks of
+// one (row, head) form one thread block cluster, and the exchange goes
+// through distributed shared memory: one launch, no workspace. Each block
+// stages q, its K rows and bias, then its V rows, and each of its warps
+// takes 32 keys in mma fragments: S = q K^T, each beam's max mx over the
+// warp's keys and e = exp(S - mx) with their sum (quad shuffles), which the
+// warp writes into every rank's shared memory. A block may write there only
+// once every block of its cluster has started: each block makes a relaxed
+// arrival at the cluster barrier on entry and waits for it just before
+// these writes, so the staging and the products hide the wait. After a
+// cluster barrier every block folds all (rank, warp) pairs, in one order,
+// into each beam's m and l (the same bits in every block), forms P = e
+// exp(mx - m) / l, rounded to bf16 straight into the A operand of P V (S's
+// m16n8 accumulators of two key tiles are P's m16k16 operand), and writes
+// its fp32 P V partial of each beam row into the shared memory of the rank
+// that adds that row; after a second barrier each rank adds its rows'
+// partials in (rank, warp) order (two calls are bit-equal) and writes them.
+// P as e exp(mx - m) / l reuses the exp(S - mx) the warp's sum took, so each
+// key costs one exp, not two; it equals exp(S - m) / l, the plain version's
+// and the other forms' arithmetic, but as a product of two fp32 exps it
+// carries a few more fp32 roundings, so a P can land one bf16 step from
+// theirs (within the tests' limits; PERF.md gives what it moves end to end).
+// What it replaces, the split form's round trip through device memory
+// (each tile's logits written by a stats launch and read back by a value
+// launch, fp32 partials written and read by the last block, an atomic
+// ticket, a second launch's ramp), moved ~117 MB a call at B 128, K 10, Ls
+// 279 against the ~77 MB of q, the K and V rows and the output that the
+// cluster form moves. What bounds it on the H100 (PERF.md): instruction
+// throughput, and the cluster barriers (a quarter of its time), more than
+// the HBM rate: its copies alone run at ~2.6 TB/s, its products without the
+// barriers take 3/4 of its time. Hence the plan's few warps a rank (fewer
+// ranks wait less at each barrier), and a warp's chain kept in registers.
+//
+// Longer encoders (an RLE source's up to 4090 keys, 32 tiles: more than a
+// cluster holds) take the split form, two launches. The first computes each
 // tile's logits and their max and sum (reading K and the bias only) and
 // writes the logits to the workspace (reading 8 K bytes a key back measured
 // faster than reading K again and recomputing them, at K 1, 10 and 30). The
@@ -116,6 +153,8 @@
 // window and lane-padded scale operands exist for the TPU's matrix unit and
 // Mosaic's tiling; none of them carries over.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace mmt {
@@ -129,6 +168,15 @@ constexpr int kRowPad = 16;
 constexpr int kCrossThreads = 256;
 constexpr int kCrossOnePassKeys = 256;
 constexpr int kCrossTileKeys = 128;
+// The cluster form: at most the portable cluster size of tiles, a block
+// each, of 32 keys a warp and at most 5 warps (4 blocks to an SM), at most
+// 1024 keys in all (a lane of one warp per (rank, warp) in the fold), at
+// this head size.
+constexpr int kClusterTiles = 8;
+constexpr int kClusterWarpKeys = 32;
+constexpr int kClusterMaxWarps = 5;
+constexpr int kClusterKeys = 32 * kClusterWarpKeys;
+constexpr int kClusterDh = 64;
 // A tile whose largest logit lies more than this below its row's max holds
 // only keys whose exp(S - max) is exactly 0 in fp32 (it underflows past
 // about -104; the margin leaves room for expf's last-bit error).
@@ -254,6 +302,41 @@ __host__ __device__ inline CrossLayout cross_layout(int beams, int head_dim, int
   l.off_live = off;
   off += tiles > 0 ? align16((static_cast<size_t>(tiles) + 1) * 4) : 0;
   l.total = off;
+  return l;
+}
+
+// Shared-memory plan of a cluster-form block (head_dim kClusterDh, mt
+// 16-row tiles of beams, `warps` x kClusterWarpKeys keys, `tiles` ranks):
+// the beams' q rows, the tile's K rows (once the logits are done, the room
+// where the peers put their fp32 P V partials of this rank's slice of the
+// outputs: `tiles` x cluster_puts(mt, warps) slices of `slice` beam rows),
+// its V rows, its bias, every (rank, warp, beam)'s max and sum, put there by
+// the peers, and each beam's m and l.
+struct ClusterLayout {
+  int slice;   // the beam rows of outputs a rank adds
+  size_t off_k, off_v, off_bias, off_stat, off_ml, total;
+};
+
+// Partials a block puts per beam row: one a warp, or with two 16-row tiles
+// of beams one a pair of warps (so that they fit the K rows' room).
+__host__ __device__ constexpr int cluster_puts(int mt, int warps) {
+  return mt == 1 ? warps : warps / 2;
+}
+
+__host__ __device__ inline ClusterLayout cluster_layout(int beams, int tiles, int warps) {
+  ClusterLayout l;
+  const int mt = (beams + 15) / 16;
+  const size_t row = (kClusterDh + 8) * 2;   // a staged bf16 row, padded
+  const size_t rows = static_cast<size_t>(warps) * kClusterWarpKeys * row;
+  l.slice = (beams + tiles - 1) / tiles;
+  const size_t parts =
+      static_cast<size_t>(tiles) * cluster_puts(mt, warps) * l.slice * kClusterDh * 4;
+  l.off_k = align16(16 * mt * row);           // q at 0
+  l.off_v = l.off_k + align16(parts > rows ? parts : rows);
+  l.off_bias = l.off_v + rows;
+  l.off_stat = l.off_bias + static_cast<size_t>(warps) * kClusterWarpKeys * 4;
+  l.off_ml = l.off_stat + static_cast<size_t>(tiles) * warps * 16 * mt * 8;
+  l.total = l.off_ml + 16 * mt * 8;
   return l;
 }
 
@@ -1107,6 +1190,308 @@ __global__ void __launch_bounds__(kCrossThreads) cross_value_kernel(
   }
 }
 
+// Four consecutive outputs, rounded to bf16.
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 o) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(o.x, o.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(o.z, o.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = raw;
+}
+
+// The cluster barrier in two halves: a relaxed arrival (it orders no
+// memory) and the wait for every thread of the cluster to have arrived.
+// A block may write into a peer's shared memory only once the peer has
+// started; an arrival at entry and the wait before the first such write
+// say so at the cost of the wait alone.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The cluster form (bf16, head_dim kClusterDh, up to 16 * kMt beams): grid
+// (tiles, heads, batch) in clusters of (tiles, 1, 1), so that the blocks of
+// one cluster are the tiles of one (b, h), block t (rank t) taking keys
+// [t * tile_keys, ...), and each of its warps 32 of them.
+// S, P and the P V partial stay in the warp's mma fragments (S's m16n8
+// accumulators of two key tiles are P's m16k16 operand), so a warp's chain
+// is its products and its rows' quad reductions; only each (warp, beam)'s
+// max and sum and the warps' partials cross shared memory, and through it
+// the cluster.
+template <int kMt>
+__global__ void __launch_bounds__(kClusterMaxWarps * 32, 3) cluster_cross_attention_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out, int beams, int ls, float scale) {
+  constexpr int kDh = kClusterDh, kStride = kDh + 8, kMPad = 16 * kMt;
+  constexpr int kNt = kClusterWarpKeys / 8, kKt = kDh / 16, kOt = kDh / 8;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = gridDim.x, d_model = gridDim.y * kDh;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, gc = lane & 3;
+  const int warps = blockDim.x >> 5, tile_keys = warps * kClusterWarpKeys;
+  const ClusterLayout l = cluster_layout(beams, tiles, warps);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + l.off_k);
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + l.off_v);
+  float* bias_s = reinterpret_cast<float*>(smem + l.off_bias);
+  float2* stats = reinterpret_cast<float2*>(smem + l.off_stat);   // (rank, warp, beam)
+  float2* ml = reinterpret_cast<float2*>(smem + l.off_ml);        // (beam): m, l
+  float* parts = reinterpret_cast<float*>(smem + l.off_k);   // (rank, put, slice, kDh)
+  const int j0 = t * tile_keys;
+  const int nk = imin(tile_keys, ls - j0);
+  const int key0 = warp * kClusterWarpKeys;
+  const bool live = key0 < nk;
+  const size_t head_off = static_cast<size_t>(h) * kDh;
+  cluster_arrive_relaxed();   // this block has started; waited for before the first put
+
+  // 1. q, the K rows and the bias (group 0); the V rows, zero past the
+  // tile's keys (group 1).
+  const size_t rows0 = (static_cast<size_t>(b) * ls + j0) * d_model + head_off;
+  stage_head_rows(q_s, kStride, q + static_cast<size_t>(b) * beams * d_model + head_off, d_model,
+                  beams, kMPad, kDh, kDh);
+  stage_head_rows(k_s, kStride, k + rows0, d_model, nk, nk, kDh, kDh);
+  for (int j = tid; j < nk; j += blockDim.x) {
+    cp_async<4>(bias_s + j, bias + static_cast<size_t>(b) * ls + j0 + j);
+  }
+  cp_async_commit();
+  stage_head_rows(v_s, kStride, v + rows0, d_model, nk, tile_keys, kDh, kDh);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // 2. q * scale rounded to bf16 (as the plain version rounds q * Dh^-0.5),
+  // two elements a thread.
+  for (int i = tid; i < beams * kDh / 2; i += blockDim.x) {
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(q_s + (2 * i / kDh) * kStride) +
+                        i % (kDh / 2);
+    const float2 x = __bfloat1622float2(*e);
+    *e = __floats2bfloat162_rn(x.x * scale, x.y * scale);
+  }
+  __syncthreads();
+
+  // 3. S = q K^T + bias over the warp's keys (-inf past the tile's); per
+  // beam row (each thread holds rows gr and gr + 8 of each 16-row tile)
+  // their max mx and e = exp(S - mx), which s then holds, and the sum of e.
+  float s[kMt][kNt][4], row_mx[kMt][2], row_sum[kMt][2];
+  if (live) {
+    uint32_t a[kMt][kKt][4];
+    const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+      for (int kk = 0; kk < kKt; ++kk) {
+        ldsm_x4(a[mt][kk], q_s + (mt * 16 + a_row) * kStride + kk * 16 + a_col);
+      }
+    }
+    const int b_row = lane & 7, b_col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      uint32_t bk[kKt][2];
+#pragma unroll
+      for (int kk = 0; kk < kKt; ++kk) {
+        ldsm_x2(bk[kk], k_s + (key0 + nt * 8 + b_row) * kStride + kk * 16 + b_col);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        float* c = s[mt][nt];
+        c[0] = c[1] = c[2] = c[3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKt; ++kk) {
+          mma_bf16(c, a[mt][kk][0], a[mt][kk][1], a[mt][kk][2], a[mt][kk][3], bk[kk][0],
+                   bk[kk][1]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt) {
+    const int j = key0 + nt * 8 + 2 * gc;
+    const float2 bj = *reinterpret_cast<const float2*>(bias_s + j);   // past nk: not used
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) {
+      float* c = s[mt][nt];
+      c[0] = live && j < nk ? c[0] + bj.x : -INFINITY;
+      c[1] = live && j + 1 < nk ? c[1] + bj.y : -INFINITY;
+      c[2] = live && j < nk ? c[2] + bj.x : -INFINITY;
+      c[3] = live && j + 1 < nk ? c[3] + bj.y : -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        mx = fmaxf(mx, fmaxf(s[mt][nt][2 * half], s[mt][nt][2 * half + 1]));
+      }
+      mx = quad_max(mx);
+      const float shift = mx == -INFINITY ? 0.f : mx;   // e 0 where every key is past the tile
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        float* c = s[mt][nt] + 2 * half;
+        c[0] = exp_or_zero(c[0] - shift);
+        c[1] = exp_or_zero(c[1] - shift);
+        sum += c[0] + c[1];
+      }
+      row_mx[mt][half] = mx;
+      row_sum[mt][half] = quad_sum(sum);
+    }
+  }
+  // Each (warp, beam)'s max and sum into every rank's shared memory, once
+  // every block of the cluster has started (the wait for the arrival made
+  // at entry, which the staging and the products above have hidden).
+  cluster_wait();
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = mt * 16 + half * 8 + gr;
+      if (gc == 0 && m < beams) {
+        for (int r = 0; r < tiles; ++r) {
+          cluster.map_shared_rank(stats, r)[(t * warps + warp) * kMPad + m] =
+              make_float2(row_mx[mt][half], row_sum[mt][half]);
+        }
+      }
+    }
+  }
+  cluster.sync();
+
+  // 4. Each beam's m and l from every (rank, warp) pair, one warp a beam,
+  // one lane a pair: the same order, and so the same bits, in every block.
+  for (int m = warp; m < beams; m += warps) {
+    const float2 st = lane < tiles * warps ? stats[lane * kMPad + m]
+                                                   : make_float2(-INFINITY, 0.f);
+    const float row_m = warp_max(st.x);
+    const float row_l = warp_sum(lane < tiles * warps ? st.y * expf(st.x - row_m) : 0.f);
+    if (lane == 0) ml[m] = make_float2(row_m, row_l);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 5. P = e exp(mx - m) / l (exp(S - m) / l up to fp32 rounding; the head
+  // note) rounded to bf16, straight into the A operand, and the warp's fp32
+  // P V over its keys.
+  float o[kMt][kOt][4];
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+    for (int ot = 0; ot < kOt; ++ot) o[mt][ot][0] = o[mt][ot][1] = o[mt][ot][2] = o[mt][ot][3] = 0.f;
+  }
+  if (live) {
+    float scale_p[kMt][2];   // exp(mx - m) / l per row; 0 on the pad rows
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = mt * 16 + half * 8 + gr;
+        const float2 x = m < beams ? ml[m] : make_float2(0.f, 1.f);
+        scale_p[mt][half] = m < beams ? expf(row_mx[mt][half] - x.x) / x.y : 0.f;
+      }
+    }
+    const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int ks = 0; ks < kNt / 2; ++ks) {
+      uint32_t pa[kMt][4];
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        const float* s0 = s[mt][2 * ks];
+        const float* s1 = s[mt][2 * ks + 1];
+        const float c0 = scale_p[mt][0], c1 = scale_p[mt][1];
+        pa[mt][0] = pack_bf16(s0[0] * c0, s0[1] * c0);
+        pa[mt][1] = pack_bf16(s0[2] * c1, s0[3] * c1);
+        pa[mt][2] = pack_bf16(s1[0] * c0, s1[1] * c0);
+        pa[mt][3] = pack_bf16(s1[2] * c1, s1[3] * c1);
+      }
+#pragma unroll
+      for (int ot = 0; ot < kOt; ++ot) {
+        uint32_t bv[2];
+        ldsm_x2_trans(bv, v_s + (key0 + ks * 16 + v_row) * kStride + ot * 8);
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          mma_bf16(o[mt][ot], pa[mt][0], pa[mt][1], pa[mt][2], pa[mt][3], bv[0], bv[1]);
+        }
+      }
+    }
+  }
+  // 6. The warp's partial of each beam row (with two 16-row tiles, warps 2
+  // and 3 first add theirs to warps 0 and 1's, through the V rows' room)
+  // into the shared memory of the rank that adds that row (rank m / slice).
+  const int puts = cluster_puts(kMt, warps);
+  if constexpr (kMt > 1) {
+    __syncthreads();   // every warp is done with the V rows
+    float2* pass = reinterpret_cast<float2*>(v_s) + (warp % puts) * kMt * 2 * kOt * 32 + lane;
+#pragma unroll
+    for (int round = 0; round < 2; ++round) {
+      if (warp / puts == 1 - round) {
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+#pragma unroll
+            for (int ot = 0; ot < kOt; ++ot) {
+              float2* x = pass + ((mt * 2 + half) * kOt + ot) * 32;
+              if (round == 0) {
+                *x = make_float2(o[mt][ot][2 * half], o[mt][ot][2 * half + 1]);
+              } else {
+                o[mt][ot][2 * half] += x->x;
+                o[mt][ot][2 * half + 1] += x->y;
+              }
+            }
+          }
+        }
+      }
+      if (round == 0) __syncthreads();
+    }
+  }
+  const int slice_size = l.slice * kDh;
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = mt * 16 + half * 8 + gr;
+      if (warp < puts && m < beams) {   // a warp without keys puts zeros
+        const int r = m / l.slice;
+        float* dst = cluster.map_shared_rank(parts, r) +
+                     (t * puts + warp) * slice_size + (m - r * l.slice) * kDh + 2 * gc;
+#pragma unroll
+        for (int ot = 0; ot < kOt; ++ot) {
+          *reinterpret_cast<float2*>(dst + ot * 8) =
+              make_float2(o[mt][ot][2 * half], o[mt][ot][2 * half + 1]);
+        }
+      }
+    }
+  }
+  cluster.sync();
+
+  // 7. This rank's rows of the outputs: the (rank, put) partials added in
+  // order, four outputs a thread.
+  const int first = t * l.slice * kDh / 4;
+  const int end = imin(beams, (t + 1) * l.slice) * kDh / 4;
+  __nv_bfloat16* out_bh = out + static_cast<size_t>(b) * beams * d_model + head_off;
+  const float4* mine = reinterpret_cast<const float4*>(parts);
+  for (int i = first + tid; i < end; i += blockDim.x) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < tiles * puts; ++p) {
+      const float4 x = mine[p * slice_size / 4 + i - first];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const int m = 4 * i / kDh;
+    store4(out_bh + static_cast<size_t>(m) * d_model + (4 * i - m * kDh), acc);
+  }
+}
+
 // Raise a kernel's dynamic shared-memory limit once it needs more than the
 // default 48 KB (once per size it grows to, not per launch).
 template <typename Kernel>
@@ -1163,16 +1548,21 @@ int launch_select(const void* q, const void* k_new, const void* v_new, void* cac
 
 // The cross plan: an encoder of up to kCrossOnePassKeys keys (rounded to
 // 16) whose block fits shared memory takes the one-pass form; a longer one
-// the split form, in tiles of kCrossTileKeys keys (halved while a block
-// would pass kMaxSmem), a block each. tile_keys is -1 for a shape the
-// kernels do not take; workspace is 0 for the one-pass form.
+// of up to kClusterKeys keys in bf16 at head_dim kClusterDh and up to 32
+// beams the cluster form, in tiles of 32 keys a warp; any other the split
+// form, in tiles of kCrossTileKeys keys (halved while a block would pass
+// kMaxSmem), a block each. tile_keys is -1 for a shape the kernels do not
+// take; workspace is 0 but for the split form.
+enum CrossForm { kOnePass = 0, kCluster = 1, kSplit = 2 };
+
 struct CrossPlan {
+  int form;
   int tile_keys;
   long long workspace;
 };
 
 CrossPlan cross_plan(int elt, int batch, int beams, int heads, int head_dim, int ls) {
-  CrossPlan p{-1, 0};
+  CrossPlan p{kOnePass, -1, 0};
   if (head_dim > kMaxHeadDim || head_dim % 8 != 0 || ls < 1 || beams < 1 || beams > 256 ||
       batch < 1 || heads < 1 || batch > 65535 || heads > 65535) {
     return p;
@@ -1183,10 +1573,30 @@ CrossPlan cross_plan(int elt, int batch, int beams, int heads, int head_dim, int
     p.tile_keys = one_pass;
     return p;
   }
+  if (elt == 2 && head_dim == kClusterDh && beams <= 32 && ls <= kClusterKeys) {
+    // The least warps in all plus two a rank (its barriers, the fold and
+    // its slice's sums cost about two warps' keys, measured at Ls 279),
+    // then the fewest warps a block; two 16-row tiles of beams pair warps.
+    int warps = 0, tiles = 0;
+    for (int w = beams > 16 ? 2 : 1; w <= kClusterMaxWarps; w += beams > 16 ? 2 : 1) {
+      const int n = (ls + w * kClusterWarpKeys - 1) / (w * kClusterWarpKeys);
+      if (n <= kClusterTiles && n * w <= 32 &&
+          (!warps || n * (w + 2) < tiles * (warps + 2))) {
+        warps = w;
+        tiles = n;
+      }
+    }
+    if (warps && cluster_layout(beams, tiles, warps).total <= kMaxSmem) {
+      p.form = kCluster;
+      p.tile_keys = warps * kClusterWarpKeys;
+      return p;
+    }
+  }
   for (int tile = kCrossTileKeys; tile >= 16; tile /= 2) {
     const int tiles = (ls + tile - 1) / tile;
     if (cross_layout(beams, head_dim, tile, elt, true, false, 0).total <= kMaxSmem &&
         cross_layout(beams, head_dim, tile, elt, false, true, tiles).total <= kMaxSmem) {
+      p.form = kSplit;
       p.tile_keys = tile;
       p.workspace = static_cast<long long>(
           cross_workspace(batch, beams, heads, head_dim, tiles, tile).total);
@@ -1212,7 +1622,7 @@ int launch_cross(const void* q, const void* k, const void* v, const void* bias, 
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const float* bt = static_cast<const float*>(bias);
-  if (plan.workspace == 0) {
+  if (plan.form == kOnePass) {
     const size_t smem =
         cross_layout(beams, head_dim, round_up(ls, 16), sizeof(T), true, true, 0).total;
     static size_t reserved = 0;
@@ -1224,6 +1634,31 @@ int launch_cross(const void* q, const void* k, const void* v, const void* bias, 
   }
   const int tile_keys = plan.tile_keys;
   const int tiles = (ls + tile_keys - 1) / tile_keys;
+  const dim3 grid(tiles, heads, batch);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (plan.form == kCluster) {
+      const int mt = (beams + 15) / 16;
+      auto kernel = mt == 1 ? cluster_cross_attention_kernel<1> : cluster_cross_attention_kernel<2>;
+      const size_t smem = cluster_layout(beams, tiles, tile_keys / kClusterWarpKeys).total;
+      static size_t reserved[2] = {0, 0};
+      const cudaError_t err = reserve_smem(kernel, smem, &reserved[mt - 1]);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = tiles;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t config = {};
+      config.gridDim = grid;
+      config.blockDim = dim3(tile_keys);   // a warp per kClusterWarpKeys keys
+      config.dynamicSmemBytes = smem;
+      config.stream = s;
+      config.attrs = attr;
+      config.numAttrs = 1;
+      return static_cast<int>(
+          cudaLaunchKernelEx(&config, kernel, qt, kt, vt, bt, static_cast<T*>(out), beams, ls, scale));
+    }
+  }
   const size_t stats_smem =
       cross_layout(beams, head_dim, tile_keys, sizeof(T), true, false, 0).total;
   const size_t value_smem =
@@ -1233,7 +1668,6 @@ int launch_cross(const void* q, const void* k, const void* v, const void* bias, 
   if (err == cudaSuccess) err = reserve_smem(cross_value_kernel<T>, value_smem, &reserved[1]);
   if (err != cudaSuccess) return static_cast<int>(err);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  const dim3 grid(tiles, heads, batch);
   cross_stats_kernel<T><<<grid, threads, stats_smem, s>>>(qt, kt, bt, ws, beams, head_dim, ls,
                                                           tile_keys, scale);
   err = cudaGetLastError();
@@ -1327,13 +1761,15 @@ int mmt_beam_select_attention(int quantized, const void* q, const void* cache,
 }
 
 // The cross plan for this shape: returns its keys per tile (at least Ls
-// rounded to 16 for the one-pass form, else the split form's tiles), or -1
-// for a shape the kernels do not take, and stores the bytes of global
-// workspace a launch needs (0 for the one-pass form) in *workspace_bytes;
+// rounded to 16 for the one-pass form, else the tiles of the cluster or the
+// split form), or -1 for a shape the kernels do not take, and stores its
+// form (0 one pass, 1 cluster, 2 split) in *form and the bytes of global
+// workspace a launch needs (0 but for the split form) in *workspace_bytes;
 // is_bf16 as mmt_beam_cross_attention's.
 int mmt_beam_cross_plan(int is_bf16, int batch, int beams, int heads, int head_dim, int ls,
-                        long long* workspace_bytes) {
+                        int* form, long long* workspace_bytes) {
   const mmt::CrossPlan p = mmt::cross_plan(is_bf16 ? 2 : 4, batch, beams, heads, head_dim, ls);
+  *form = p.form;
   *workspace_bytes = p.workspace;
   return p.tile_keys;
 }

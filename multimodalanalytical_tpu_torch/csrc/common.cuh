@@ -47,6 +47,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Reductions over the four lanes that hold one row of an mma accumulator.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFullMask, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFullMask, v, 1);
+  return v + __shfl_xor_sync(kFullMask, v, 2);
+}
+
+// Two floats rounded to bf16 and packed low, high: one register of an mma
+// operand.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
 // Eight consecutive elements as float. The caller guarantees 8-element
 // alignment of `p` (head_dim % 8 == 0 and a 16-byte aligned base).
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {

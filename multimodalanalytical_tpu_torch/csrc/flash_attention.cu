@@ -460,11 +460,6 @@ constexpr int kRowBytes = 128;     // 64 bf16: one swizzle span
 constexpr int kBoxRows = 64;       // rows of one TMA box
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The fp32 accumulators of a 16-column k-step (8-column chunks c0, c1) as
 // the A fragment (registers) of the next product, rounded to bf16: the
 // accumulator layout of a warp's 16 rows is the A-operand layout.
@@ -473,16 +468,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4], const
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Reductions over the four lanes that hold one accumulator row.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFullMask, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFullMask, v, 1);
-  return v + __shfl_xor_sync(kFullMask, v, 2);
 }
 
 // Write a warp's 16 x HD accumulators (8-column chunks of 4: rows g and

@@ -39,7 +39,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "mmt_beam_select_attention_update": [_I] + [_P] * 8 + [_I] * 7 + [_P, _I, _F, _P],
     "mmt_beam_select_attention": [_I] + [_P] * 6 + [_I] * 7 + [_P, _I, _F, _P],
-    "mmt_beam_cross_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)],
+    "mmt_beam_cross_plan": [_I] * 6 + [ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_longlong)],
     "mmt_beam_cross_attention": [_I] + [_P] * 6 + [ctypes.c_longlong] + [_I] * 5 + [_F, _P],
     "mmt_geglu_ffn": [_P] * 10 + [_I] * 8 + [_P],
     "mmt_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

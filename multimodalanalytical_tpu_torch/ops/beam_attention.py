@@ -319,12 +319,18 @@ def beam_cross_attention_plain(q, k, v, bias, num_heads, beams) -> torch.Tensor:
     return out.to(q.dtype).reshape(batch * beams, d_model)
 
 
+# The cross kernels' forms, by the C plan's number for each.
+CROSS_FORMS = ("one_pass", "cluster", "split")
+
+
 @dataclasses.dataclass(frozen=True)
 class CrossPlan:
     """How the cross kernels take an encoder of Ls keys (the C side's
-    cross_plan): in tiles of ``tile_keys`` keys, a block each
-    (``tile_keys`` >= Ls rounded to 16: the one-pass form), and the bytes
-    of workspace the split form needs."""
+    cross_plan): ``form`` one of :data:`CROSS_FORMS`, in tiles of
+    ``tile_keys`` keys, a block each (``tile_keys`` >= Ls rounded to 16:
+    the one-pass form), and the bytes of workspace the split form needs (0
+    for the other two)."""
+    form: str
     tile_keys: int
     workspace_bytes: int
 
@@ -333,12 +339,13 @@ class CrossPlan:
 def cross_plan(batch: int, beams: int, heads: int, head_dim: int, ls: int, elt: int) -> CrossPlan:
     """The plan for K beams against (B, Ls) encoder rows of ``heads`` heads
     of ``head_dim`` in ``elt``-byte elements (2 bf16, 4 fp32)."""
-    nbytes = ctypes.c_longlong()
+    form, nbytes = ctypes.c_int(), ctypes.c_longlong()
     tile_keys = _cuda.library().mmt_beam_cross_plan(int(elt == 2), batch, beams, heads,
-                                                    head_dim, ls, ctypes.byref(nbytes))
+                                                    head_dim, ls, ctypes.byref(form),
+                                                    ctypes.byref(nbytes))
     _cuda.require(tile_keys > 0, f"beam_cross_attention: no plan for K={beams} "
                                  f"head_dim={head_dim} Ls={ls}")
-    return CrossPlan(tile_keys, nbytes.value)
+    return CrossPlan(CROSS_FORMS[form.value], tile_keys, nbytes.value)
 
 
 def beam_cross_attention(
@@ -352,10 +359,13 @@ def beam_cross_attention(
     """Beam cross-attention; returns (B*K, D) in q's dtype (pre out-projection).
 
     Products run in the K/V storage dtype (bf16, or fp32 for fp32 models);
-    :func:`cross_plan` picks the one-pass or the split form, whose
-    workspace is a ``torch.empty`` here, so that a captured graph holds it.
-    ``beam_cross_attention.launches`` counts wrapper calls that launch (the
-    split form's two launches count once).
+    :func:`cross_plan` picks the one-pass, the cluster or the split form,
+    whose workspace is a ``torch.empty`` here, so that a captured graph
+    holds it. ``beam_cross_attention.launches`` counts wrapper calls that
+    launch (the split form's two launches count once);
+    ``beam_cross_attention.forms`` counts them by form, where ``launches``
+    is counted, but as plain calls: a CUDA graph's capture counts, its
+    replays do not.
     """
     if q.device.type == "cpu":
         return beam_cross_attention_plain(q, k, v, bias, num_heads, beams)
@@ -383,7 +393,9 @@ def beam_cross_attention(
         _cuda.ptr(out), _cuda.ptr(workspace), plan.workspace_bytes, batch, beams, num_heads,
         head_dim, ls, head_dim ** -0.5, _cuda.stream()), "beam_cross_attention")
     beam_cross_attention.launches += 1
+    beam_cross_attention.forms[plan.form] += 1
     return out
 
 
 _cuda.count_launches(beam_cross_attention)
+beam_cross_attention.forms = dict.fromkeys(CROSS_FORMS, 0)

@@ -111,8 +111,10 @@ def test_cross_attention_matches_plain(gen, dtype, k, heads, head_dim, ls):
 def _cross_rows(gen, b, k, ls, d, dtype, tile):
     """q, K, V and a bias over B rows: row 0 fully masked (batch padding),
     row 1 with every key of the first tile masked, row 2 with every key
-    past the first tile masked, later rows ragged (whole tiles masked at
-    their tails)."""
+    past the first tile masked, row 3 padded inside the sequence, each of
+    four segments (the multimodal encoder's modalities, 12 / 189 / 54 / 24
+    of 279) valid for its first half, later rows ragged (whole tiles masked
+    at their tails)."""
     q = torch.randn(b * k, d, generator=gen, device="cuda").to(dtype)
     kv = [torch.randn(b, ls, d, generator=gen, device="cuda").to(dtype) for _ in range(2)]
     keep = torch.rand(b, ls, generator=gen, device="cuda") < 0.6
@@ -122,26 +124,44 @@ def _cross_rows(gen, b, k, ls, d, dtype, tile):
     keep[2, tile:] = False
     keep[2, 0] = True
     keep[3:, ls // 3:] = False
+    if b > 3:
+        bounds = [round(ls * x / 279) for x in (0, 12, 201, 255, 279)]
+        keep[3] = False
+        for lo, hi in zip(bounds, bounds[1:]):
+            keep[3, lo:lo + max(1, (hi - lo) // 2)] = True
     return q, kv, torch.where(keep, 0.0, -1e9).float()
+
+
+def _cross_form(ls, dtype=torch.bfloat16):
+    """The form the plan gives #2 at these test widths (head_dim 64, up to
+    32 beams; fp32 past one pass takes the split form)."""
+    return ("one_pass" if ls <= 256 else
+            "cluster" if ls <= 1024 and dtype == torch.bfloat16 else "split")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k", [1, 10, 30])
-@pytest.mark.parametrize("ls", [257, 271, 279, 300, 511, 1025, 2100, 4090])
+@pytest.mark.parametrize("ls", [257, 271, 279, 300, 511, 1024, 1025, 2100, 4090])
 def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
-    """The split form (its stats and value launches) past the one-pass
-    limit: the multimodal recipe's Ls 279, an RLE encoder's 2100 and 4090,
-    and lengths whose last tile holds 1-127 keys. Row 0 is fully masked,
-    row 1 has its first tile masked, row 2 every tile past the first (their
-    blocks skip), later rows ragged: all finite, within chip_smoke.py's
-    max-error and error-norm limits of the plain version, and two calls
-    bit-equal."""
+    """Past the one-pass limit: the cluster form up to 1024 keys in bf16
+    (the multimodal recipe's Ls 279; 257, 271, 300 and 511, whose last tile
+    holds 1-127 keys; 1024, eight full tiles), the split form (its stats and
+    value launches) beyond (1025, an RLE encoder's 2100 and 4090) and in
+    fp32. Row 0 is fully
+    masked, row 1 has its first tile masked, row 2 every tile past the first
+    (split blocks skip them), row 3 is padded inside the sequence, per
+    modality, later rows ragged at their ends: all finite, within
+    chip_smoke.py's max-error and error-norm limits of the plain version,
+    and two calls bit-equal."""
     b, heads, head_dim = 5, 8, 64
     d = heads * head_dim
     plan = ba.cross_plan(b, k, heads, head_dim, ls, 2 if dtype == torch.bfloat16 else 4)
-    assert plan.workspace_bytes > 0
+    assert plan.form == _cross_form(ls, dtype)
+    assert (plan.workspace_bytes > 0) == (plan.form == "split")
     q, kv, bias = _cross_rows(gen, b, k, ls, d, dtype, plan.tile_keys)
+    before = dict(ba.beam_cross_attention.forms)
     got = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    assert ba.beam_cross_attention.forms[plan.form] == before[plan.form] + 1
     again = ba.beam_cross_attention(q, *kv, bias, heads, k)
     want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
     assert bool(torch.isfinite(got.float()).all())
@@ -155,16 +175,97 @@ def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
 @pytest.mark.parametrize("batch,beams,heads,head_dim,ls", [
     (128, 10, 8, 64, 26), (128, 1, 8, 64, 279), (128, 10, 8, 64, 279), (128, 30, 8, 64, 279),
     (128, 10, 8, 64, 4090), (128, 30, 8, 64, 4090), (3, 4, 2, 128, 2100), (2, 128, 8, 64, 300),
-    (2, 256, 16, 32, 600), (1, 32, 4, 256, 1025), (4, 10, 8, 64, 256), (4, 10, 8, 64, 257)])
+    (2, 256, 16, 32, 600), (1, 32, 4, 256, 1025), (4, 10, 8, 64, 256), (4, 10, 8, 64, 257),
+    (128, 1, 8, 64, 1024), (128, 10, 8, 64, 1024), (128, 30, 8, 64, 1024),
+    (128, 10, 8, 64, 1025), (3, 10, 8, 64, 511), (2, 128, 8, 64, 1000)])
 def test_cross_plan_covers_every_key_once(gen, elt, batch, beams, heads, head_dim, ls):
     """The C side's plan: its tiles cover the Ls keys once (a last tile of
     1-tile_keys keys), in multiples of 16 keys; one pass without workspace
-    up to 256 keys, the split form with workspace past them."""
+    up to 256 keys; past them the cluster form without workspace while its
+    2-8 tiles fit, else the split form with workspace."""
     plan = ba.cross_plan(batch, beams, heads, head_dim, ls, elt)
     tiles = -(-ls // plan.tile_keys)
     assert plan.tile_keys % 16 == 0 and (tiles - 1) * plan.tile_keys < ls <= tiles * plan.tile_keys
-    assert (tiles == 1 and plan.workspace_bytes == 0) if ls <= 256 else (
-        tiles > 1 and plan.workspace_bytes > 0)
+    assert (plan.workspace_bytes > 0) == (plan.form == "split")
+    if ls <= 256:
+        assert plan.form == "one_pass" and tiles == 1
+    elif plan.form == "cluster":
+        assert 2 <= tiles <= 8
+    else:
+        assert plan.form == "split" and tiles > 1
+
+
+@pytest.mark.parametrize("elt", [2, 4])
+@pytest.mark.parametrize("beams", [1, 10, 30])
+def test_cross_plan_forms_at_their_limits(gen, elt, beams):
+    """At the decode widths (D 512, H 8): one pass at Ls 256 (but fp32 at
+    K 30, whose one-pass block passes 227 KB there), the cluster form from
+    257 to 1024 keys in bf16 (2-8 tiles of 32 keys a warp), the split form at 1025
+    and in fp32; and ``beam_cross_attention.forms`` counts each call by its
+    form, at the flagship's Ls 26, the multimodal recipe's 279 and at 1025."""
+    dtype = torch.bfloat16 if elt == 2 else torch.float32
+    forms = {ls: ba.cross_plan(128, beams, 8, 64, ls, elt) for ls in (256, 257, 1024, 1025)}
+    assert [forms[ls].form for ls in (256, 257, 1024, 1025)] == [
+        "split" if elt == 4 and beams == 30 else "one_pass"] + [
+        _cross_form(ls, dtype) for ls in (257, 1024, 1025)]
+    for ls in (257, 1024):
+        tiles = -(-ls // forms[ls].tile_keys)
+        assert forms[ls].tile_keys % 32 == 0 and 2 <= tiles <= 8 or elt == 4
+    for ls in (26, 279, 1025):
+        q, kv, bias = _cross_rows(gen, 4, beams, ls, 512, dtype, 128)
+        before = dict(ba.beam_cross_attention.forms)
+        ba.beam_cross_attention(q, *kv, bias, 8, beams)
+        after = ba.beam_cross_attention.forms
+        assert {f: after[f] - before[f] for f in after} == {
+            f: int(f == _cross_form(ls, dtype)) for f in ba.CROSS_FORMS}
+
+
+@pytest.mark.parametrize("k", [1, 10, 30])
+def test_cluster_form_folds_every_rank(gen, k):
+    """Planted faults of the cluster form at Ls 600 (4-5 tiles):
+    a bias that masks the whole middle tile still matches the plain
+    version, and a change to the logits of any one rank's tile (its keys'
+    bias raised by 1) changes the output and matches the plain version of
+    the changed bias: every rank's stats and partials are folded in."""
+    b, heads, head_dim, ls = 4, 8, 64, 600
+    d = heads * head_dim
+    plan = ba.cross_plan(b, k, heads, head_dim, ls, 2)
+    tile = plan.tile_keys
+    assert plan.form == "cluster" and -(-ls // tile) >= 3
+    q, kv, bias = _cross_rows(gen, b, k, ls, d, torch.bfloat16, tile)
+    bias[1:] = 0.0
+    tol = TOL
+    middle = bias.clone()
+    middle[:, 2 * tile:3 * tile] = -1e9
+    _close(ba.beam_cross_attention(q, *kv, middle, heads, k),
+           ba.beam_cross_attention_plain(q, *kv, middle, heads, k), tol)
+    base = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    for rank in range(-(-ls // tile)):
+        changed = bias.clone()
+        changed[1:, rank * tile:(rank + 1) * tile] += 1.0
+        got = ba.beam_cross_attention(q, *kv, changed, heads, k)
+        _close(got, ba.beam_cross_attention_plain(q, *kv, changed, heads, k), tol)
+        moved = (got[k:].float() - base[k:].float()).abs().max().item()
+        assert moved > 2 * tol * max(1.0, base.float().abs().max().item()), (rank, moved)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ls", [279, 1024])
+def test_tiled_forms_take_graded_biases(gen, dtype, ls):
+    """A bias that does more than mask (keys at 0, -1, ..., -6, a row whose
+    largest bias is -3, a row half masked) through the cluster form (bf16)
+    and the split form (fp32): every key with a P that is not 0 weighs in,
+    the result matches the plain version, and two calls are bit-equal."""
+    b, k, heads, head_dim = 4, 10, 8, 64
+    d = heads * head_dim
+    q, kv, _ = _cross_rows(gen, b, k, ls, d, dtype, 128)
+    bias = -torch.randint(0, 7, (b, ls), generator=gen, device="cuda").float()
+    bias[1] = torch.where(bias[1] == 0, -3.0, bias[1])
+    bias[2, ls // 2:] = -1e9
+    got = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    assert torch.equal(got, ba.beam_cross_attention(q, *kv, bias, heads, k))
+    _close(got, ba.beam_cross_attention_plain(q, *kv, bias, heads, k),
+           TOL if dtype == torch.bfloat16 else 1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -191,13 +292,15 @@ def test_cross_attention_skips_padded_tails(gen, dtype):
     assert (dropped.float() - want.float()).abs().max().item() > 10 * tol
 
 
-@pytest.mark.parametrize("ls", [279, 4090])
+@pytest.mark.parametrize("ls", [279, 1024, 4090])
 def test_cross_attention_replays_in_a_cuda_graph(gen, ls):
-    """#2 captured in a CUDA graph (its workspace from the graph's pool) and
-    replayed on new inputs copied into the captured ones: equal to the eager
-    call on those inputs, bit for bit."""
+    """#2 captured in a CUDA graph (the cluster form's one launch at Ls 279
+    and 1024; the split form's two, its workspace from the graph's pool, at
+    4090) and replayed on new inputs copied into the captured ones: equal to
+    the eager call on those inputs, bit for bit."""
     b, k, heads, head_dim = 4, 10, 8, 64
     d = heads * head_dim
+    assert ba.cross_plan(b, k, heads, head_dim, ls, 2).form == _cross_form(ls)
     q, kv, bias = _cross_rows(gen, b, k, ls, d, torch.bfloat16, 128)
     static = [q.clone(), kv[0].clone(), kv[1].clone(), bias.clone()]
     ba.beam_cross_attention(*static[:3], static[3], heads, k)
@@ -683,6 +786,7 @@ def test_decode_steps_on_card_match_cpu(gen, kv_cache_dtype):
     counters = (ba.beam_select_attention_update, ba.beam_cross_attention,
                 decode_ffn.geglu_ffn)
     logits = []
+    forms = dict(ba.beam_cross_attention.forms)
     for model, dev in ((cpu, "cpu"), (card, "cuda")):
         before = [fn.launches for fn in counters]
         with torch.no_grad():
@@ -699,6 +803,9 @@ def test_decode_steps_on_card_match_cpu(gen, kv_cache_dtype):
         launched = [fn.launches - b for fn, b in zip(counters, before)]
         assert launched == ([0, 0, 0] if dev == "cpu" else [cfg.decoder_layers * steps] * 3)
         logits.append(torch.stack(out))
+    # Ls 26: every cross call one pass, none through the cluster form.
+    assert {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()} == {
+        "one_pass": cfg.decoder_layers * steps, "cluster": 0, "split": 0}
     err = (logits[1] - logits[0]).abs().max().item()
     # bf16 products rounded in other places by cuBLAS and the CPU, carried
     # through 2 + 2 layers.
@@ -916,11 +1023,12 @@ def _multimodal_request(batch, seed, xval, carbon=54):
 
 @pytest.mark.parametrize("xval", [False, True], ids=["ids", "xval"])
 def test_multimodal_graph_decode_equals_eager_decode(gen, xval):
-    """The multimodal recipe's encoder (Ls 279, the cross kernel's split
+    """The multimodal recipe's encoder (Ls 279, the cross kernel's cluster
     form) through the serving engine's graphs against its eager loop: two
     requests, then one with a shorter carbon width (Ls 255, one pass) that
     the engine captures apart; sequences and scores bit-equal, each decode
-    kernel launched 2 x the replays and capture steps."""
+    kernel launched 2 x the replays and capture steps, and every cross call
+    that ran the wrapper (eager steps, captures) counted under its form."""
     from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
 
     engine = InferenceEngine(_small_multimodal_model(), n_beams=4, batch_size=3)
@@ -929,6 +1037,7 @@ def test_multimodal_graph_decode_equals_eager_decode(gen, xval):
         inputs, mask = _multimodal_request(3, seed, xval, carbon)
         assert mask.shape[1] == 12 + 189 + carbon + 24
         before = [fn.launches for fn in counters]
+        forms = dict(ba.beam_cross_attention.forms)
         seqs, scores = engine.decode_batch(inputs, mask)
         stats = engine.last_stats
         assert stats["graph"]
@@ -936,6 +1045,9 @@ def test_multimodal_graph_decode_equals_eager_decode(gen, xval):
             2 * (stats["replays"] + stats["warmup_steps"])] * 3
         eager = engine.decoder.search(inputs, mask, 4, max_length=32, cuda_graph=False)
         assert (seqs == eager[0].cpu().numpy()).all() and (scores == eager[1].cpu().numpy()).all()
+        ran = {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()}
+        assert ran["split"] == 0 and ran["cluster" if carbon == 54 else "one_pass"] > 0
+        assert ran["one_pass" if carbon == 54 else "cluster"] == 0
     assert len(engine.decoder._decodes) == 2
 
 
@@ -1344,7 +1456,8 @@ def test_t5_plain_decode_under_capture_equals_eager(gen, beams, stage_size):
 @pytest.mark.parametrize("batch,beams,stage", [(3, 4, 16), (5, 10, 37), (2, 1, 13)])
 def test_post_ln_bart_decode_steps_on_card_match_cpu(gen, kv_cache_dtype, batch, beams, stage):
     """hf_bart_medium's post-LN decode branch, small and ragged: the card
-    launches #1-#3 once per layer per step and its teacher-forced logits
+    launches #1-#3 once per layer per step (#2 in its one-pass form at Ls
+    26) and its teacher-forced logits
     match the same weights on the CPU (the kernels' plain versions) within
     the bf16 bound of test_decode_steps_on_card_match_cpu."""
     from multimodalanalytical_tpu_torch.generation.beam_search import decode_model
@@ -1366,6 +1479,7 @@ def test_post_ln_bart_decode_steps_on_card_match_cpu(gen, kv_cache_dtype, batch,
     counters = (ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn)
     quantize = kv_cache_dtype == "int8"
     logits = []
+    forms = dict(ba.beam_cross_attention.forms)
     for model, dev in ((cpu, "cpu"), (card, "cuda")):
         before = [fn.launches for fn in counters]
         with torch.no_grad():
@@ -1381,6 +1495,9 @@ def test_post_ln_bart_decode_steps_on_card_match_cpu(gen, kv_cache_dtype, batch,
         launched = [fn.launches - b for fn, b in zip(counters, before)]
         assert launched == ([0, 0, 0] if dev == "cpu" else [2 * steps] * 3)
         logits.append(torch.stack(out))
+    # Ls 26: every cross call one pass, none through the cluster form.
+    assert {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()} == {
+        "one_pass": 2 * steps, "cluster": 0, "split": 0}
     err = (logits[1] - logits[0]).abs().max().item()
     assert err <= 5e-2 * max(1.0, logits[0].abs().max().item()), err
 
