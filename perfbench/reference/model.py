@@ -25,10 +25,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..modality_types import TEXT_LIKE_TYPES, require_plain_ids
+
 MASKED = -1.0e9
 LN_EPS = 1e-5
-TEXT_LIKE = ("text", "multiplets", "carbon")
 FP8_MAX = 448.0
+# The most bytes one (rows, H, Lq, Lk) float32 tensor of attention logits
+# may take: at H 8 the encoder of a B 128 batch is one block up to Ls 724
+# (26 and 279 among them) and 4 rows at Ls 4090 (0.5 GB a row; two such
+# tensors are live at once).
+LOGITS_BUDGET_BYTES = 2 * 2 ** 30
 
 
 def sincos_table(rows: int, width: int, device) -> torch.Tensor:
@@ -37,6 +43,13 @@ def sincos_table(rows: int, width: int, device) -> torch.Tensor:
     angles = np.arange(rows)[:, None] * inv_freq[None, :]
     table = np.stack([np.sin(angles), np.cos(angles)], axis=2).reshape(rows, -1)[:, :width]
     return torch.as_tensor(table, dtype=torch.float32, device=device)
+
+
+def rows_in_budget(batch: int, heads: int, lq: int, lk: int,
+                   budget: int = LOGITS_BUDGET_BYTES) -> int:
+    """Batch rows whose (rows, heads, lq, lk) float32 logits fit in
+    ``budget`` bytes: at least 1, at most ``batch``."""
+    return max(1, min(batch, budget // (heads * lq * lk * 4)))
 
 
 class _Fp8Round(torch.autograd.Function):
@@ -62,10 +75,12 @@ def int8_roundtrip(x: torch.Tensor, heads: int) -> torch.Tensor:
 
 class Reference:
     """``params``: name -> float32 tensor (the program's state-dict names).
-    ``config``: the configuration file's dict (``model`` and ``data``)."""
+    ``config``: the configuration file's dict (``model`` and ``data``).
+    ``logits_budget``: bytes of float32 logits that one block of attention
+    rows may take (:func:`rows_in_budget`)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], config: Dict[str, Any],
-                 fp8: bool = False):
+                 fp8: bool = False, logits_budget: int = LOGITS_BUDGET_BYTES):
         model = config["model"]
         self.p = params
         self.data = config["data"]
@@ -75,6 +90,7 @@ class Reference:
         self.enc_layers, self.dec_layers = model["encoder_layers"], model["decoder_layers"]
         self.rate = float(model.get("dropout", 0.0))
         self.fp8 = fp8
+        self.logits_budget = logits_budget
         self.target = next(m for m, s in self.data.items() if s["target"])
         device = next(iter(params.values())).device
         self.positions = sincos_table(model["max_position_embeddings"], self.d, device)
@@ -102,7 +118,11 @@ class Reference:
     def attention(self, prefix: str, query: torch.Tensor, memory: Optional[torch.Tensor],
                   bias: torch.Tensor, heads: int, int8_kv: bool = False) -> torch.Tensor:
         """Self-attention (``memory`` None: fused qkv projection) or
-        cross-attention; ``bias`` broadcasts to (B, H, Lq, Lk)."""
+        cross-attention; ``bias`` broadcasts to (B, H, Lq, Lk). The logits,
+        softmax and product with V are taken in blocks of the batch rows
+        whose logits fit in ``logits_budget`` (the whole batch at every
+        shape of the benchmark's cells up to Ls 279); the projections see
+        the whole batch, so the control's per-tensor scales do too."""
         if memory is None:
             q, k, v = self.dense(query, prefix + ".qkv_proj").chunk(3, dim=-1)
         else:
@@ -116,9 +136,18 @@ class Reference:
             return t.reshape(b, t.shape[1], heads, -1).transpose(1, 2)
 
         q, k, v = split(q), split(k), split(v)
-        logits = (q @ k.transpose(-1, -2)) * (q.shape[-1] ** -0.5) + bias
-        out = torch.softmax(logits, dim=-1) @ v
+        bias = bias.expand(b, -1, -1, -1)
+        step = rows_in_budget(b, heads, lq, k.shape[2], self.logits_budget)
+        out = torch.cat([self.attend(q[r], k[r], v[r], bias[r])
+                         for r in (slice(s, s + step) for s in range(0, b, step))])
         return self.dense(out.transpose(1, 2).reshape(b, lq, self.d), prefix + ".out_proj")
+
+    @staticmethod
+    def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+        """softmax(q k^T / sqrt(Dh) + bias) v over every key, (B, H, Lq, Dh)."""
+        logits = (q @ k.transpose(-1, -2)) * (q.shape[-1] ** -0.5) + bias
+        return torch.softmax(logits, dim=-1) @ v
 
     def ffn(self, x: torch.Tensor, prefix: str, generator) -> torch.Tensor:
         hidden = self.drop(F.gelu(self.dense(x, prefix + ".linear1")), generator)
@@ -126,7 +155,8 @@ class Reference:
 
     def embed(self, modality: str, x: torch.Tensor) -> torch.Tensor:
         spec = self.data[modality]
-        if spec["type"] in TEXT_LIKE:
+        if spec["type"] in TEXT_LIKE_TYPES:
+            require_plain_ids(modality, spec)
             e = self.p[f"embedding.embed_{modality}.weight"][x.long()]
         elif spec["type"] == "1D_patches":
             e = self.dense(x.float(), f"embedding.embed_{modality}.proj")

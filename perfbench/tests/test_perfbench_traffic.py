@@ -2,8 +2,11 @@
 values in the same multiset of sizes."""
 
 import numpy as np
+import pytest
 
-from perfbench.tests.helpers import tiny_config, traffic
+from perfbench import modality_types
+from perfbench.tests.helpers import (NOT_PLAIN_IDS, rle_config, rle_traffic, tiny_config,
+                                     traffic)
 from perfbench.traffic import inputs
 from perfbench.traffic.tokenizer import formula_tokenizer, smiles_tokenizer
 
@@ -23,6 +26,45 @@ def test_encoder_pool_by_seed():
         assert any(not np.array_equal(xa["IR"], xc["IR"]) for (xa, _), (xc, _) in zip(a, c))
         lengths = [np.sort(np.concatenate([m.sum(1) for _, m in p])) for p in (a, c)]
         assert np.array_equal(*lengths)
+
+
+def test_token_id_types_are_the_programs():
+    from multimodalanalytical_tpu_torch.models.embedding import TEXT_LIKE_TYPES
+
+    assert modality_types.TEXT_LIKE_TYPES == TEXT_LIKE_TYPES
+
+
+def test_rle_pool():
+    """A run-length-encoded IR modality: ids 4..104 on each row's valid
+    tokens, tail-padded with 0 to the modality's width; the same inputs for
+    one seed, the same multiset of row lengths for another."""
+    config, width, low = rle_config(60), 60, 23
+    t = rle_traffic(low, width, batch=8, pool=3)
+    a, b, c = (inputs.encoder_pool(config, t, s) for s in (BIG_SEED, BIG_SEED, BIG_SEED + 1))
+    for (xa, ma), (xb, mb) in zip(a, b):
+        assert np.array_equal(ma, mb) and np.array_equal(xa["RLE"], xb["RLE"])
+    assert any(not np.array_equal(xa["RLE"], xc["RLE"]) for (xa, _), (xc, _) in zip(a, c))
+    lengths = [np.concatenate([m.sum(1) for _, m in p]) for p in (a, c)]
+    assert np.array_equal(*(np.sort(n) for n in lengths))
+    assert not np.array_equal(*lengths)
+    for x, mask in a:
+        ids = x["RLE"]
+        assert ids.dtype == np.int32 and mask.dtype == np.int32 and ids.shape == (8, width)
+        valid = mask.sum(1)
+        assert ((low <= valid) & (valid <= width)).all()
+        assert np.array_equal(mask, (np.arange(width)[None, :] < valid[:, None]).astype(np.int32))
+        assert (ids[mask == 1] >= 4).all() and (ids[mask == 1] < 105).all()
+        assert (ids[mask == 0] == 0).all()
+
+
+@pytest.mark.parametrize("kind", sorted(NOT_PLAIN_IDS))
+def test_no_traffic_for_more_than_plain_ids(kind):
+    """A token-id modality that the collator sends with its own positions
+    or XVal values gets no traffic."""
+    config = rle_config(60)
+    config["data"]["RLE"].update(NOT_PLAIN_IDS[kind])
+    with pytest.raises(ValueError, match="neither the traffic nor the reference"):
+        inputs.encoder_pool(config, rle_traffic(23, 60, batch=2, pool=1), BIG_SEED)
 
 
 def test_targets_by_seed():

@@ -13,9 +13,9 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from ..modality_types import TEXT_LIKE_TYPES, require_plain_ids
 from .tokenizer import BOS_ID, EOS_ID, FixedVocabTokenizer
 
-TEXT_LIKE = ("text", "multiplets", "carbon")
 FIRST_ID = 4
 
 
@@ -44,7 +44,8 @@ def encoder_pool(config: Dict[str, Any], traffic: Dict[str, Any], seed: int
                  ) -> List[Tuple[Dict[str, np.ndarray], np.ndarray]]:
     """``traffic["pool"]`` collated encoder batches of ``traffic["batch"]``
     rows: (inputs by modality, keep-mask (B, Ls) int32), as the collator
-    lays them out (int32 ids tail-padded with 0, float32 patches)."""
+    lays them out (int32 ids tail-padded with 0 for every token-id type
+    that the collator sends as plain ids, float32 patches)."""
     batch, pool = traffic["batch"], traffic["pool"]
     rows = batch * pool
     valid = sizes(traffic, rows, seed)
@@ -55,7 +56,8 @@ def encoder_pool(config: Dict[str, Any], traffic: Dict[str, Any], seed: int
         if spec["target"]:
             continue
         width = config["lengths"][modality]
-        if spec["type"] in TEXT_LIKE:
+        if spec["type"] in TEXT_LIKE_TYPES:
+            require_plain_ids(modality, spec)
             keep = np.arange(width)[None, :] < valid[modality][:, None]
             ids = values.integers(FIRST_ID, spec["vocab_size"], (rows, width))
             inputs[modality] = np.where(keep, ids, 0).astype(np.int32)
