@@ -71,7 +71,7 @@ import torch.distributed as dist
 
 from .. import tracing
 from ..models.seq2seq import Seq2SeqModel
-from ..ops import _cuda
+from ..ops import _cuda, beam_attention, flash_attention
 from ..ops.attention import make_attention_bias
 from ..ops.layers import Dense
 
@@ -195,6 +195,24 @@ class _Decode:
         self.graphs: Dict[Any, Tuple[torch.cuda.CUDAGraph, Dict[Callable, int]]] = {}
         self.pool = None
         self.weights: Tuple[int, ...] = ()
+        # The routes this shape's parts take (:meth:`counted`).
+        self.prologue_flash_launches = 0
+        self.cross_forms = dict.fromkeys(beam_attention.CROSS_FORMS, 0)
+
+    def counted(self, part: Any, run: Callable[[], None]) -> None:
+        """``run()``, the prologue or a stage's step, recording the route it
+        takes as the kernel wrappers count it: the flash forward's launches
+        over the prologue, ``beam_cross_attention``'s calls by form over the
+        first stage's step. Under a capture that is what every replay of the
+        graph launches."""
+        flash, forms = (flash_attention.flash_attention_fwd.launches,
+                        dict(beam_attention.beam_cross_attention.forms))
+        run()
+        if part == "prologue":
+            self.prologue_flash_launches = flash_attention.flash_attention_fwd.launches - flash
+        elif part == self.bounds[0]:
+            self.cross_forms = {form: beam_attention.beam_cross_attention.forms[form] - n
+                                for form, n in forms.items()}
 
     def load(self, encoder_inputs: Dict[str, Any], encoder_mask: torch.Tensor,
              hook_init: Optional[Dict[str, torch.Tensor]]) -> None:
@@ -345,11 +363,12 @@ class BeamDecoder:
 
     def _run(self, d: _Decode, part: Any, use_graph: bool, run: Callable[[], None]) -> None:
         """One part of the decode (the prologue, a stage's step or the
-        epilogue): its graph replayed, or ``run()`` eagerly."""
+        epilogue): its graph replayed, or ``run()`` eagerly, its route
+        recorded (:meth:`_Decode.counted`)."""
         if use_graph:
             _cuda.replay(*d.graphs[part])
         else:
-            run()
+            d.counted(part, run)
 
     def _weights(self) -> Tuple[int, ...]:
         """The addresses of the weights the graphs read: the model's (the
@@ -367,13 +386,15 @@ class BeamDecoder:
         stream, the prologue first: none reads what another left in the
         pool (the state, caches, inputs and outputs lie outside it). The
         warm-up runs change the state, which the prologue's replay resets;
-        a capture that fails raises. Records the weights' addresses."""
+        a capture that fails raises. Records the weights' addresses and the
+        routes the captures took (:meth:`_Decode.counted`)."""
         stream = torch.cuda.Stream(device=d.mask.device)
         stream.wait_stream(torch.cuda.current_stream())
         for part, run in parts:
             with torch.cuda.stream(stream):
                 run()
-            graph, launches, _ = _cuda.capture(run, stream, d.pool)
+            graph, launches, _ = _cuda.capture(functools.partial(d.counted, part, run), stream,
+                                               d.pool)
             d.graphs[part] = (graph, launches)
             d.pool = graph.pool()
         torch.cuda.current_stream().wait_stream(stream)
@@ -436,7 +457,13 @@ class BeamDecoder:
         and epilogue's did), ``recaptured`` (whether this shape was
         captured again for moved weights), ``capture_s`` and
         ``dispatch_s`` (host seconds spent capturing and launching the
-        steps) and, on a CUDA device, ``events``: the decode shape's three
+        steps), ``prologue_flash_launches`` (the flash forward's launches in
+        a prologue: one per encoder layer that takes flash, 0 where the
+        plain route runs) and ``cross_forms`` (``beam_cross_attention``'s
+        calls by form in a step of the first stage: one per decoder layer,
+        in the form its plan picked; all 0 off a CUDA device), as the
+        shape's captures recorded them or this search's eager parts ran
+        them, and, on a CUDA device, ``events``: the decode shape's three
         events, which :func:`read_device_times` reads once the device has
         run the search (the search itself waits for no more than its
         ``done`` reads) and before the next search of the shape.
@@ -528,7 +555,9 @@ class BeamDecoder:
         if stats is not None:
             stats.update(steps=int(d.state["t"]), replays=replays, warmup_steps=warmup_steps,
                          graph=use_graph, prologue_graph=use_graph, recaptured=recaptured,
-                         capture_s=capture_s, dispatch_s=dispatch_s)
+                         capture_s=capture_s, dispatch_s=dispatch_s,
+                         prologue_flash_launches=d.prologue_flash_launches,
+                         cross_forms=dict(d.cross_forms))
             if events:
                 stats["events"] = events
         return d.out_seqs.clone(), d.out_scores.clone()
