@@ -228,15 +228,18 @@ line each, any failure raises and exits non-zero:
    6 x the requests (the encoder at L >= 2048, inside the prologue's
    graph), bit-equal to the eager loop; s/batch (the first request beside
    the steady ones), device time, busy share, prologue span and memory
-   per route, #2's share of device time, a standalone encode's ms and the
-   peak memory with its parts (held between requests, a standalone encode,
-   #2's workspace).
+   per route, #2's share of device time and its wrapper calls by form (the
+   stream form alone), a standalone encode's ms and the peak memory with
+   its parts (held between requests, a standalone encode).
 
-Phase 1 also holds #2's cluster form at the multimodal encoder's Ls 279 and
-its split form at an RLE encoder's Ls 4090 (B 128, K 1, 10 and 30; rows
-fully masked, rows with a masked first tile or with every later tile
-masked) against its plain version, two calls bit-equal, rejects one tile
-left out and one tile's stats dropped, and times it beside SDPA; and times fused dropout beside
+Phase 1 also holds #2's cluster form at the multimodal encoder's Ls 279
+and its split form at RLE rows of Ls 4097 (each rejecting one tile left out
+and one tile's stats dropped) and its stream form at an RLE encoder's Ls
+4090 (rejecting one chunk of a rank left out and one rank's P V partial
+dropped) (B 128, K 1, 10 and 30; rows fully masked, rows with a masked
+first tile or with every later tile masked) against its plain version, two
+calls bit-equal, and times it beside SDPA;
+and times fused dropout beside
 ``torch.nn.functional.dropout``. It also times #1 at positions 33, 96 and 127 of a 128-time stage,
 planned for the stage (as the decode loop launches it) and for pos + 1
 times. ``--profile-eval`` prints, per decode path, the wall and device
@@ -811,12 +814,16 @@ def _cross_tile(beams: int, ls: int) -> int:
     return ba.cross_plan(BATCH, beams, HEADS, D_MODEL // HEADS, ls, 2).tile_keys
 
 
-def _cross_faults(qx, kx, vx, bias, beams: int, left_out: slice, dropped: slice) -> dict:
-    """Plain-math outputs of #2 with a planted fault of a tiled form: the
-    keys of one tile left out (as a value block that skipped a live tile
-    would), and one tile's stats dropped from each row's max m and sum l
-    (every key's P = exp(S - m) / l then taken over the other tiles' m and
-    l, as a fold that missed that tile's stats would)."""
+def _cross_faults(qx, kx, vx, bias, beams: int, left_out: slice, dropped: slice = None,
+                  partial=None) -> dict:
+    """Plain-math outputs of #2 with a planted fault: the keys of
+    ``left_out`` left out (as a block that skipped a live tile or chunk
+    would), and either the stats of the keys in ``dropped`` dropped from each
+    row's max m and sum l (every key's P = exp(S - m) / l then taken over the
+    other keys' m and l, as a fold of a tiled form that missed that tile's
+    stats would) or, given a (Ls,) bool ``partial``, those keys' P V partial
+    dropped (P over all keys, the sum over the others alone, as a stream
+    form's owner that missed a rank's partial would)."""
     import torch
 
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
@@ -830,15 +837,20 @@ def _cross_faults(qx, kx, vx, bias, beams: int, left_out: slice, dropped: slice)
     logits = torch.einsum("bnhd,blhd->bnhl", qh, kx.float().reshape(batch, ls, HEADS, head_dim))
     logits = logits + bias.float()[:, None, None, :]
     others = logits.clone()
-    others[..., dropped] = -torch.inf
+    if dropped is not None:
+        others[..., dropped] = -torch.inf
     m = others.amax(-1, keepdim=True)
     probs = (torch.exp(logits - m) / torch.exp(others - m).sum(-1, keepdim=True)).to(kx.dtype)
+    if partial is not None:
+        probs[..., partial] = 0
     out = torch.einsum("bnhl,blhd->bnhd", probs.float(),
                        vx.float().reshape(batch, ls, HEADS, head_dim))
-    return {f"keys {left_out.start}-{left_out.stop - 1} (one tile) left out":
+    second = (f"the stats of keys {dropped.start}-{dropped.stop - 1} (one tile) dropped"
+              if partial is None else f"the P V partial of {int(partial.sum())} keys "
+                                      f"(one rank's) dropped")
+    return {f"keys {left_out.start}-{left_out.stop - 1} left out":
             ba.beam_cross_attention_plain(qx, kx, vx, cut, HEADS, beams),
-            f"the stats of keys {dropped.start}-{dropped.stop - 1} (one tile) dropped":
-            out.to(qx.dtype).reshape(batch * beams, D_MODEL)}
+            second: out.to(qx.dtype).reshape(batch * beams, D_MODEL)}
 
 
 def _check_cross_at(name: str, kx, vx, bias, keep, g, fault_tiles: tuple, form: str) -> dict:
@@ -846,7 +858,8 @@ def _check_cross_at(name: str, kx, vx, bias, keep, g, fault_tiles: tuple, form: 
     ``form`` (a ``CrossPlan.form``): held to ATTN_TOL and
     ATTN_RMS_TOL against the plain version, two calls bit-equal, the
     planted faults of :func:`_cross_faults` at tiles ``fault_tiles`` (left
-    out, stats dropped) of each K's plan rejected, timed eagerly and as
+    out, stats dropped) of each K's plan rejected (for the stream form rank
+    ``fault_tiles[1]``'s first chunk left out and its partial dropped), timed eagerly and as
     device time in turns with SDPA (additive mask). The bound counts each
     row's valid keys only: q.k and p.v over them, their K and V rows read
     once, q read and out written, the bias. Returns the record entry."""
@@ -876,10 +889,18 @@ def _check_cross_at(name: str, kx, vx, bias, keep, g, fault_tiles: tuple, form: 
         worst = max(worst, err)
         tile = plan.tile_keys
         out_t, drop_t = fault_tiles
-        _rejected(f"beam_cross_attention K={beams} Ls={ls}",
-                  _cross_faults(qx, kx, vx, bias, beams,
-                                slice(out_t * tile, min(ls, out_t * tile + tile)),
-                                slice(drop_t * tile, min(ls, drop_t * tile + tile))), want)
+        if form == "stream":
+            # rank r takes the 32-key chunks r, r + ranks, ...: rank drop_t's
+            # first chunk left out, and its partial dropped
+            ranks = -(-ls // tile)
+            faults = _cross_faults(
+                qx, kx, vx, bias, beams, slice(32 * drop_t, min(ls, 32 * drop_t + 32)),
+                partial=(torch.arange(ls, device=kx.device) // 32) % ranks == drop_t)
+        else:
+            faults = _cross_faults(qx, kx, vx, bias, beams,
+                                   slice(out_t * tile, min(ls, out_t * tile + tile)),
+                                   slice(drop_t * tile, min(ls, drop_t * tile + tile)))
+        _rejected(f"beam_cross_attention K={beams} Ls={ls}", faults, want)
         del got, again
         turns = _cross_turns(qx, kx, vx, bias, beams)
         ms, library_ms, device_ms, library_device_ms = (
@@ -931,26 +952,26 @@ def check_cross_long() -> dict:
     return _check_cross_at("multimodal masks", kx, vx, bias, keep, g, (0, 1), "cluster")
 
 
-def check_cross_rle() -> dict:
-    """#2 at an RLE encoder's Ls 4090 (the split form), B 128: valid
-    lengths drawn from RLE_MIN_LEN..RLE_MAX_LEN and tail-padded, row 0 fully
-    masked (batch padding), row 1 at full length, row 2 with valid keys
-    ending inside the first tile (every later tile's keys skipped); planted
-    faults at the first tile (left out) and the second (stats dropped).
-    Returns the record's ``rle_encoder`` entry."""
+def check_cross_rle(ls: int = RLE_MAX_LEN, form: str = "stream") -> dict:
+    """#2 at an RLE encoder's rows of ``ls`` keys, planned in ``form``, B
+    128: valid lengths drawn from RLE_MIN_LEN..ls and tail-padded, row 0
+    fully masked (batch padding), row 1 at full length, row 2 with valid
+    keys ending inside half the smallest tile (every later chunk's or
+    tile's V rows skipped); planted faults at the first tile and the second
+    (the stream form: rank 1's first chunk left out, its partial dropped).
+    Returns the record's entry."""
     import torch
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(12)
-    ls = RLE_MAX_LEN
-    lengths = torch.randint(RLE_MIN_LEN, RLE_MAX_LEN + 1, (BATCH, 1), generator=g, device=dev)
-    lengths[0], lengths[1] = 0, RLE_MAX_LEN
+    lengths = torch.randint(RLE_MIN_LEN, ls + 1, (BATCH, 1), generator=g, device=dev)
+    lengths[0], lengths[1] = 0, ls
     lengths[2] = min(_cross_tile(beams, ls) for beams, _ in DECODE_BEAMS) // 2
     keep = torch.arange(ls, device=dev)[None, :] < lengths
     bias = torch.where(keep, 0.0, -1e9).float()
     kx, vx = ((torch.randn(BATCH, ls, D_MODEL, generator=g, device=dev)).bfloat16()
               for _ in range(2))
-    entry = _check_cross_at("RLE masks", kx, vx, bias, keep, g, (0, 1), "split")
+    entry = _check_cross_at("RLE masks", kx, vx, bias, keep, g, (0, 1), form)
     del kx, vx
     torch.cuda.empty_cache()
     return entry
@@ -1210,7 +1231,7 @@ def _cross_time_inputs(g, ls: int) -> tuple:
 
 def time_cross() -> None:
     """``--time-cross``: #2's device time (CUDA-graph replay) at B 128 and
-    Ls 26, 279, 1024 and 4090, K 1, 10 and 30, in turns with SDPA, with its
+    Ls 26, 279, 1024, 2048 and 4090, K 1, 10 and 30, in turns with SDPA, with its
     bound from the valid keys and the plan it ran, on whatever
     ``multimodalanalytical_tpu_torch`` sits beside this script (a copy of
     the script in an earlier tree times that tree's kernel at the same
@@ -1223,7 +1244,7 @@ def time_cross() -> None:
 
     g = torch.Generator(device=DEVICE).manual_seed(13)
     times = {}
-    for ls in (FORMULA_LEN + N_PATCHES, MM_LS, 1024, RLE_MAX_LEN):
+    for ls in (FORMULA_LEN + N_PATCHES, MM_LS, 1024, 2048, RLE_MAX_LEN):
         kx, vx, bias, valid = _cross_time_inputs(g, ls)
         for beams, _ in DECODE_BEAMS:
             qx = torch.randn(BATCH * beams, D_MODEL, generator=g, device=DEVICE).bfloat16()
@@ -3059,7 +3080,7 @@ def run_multimodal_path() -> tuple:
     forms = {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()}
     print(f"multimodal #2 wrapper calls by form over the phase (eager steps and captures; "
           f"replays run no wrapper): {forms}", flush=True)
-    _require(forms["cluster"] > 0 and forms["one_pass"] == forms["split"] == 0,
+    _require(forms["cluster"] > 0 and forms["one_pass"] == forms["split"] == forms["stream"] == 0,
              "the multimodal decode's cross attention did not run the cluster form alone")
     del engine, model, dmodel, hidden
     torch.cuda.empty_cache()
@@ -3114,8 +3135,9 @@ def run_rle_serving() -> dict:
     the first request beside the steady ones, the device time, busy share
     and kernel split of one profiled request, the encoder's ms and the peak
     device memory beside what is held between requests, a standalone
-    encode's peak and #2's workspace. Returns the launches of #1-#3 and of
-    #5's forward."""
+    encode's peak, and #2's wrapper calls by form over the phase (all of
+    them the stream form). Returns the launches of #1-#3 and of #5's
+    forward, and the calls by form."""
     import torch
 
     from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
@@ -3123,6 +3145,7 @@ def run_rle_serving() -> dict:
     from multimodalanalytical_tpu_torch.training.trainer import to_device
 
     phase_t0 = time.perf_counter()
+    forms = dict(ba.beam_cross_attention.forms)
     flash_fwd = _flash_counters()[0]
     torch.cuda.reset_peak_memory_stats()
     model = _rle_model(dropout=0.0, use_flash=True)
@@ -3162,12 +3185,11 @@ def run_rle_serving() -> dict:
     with torch.no_grad():
         encode_ms = _time_ms(lambda: dmodel.encode(inputs, mask), iters=3)
     encode_gb = torch.cuda.max_memory_allocated() / 2 ** 30 - held_gb
-    cross_ws = ba.cross_plan(BATCH, BEAMS, HEADS, D_MODEL // HEADS, RLE_MAX_LEN, 2)
+    cross_plan = ba.cross_plan(BATCH, BEAMS, HEADS, D_MODEL // HEADS, RLE_MAX_LEN, 2)
     print(f"RLE serving memory: peak {serve_peak_gb:.2f} GiB over the engine's build and the "
           f"graph and eager requests; held between requests {held_gb:.2f} GiB (weights, "
           f"request tensors, graph pools); a standalone encode adds {encode_gb:.2f} GiB at its "
-          f"peak; #2's split-form workspace {cross_ws.workspace_bytes} bytes a call (K "
-          f"{BEAMS}, Ls {RLE_MAX_LEN}, {cross_ws.tile_keys}-key tiles)", flush=True)
+          f"peak; #2's plan at K {BEAMS}, Ls {RLE_MAX_LEN}: {cross_plan}", flush=True)
     device_s, rows, _, graphs = _route_busy(engine, requests[1], "RLE", routes)["graph"]
     split = _kernel_split(rows)
     peak_gb = max(serve_peak_gb, torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -3182,10 +3204,15 @@ def run_rle_serving() -> dict:
         print(f"  {100 * ms / (device_s * 1e3):5.1f}% {ms:10.2f} ms x {calls:6d}  "
               f"{kernel[:100]}", flush=True)
     _require(graphs >= results[1][2]["replays"], "the profiled request did not replay graphs")
+    forms = {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()}
+    print(f"RLE #2 wrapper calls by form over the phase (eager steps and captures; replays "
+          f"run no wrapper): {forms}", flush=True)
+    _require(forms["stream"] > 0 and sum(forms.values()) == forms["stream"],
+             "the RLE decode's cross attention did not run the stream form alone")
     del engine, model, dmodel, inputs, mask
     torch.cuda.empty_cache()
     print(f"phase 12 done in {time.perf_counter() - phase_t0:.1f} s", flush=True)
-    return launches
+    return launches, forms
 
 
 def run_multimodal_training() -> None:
@@ -4986,6 +5013,9 @@ def main() -> int:
     records[-1]["partial_mode"] = check_ffn_partial()
     records[1]["long_encoder"] = check_cross_long()
     records[1]["rle_encoder"] = check_cross_rle()
+    # one key past the stream form's 4096: the split form, which keeps fp32,
+    # other head sizes, K > 32 and longer rows
+    records[1]["rle_encoder_split"] = check_cross_rle(4097, "split")
     read_only = check_read_only_attention()
     dropout, dropout_phase1 = check_fused_dropout()
     records += check_flash_kernels()
@@ -5011,8 +5041,10 @@ def main() -> int:
         by_phase[name]["10"] = n
     for name, n in run_tensor_parallel().items():
         by_phase[name]["11"] = n
-    for name, n in run_rle_serving().items():
+    launches, forms = run_rle_serving()
+    for name, n in launches.items():
         by_phase[name]["12"] = n
+    records[1]["forms_phase_12"] = forms
     for rec in records:
         rec["launches_by_phase"] = by_phase[rec["name"]]
         rec["launches"] = sum(by_phase[rec["name"]].values())

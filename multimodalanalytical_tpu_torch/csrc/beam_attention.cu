@@ -130,24 +130,59 @@
 // barriers take 3/4 of its time. Hence the plan's few warps a rank (fewer
 // ranks wait less at each barrier), and a warp's chain kept in registers.
 //
-// Longer encoders (an RLE source's up to 4090 keys, 32 tiles: more than a
-// cluster holds) take the split form, two launches. The first computes each
-// tile's logits and their max and sum (reading K and the bias only) and
-// writes the logits to the workspace (reading 8 K bytes a key back measured
-// faster than reading K again and recomputing them, at K 1, 10 and 30). The
-// second folds the stats into m and l, skips every tile whose largest logit
-// lies more than kSkipLogit below each beam's m (it adds exactly 0: the
-// padded tail of an RLE row reads no logits or V there), forms P and the
-// tile's fp32 P V partial, and the last block of each (row, head), found by
-// an atomic ticket, adds the live partials in tile order, so that two calls
-// are bit-equal. The workspace (tickets, stats, partials, logits) is a torch
-// tensor the wrapper allocates, so a captured decode graph holds it in its
-// pool. What bounds the split form on the H100 (PERF.md): instruction issue
-// more than the HBM rate. Each tile's block runs a serial chain of copies,
-// products, row reductions and the ticket, and about 8 blocks share an SM
-// (copies without index divisions and ldmatrix fragments measured faster
-// for that reason); at K 30 the workspace's logits and partials also
-// double the bytes of K and V. A ring of tiles per block measured slower.
+// From kClusterKeys + 1 to kStreamKeys keys (an RLE source's up to 4090)
+// in bf16 at head_dim 64 and up to 32 beams, the stream form: one launch
+// of clusters of up to 8 ranks, no workspace, each rank (block) streaming
+// its keys rather than staging them, so that HBM stays busy. The keys go in
+// chunks of 32 (a 4 KB TMA box of a (batch, Ls, D) map, 128-byte swizzled;
+// rows past Ls read as zero), rank t taking chunks t, t + ranks, ..., so
+// that each rank holds about as many of a row's valid keys as the others.
+// Up to 4 consumer warps a rank take its chunks in turn, each through a
+// ring of its own (full and empty mbarriers) that one lane of the block's
+// loading warp fills in chunk order: each ring has one filler and one
+// consumer, so no wait runs a phase ahead (a ring shared by the warps let a
+// wait pass on an earlier phase when TMA copies landed out of order). A
+// consumer warp keeps S = q K^T + bias of its up to 4 chunks in mma
+// fragments. The rank's max of each beam row (through shared memory)
+// makes a chunk live where some beam's largest logit there lies within
+// kSkipLogit of it; the loader streams the live chunks' V rows while the
+// warps push each (warp, beam)'s max and sum of exp(S - max) into every
+// rank (after the relaxed arrival made on entry has been waited for), meet
+// at a cluster barrier and fold all (rank, warp) pairs, in one order, into
+// each beam's m and l. A chunk dead for the rank is dead for m; one live
+// for the rank but not for m adds exactly 0. Then P = exp(S - m) / l, the
+// split form's arithmetic (a second exp a key), rounded to bf16 into P V's
+// A operand; each warp's fp32 partial of a beam row goes to the rank that
+// adds that row, which adds them in (rank, warp) order after a second
+// barrier (two calls are bit-equal). More than 16 beams take two clusters,
+// one per 16-row half, which read the same K and V rows (the second mostly
+// from L2). What bounds it on the H100 (PERF.md): at B 128, Ls 4090 it
+// reads every key's K row and the live chunks' V rows (~0.95 GB at the RLE
+// lengths) at ~2.0 TB/s at K 10 and ~2.3 TB/s at K 1; its phases (K, the
+// exchange, V, a block's start and end) with three blocks an SM keep HBM
+// below its rate, and P's exp and division take about a fifth of the time
+// at K 10. Measured slower: deeper rings, two or four blocks an SM,
+// persistent clusters looping over (row, head) pairs, ranks of two 16-row
+// tiles for K 17-32, and clusters of 16.
+//
+// Other encoders past one pass (fp32, head_dim other than 64, more than 32
+// beams, more than kStreamKeys keys) take the split form, two launches. The
+// first computes each tile's logits and their max and sum (reading K and
+// the bias only) and writes the logits to the workspace (reading 8 K bytes
+// a key back measured faster than reading K again and recomputing them, at
+// K 1, 10 and 30). The second folds the stats into m and l, skips every
+// tile whose largest logit lies more than kSkipLogit below each beam's m
+// (it adds exactly 0: a padded tail reads no logits or V there), forms P
+// and the tile's fp32 P V partial, and the last block of each (row, head),
+// found by an atomic ticket, adds the live partials in tile order, so that
+// two calls are bit-equal. The workspace (tickets, stats, partials, logits)
+// is a torch tensor the wrapper allocates, so a captured decode graph holds
+// it in its pool. What bounds the split form on the H100 (PERF.md):
+// instruction issue more than the HBM rate. Each tile's block runs a
+// serial chain of copies, products, row reductions and the ticket, and
+// about 8 blocks share an SM; at K 30 the workspace's logits and partials
+// also double the bytes of K and V. At an RLE encoder's Ls 4090 it moved
+// ~1.7x the bytes of its bound, and lost to SDPA.
 //
 // The TPU kernel's block-diagonal head packing, 64-row aligned append
 // window and lane-padded scale operands exist for the TPU's matrix unit and
@@ -156,6 +191,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace mmt {
 namespace {
@@ -177,6 +213,19 @@ constexpr int kClusterWarpKeys = 32;
 constexpr int kClusterMaxWarps = 5;
 constexpr int kClusterKeys = 32 * kClusterWarpKeys;
 constexpr int kClusterDh = 64;
+// The stream form: 1025 to kStreamKeys keys at this head size, bf16, up to
+// 32 beams (in 16-row halves); chunks of 32 keys (one 4 KB TMA box of K or
+// V rows), a ring of kStreamWarpStages chunks for each consumer warp, up to
+// kStreamMaxWarps consumer warps a rank, each keeping the logits of
+// kStreamWarpChunks chunks in registers, and up to kStreamMaxRanks ranks a
+// cluster.
+constexpr int kStreamKeys = 4096;
+constexpr int kStreamChunkKeys = 32;
+constexpr int kStreamChunkBytes = kStreamChunkKeys * kClusterDh * 2;
+constexpr int kStreamWarpStages = 2;
+constexpr int kStreamWarpChunks = 4;
+constexpr int kStreamMaxWarps = 4;
+constexpr int kStreamMaxRanks = 8;
 // A tile whose largest logit lies more than this below its row's max holds
 // only keys whose exp(S - max) is exactly 0 in fp32 (it underflows past
 // about -104; the margin leaves room for expf's last-bit error).
@@ -337,6 +386,33 @@ __host__ __device__ inline ClusterLayout cluster_layout(int beams, int tiles, in
   l.off_stat = l.off_bias + static_cast<size_t>(warps) * kClusterWarpKeys * 4;
   l.off_ml = l.off_stat + static_cast<size_t>(tiles) * warps * 16 * mt * 8;
   l.total = l.off_ml + 16 * mt * 8;
+  return l;
+}
+
+// Shared-memory plan of a stream-form block (`rows` beams of a 16-row
+// half, `ranks` ranks of `warps` consumer warps): each warp's ring of kStreamWarpStages chunks at the
+// 1024-byte aligned base, every (rank, warp, beam)'s max and sum (put there
+// by the peers), each beam's m and l, each (warp, beam)'s max, the (rank,
+// warp) fp32 P V partials of this rank's `slice` beam rows (put there by
+// the peers), the rings' full and empty mbarriers and the live-chunk mask;
+// `total` has the slack that aligns the base.
+struct StreamLayout {
+  int slice;
+  size_t off_stat, off_ml, off_wmax, off_part, off_bar, off_mask, total;
+};
+
+__host__ __device__ inline StreamLayout stream_layout(int rows, int ranks, int warps) {
+  StreamLayout l;
+  const size_t m_pad = 16;
+  const size_t stages = static_cast<size_t>(warps) * kStreamWarpStages;
+  l.slice = (rows + ranks - 1) / ranks;
+  l.off_stat = stages * kStreamChunkBytes;
+  l.off_ml = l.off_stat + static_cast<size_t>(ranks) * warps * m_pad * 8;
+  l.off_wmax = l.off_ml + m_pad * 8;
+  l.off_part = l.off_wmax + static_cast<size_t>(warps) * m_pad * 4;
+  l.off_bar = l.off_part + static_cast<size_t>(ranks) * warps * l.slice * kClusterDh * 4;
+  l.off_mask = l.off_bar + 2 * stages * 8;
+  l.total = l.off_mask + 16 + 1024;
   return l;
 }
 
@@ -768,6 +844,13 @@ __device__ __forceinline__ void ldsm_x2(uint32_t r[2], const __nv_bfloat16* p) {
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t r[2], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
                : "memory");
 }
@@ -1492,6 +1575,389 @@ __global__ void __launch_bounds__(kClusterMaxWarps * 32, 3) cluster_cross_attent
   }
 }
 
+// The cluster barrier's other half: an arrival that releases this thread's
+// writes. And a named barrier of `count` threads of the block.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The bits of a rank's live mask that belong to consumer warp w: chunks w,
+// w + warps, ...
+__device__ __forceinline__ unsigned stream_warp_bits(int w, int warps) {
+  unsigned bits = 0u;
+  for (int j = w; j < 32; j += warps) bits |= 1u << j;
+  return bits;
+}
+
+// The stream form (bf16, head_dim kClusterDh, 1025 to kStreamKeys keys):
+// grid (ranks, heads, batch x halves) in clusters of (ranks, 1, 1), so that
+// the blocks of one cluster are the ranks of one (b, h) and one 16-row half
+// of its beams (a second half, past 16 beams, reads the same K and V rows,
+// from L2 where its cluster runs beside the first's).
+// Rank t takes the chunks of kStreamChunkKeys keys t, t + ranks, t + 2
+// ranks, ..., so that every rank holds about as many of a row's valid keys
+// as the others, and its j-th chunk goes to consumer warp j % warps. The
+// block's last warp loads: one lane streams the rank's K chunks, then its
+// live V chunks, in chunk order, as TMA boxes of the (batch, Ls, D) K and V
+// maps into the consumer warps' rings. A consumer warp keeps each chunk's
+// S in its mma fragments until that chunk's P V. Three blocks share an SM.
+__global__ void __launch_bounds__((kStreamMaxWarps + 1) * 32, 3)
+    stream_cross_attention_kernel(const __grid_constant__ CUtensorMap k_map,
+                                  const __grid_constant__ CUtensorMap v_map,
+                                  const __nv_bfloat16* __restrict__ q,
+                                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                                  int beams, int ls, float scale) {
+  constexpr int kDh = kClusterDh, kC = kStreamWarpChunks;
+  constexpr int kNt = kStreamChunkKeys / 8, kKt = kDh / 16, kOt = kDh / 8;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int halves = (beams + 15) / 16;
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z / halves;
+  const int row0 = (blockIdx.z - b * halves) * 16;   // this block's first beam
+  const int rows = imin(16, beams - row0);           // and its beams
+  const int ranks = gridDim.x, d_model = gridDim.y * kDh;
+  const int warps = (blockDim.x >> 5) - 1;   // consumer warps; the last warp loads
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, gc = lane & 3;
+  const StreamLayout l = stream_layout(rows, ranks, warps);
+  float2* stats = reinterpret_cast<float2*>(smem + l.off_stat);   // (rank, warp, beam)
+  float2* ml = reinterpret_cast<float2*>(smem + l.off_ml);        // (beam): m, l
+  float* wmax = reinterpret_cast<float*>(smem + l.off_wmax);      // (warp, beam)
+  float* parts = reinterpret_cast<float*>(smem + l.off_part);     // (rank, warp, slice, kDh)
+  unsigned* live_mask = reinterpret_cast<unsigned*>(smem + l.off_mask);
+  // Warp w's n-th chunk (its K chunks, then its live V chunks) lands in
+  // stage n % kStreamWarpStages of its ring: one loader lane and one warp
+  // take each ring in order, so a wait is never more than a phase ahead.
+  const int stages = warps * kStreamWarpStages;
+  const uint32_t bars = smem_u32(smem + l.off_bar);
+  auto stage = [&](int w, int n) { return w * kStreamWarpStages + n % kStreamWarpStages; };
+  auto tile_of = [&](int w, int n) { return smem + stage(w, n) * kStreamChunkBytes; };
+  auto full = [&](int w, int n) { return bars + 8 * stage(w, n); };
+  auto empty = [&](int w, int n) { return bars + 8 * (stages + stage(w, n)); };
+  auto parity = [](int n) { return (n / kStreamWarpStages) & 1; };
+  // The rank's chunks j = 0 .. chunks - 1, keys chunk_key(j) ...; chunk j
+  // goes to consumer warp j % warps.
+  const int all_chunks = (ls + kStreamChunkKeys - 1) / kStreamChunkKeys;
+  const int chunks = (all_chunks - t + ranks - 1) / ranks;
+  auto chunk_key = [&](int j) { return (t + j * ranks) * kStreamChunkKeys; };
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (stages + st), 1);
+    }
+    *live_mask = 0u;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_arrive_relaxed();   // this block has started; waited for before the first put
+
+  if (warp == warps) {
+    // The loads, one lane, in chunk order: chunk j into consumer warp (j %
+    // warps)'s ring as that warp's n-th chunk; the K chunks, then (once the
+    // rank's live mask is made) the live V chunks.
+    auto load = [&](const CUtensorMap* map, int j, int n) {
+      const int w = j % warps;
+      mbar_wait(empty(w, n), parity(n) ^ 1);
+      mbar_expect_tx(full(w, n), kStreamChunkBytes);
+      tma_load_3d(smem_u32(tile_of(w, n)), map, h * kDh, chunk_key(j), b, full(w, n));
+    };
+    if (lane == 0) {
+      for (int j = 0; j < chunks; ++j) load(&k_map, j, j / warps);
+    }
+    __syncwarp();
+    cluster_wait();
+    cluster_arrive();            // this warp puts no stats
+    named_sync(1, blockDim.x);   // the rank's live mask is made
+    if (lane == 0) {
+      const unsigned mask = *live_mask;
+      for (int j = 0; j < chunks; ++j) {
+        // The warp's K chunks, then its live V chunks before this one.
+        const int w = j % warps;
+        const unsigned before = mask & ((1u << j) - 1u) & stream_warp_bits(w, warps);
+        if ((mask >> j) & 1u) load(&v_map, j, (chunks - w + warps - 1) / warps + __popc(before));
+      }
+    }
+    __syncwarp();
+    cluster_wait();
+    cluster_arrive();
+    cluster_wait();              // every rank's partials are in
+  } else {
+    // 1. q * scale rounded to bf16 (as the plain version rounds q *
+    // Dh^-0.5), straight into the A fragments; 0 on the pad rows.
+    const __nv_bfloat16* q_bh =
+        q + (static_cast<size_t>(b) * beams + row0) * d_model + h * kDh;
+    auto q_pair = [&](int m, int c) -> uint32_t {
+      if (m >= rows) return 0u;
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(q_bh + static_cast<size_t>(m) * d_model + c));
+      return pack_bf16(x.x * scale, x.y * scale);
+    };
+    uint32_t a[kKt][4];
+#pragma unroll
+    for (int kk = 0; kk < kKt; ++kk) {
+      const int c = kk * 16 + 2 * gc;
+      a[kk][0] = q_pair(gr, c);
+      a[kk][1] = q_pair(gr + 8, c);
+      a[kk][2] = q_pair(gr, c + 8);
+      a[kk][3] = q_pair(gr + 8, c + 8);
+    }
+
+    // 2. S = q K^T + bias for each of the warp's chunks (-inf past Ls, and
+    // on a chunk past the rank's), and each chunk's max per beam row (each
+    // thread holds rows gr and gr + 8: half 0 and 1). A lane reads the bias
+    // of one key of the next chunk while this one computes.
+    const float* bias_b = bias + static_cast<size_t>(b) * ls;
+    auto bias_of = [&](int j) {
+      const int key = j < chunks ? chunk_key(j) + lane : ls;
+      return key < ls ? bias_b[key] : -INFINITY;
+    };
+    float s[kC][kNt][4], cmx[kC][2];
+    float b_next = bias_of(warp);
+#pragma unroll
+    for (int i = 0; i < kC; ++i) {
+      const int j = i * warps + warp;
+      const float b_lane = b_next;
+      if (i + 1 < kC) b_next = bias_of(j + warps);
+      if (j < chunks) {
+        mbar_wait(full(warp, i), parity(i));
+        const unsigned char* tile = tile_of(warp, i);
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          // Keys nt * 8 + (lane & 7), 16-byte pieces 4 * half + (lane >> 3)
+          // of their rows; piece p of row r sits at p ^ (r & 7) (the swizzle).
+          uint32_t bk[kKt][2];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            uint32_t r[4];
+            ldsm_x4(r, reinterpret_cast<const __nv_bfloat16*>(
+                           tile + (nt * 8 + (lane & 7)) * 128 +
+                           (((4 * half + (lane >> 3)) ^ (lane & 7)) << 4)));
+            bk[2 * half][0] = r[0];
+            bk[2 * half][1] = r[1];
+            bk[2 * half + 1][0] = r[2];
+            bk[2 * half + 1][1] = r[3];
+          }
+          const float b0 = __shfl_sync(kFullMask, b_lane, nt * 8 + 2 * gc);
+          const float b1 = __shfl_sync(kFullMask, b_lane, nt * 8 + 2 * gc + 1);
+          float* c = s[i][nt];
+          c[0] = c[1] = c[2] = c[3] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < kKt; ++kk) {
+            mma_bf16(c, a[kk][0], a[kk][1], a[kk][2], a[kk][3], bk[kk][0], bk[kk][1]);
+          }
+          c[0] += b0;
+          c[1] += b1;
+          c[2] += b0;
+          c[3] += b1;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(warp, i));
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) s[i][nt][0] = s[i][nt][1] = s[i][nt][2] = s[i][nt][3] = -INFINITY;
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          mx = fmaxf(mx, fmaxf(s[i][nt][2 * half], s[i][nt][2 * half + 1]));
+        }
+        cmx[i][half] = quad_max(mx);
+      }
+    }
+
+    // 3. The warp's max of each beam row, and from every warp's the rank's.
+    // A chunk where some beam's largest logit lies within kSkipLogit of the
+    // rank's max is live here: its V rows load while the cluster folds
+    // every rank's stats. A chunk dead here is dead for the row's m too (m
+    // is at least the rank's max), and a chunk live here but not for m adds
+    // exactly 0.
+    float wmx[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kC; ++i) mx = fmaxf(mx, cmx[i][half]);
+      wmx[half] = mx;
+      if (gc == 0) wmax[warp * 16 + half * 8 + gr] = mx;
+    }
+    named_sync(2, warps * 32);
+    {
+      float rmx[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = half * 8 + gr;
+        float mx = -INFINITY;
+        for (int w = 0; w < warps; ++w) mx = fmaxf(mx, wmax[w * 16 + m]);
+        rmx[half] = m < rows ? mx : INFINITY;   // a pad row keeps no chunk live
+      }
+      unsigned mine = 0u;
+#pragma unroll
+      for (int i = 0; i < kC; ++i) {
+        const bool live = !(cmx[i][0] < rmx[0] - kSkipLogit) || !(cmx[i][1] < rmx[1] - kSkipLogit);
+        const int j = i * warps + warp;
+        if (__any_sync(kFullMask, live) && j < chunks) mine |= 1u << j;
+      }
+      if (lane == 0 && mine) atomicOr(live_mask, mine);
+    }
+    named_sync(1, blockDim.x);   // the loading warp reads the live mask
+    const unsigned mask = *live_mask;
+
+    // 4. Per beam row, the sum of exp(S - mx) over the warp's keys (a chunk
+    // whose row max lies more than kSkipLogit below mx adds exactly 0), and
+    // (mx, sum) into every rank's shared memory, once every block of the
+    // cluster has started (the wait for the arrival made at entry).
+    cluster_wait();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = half * 8 + gr;
+      const float mx = wmx[half];
+      const float shift = mx == -INFINITY ? 0.f : mx;   // no key: the sum is 0
+      float sum = 0.f;
+      if (m < rows) {
+#pragma unroll
+        for (int i = 0; i < kC; ++i) {
+          if (cmx[i][half] < shift - kSkipLogit) continue;
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) {
+            sum += exp_or_zero(s[i][nt][2 * half] - shift) +
+                   exp_or_zero(s[i][nt][2 * half + 1] - shift);
+          }
+        }
+      }
+      sum = quad_sum(sum);
+      if (gc == 0 && m < rows) {
+        for (int r = 0; r < ranks; ++r) {
+          cluster.map_shared_rank(stats, r)[(t * warps + warp) * 16 + m] = make_float2(mx, sum);
+        }
+      }
+    }
+    cluster_arrive();
+    cluster_wait();
+
+    // 5. Each beam's m and l from every (rank, warp) pair, one warp a beam,
+    // one pair a lane: the same order, and so the same bits, in every
+    // block.
+    const int pairs = ranks * warps;
+    for (int m = warp; m < rows; m += warps) {
+      const float2 st = lane < pairs ? stats[lane * 16 + m] : make_float2(-INFINITY, 0.f);
+      const float row_m = warp_max(st.x);
+      const float row_l = warp_sum(lane < pairs ? st.y * expf(st.x - row_m) : 0.f);
+      if (lane == 0) ml[m] = make_float2(row_m, row_l);
+    }
+    named_sync(2, warps * 32);
+    float row_m[2], row_l[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = half * 8 + gr;
+      const float2 x = m < rows ? ml[m] : make_float2(INFINITY, 1.f);   // pad rows: P 0
+      row_m[half] = x.x;
+      row_l[half] = x.y;
+    }
+
+    // 6. P = exp(S - m) / l rounded to bf16, straight into the A operand
+    // (S's m16n8 accumulators of two key tiles are P's m16k16 operand; a
+    // row whose chunk max lies more than kSkipLogit below m has P 0 there),
+    // and the warp's fp32 P V over its live chunks, its n-th chunks from n =
+    // its K chunks on.
+    float o[kOt][4];
+#pragma unroll
+    for (int ot = 0; ot < kOt; ++ot) o[ot][0] = o[ot][1] = o[ot][2] = o[ot][3] = 0.f;
+    int n = (chunks - warp + warps - 1) / warps;
+#pragma unroll
+    for (int i = 0; i < kC; ++i) {
+      const int j = i * warps + warp;
+      if (j >= chunks || !((mask >> j) & 1u)) continue;
+      bool rows_live[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        rows_live[half] = !(cmx[i][half] < row_m[half] - kSkipLogit);
+      }
+      mbar_wait(full(warp, n), parity(n));
+      if (__any_sync(kFullMask, rows_live[0] || rows_live[1])) {
+        const unsigned char* tile = tile_of(warp, n);
+#pragma unroll
+        for (int ks = 0; ks < kNt / 2; ++ks) {
+          uint32_t pa[4];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float* s0 = s[i][2 * ks] + 2 * half;
+            const float* s1 = s[i][2 * ks + 1] + 2 * half;
+            const float mr = row_m[half], lr = row_l[half];
+            auto p = [&](float x) { return prob(x - mr, lr); };
+            if (rows_live[half]) {
+              pa[half] = pack_bf16(p(s0[0]), p(s0[1]));
+              pa[2 + half] = pack_bf16(p(s1[0]), p(s1[1]));
+            } else {
+              pa[half] = pa[2 + half] = 0u;
+            }
+          }
+          // V's keys 16 ks + (lane & 7) (+ 8 for lanes 8-15 and 24-31), pieces
+          // ot and ot + 1 (lanes 16-31), read transposed into B fragments.
+          const int key = 16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+          for (int ot = 0; ot < kOt; ot += 2) {
+            uint32_t r[4];
+            ldsm_x4_trans(r, reinterpret_cast<const __nv_bfloat16*>(
+                                 tile + key * 128 + (((ot + (lane >> 4)) ^ (lane & 7)) << 4)));
+            mma_bf16(o[ot], pa[0], pa[1], pa[2], pa[3], r[0], r[1]);
+            mma_bf16(o[ot + 1], pa[0], pa[1], pa[2], pa[3], r[2], r[3]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(warp, n));
+      ++n;
+    }
+
+    // 7. The warp's partial of each beam row into the shared memory of the
+    // rank that adds that row (rank m / slice); a warp without live chunks
+    // puts zeros.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = half * 8 + gr;
+      if (m < rows) {
+        const int r = m / l.slice;
+        float* dst = cluster.map_shared_rank(parts, r) +
+                     ((t * warps + warp) * l.slice + (m - r * l.slice)) * kDh + 2 * gc;
+#pragma unroll
+        for (int ot = 0; ot < kOt; ++ot) {
+          *reinterpret_cast<float2*>(dst + ot * 8) =
+              make_float2(o[ot][2 * half], o[ot][2 * half + 1]);
+        }
+      }
+    }
+    cluster_arrive();
+    cluster_wait();
+  }
+
+  // 8. This rank's rows of the outputs: the (rank, warp) partials added in
+  // order (two calls are bit-equal), four outputs a thread.
+  const int first = t * l.slice * kDh / 4;
+  const int end = imin(rows, (t + 1) * l.slice) * kDh / 4;
+  const int pairs = ranks * warps;
+  __nv_bfloat16* out_bh = out + (static_cast<size_t>(b) * beams + row0) * d_model + h * kDh;
+  const float4* mine = reinterpret_cast<const float4*>(parts);
+  for (int i = first + tid; i < end; i += blockDim.x) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < pairs; ++p) {
+      const float4 x = mine[p * l.slice * kDh / 4 + i - first];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const int m = 4 * i / kDh;
+    store4(out_bh + static_cast<size_t>(m) * d_model + (4 * i - m * kDh), acc);
+  }
+}
+
 // Raise a kernel's dynamic shared-memory limit once it needs more than the
 // default 48 KB (once per size it grows to, not per launch).
 template <typename Kernel>
@@ -1549,11 +2015,19 @@ int launch_select(const void* q, const void* k_new, const void* v_new, void* cac
 // The cross plan: an encoder of up to kCrossOnePassKeys keys (rounded to
 // 16) whose block fits shared memory takes the one-pass form; a longer one
 // of up to kClusterKeys keys in bf16 at head_dim kClusterDh and up to 32
-// beams the cluster form, in tiles of 32 keys a warp; any other the split
-// form, in tiles of kCrossTileKeys keys (halved while a block would pass
-// kMaxSmem), a block each. tile_keys is -1 for a shape the kernels do not
-// take; workspace is 0 but for the split form.
-enum CrossForm { kOnePass = 0, kCluster = 1, kSplit = 2 };
+// beams the cluster form, in tiles of 32 keys a warp; in bf16 at that head
+// size and beams, one of up to kStreamKeys keys the stream form, tile_keys
+// keys a rank (the fewest ranks of kStreamMaxWarps consumer warps, their
+// chunks spread evenly, in 16-row halves of the beams); any other the split form, in tiles of
+// kCrossTileKeys keys (halved while a block would pass kMaxSmem), a block
+// each. tile_keys is -1 for a shape the kernels do not take; workspace is
+// 0 but for the split form.
+enum CrossForm { kOnePass = 0, kCluster = 1, kSplit = 2, kStream = 3 };
+
+// The stream form's consumer warps a rank for its plan's tile_keys.
+inline int stream_warps(int tile_keys) {
+  return (tile_keys / kStreamChunkKeys + kStreamWarpChunks - 1) / kStreamWarpChunks;
+}
 
 struct CrossPlan {
   int form;
@@ -1589,6 +2063,20 @@ CrossPlan cross_plan(int elt, int batch, int beams, int heads, int head_dim, int
     if (warps && cluster_layout(beams, tiles, warps).total <= kMaxSmem) {
       p.form = kCluster;
       p.tile_keys = warps * kClusterWarpKeys;
+      return p;
+    }
+  }
+  if (elt == 2 && head_dim == kClusterDh && beams <= 32 && ls > kClusterKeys &&
+      ls <= kStreamKeys && static_cast<long long>(batch) * ((beams + 15) / 16) <= 65535) {
+    const int chunks = (ls + kStreamChunkKeys - 1) / kStreamChunkKeys;
+    const int per_rank = kStreamMaxWarps * kStreamWarpChunks;
+    const int ranks = (chunks + per_rank - 1) / per_rank;
+    const int tile_keys = (chunks + ranks - 1) / ranks * kStreamChunkKeys;
+    if (ranks <= kStreamMaxRanks &&
+        stream_layout(16, (ls + tile_keys - 1) / tile_keys, stream_warps(tile_keys)).total <=
+            kMaxSmem) {
+      p.form = kStream;
+      p.tile_keys = tile_keys;
       return p;
     }
   }
@@ -1636,6 +2124,37 @@ int launch_cross(const void* q, const void* k, const void* v, const void* bias, 
   const int tiles = (ls + tile_keys - 1) / tile_keys;
   const dim3 grid(tiles, heads, batch);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (plan.form == kStream) {
+      const int warps = stream_warps(tile_keys);
+      CUtensorMap maps[2];
+      if (!make_map_3d(&maps[0], k, heads * head_dim, ls, batch, kStreamChunkKeys) ||
+          !make_map_3d(&maps[1], v, heads * head_dim, ls, batch, kStreamChunkKeys)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      const size_t smem = stream_layout(imin(beams, 16), tiles, warps).total;
+      static size_t reserved = 0;
+      static const cudaError_t carveout = cudaFuncSetAttribute(
+          stream_cross_attention_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+      cudaError_t err = carveout;
+      if (err == cudaSuccess) err = reserve_smem(stream_cross_attention_kernel, smem, &reserved);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = tiles;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t config = {};
+      config.gridDim = dim3(tiles, heads, batch * ((beams + 15) / 16));
+      config.blockDim = dim3((warps + 1) * 32);   // the consumer warps and the loading warp
+      config.dynamicSmemBytes = smem;
+      config.stream = s;
+      config.attrs = attr;
+      config.numAttrs = 1;
+      return static_cast<int>(cudaLaunchKernelEx(&config, stream_cross_attention_kernel,
+                                                 maps[0], maps[1], qt, bt, static_cast<T*>(out),
+                                                 beams, ls, scale));
+    }
     if (plan.form == kCluster) {
       const int mt = (beams + 15) / 16;
       auto kernel = mt == 1 ? cluster_cross_attention_kernel<1> : cluster_cross_attention_kernel<2>;
@@ -1762,8 +2281,9 @@ int mmt_beam_select_attention(int quantized, const void* q, const void* cache,
 
 // The cross plan for this shape: returns its keys per tile (at least Ls
 // rounded to 16 for the one-pass form, else the tiles of the cluster or the
-// split form), or -1 for a shape the kernels do not take, and stores its
-// form (0 one pass, 1 cluster, 2 split) in *form and the bytes of global
+// split form, or the keys of a stream-form rank), or -1 for a shape the
+// kernels do not take, and stores its form (0 one pass, 1 cluster, 2
+// split, 3 stream) in *form and the bytes of global
 // workspace a launch needs (0 but for the split form) in *workspace_bytes;
 // is_bf16 as mmt_beam_cross_attention's.
 int mmt_beam_cross_plan(int is_bf16, int batch, int beams, int heads, int head_dim, int ls,

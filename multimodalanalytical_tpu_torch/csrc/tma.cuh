@@ -1,6 +1,7 @@
 // TMA loads, mbarriers and wgmma descriptors shared by the Hopper (sm_90a)
 // kernels that stage bf16 tiles through a ring of 128-byte-swizzled shared
-// memory: the flash attention kernels and the decode FFN GEMMs.
+// memory: the flash attention kernels, the decode FFN GEMMs and the stream
+// form of the beam cross attention.
 //
 // A tile row is 64 bf16 (128 bytes, one swizzle span). A TMA box is 64 x 64
 // of a row-major (rows, cols) bf16 tensor, so a box lands as 64 such rows
@@ -45,6 +46,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// One 64-column box of a 3-D bf16 tensor map (columns from col, rows from
+// row, of matrix `depth`) into shared memory; rows past the matrix's read
+// as zero. The box's rows are the map's (make_map_3d).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                            int depth, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(depth), "r"(bar)
       : "memory");
 }
 
@@ -104,6 +117,26 @@ inline bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows) {
   cuuint32_t box[2] = {64, 64};
   cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `depth` row-major (rows, cols) bf16 matrices, one after another, as
+// 64 x box_rows boxes, 128-byte swizzle: a box never reads past its
+// matrix's last row. cols * 2 bytes must be a multiple of 16 and ptr
+// 16-byte aligned.
+inline bool make_map_3d(CUtensorMap* map, const void* ptr, int cols, int rows, int depth,
+                        int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                        static_cast<cuuint64_t>(depth)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * sizeof(__nv_bfloat16),
+                           static_cast<cuuint64_t>(rows) * cols * sizeof(__nv_bfloat16)};
+  cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -320,7 +320,7 @@ def beam_cross_attention_plain(q, k, v, bias, num_heads, beams) -> torch.Tensor:
 
 
 # The cross kernels' forms, by the C plan's number for each.
-CROSS_FORMS = ("one_pass", "cluster", "split")
+CROSS_FORMS = ("one_pass", "cluster", "split", "stream")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,8 +328,8 @@ class CrossPlan:
     """How the cross kernels take an encoder of Ls keys (the C side's
     cross_plan): ``form`` one of :data:`CROSS_FORMS`, in tiles of
     ``tile_keys`` keys, a block each (``tile_keys`` >= Ls rounded to 16:
-    the one-pass form), and the bytes of workspace the split form needs (0
-    for the other two)."""
+    the one-pass form; the stream form's tile is the keys of a rank), and
+    the bytes of workspace the split form needs (0 for the other three)."""
     form: str
     tile_keys: int
     workspace_bytes: int
@@ -359,9 +359,9 @@ def beam_cross_attention(
     """Beam cross-attention; returns (B*K, D) in q's dtype (pre out-projection).
 
     Products run in the K/V storage dtype (bf16, or fp32 for fp32 models);
-    :func:`cross_plan` picks the one-pass, the cluster or the split form,
-    whose workspace is a ``torch.empty`` here, so that a captured graph
-    holds it. ``beam_cross_attention.launches`` counts wrapper calls that
+    :func:`cross_plan` picks the one-pass, the cluster, the stream or the
+    split form, whose workspace is a ``torch.empty`` here, so that a
+    captured graph holds it. ``beam_cross_attention.launches`` counts wrapper calls that
     launch (the split form's two launches count once);
     ``beam_cross_attention.forms`` counts them by form, where ``launches``
     is counted, but as plain calls: a CUDA graph's capture counts, its

@@ -11,7 +11,7 @@ as the wrappers do, the search records one flash launch per encoder layer
 and one cross-attention call per decoder layer, once per shape. On the card
 (marked ``cuda``; without JAX run it without the JAX conftest:
 ``python -m pytest --noconftest -m cuda tests/test_torch_beam_routes.py``)
-the bf16 model reads one flash launch per encoder layer and the split form,
+the bf16 model reads one flash launch per encoder layer and the stream form,
 through the graphs and eagerly.
 """
 
@@ -84,7 +84,7 @@ def test_counted_routes_per_layer(monkeypatch):
         return plain_flash(*args)
 
     def cross(*args):
-        cross.forms["split"] += 1
+        cross.forms["stream"] += 1
         return plain_cross(*args)
 
     flash_fwd.launches = 0
@@ -94,7 +94,7 @@ def test_counted_routes_per_layer(monkeypatch):
     monkeypatch.setattr(attention, "beam_cross_attention", cross)
     decoder = BeamDecoder(_model().eval())
     inputs, mask = _request()
-    want = {**dict.fromkeys(beam_attention.CROSS_FORMS, 0), "split": LAYERS}
+    want = {**dict.fromkeys(beam_attention.CROSS_FORMS, 0), "stream": LAYERS}
     for _ in range(2):
         stats = {}
         decoder.search({"RLE": torch.as_tensor(inputs["RLE"])}, torch.as_tensor(mask), BEAMS,
@@ -108,14 +108,14 @@ def test_counted_routes_per_layer(monkeypatch):
 @pytest.mark.cuda
 def test_card_routes_at_an_rle_shape():
     """On the card, bf16 at L 2100: one flash launch per encoder layer in
-    the captured prologue and the split form in every step, through the
+    the captured prologue and the stream form in every step, through the
     engine (graphs) and the decoder's eager route; replays add the graphs'
     launches to the flash wrapper's count."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     engine = InferenceEngine(_model("cuda", "bfloat16"), n_beams=BEAMS, batch_size=2)
     inputs, mask = _request()
-    want = {**dict.fromkeys(beam_attention.CROSS_FORMS, 0), "split": LAYERS}
+    want = {**dict.fromkeys(beam_attention.CROSS_FORMS, 0), "stream": LAYERS}
     engine.decode_batch(inputs, mask)
     before = flash_attention.flash_attention_fwd.launches
     engine.decode_batch(inputs, mask)

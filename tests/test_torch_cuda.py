@@ -89,9 +89,10 @@ def test_select_attention_update_matches_plain(gen, rows, head_dim, k):
     (4, 2, 16, 11), (1, 8, 64, 26), (10, 8, 64, 26), (30, 8, 64, 26), (10, 2, 8, 300),
     (10, 2, 64, 2100), (30, 2, 128, 2048)])
 def test_cross_attention_matches_plain(gen, dtype, k, heads, head_dim, ls):
-    """One pass up to 256 keys (the flagship's Ls 26), the split form
-    beyond (an RLE encoder's 2048-4090); batch row 2 is fully masked (the
-    uniform average, as the plain version gives)."""
+    """One pass up to 256 keys (the flagship's Ls 26), beyond them the split
+    form (fp32, head_dim 8 and 128) or the stream form (bf16 at head_dim 64,
+    an RLE encoder's 2100 keys); batch row 2 is fully masked (the uniform
+    average, as the plain version gives)."""
     b = 3
     d = heads * head_dim
     q = torch.randn(b * k, d, generator=gen, device="cuda").to(dtype)
@@ -134,20 +135,23 @@ def _cross_rows(gen, b, k, ls, d, dtype, tile):
 
 def _cross_form(ls, dtype=torch.bfloat16):
     """The form the plan gives #2 at these test widths (head_dim 64, up to
-    32 beams; fp32 past one pass takes the split form)."""
-    return ("one_pass" if ls <= 256 else
-            "cluster" if ls <= 1024 and dtype == torch.bfloat16 else "split")
+    32 beams; fp32 past one pass, and bf16 past 4096 keys, take the split
+    form)."""
+    bf16 = dtype == torch.bfloat16
+    return ("one_pass" if ls <= 256 else "cluster" if ls <= 1024 and bf16 else
+            "stream" if ls <= 4096 and bf16 else "split")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k", [1, 10, 30])
-@pytest.mark.parametrize("ls", [257, 271, 279, 300, 511, 1024, 1025, 2100, 4090])
+@pytest.mark.parametrize("ls", [257, 271, 279, 300, 511, 1024, 1025, 2048, 2100, 4090, 4096,
+                                4097])
 def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
     """Past the one-pass limit: the cluster form up to 1024 keys in bf16
     (the multimodal recipe's Ls 279; 257, 271, 300 and 511, whose last tile
-    holds 1-127 keys; 1024, eight full tiles), the split form (its stats and
-    value launches) beyond (1025, an RLE encoder's 2100 and 4090) and in
-    fp32. Row 0 is fully
+    holds 1-127 keys; 1024, eight full tiles), the stream form from 1025 to
+    4096 in bf16 (2048, an RLE encoder's 2100 and 4090), the split form (its
+    stats and value launches) past 4096 and in fp32. Row 0 is fully
     masked, row 1 has its first tile masked, row 2 every tile past the first
     (split blocks skip them), row 3 is padded inside the sequence, per
     modality, later rows ragged at their ends: all finite, within
@@ -177,20 +181,25 @@ def test_cross_attention_two_passes_with_masked_chunks(gen, dtype, k, ls):
     (128, 10, 8, 64, 4090), (128, 30, 8, 64, 4090), (3, 4, 2, 128, 2100), (2, 128, 8, 64, 300),
     (2, 256, 16, 32, 600), (1, 32, 4, 256, 1025), (4, 10, 8, 64, 256), (4, 10, 8, 64, 257),
     (128, 1, 8, 64, 1024), (128, 10, 8, 64, 1024), (128, 30, 8, 64, 1024),
-    (128, 10, 8, 64, 1025), (3, 10, 8, 64, 511), (2, 128, 8, 64, 1000)])
+    (128, 10, 8, 64, 1025), (3, 10, 8, 64, 511), (2, 128, 8, 64, 1000),
+    (128, 10, 8, 64, 2048), (128, 1, 8, 64, 4096), (128, 30, 8, 64, 4096),
+    (128, 10, 8, 64, 4097), (128, 33, 8, 64, 2048)])
 def test_cross_plan_covers_every_key_once(gen, elt, batch, beams, heads, head_dim, ls):
     """The C side's plan: its tiles cover the Ls keys once (a last tile of
     1-tile_keys keys), in multiples of 16 keys; one pass without workspace
     up to 256 keys; past them the cluster form without workspace while its
-    2-8 tiles fit, else the split form with workspace."""
+    2-8 tiles fit, then the stream form without workspace (2-8 ranks of
+    whole 32-key chunks), else the split form with workspace."""
     plan = ba.cross_plan(batch, beams, heads, head_dim, ls, elt)
     tiles = -(-ls // plan.tile_keys)
     assert plan.tile_keys % 16 == 0 and (tiles - 1) * plan.tile_keys < ls <= tiles * plan.tile_keys
     assert (plan.workspace_bytes > 0) == (plan.form == "split")
     if ls <= 256:
         assert plan.form == "one_pass" and tiles == 1
-    elif plan.form == "cluster":
-        assert 2 <= tiles <= 8
+    elif plan.form in ("cluster", "stream"):
+        assert 2 <= tiles <= 8 and plan.tile_keys % 32 == 0
+        assert (plan.form == "stream") == (elt == 2 and head_dim == 64 and beams <= 32
+                                           and 1024 < ls <= 4096)
     else:
         assert plan.form == "split" and tiles > 1
 
@@ -200,18 +209,21 @@ def test_cross_plan_covers_every_key_once(gen, elt, batch, beams, heads, head_di
 def test_cross_plan_forms_at_their_limits(gen, elt, beams):
     """At the decode widths (D 512, H 8): one pass at Ls 256 (but fp32 at
     K 30, whose one-pass block passes 227 KB there), the cluster form from
-    257 to 1024 keys in bf16 (2-8 tiles of 32 keys a warp), the split form at 1025
-    and in fp32; and ``beam_cross_attention.forms`` counts each call by its
-    form, at the flagship's Ls 26, the multimodal recipe's 279 and at 1025."""
+    257 to 1024 keys in bf16 (2-8 tiles of 32 keys a warp), the stream form
+    from 1025 to 4096 in bf16 (2-8 ranks), the split form at 4097 and in
+    fp32; and ``beam_cross_attention.forms`` counts each call by its form,
+    at the flagship's Ls 26, the multimodal recipe's 279, at 1025 and at an
+    RLE encoder's 4090."""
     dtype = torch.bfloat16 if elt == 2 else torch.float32
-    forms = {ls: ba.cross_plan(128, beams, 8, 64, ls, elt) for ls in (256, 257, 1024, 1025)}
-    assert [forms[ls].form for ls in (256, 257, 1024, 1025)] == [
+    limits = (256, 257, 1024, 1025, 2048, 4096, 4097)
+    forms = {ls: ba.cross_plan(128, beams, 8, 64, ls, elt) for ls in limits}
+    assert [forms[ls].form for ls in limits] == [
         "split" if elt == 4 and beams == 30 else "one_pass"] + [
-        _cross_form(ls, dtype) for ls in (257, 1024, 1025)]
-    for ls in (257, 1024):
+        _cross_form(ls, dtype) for ls in limits[1:]]
+    for ls in limits[1:-1]:
         tiles = -(-ls // forms[ls].tile_keys)
         assert forms[ls].tile_keys % 32 == 0 and 2 <= tiles <= 8 or elt == 4
-    for ls in (26, 279, 1025):
+    for ls in (26, 279, 1025, 4090):
         q, kv, bias = _cross_rows(gen, 4, beams, ls, 512, dtype, 128)
         before = dict(ba.beam_cross_attention.forms)
         ba.beam_cross_attention(q, *kv, bias, 8, beams)
@@ -250,12 +262,13 @@ def test_cluster_form_folds_every_rank(gen, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("ls", [279, 1024])
+@pytest.mark.parametrize("ls", [279, 1024, 2048, 4090])
 def test_tiled_forms_take_graded_biases(gen, dtype, ls):
     """A bias that does more than mask (keys at 0, -1, ..., -6, a row whose
-    largest bias is -3, a row half masked) through the cluster form (bf16)
-    and the split form (fp32): every key with a P that is not 0 weighs in,
-    the result matches the plain version, and two calls are bit-equal."""
+    largest bias is -3, a row half masked) through the cluster form (bf16 to
+    1024 keys), the stream form (bf16 past them) and the split form (fp32):
+    every key with a P that is not 0 weighs in, the result matches the
+    plain version, and two calls are bit-equal."""
     b, k, heads, head_dim = 4, 10, 8, 64
     d = heads * head_dim
     q, kv, _ = _cross_rows(gen, b, k, ls, d, dtype, 128)
@@ -292,12 +305,14 @@ def test_cross_attention_skips_padded_tails(gen, dtype):
     assert (dropped.float() - want.float()).abs().max().item() > 10 * tol
 
 
-@pytest.mark.parametrize("ls", [279, 1024, 4090])
+@pytest.mark.parametrize("ls", [279, 1024, 2048, 4090, 4097])
 def test_cross_attention_replays_in_a_cuda_graph(gen, ls):
     """#2 captured in a CUDA graph (the cluster form's one launch at Ls 279
-    and 1024; the split form's two, its workspace from the graph's pool, at
-    4090) and replayed on new inputs copied into the captured ones: equal to
-    the eager call on those inputs, bit for bit."""
+    and 1024; the stream form's one launch, its K and V tensor maps in the
+    captured parameters, at 2048 and 4090; the split form's two, its
+    workspace from the graph's pool, at 4097) and replayed on new inputs
+    copied into the captured ones: equal to the eager call on those inputs,
+    bit for bit."""
     b, k, heads, head_dim = 4, 10, 8, 64
     d = heads * head_dim
     assert ba.cross_plan(b, k, heads, head_dim, ls, 2).form == _cross_form(ls)
@@ -320,6 +335,73 @@ def test_cross_attention_replays_in_a_cuda_graph(gen, ls):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(captured, ba.beam_cross_attention(q2, *kv2, bias2, heads, k))
+
+
+def _stream_rank_keys(plan, ls, rank):
+    """The keys a stream-form rank takes: chunks of 32 keys rank, rank +
+    ranks, rank + 2 ranks, ... (the chunks spread over the ranks)."""
+    ranks = -(-ls // plan.tile_keys)
+    keys = torch.arange(ls, device="cuda")
+    return (keys // 32) % ranks == rank
+
+
+@pytest.mark.parametrize("k", [1, 10, 30])
+def test_stream_form_on_ragged_rows(gen, k):
+    """The stream form at an RLE encoder's Ls 4090, B 6: rows of 4090,
+    2173, 1 and 0 valid keys (a fully masked row: the uniform average) and
+    two ragged ones, each tail-padded; one launch counted as ``stream``, no
+    workspace, within the max-error and error-norm limits of the plain
+    version, the one-key row exactly its key's V row, and two calls
+    bit-equal."""
+    b, heads, head_dim, ls = 6, 8, 64, 4090
+    d = heads * head_dim
+    plan = ba.cross_plan(b, k, heads, head_dim, ls, 2)
+    assert plan.form == "stream" and plan.workspace_bytes == 0
+    q = torch.randn(b * k, d, generator=gen, device="cuda").bfloat16()
+    kv = [torch.randn(b, ls, d, generator=gen, device="cuda").bfloat16() for _ in range(2)]
+    lengths = torch.tensor([[4090], [2173], [1], [0], [3001], [1500]], device="cuda")
+    bias = torch.where(torch.arange(ls, device="cuda")[None, :] < lengths, 0.0, -1e9).float()
+    before = dict(ba.beam_cross_attention.forms)
+    got = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    assert {f: n - before[f] for f, n in ba.beam_cross_attention.forms.items()} == {
+        f: int(f == "stream") for f in ba.CROSS_FORMS}
+    want = ba.beam_cross_attention_plain(q, *kv, bias, heads, k)
+    assert torch.equal(got, ba.beam_cross_attention(q, *kv, bias, heads, k))
+    _close(got, want)
+    rms = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert rms <= 1e-3, rms
+    assert torch.equal(got[2 * k:3 * k], kv[1][2, :1].expand(k, d))
+    _close(got[3 * k:4 * k].float(), kv[1][3].float().mean(0).expand(k, d))
+
+
+@pytest.mark.parametrize("k", [1, 10, 30])
+def test_stream_form_folds_every_rank(gen, k):
+    """Planted faults of the stream form at Ls 2100: a bias that masks a
+    middle chunk still matches the plain version, and a change to the
+    logits of one chunk of any one rank (its 32 keys' bias raised by 4, so
+    that they weigh about half of the row) changes the output and matches
+    the plain version of the changed bias: every rank's stats and partials
+    are folded in."""
+    b, heads, head_dim, ls = 4, 8, 64, 2100
+    d = heads * head_dim
+    plan = ba.cross_plan(b, k, heads, head_dim, ls, 2)
+    ranks = -(-ls // plan.tile_keys)
+    assert plan.form == "stream" and ranks >= 3
+    q, kv, bias = _cross_rows(gen, b, k, ls, d, torch.bfloat16, plan.tile_keys)
+    bias[1:] = 0.0
+    middle = bias.clone()
+    middle[:, 1024:1056] = -1e9
+    _close(ba.beam_cross_attention(q, *kv, middle, heads, k),
+           ba.beam_cross_attention_plain(q, *kv, middle, heads, k))
+    base = ba.beam_cross_attention(q, *kv, bias, heads, k)
+    for rank in range(ranks):
+        chunk = torch.nonzero(_stream_rank_keys(plan, ls, rank))[32:64, 0]
+        changed = bias.clone()
+        changed[1:, chunk] += 4.0
+        got = ba.beam_cross_attention(q, *kv, changed, heads, k)
+        _close(got, ba.beam_cross_attention_plain(q, *kv, changed, heads, k))
+        moved = (got[k:].float() - base[k:].float()).abs().max().item()
+        assert moved > 2 * TOL * max(1.0, base.float().abs().max().item()), (rank, moved)
 
 
 def _ffn_args(gen, m, d, f, gated, dtype=torch.float32):
@@ -805,7 +887,7 @@ def test_decode_steps_on_card_match_cpu(gen, kv_cache_dtype):
         logits.append(torch.stack(out))
     # Ls 26: every cross call one pass, none through the cluster form.
     assert {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()} == {
-        "one_pass": cfg.decoder_layers * steps, "cluster": 0, "split": 0}
+        "one_pass": cfg.decoder_layers * steps, "cluster": 0, "split": 0, "stream": 0}
     err = (logits[1] - logits[0]).abs().max().item()
     # bf16 products rounded in other places by cuBLAS and the CPU, carried
     # through 2 + 2 layers.
@@ -1046,7 +1128,8 @@ def test_multimodal_graph_decode_equals_eager_decode(gen, xval):
         eager = engine.decoder.search(inputs, mask, 4, max_length=32, cuda_graph=False)
         assert (seqs == eager[0].cpu().numpy()).all() and (scores == eager[1].cpu().numpy()).all()
         ran = {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()}
-        assert ran["split"] == 0 and ran["cluster" if carbon == 54 else "one_pass"] > 0
+        assert ran["split"] == ran["stream"] == 0
+        assert ran["cluster" if carbon == 54 else "one_pass"] > 0
         assert ran["one_pass" if carbon == 54 else "cluster"] == 0
     assert len(engine.decoder._decodes) == 2
 
@@ -1497,7 +1580,7 @@ def test_post_ln_bart_decode_steps_on_card_match_cpu(gen, kv_cache_dtype, batch,
         logits.append(torch.stack(out))
     # Ls 26: every cross call one pass, none through the cluster form.
     assert {f: n - forms[f] for f, n in ba.beam_cross_attention.forms.items()} == {
-        "one_pass": 2 * steps, "cluster": 0, "split": 0}
+        "one_pass": 2 * steps, "cluster": 0, "split": 0, "stream": 0}
     err = (logits[1] - logits[0]).abs().max().item()
     assert err <= 5e-2 * max(1.0, logits[0].abs().max().item()), err
 
