@@ -467,16 +467,12 @@ def _device_ms(fn, iters: int = 20, reps: int = 5) -> float:
     it does in :func:`_time_ms` for a kernel shorter than its dispatch."""
     import torch
 
+    from multimodalanalytical_tpu_torch.ops import _cuda
+
     fn()                                       # build, shared-memory limit, allocator
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    graphs = _cuda.GraphSet(torch.device("cuda"))
+    graphs.run(None, fn)
+    graph = graphs.capture(None, lambda: [fn() for _ in range(iters)]).graph
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -486,7 +482,6 @@ def _device_ms(fn, iters: int = 20, reps: int = 5) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    del graph
     return start.elapsed_time(end) / (reps * iters)
 
 
@@ -1734,7 +1729,7 @@ def _eager_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
     import torch
 
     from multimodalanalytical_tpu_torch.generation.beam_search import read_device_times
-    from multimodalanalytical_tpu_torch.training.trainer import to_device
+    from multimodalanalytical_tpu_torch.ops._cuda import to_device
 
     inputs = to_device(inputs, DEVICE)
     mask = torch.as_tensor(mask, device=DEVICE)
@@ -1754,7 +1749,7 @@ def _graph_decode(decoder, inputs, mask, beams: int, **kwargs) -> tuple:
     import torch
 
     from multimodalanalytical_tpu_torch.generation.beam_search import read_device_times
-    from multimodalanalytical_tpu_torch.training.trainer import to_device
+    from multimodalanalytical_tpu_torch.ops._cuda import to_device
 
     inputs = to_device(inputs, DEVICE)
     mask = torch.as_tensor(mask, device=DEVICE)
@@ -1865,7 +1860,7 @@ def _serve_requests(engine, requests, what: str, model, kernels: bool = True,
         seqs, scores = engine.decode_batch(inputs, mask)
         seconds.append(time.perf_counter() - t0)
         stats = engine.last_stats
-        _require(stats["graph"] and stats["prologue_graph"] and stats["warmup_steps"] == 0,
+        _require(stats["graph"] and stats["warmup_steps"] == 0,
                  f"a {what} request did not replay the engine's graphs")
         steps += stats["steps"]
         replays += stats["replays"]
@@ -1905,7 +1900,7 @@ def _serve_requests(engine, requests, what: str, model, kernels: bool = True,
         eager = _eager_decode(engine.decoder, inputs, mask, BEAMS)
         eager_seconds.append(eager[3])
         prologue_ms.append(eager[2]["prologue_ms"])
-        _require(not eager[2]["prologue_graph"], "the eager decode replayed its prologue")
+        _require(not eager[2]["graph"], "the eager decode replayed its prologue")
         _require_bit_equal(f"{what} request", graph, eager)
     routes["eager"] = _route_record(eager_seconds, prologue_ms, engine.decoder)
     eager_per_batch = sum(eager_seconds) / len(eager_seconds)
@@ -2023,9 +2018,8 @@ def run_slice() -> dict:
     print(f"slice warm-up in the engine's constructor: graph capture (prologue, "
           f"{warm['warmup_steps']} stages, epilogue) {warm['capture_s']:.4f} s, {build_s:.4f} s "
           f"in all; first request {first_s:.4f} s (capture_s {first['capture_s']}, "
-          f"warmup_steps {first['warmup_steps']}, graph {first['graph']}, prologue_graph "
-          f"{first['prologue_graph']})", flush=True)
-    _require(warm["graph"] and warm["prologue_graph"] and warm["warmup_steps"] > 0,
+          f"warmup_steps {first['warmup_steps']}, graph {first['graph']})", flush=True)
+    _require(warm["graph"] and warm["warmup_steps"] > 0,
              "the engine's warm-up captured no decode graphs")
     _require(first["capture_s"] == 0 and first["warmup_steps"] == 0 and first["graph"],
              "the first request captured its decode graphs: the warm-up missed its shape")
@@ -3028,7 +3022,7 @@ def run_multimodal_path() -> tuple:
 
     from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
-    from multimodalanalytical_tpu_torch.training.trainer import to_device
+    from multimodalanalytical_tpu_torch.ops._cuda import to_device
 
     forms = dict(ba.beam_cross_attention.forms)
     model = _multimodal_model()
@@ -3045,7 +3039,7 @@ def run_multimodal_path() -> tuple:
           f"row; graph capture (first request: prologue, {capture['warmup_steps']} stages, "
           f"epilogue): {capture['capture_s']:.4f} s, first request {first_s:.4f} s in all",
           flush=True)
-    _require(capture["prologue_graph"], "the multimodal request captured no prologue graph")
+    _require(capture["graph"], "the multimodal request captured no prologue graph")
     launches, per_batch, results, routes = _serve_requests(engine, requests, "multimodal",
                                                            model)
 
@@ -3142,7 +3136,7 @@ def run_rle_serving() -> dict:
 
     from multimodalanalytical_tpu_torch.cli.serve import InferenceEngine
     from multimodalanalytical_tpu_torch.ops import beam_attention as ba
-    from multimodalanalytical_tpu_torch.training.trainer import to_device
+    from multimodalanalytical_tpu_torch.ops._cuda import to_device
 
     phase_t0 = time.perf_counter()
     forms = dict(ba.beam_cross_attention.forms)
@@ -3164,7 +3158,7 @@ def run_rle_serving() -> dict:
     first_s = time.perf_counter() - t0
     first = engine.last_stats
     _require(first["capture_s"] == 0 and first["warmup_steps"] == 0 and first["graph"]
-             and first["prologue_graph"] and warm["prologue_graph"],
+             and warm["graph"],
              "the first RLE request captured its decode graphs: the warm-up missed its shape")
     valid = [round(int(mask.sum()) / BATCH, 1) for _, mask in requests]
     print(f"RLE serving: Ls {RLE_MAX_LEN}, {valid} valid keys per row; engine built in "
@@ -3230,7 +3224,7 @@ def run_multimodal_training() -> None:
 
     from multimodalanalytical_tpu_torch.training import Trainer
     from multimodalanalytical_tpu_torch.training import trainer as trainer_module
-    from multimodalanalytical_tpu_torch.training.trainer import to_device
+    from multimodalanalytical_tpu_torch.ops._cuda import to_device
 
     inputs, mask = _multimodal_request(seed=710)
     batch = {"encoder_inputs": inputs, "encoder_mask": mask,
@@ -4398,7 +4392,7 @@ def profile_eval() -> None:
               f"per decode step launching it; launches as the host makes them: {graphs} graph "
               f"launches + {launches} kernel launches = {(graphs + launches) / replays:.2f} per "
               f"step (host-side loop: {old_launches} kernel launches per step)", flush=True)
-        _require(stats["graph"] and stats["prologue_graph"] and graphs >= replays + 2,
+        _require(stats["graph"] and graphs >= replays + 2,
                  f"profile {name}: the decode did not replay its graphs (prologue, steps, "
                  f"epilogue)")
         if name != f"serve K {BEAMS}":

@@ -56,7 +56,7 @@ import torch
 from .. import tracing
 from ..generation.beam_search import BeamDecoder, read_device_times
 from ..models.seq2seq import Seq2SeqModel
-from ..training.trainer import to_device
+from ..ops._cuda import to_device
 
 logger = logging.getLogger(__name__)
 # Entries kept in ``InferenceEngine.batch_log``: the newest batches.

@@ -26,12 +26,13 @@ A decode is three parts on static buffers: the prologue (the encoder, the
 cross K/V projection, the state reset), the steps, and the epilogue (the
 final merge into static outputs, which the search returns copies of). On a
 CUDA device each part is captured once per shape as a CUDA graph
-(:class:`BeamDecoder` keeps the graphs and their static buffers per shape),
-as ``jax.jit`` compiles the JAX package's whole decode: the prologue is
-replayed once, then each stage's step ``bound - 1 - t0`` times, the host
-reading ``done`` once every ``check_every`` replays and skipping the rest
-of the decode once it is set (one graph per stage, as the JAX package runs
-one ``while_loop`` per stage), then the epilogue. Elsewhere, or with
+(:class:`BeamDecoder` keeps the static buffers and an ``ops/_cuda.py``
+``GraphSet`` per shape), as ``jax.jit`` compiles the JAX package's whole
+decode: the prologue is replayed once, then each stage's step
+``bound - 1 - t0`` times, the host reading ``done`` once every
+``check_every`` replays and skipping the rest of the decode once it is set
+(one graph per stage, as the JAX package runs one ``while_loop`` per
+stage), then the epilogue. Elsewhere, or with
 ``cuda_graph=False``, the same parts run eagerly in the same loop.
 
 With the recorder of ``tracing`` on, a search's host work is spans:
@@ -51,7 +52,8 @@ model group (attention and FFN outputs, the gathered logits) run inside the
 step, so every rank's state is the same. A stage's step is captured as a
 CUDA graph only where those sums can be captured: when the model group's
 backend is NCCL. Under gloo (ranks sharing one card, or the CPU) the steps
-run eagerly; ``stats["graph"]`` says which route ran.
+run eagerly; ``stats["graph"]`` and ``stats["eager_reason"]`` say which
+route ran (``_cuda.graph_route``).
 
 Ties in every top-k break toward the lower index, as ``jax.lax.top_k`` does
 (a stable descending sort), so fp32 runs pick the beams the JAX package
@@ -67,7 +69,6 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from .. import tracing
 from ..models.seq2seq import Seq2SeqModel
@@ -109,21 +110,6 @@ def decode_model(model: Seq2SeqModel) -> Seq2SeqModel:
     return copy.deepcopy(model, memo)
 
 
-def collectives_capturable(model: Seq2SeqModel, mesh=None) -> bool:
-    """Whether a step's collectives can be captured in a CUDA graph: each
-    group either has none to run or runs over NCCL. A decode step runs the
-    model group's (``model.mesh``); a train step also sums over the data
-    group of ``mesh``, the trainer's."""
-    groups = []
-    if model.mesh is not None and model.mesh.n_model > 1:
-        groups.append(model.mesh.model_group)
-    if mesh is not None and mesh.n_model > 1:
-        groups.append(mesh.model_group)
-    if mesh is not None and mesh.n_data > 1:
-        groups.append(mesh.data_group)
-    return all(dist.get_backend(group) == "nccl" for group in groups)
-
-
 def kv_cache_quantized(cfg, num_beams: int, max_length: int) -> bool:
     """The JAX package's int8-cache decision (so both pick the same cache)."""
     head_dim = cfg.d_model // cfg.decoder_attention_heads
@@ -151,13 +137,15 @@ def stage_bounds(stage_size: Optional[int], max_length: int) -> List[int]:
 class _Decode:
     """The static buffers of one decode shape (the request's encoder inputs,
     mask and hook state, the self caches, cross K/V and bias, the loop
-    state, the outputs, constants) and, on a CUDA device, the captured
-    prologue, step of each stage and epilogue, with the kernel launches
-    each capture recorded and the weights' addresses they read."""
+    state, the outputs, constants) and its graph set: on a CUDA device the
+    captured prologue, step of each stage and epilogue, by "prologue", each
+    stage's bound and "epilogue", checked against ``weights`` (the
+    addresses of the weights they read)."""
 
     def __init__(self, dmodel: Seq2SeqModel, batch: int, beams: int, max_length: int,
                  bounds: List[int], encoder_inputs: Dict[str, Any], encoder_mask: torch.Tensor,
-                 hook_init: Optional[Dict[str, torch.Tensor]]):
+                 hook_init: Optional[Dict[str, torch.Tensor]],
+                 weights: Callable[[], Tuple[int, ...]]):
         cfg = dmodel.config
         device = encoder_mask.device
         self.bounds = bounds
@@ -191,10 +179,7 @@ class _Decode:
         # step's end, recorded on the stream by each search of this shape.
         self.events = (tuple(torch.cuda.Event(enable_timing=True) for _ in range(3))
                        if device.type == "cuda" else ())
-        # By "prologue", each stage's bound and "epilogue".
-        self.graphs: Dict[Any, Tuple[torch.cuda.CUDAGraph, Dict[Callable, int]]] = {}
-        self.pool = None
-        self.weights: Tuple[int, ...] = ()
+        self.graphs = _cuda.GraphSet(device, weights=weights)
         # The routes this shape's parts take (:meth:`counted`).
         self.prologue_flash_launches = 0
         self.cross_forms = dict.fromkeys(beam_attention.CROSS_FORMS, 0)
@@ -218,7 +203,7 @@ class _Decode:
              hook_init: Optional[Dict[str, torch.Tensor]]) -> None:
         """This request's tensors into the static inputs, one copy per leaf."""
         _cuda.copy_tree_(self.inputs, encoder_inputs)
-        self.mask.copy_(encoder_mask)
+        _cuda.copy_tree_(self.mask, encoder_mask)
         _cuda.copy_tree_(self.hook_init, hook_init or {})
 
 
@@ -236,6 +221,10 @@ class BeamDecoder:
         self.model = model
         self.dmodel = decode_model(model)
         self._decodes: Dict[tuple, _Decode] = {}
+        # The addresses of the weights the graphs read: the model's (the
+        # encoder) and the decode copy's (the steps).
+        modules = (model,) if self.dmodel is model else (model, self.dmodel)
+        self._weights = functools.partial(_cuda.addresses, *modules)
 
     def refresh(self) -> None:
         """The model's weights into the decode copy, in place (bf16 casts by
@@ -253,7 +242,7 @@ class BeamDecoder:
         """Device bytes held by the memory pools of the captured decodes
         (one per shape: what the prologue, the steps and the epilogue keep
         between requests)."""
-        return sum(_cuda.pool_bytes(d.pool) for d in self._decodes.values())
+        return sum(d.graphs.pool_bytes() for d in self._decodes.values())
 
     # ---------------------------------------------------------------- step
     def _step(self, d: _Decode, bound: int, max_length: int, length_penalty: float,
@@ -361,45 +350,6 @@ class BeamDecoder:
         d.out_scores.copy_(scores)
         d.out_seqs.copy_(merged_seqs.gather(1, idx[:, :, None].expand(-1, -1, max_length)))
 
-    def _run(self, d: _Decode, part: Any, use_graph: bool, run: Callable[[], None]) -> None:
-        """One part of the decode (the prologue, a stage's step or the
-        epilogue): its graph replayed, or ``run()`` eagerly, its route
-        recorded (:meth:`_Decode.counted`)."""
-        if use_graph:
-            _cuda.replay(*d.graphs[part])
-        else:
-            d.counted(part, run)
-
-    def _weights(self) -> Tuple[int, ...]:
-        """The addresses of the weights the graphs read: the model's (the
-        encoder) and the decode copy's (the steps)."""
-        if self.dmodel is self.model:
-            return _cuda.addresses(self.model)
-        return _cuda.addresses(self.model, self.dmodel)
-
-    def _capture(self, d: _Decode, parts: List[Tuple[Any, Callable[[], None]]]) -> None:
-        """Capture each of ``parts`` (the prologue, the step of every stage,
-        the epilogue) as a CUDA graph, all on one side stream into one
-        memory pool, each first run once eagerly on that stream (lazy
-        initialisation, workspaces, shared-memory limits). Sharing the pool
-        is sound only because the graphs replay one after another on one
-        stream, the prologue first: none reads what another left in the
-        pool (the state, caches, inputs and outputs lie outside it). The
-        warm-up runs change the state, which the prologue's replay resets;
-        a capture that fails raises. Records the weights' addresses and the
-        routes the captures took (:meth:`_Decode.counted`)."""
-        stream = torch.cuda.Stream(device=d.mask.device)
-        stream.wait_stream(torch.cuda.current_stream())
-        for part, run in parts:
-            with torch.cuda.stream(stream):
-                run()
-            graph, launches, _ = _cuda.capture(functools.partial(d.counted, part, run), stream,
-                                               d.pool)
-            d.graphs[part] = (graph, launches)
-            d.pool = graph.pool()
-        torch.cuda.current_stream().wait_stream(stream)
-        d.weights = self._weights()
-
     # -------------------------------------------------------------- search
     @torch.no_grad()
     def search(
@@ -441,8 +391,8 @@ class BeamDecoder:
         moved since its capture (a parameter rebound) is captured again. A
         hook whose ``capturable`` attribute is False (the exact formula
         hook, which makes one host call per step), or a model group whose
-        collectives cannot be captured (:func:`collectives_capturable`),
-        runs every part eagerly, as ``cuda_graph=False`` does.
+        collectives cannot be captured, runs every part eagerly, as
+        ``cuda_graph=False`` does (``_cuda.graph_route``).
         The host reads the ``done`` flag once every ``check_every`` steps.
         ``idle``, if given, is other host work done before each read: one
         piece per call, returning False once none is left. On a CUDA device
@@ -453,9 +403,9 @@ class BeamDecoder:
         the decode steps that counted, as the JAX loop counts them),
         ``replays`` (the steps run, replays past the exit included),
         ``warmup_steps`` (eager steps of a capture), ``graph`` (whether
-        the steps' graphs ran), ``prologue_graph`` (whether the prologue's
-        and epilogue's did), ``recaptured`` (whether this shape was
-        captured again for moved weights), ``capture_s`` and
+        the graphs ran), ``eager_reason`` (None if they did, otherwise why
+        not), ``recaptured`` (whether this shape was captured again for
+        moved weights), ``capture_s`` and
         ``dispatch_s`` (host seconds spent capturing and launching the
         steps), ``prologue_flash_launches`` (the flash forward's launches in
         a prologue: one per encoder layer that takes flash, 0 where the
@@ -471,75 +421,63 @@ class BeamDecoder:
         if check_every < 1:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
         device = encoder_mask.device
-        use_graph = (cuda_graph and device.type == "cuda"
-                     and getattr(logits_hook, "capturable", True)
-                     and collectives_capturable(self.model))
+        route = _cuda.graph_route(device, cuda_graph, self.model, hook=logits_hook)
         batch = encoder_mask.shape[0]
         bounds = stage_bounds(stage_size, max_length)
         key = (batch, num_beams, max_length, float(length_penalty), tuple(bounds),
                _cuda.signature(encoder_inputs), _cuda.signature(encoder_mask), logits_hook,
                _cuda.signature(hook_init or {}))
         d = self._decodes.get(key)
-        recaptured = bool(use_graph and d is not None and d.graphs
-                          and d.weights != self._weights())
-        if recaptured:
-            del self._decodes[key], d      # its buffers and graphs go first
-            d = None
         if d is None:
             d = self._decodes[key] = _Decode(self.dmodel, batch, num_beams, max_length, bounds,
-                                             encoder_inputs, encoder_mask, hook_init)
+                                             encoder_inputs, encoder_mask, hook_init,
+                                             self._weights)
         with tracing.span("beam.load"):
             d.load(encoder_inputs, encoder_mask, hook_init)
 
-        def prologue() -> None:
-            self._prologue(d)
-
-        def epilogue() -> None:
-            self._epilogue(d, max_length, length_penalty)
-
-        def run_step(bound: int) -> None:
-            self._step(d, bound, max_length, length_penalty, logits_hook)
-
-        capture_s, warmup_steps = 0.0, 0
-        if use_graph and not d.graphs:
+        parts = {"prologue": functools.partial(self._prologue, d),
+                 **{bound: functools.partial(self._step, d, bound, max_length, length_penalty,
+                                             logits_hook) for bound in bounds},
+                 "epilogue": functools.partial(self._epilogue, d, max_length, length_penalty)}
+        capture_s, warmup_steps, recaptures = 0.0, 0, d.graphs.recaptures
+        if route is None and d.graphs.get("prologue") is None:
+            # Each part in order, after a warm-up run that changes the
+            # state, which the prologue's replay resets.
             t0 = time.perf_counter()
-            parts = ([("prologue", prologue)]
-                     + [(bound, functools.partial(run_step, bound)) for bound in bounds]
-                     + [("epilogue", epilogue)])
             with tracing.span("beam.capture"):
                 try:
-                    self._capture(d, parts)
+                    for part, fn in parts.items():
+                        d.graphs.capture(part, functools.partial(d.counted, part, fn), warm=True)
                 except BaseException:
                     del self._decodes[key]     # no half-captured shape is kept
                     raise
                 torch.cuda.synchronize(device)
             capture_s, warmup_steps = time.perf_counter() - t0, len(bounds)
+        run = {part: (functools.partial(d.graphs.replay, d.graphs.entries[part]) if route is None
+                      else functools.partial(d.counted, part, fn)) for part, fn in parts.items()}
 
         events = d.events if stats is not None else ()
         if events:
             events[0].record()
         with tracing.span("beam.prologue"):
-            self._run(d, "prologue", use_graph, prologue)
+            run["prologue"]()
         if events:
             events[1].record()
         # The stage of each replay, in order: bound - prev replays of the
         # stage ending at bound (times prev - 1 to bound - 2), prev the
         # bound before it (1 before the first).
-        steps = {bound: functools.partial(self._run, d, bound, use_graph,
-                                          functools.partial(run_step, bound))
-                 for bound in bounds}
         order = [bound for bound, prev in zip(bounds, [1] + bounds[:-1])
                  for _ in range(bound - prev)]
         replays, dispatch_s = 0, 0.0
         for first in range(0, len(order), check_every):
-            run = order[first:first + check_every]
+            steps = order[first:first + check_every]
             with tracing.span("beam.dispatch"):
-                for bound in run:
+                for bound in steps:
                     t0 = time.perf_counter()
-                    steps[bound]()
+                    run[bound]()
                     dispatch_s += time.perf_counter() - t0
-            replays += len(run)
-            if len(run) < check_every:
+            replays += len(steps)
+            if len(steps) < check_every:
                 break
             if idle is not None:
                 _idle_while_running(idle, device)
@@ -550,13 +488,13 @@ class BeamDecoder:
         if events:
             events[2].record()
         with tracing.span("beam.epilogue"):
-            self._run(d, "epilogue", use_graph, epilogue)
+            run["epilogue"]()
 
         if stats is not None:
             stats.update(steps=int(d.state["t"]), replays=replays, warmup_steps=warmup_steps,
-                         graph=use_graph, prologue_graph=use_graph, recaptured=recaptured,
-                         capture_s=capture_s, dispatch_s=dispatch_s,
-                         prologue_flash_launches=d.prologue_flash_launches,
+                         graph=route is None, eager_reason=route,
+                         recaptured=d.graphs.recaptures > recaptures, capture_s=capture_s,
+                         dispatch_s=dispatch_s, prologue_flash_launches=d.prologue_flash_launches,
                          cross_forms=dict(d.cross_forms))
             if events:
                 stats["events"] = events

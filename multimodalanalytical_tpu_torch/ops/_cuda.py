@@ -21,11 +21,13 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -161,80 +163,220 @@ def launch_counts() -> Dict[Callable, int]:
 
 
 # ------------------------------------------------------------ CUDA graphs
-def capture(fn: Callable[[], Any], stream: torch.cuda.Stream, pool=None,
-            generators: Sequence[torch.Generator] = ()
-            ) -> Tuple[torch.cuda.CUDAGraph, Dict[Callable, int], Any]:
-    """``fn()`` captured as a CUDA graph on ``stream`` into the memory pool
-    ``pool`` (None: a pool of the graph's own), each of ``generators``
-    registered with it. ``fn`` must have run once already on ``stream``
-    (lazy set-up, workspaces: nothing may allocate outside the pool or set
-    up during capture). The device's cached free blocks are released first
-    (a warm-up's activations), for the pool; the host's pinned cache stays
-    warm. A capture launches nothing, so the launch counts it ticked are
-    taken back and returned, to be added at every :func:`replay`. Returns
-    (graph, launches, ``fn``'s result); a failed capture raises."""
-    graph = torch.cuda.CUDAGraph()
-    for generator in generators:
-        graph.register_generator_state(generator)
-    torch.cuda.synchronize(stream.device)
-    torch.cuda.empty_cache()
-    before = launch_counts()
-    try:
+def graph_route(device: torch.device, cuda_graph: bool, model: torch.nn.Module, mesh=None,
+                hook: Optional[Callable] = None) -> Optional[str]:
+    """Whether a part of the program (a train step, an evaluation step, a
+    decode) runs as replayed CUDA graphs: None where it does, otherwise why
+    it runs eagerly. Graphs need ``cuda_graph``, a logits ``hook`` whose
+    ``capturable`` attribute is not False (the exact formula hook makes one
+    host call per step), a CUDA device and collectives a graph can hold:
+    each group the part sums over runs none or runs over NCCL. A decode
+    sums over the model group of ``model.mesh``; a train step also over the
+    model and data groups of ``mesh``, the trainer's."""
+    if not cuda_graph:
+        return "cuda_graph=False"
+    if not getattr(hook, "capturable", True):
+        return "a logits hook that is not capturable"
+    if device.type != "cuda":
+        return f"{device.type} device"
+    groups = []
+    if model.mesh is not None and model.mesh.n_model > 1:
+        groups.append(model.mesh.model_group)
+    if mesh is not None and mesh.n_model > 1:
+        groups.append(mesh.model_group)
+    if mesh is not None and mesh.n_data > 1:
+        groups.append(mesh.data_group)
+    if not all(dist.get_backend(group) == "nccl" for group in groups):
+        return "collectives a CUDA graph cannot hold (not NCCL)"
+    return None
+
+
+class Graph:
+    """One captured body: the graph, its static inputs, what the body
+    returned at capture (the outputs every replay writes), the kernel
+    launches the capture recorded and the addresses of the weights it reads
+    (None where its set checks none)."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, inputs: Any, out: Any,
+                 launches: Dict[Callable, int], weights: Optional[Tuple[int, ...]]):
+        self.graph, self.inputs, self.out = graph, inputs, out
+        self.launches, self.weights = launches, weights
+
+
+class GraphSet:
+    """CUDA graphs by key, as ``jax.jit`` keeps its programs by shape: one
+    capture stream, one memory pool, the captured bodies. Sharing the pool
+    is sound only because the set's graphs replay one after another on one
+    stream and none reads what another left in it: static inputs and state
+    lie outside it. ``generators`` are registered with every graph.
+    ``weights``, if given, returns the addresses (:func:`addresses`) of the
+    weights the graphs read: a graph captured on weights that have moved
+    since (a parameter rebound, a ``.to()``) would read the old storage.
+    Counts captures, recaptures, replays and the host seconds capturing
+    (``capture_s``)."""
+
+    def __init__(self, device: torch.device, generators: Sequence[torch.Generator] = (),
+                 weights: Optional[Callable[[], Tuple[int, ...]]] = None):
+        self.device = device
+        self.generators = tuple(generators)
+        self.weights = weights
+        self.entries: Dict[Any, Graph] = {}
+        # The keys whose body ran on the capture stream (:meth:`run`).
+        self.warm: set = set()
+        self.pool = None
+        self.captures = self.recaptures = self.replays = 0
+        self.capture_s = 0.0
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def _capture_stream(self) -> torch.cuda.Stream:
+        """The set's side stream, ordered after the current stream's work."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self._stream
+
+    def run(self, key: Any, fn: Callable[[], Any]) -> Any:
+        """``fn()`` on the capture stream, which marks ``key`` warm, and its
+        result; the current stream then waits for it. A body's lazy set-up
+        (cuBLAS workspaces, kernel attributes, shared-memory limits) must
+        happen here, before a capture, where nothing may set up."""
+        stream = self._capture_stream()
         with torch.cuda.stream(stream):
-            graph.capture_begin(pool=pool)
-            try:
-                out = fn()
-            finally:
-                graph.capture_end()
-        after = launch_counts()
-    finally:
-        for wrapper, count in before.items():
-            wrapper.launches = count
-    return graph, {f: after[f] - before[f] for f in after if after[f] != before[f]}, out
+            out = fn()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self.warm.add(key)
+        return out
 
+    def capture(self, key: Any, fn: Callable[[], Any], inputs: Any = None,
+                warm: bool = False) -> Graph:
+        """``fn()`` captured under ``key`` into the set's pool, after one
+        :meth:`run` of it when ``warm`` (otherwise it must have run there
+        already); ``inputs``, the static inputs it reads, are kept with the
+        graph. The device's cached free blocks (a warm-up's activations)
+        are released first, for the pool. A capture launches nothing, so
+        the launch counts it ticked are taken back and recorded, to be
+        added at every :meth:`replay`. A capture that fails raises and
+        keeps no graph under ``key``."""
+        t0 = time.perf_counter()
+        self._drop(key)
+        if warm:
+            self.run(key, fn)
+        stream = self._capture_stream()
+        graph = torch.cuda.CUDAGraph()
+        for generator in self.generators:
+            graph.register_generator_state(generator)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        before = launch_counts()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+            after = launch_counts()
+        finally:
+            for wrapper, count in before.items():
+                wrapper.launches = count
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self.pool = graph.pool()
+        launches = {f: after[f] - before[f] for f in after if after[f] != before[f]}
+        entry = self.entries[key] = Graph(graph, inputs, out, launches,
+                                         None if self.weights is None else self.weights())
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return entry
 
-def replay(graph: torch.cuda.CUDAGraph, launches: Dict[Callable, int]) -> None:
-    """Replay ``graph`` and add the kernel launches its capture recorded."""
-    graph.replay()
-    for wrapper, count in launches.items():
-        wrapper.launches += count
+    def get(self, key: Any) -> Optional[Graph]:
+        """The graph captured under ``key``; None where there is none, or
+        where its weights have moved, which drops it and counts a
+        recapture."""
+        entry = self.entries.get(key)
+        if entry is not None and self.weights is not None and entry.weights != self.weights():
+            self._drop(key)
+            self.recaptures += 1
+            return None
+        return entry
 
+    def _drop(self, key: Any) -> None:
+        """Forget ``key``'s graph. The pool goes with the set's last graph:
+        a pool that no graph holds any more is released, and a capture
+        into it would fail."""
+        self.entries.pop(key, None)
+        if not self.entries:
+            self.pool = None
 
-def pool_bytes(pool) -> int:
-    """Device bytes held by a CUDA graph memory pool (``graph.pool()``; 0
-    for None): what its graphs keep between replays."""
-    if pool is None:
-        return 0
-    return sum(segment["total_size"] for segment in torch.cuda.memory_snapshot()
-               if tuple(segment["segment_pool_id"]) == tuple(pool))
+    def replay(self, entry: Graph) -> None:
+        """Replay ``entry``'s graph and add the kernel launches its capture
+        recorded."""
+        entry.graph.replay()
+        for wrapper, count in entry.launches.items():
+            wrapper.launches += count
+        self.replays += 1
+
+    def counts(self) -> Dict[str, Any]:
+        return {"captures": self.captures, "recaptures": self.recaptures,
+                "replays": self.replays, "capture_s": self.capture_s}
+
+    def pool_bytes(self) -> int:
+        """Device bytes held by the set's memory pool: what its graphs keep
+        between replays."""
+        if self.pool is None:
+            return 0
+        return sum(segment["total_size"] for segment in torch.cuda.memory_snapshot()
+                   if tuple(segment["segment_pool_id"]) == tuple(self.pool))
 
 
 def addresses(*modules: torch.nn.Module) -> Tuple[int, ...]:
     """The device addresses of the modules' parameters and buffers, which a
-    CUDA graph reads: a graph captured on weights whose addresses have
-    changed since (a parameter rebound, a ``.to()``) would read the old
-    storage. (Read from each submodule's own tables: half the host time of
-    ``parameters()`` and ``buffers()``, which a graph's every replay pays.)"""
+    CUDA graph reads. (Read from each submodule's own tables: half the host
+    time of ``parameters()`` and ``buffers()``.)"""
     return tuple(t.data_ptr() for module in modules for sub in module.modules()
                  for t in (*sub._parameters.values(), *sub._buffers.values()) if t is not None)
 
 
+# ------------------------------------------------------------ tensor trees
+def to_device(tree: Any, device: torch.device) -> Any:
+    """Arrays, and dicts of them at any depth, as tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {key: to_device(value, device) for key, value in tree.items()}
+    return torch.as_tensor(tree, device=device)
+
+
 def static_like(tree: Any) -> Any:
-    """Room for a tree of tensors (dicts of them at any depth): one empty
-    tensor per leaf, of its shape, dtype and device."""
+    """Room for a tree of tensors (dicts and tuples of them at any depth):
+    one empty tensor per leaf, of its shape, dtype and device."""
     if isinstance(tree, dict):
         return {key: static_like(value) for key, value in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(static_like(value) for value in tree)
     return torch.empty_like(tree)
 
 
+def copy_from_host_(dst: torch.Tensor, src) -> torch.Tensor:
+    """Copy ``src`` (an array, or a tensor on the host or on ``dst``'s
+    device) into ``dst``, in place. Into a CUDA tensor the host data goes
+    through pinned memory without blocking: the copy is ordered on the
+    current stream, and the host does not wait for the device."""
+    src = torch.as_tensor(src)
+    if dst.is_cuda and src.device.type == "cpu":
+        return dst.copy_(src.pin_memory(), non_blocking=True)
+    return dst.copy_(src)
+
+
 def copy_tree_(static: Any, tree: Any) -> None:
-    """Copy ``tree`` into the same-shaped :func:`static_like` room
-    ``static``, one ``copy_`` per leaf."""
+    """Copy ``tree`` (tensors or arrays) into the same-shaped room
+    ``static`` (:func:`static_like`, :func:`to_device`), one
+    :func:`copy_from_host_` per leaf."""
     if isinstance(static, dict):
         for key, value in static.items():
             copy_tree_(value, tree[key])
+    elif isinstance(static, tuple):
+        for value, leaf in zip(static, tree):
+            copy_tree_(value, leaf)
     else:
-        static.copy_(tree)
+        copy_from_host_(static, tree)
 
 
 def signature(tree: Any) -> Any:

@@ -38,6 +38,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops._cuda import copy_from_host_
+
 ADAM_EPS = 1e-8   # optax's adam/adamw default
 
 
@@ -90,17 +92,6 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
     norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
-
-
-def copy_from_host_(dst: torch.Tensor, src) -> torch.Tensor:
-    """Copy ``src`` (an array, or a tensor on the host or on ``dst``'s
-    device) into ``dst``, in place. Into a CUDA tensor the host data goes
-    through pinned memory without blocking: the copy is ordered on the
-    current stream, and the host does not wait for the device."""
-    src = torch.as_tensor(src)
-    if dst.is_cuda and src.device.type == "cpu":
-        return dst.copy_(src.pin_memory(), non_blocking=True)
-    return dst.copy_(src)
 
 
 class Optimizer:

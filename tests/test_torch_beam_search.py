@@ -206,6 +206,41 @@ def test_step_past_the_exit_leaves_the_state_unchanged():
         assert all(torch.equal(before[k], after[k]) for k in before)
 
 
+@pytest.mark.parametrize("case,reason", [("cpu", "cpu device"), ("off", "cuda_graph=False"),
+                                         ("hook", "a logits hook that is not capturable")])
+def test_graph_route_reasons_reach_the_search_and_the_trainer(case, reason):
+    """The reasons ``graph_route`` gives for the eager route that a machine
+    without a card reaches: each is what the route returns, what a search
+    reports (``stats["eager_reason"]``) and, through its decodes, what the
+    trainer reports; the trainer's steps report their own route. The same
+    model on a CUDA device would replay graphs (None)."""
+    from multimodalanalytical_tpu_torch.ops import _cuda
+    from multimodalanalytical_tpu_torch.training import Trainer
+
+    _, _, model, batch = build_pair()
+
+    def hook(state, logprobs, live_seqs, t):
+        return state, logprobs
+
+    hook.capturable = False
+    cuda_graph, hooks = case != "off", ({"logits_hook": hook} if case == "hook" else {})
+    assert _cuda.graph_route(torch.device("cuda"), True, model) is None
+    assert _cuda.graph_route(torch.device("cpu"), cuda_graph, model, hook=hooks.get(
+        "logits_hook")) == reason
+    request = {"encoder_inputs": to_torch(batch["encoder_inputs"]),
+               "encoder_mask": torch.as_tensor(batch["encoder_mask"])}
+    stats = {}
+    port_beam.BeamDecoder(model).search(*request.values(), 2, max_length=8,
+                                        cuda_graph=cuda_graph, stats=stats, **hooks)
+    assert not stats["graph"] and stats["eager_reason"] == reason
+    trainer = Trainer(model, cuda_graph=cuda_graph)
+    trainer._decode(trainer.beam_decoder(), request, 2, hooks)
+    assert trainer.last_decode_stats["eager_reason"] == reason
+    steps = "cpu device" if case == "hook" else reason
+    for route in (trainer.step_stats, trainer.eval_stats):
+        assert not route["graph"] and route["eager_reason"] == steps
+
+
 def test_back_to_back_requests_through_the_static_buffers():
     """Two requests decoded one after the other through one decoder (the
     same static buffers; the caches are not cleared between them) equal two

@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from multimodalanalytical_tpu_torch.ops import _cuda  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import beam_attention as ba  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import decode_ffn  # noqa: E402
 from multimodalanalytical_tpu_torch.ops import flash_attention as flash  # noqa: E402
@@ -319,22 +320,17 @@ def test_cross_attention_replays_in_a_cuda_graph(gen, ls):
     q, kv, bias = _cross_rows(gen, b, k, ls, d, torch.bfloat16, 128)
     static = [q.clone(), kv[0].clone(), kv[1].clone(), bias.clone()]
     ba.beam_cross_attention(*static[:3], static[3], heads, k)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        ba.beam_cross_attention(*static[:3], static[3], heads, k)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = ba.beam_cross_attention(*static[:3], static[3], heads, k)
+    graphs = _cuda.GraphSet(torch.device("cuda"))
+    entry = graphs.capture(None, lambda: ba.beam_cross_attention(*static[:3], static[3], heads,
+                                                                 k), warm=True)
     for seed in (1, 2):
         gen.manual_seed(seed)
         q2, kv2, bias2 = _cross_rows(gen, b, k, ls, d, torch.bfloat16, 64 * seed)
         for dst, src in zip(static, [q2, *kv2, bias2]):
             dst.copy_(src)
-        graph.replay()
+        graphs.replay(entry)
         torch.cuda.synchronize()
-        assert torch.equal(captured, ba.beam_cross_attention(q2, *kv2, bias2, heads, k))
+        assert torch.equal(entry.out, ba.beam_cross_attention(q2, *kv2, bias2, heads, k))
 
 
 def _stream_rank_keys(plan, ls, rank):
@@ -507,17 +503,11 @@ def test_geglu_ffn_graph_capture_equals_eager(gen, gated, m):
     it) and replayed gives the eager call's bits."""
     args = _ffn_args(gen, m, 512, 2048, gated, dtype=torch.bfloat16)
     eager = decode_ffn.geglu_ffn(*args)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        decode_ffn.geglu_ffn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = decode_ffn.geglu_ffn(*args)
-    graph.replay()
+    graphs = _cuda.GraphSet(torch.device("cuda"))
+    entry = graphs.capture(None, lambda: decode_ffn.geglu_ffn(*args), warm=True)
+    graphs.replay(entry)
     torch.cuda.synchronize()
-    assert torch.equal(captured, eager)
+    assert torch.equal(entry.out, eager)
 
 
 def test_wrappers_raise_on_unsupported_shapes(gen):
@@ -971,18 +961,16 @@ def test_replayed_step_equals_eager_steps(gen):
     inputs, mask = _request(3, 0)
     decoder.search(inputs, mask, 4, max_length=32, stage_size=None)
     (decode,) = decoder._decodes.values()
-    graph, launches = decode.graphs[32]
+    entry = decode.graphs.entries[32]
     counters = (ba.beam_select_attention_update, ba.beam_cross_attention, decode_ffn.geglu_ffn)
-    assert {fn: launches.get(fn) for fn in counters} == {fn: 2 for fn in counters}
+    assert {fn: entry.launches.get(fn) for fn in counters} == {fn: 2 for fn in counters}
     states = []
     for replay in (True, False):
         decoder._prologue(decode)        # the static inputs hold the request
         before = [fn.launches for fn in counters]
         for _ in range(8):
             if replay:
-                graph.replay()
-                for fn, count in launches.items():
-                    fn.launches += count
+                decode.graphs.replay(entry)
             else:
                 decoder._step(decode, 32, 32, 1.0, None)
         torch.cuda.synchronize()
@@ -992,26 +980,65 @@ def test_replayed_step_equals_eager_steps(gen):
     assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
 
 
-@pytest.mark.parametrize("eos_bias", [0.0, 20.0])
-def test_graph_decode_equals_eager_decode(gen, eos_bias):
-    """Two requests through one decoder's graphs (captured once) against the
-    same decoder with ``cuda_graph=False``: sequences and scores bit-equal,
-    the same steps; with EOS favoured the decode exits early and the graphs
-    stop within ``check_every`` replays of the exit."""
+DECODE_CASES = ["k4", "k4_eos", "k1", "k10", "k30", "k1_guided", "k10_guided", "k30_guided",
+                "rle_flash"]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_graph_decode_equals_eager_decode(gen, case):
+    """Requests of one shape in a row through one decoder's graphs (the
+    prologue, each stage's step and the epilogue, captured once, by the
+    first request) against the same decoder with ``cuda_graph=False``:
+    sequences and scores bit-equal, the same steps, and each request's
+    outputs the caller's own (the next decode leaves them as they were).
+    K 1, 4, 10 and 30; with EOS favoured (``k4_eos``) the decode exits
+    early and the graphs stop within ``check_every`` replays of the exit;
+    with the surrogate formula guide (``_guided``) its hook state goes
+    through the graphs; an RLE model at L 2100 (``rle_flash``, flash #5 in
+    both encoder layers) replays the flash forward in the prologue graph,
+    its launches added at every replay (2 a request)."""
+    import numpy as np
+
     from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
 
-    decoder = BeamDecoder(_small_decode_model(eos_bias=eos_bias))
-    for seed in (1, 2):
-        inputs, mask = _request(3, seed)
+    beams = int(case.split("_")[0][1:]) if case.startswith("k") else 4
+    if case == "rle_flash":
+        model = _train_model(RLE_TRAIN_CONFIG, dropout=0.0, dtype="bfloat16", use_flash=True)
+        source, mask = _rle_source(rows=2)
+        mask = torch.as_tensor(mask).cuda()
+        requests = [({"RLE": torch.as_tensor(np.roll(source["RLE"], shift, axis=1)).cuda()}, mask)
+                    for shift in (0, 1, 2)]
+        kwargs, stages = {"max_length": 24}, 1
+    else:
+        model = _small_decode_model(eos_bias=20.0 if case == "k4_eos" else 0.0)
+        requests = [_request(3, seed) for seed in (1, 2)]
+        kwargs, stages = {"max_length": 32, "stage_size": 8}, 4
+    hook = _formula_hook() if case.endswith("_guided") else None
+    decoder = BeamDecoder(model)
+    results = []
+    for i, (inputs, mask) in enumerate(requests):
+        if hook is not None:
+            kwargs.update(logits_hook=hook, hook_init=_formula_targets(beams, i + 1))
         got, want = {}, {}
-        seqs, scores = decoder.search(inputs, mask, 4, max_length=32, stage_size=8, stats=got)
-        eager_seqs, eager_scores = decoder.search(inputs, mask, 4, max_length=32, stage_size=8,
-                                                  cuda_graph=False, stats=want)
-        assert torch.equal(seqs, eager_seqs) and torch.equal(scores, eager_scores)
-        assert got["graph"] and not want["graph"] and got["steps"] == want["steps"]
-        assert got["warmup_steps"] == (4 if seed == 1 else 0)     # 4 stages of 8
-        if eos_bias:
+        before = flash.flash_attention_fwd.launches
+        graph = decoder.search(inputs, mask, beams, stats=got, **kwargs)
+        launched = flash.flash_attention_fwd.launches - before
+        kept = tuple(t.clone() for t in graph)
+        eager = decoder.search(inputs, mask, beams, cuda_graph=False, stats=want, **kwargs)
+        assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
+        assert got["graph"] and got["eager_reason"] is None and not got["recaptured"]
+        assert not want["graph"] and want["eager_reason"] == "cuda_graph=False"
+        assert got["steps"] == want["steps"]
+        assert got["warmup_steps"] == (stages if i == 0 else 0)
+        if case == "k4_eos":
             assert got["steps"] < 31 and got["replays"] <= got["steps"] + 8
+        if case == "rle_flash" and i > 0:
+            assert launched == 2
+        results.append((graph, kept))
+    for (graph, kept), (later, _) in zip(results, results[1:]):
+        assert torch.equal(graph[0], kept[0]) and torch.equal(graph[1], kept[1])
+        if case != "k4_eos":
+            assert not torch.equal(graph[1], later[1])
     assert len(decoder._decodes) == 1
 
 
@@ -1200,67 +1227,6 @@ def _formula_targets(beams, seed, batch=3):
     return {"target": target.cuda()}
 
 
-@pytest.mark.parametrize("guided", [False, True], ids=["unguided", "surrogate"])
-@pytest.mark.parametrize("beams", [1, 10, 30])
-def test_prologue_graph_decode_equals_eager_decode(gen, beams, guided):
-    """``search`` with the encoder, cross K/V, state reset and final merge
-    replayed from graphs (captured once, by the first request) against the
-    eager route: two different requests in a row, each bit-equal to its own
-    eager result, with and without the surrogate formula guide. The first
-    request's outputs are the caller's own: the second decode leaves them
-    as they were."""
-    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
-
-    decoder = BeamDecoder(_small_decode_model())
-    formula_hook = _formula_hook()
-    results = []
-    for seed in (1, 2):
-        inputs, mask = _request(3, seed)
-        hook = ({"logits_hook": formula_hook, "hook_init": _formula_targets(beams, seed)}
-                if guided else {})
-        got, want = {}, {}
-        graph = decoder.search(inputs, mask, beams, max_length=32, stage_size=8, stats=got,
-                               **hook)
-        kept = tuple(t.clone() for t in graph)
-        eager = decoder.search(inputs, mask, beams, max_length=32, stage_size=8,
-                               cuda_graph=False, stats=want, **hook)
-        assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
-        assert got["graph"] and got["prologue_graph"] and not want["prologue_graph"]
-        assert got["steps"] == want["steps"] and not got["recaptured"]
-        assert got["warmup_steps"] == (4 if seed == 1 else 0)
-        results.append((graph, kept))
-    first, kept = results[0]
-    assert torch.equal(first[0], kept[0]) and torch.equal(first[1], kept[1])
-    assert not torch.equal(first[1], results[1][0][1])
-    assert len(decoder._decodes) == 1
-
-
-def test_rle_encoder_replays_flash_in_the_prologue_graph(gen):
-    """An RLE model at L 2100 (flash #5 in both encoder layers): the
-    prologue graph replays the flash forward (its launches added at every
-    replay: 2 a request), bit-equal to the eager route, for two requests."""
-    import numpy as np
-
-    from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
-
-    model = _train_model(RLE_TRAIN_CONFIG, dropout=0.0, dtype="bfloat16", use_flash=True)
-    decoder = BeamDecoder(model)
-    source, mask = _rle_source(rows=2)
-    mask_t = torch.as_tensor(mask).cuda()
-    decoder.search({"RLE": torch.as_tensor(source["RLE"]).cuda()}, mask_t, 4,
-                   max_length=24)                                       # captures
-    for shift in (1, 2):
-        ids = torch.as_tensor(np.roll(source["RLE"], shift, axis=1)).cuda()
-        before = flash.flash_attention_fwd.launches
-        got, want = {}, {}
-        graph = decoder.search({"RLE": ids}, mask_t, 4, max_length=24, stats=got)
-        assert flash.flash_attention_fwd.launches - before == 2
-        eager = decoder.search({"RLE": ids}, mask_t, 4, max_length=24, cuda_graph=False,
-                               stats=want)
-        assert got["prologue_graph"] and got["warmup_steps"] == 0
-        assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
-
-
 def test_a_skipped_input_copy_is_rejected_on_the_card(gen, monkeypatch):
     """The planted fault: the IR leaf of a request is not copied into the
     static inputs, so the graphs decode the previous request's patches. The
@@ -1296,26 +1262,49 @@ def _rebind_first(model, prefix):
     return name
 
 
-def test_a_rebound_parameter_is_captured_again(gen):
-    """A parameter of the encoder rebound after the capture: the next
-    search captures its shape again (``recaptured``) and equals the eager
-    decode of the new weights."""
+@pytest.mark.parametrize("part", ["decode", "eval"])
+def test_a_rebound_parameter_is_captured_again(gen, part):
+    """A parameter rebound after the capture (of the encoder for a decode,
+    of the decoder for ``eval_step``): the next call captures its key again
+    (the search's ``recaptured``, one of ``eval_stats["recaptures"]``) and
+    equals the eager route on the new weights; the call after it replays."""
     from multimodalanalytical_tpu_torch.generation.beam_search import BeamDecoder
+    from multimodalanalytical_tpu_torch.training import trainer as trainer_module
 
     model = _small_decode_model()
-    decoder = BeamDecoder(model)
-    inputs, mask = _request(3, 1)
-    old = decoder.search(inputs, mask, 4, max_length=32, stage_size=8)
-    _rebind_first(model, "encoder.")
-    got = {}
-    graph = decoder.search(inputs, mask, 4, max_length=32, stage_size=8, stats=got)
-    eager = decoder.search(inputs, mask, 4, max_length=32, stage_size=8, cuda_graph=False)
-    assert got["recaptured"] and got["warmup_steps"] == 4
+    if part == "decode":
+        decoder = BeamDecoder(model)
+        inputs, mask = _request(3, 1)
+
+        def run(graph):
+            stats = {}
+            seqs, scores = decoder.search(inputs, mask, 4, max_length=32, stage_size=8,
+                                          stats=stats, cuda_graph=graph)
+            return (scores, seqs), (stats["recaptured"], stats["warmup_steps"])
+
+        captured, recaptured = (False, 4), (True, 4)
+        replayed, prefix = (False, 0), "encoder."
+    else:
+        trainer = trainer_module.Trainer(model, _Tokenizer(), n_beams=4)
+        eager_trainer = trainer_module.Trainer(model, _Tokenizer(), n_beams=4, cuda_graph=False)
+        batch = trainer_module.device_batch(_eval_batch(1, 4), trainer.device)
+
+        def run(graph):
+            out = (trainer if graph else eager_trainer).eval_step(batch)
+            stats = trainer.eval_stats
+            return (out["loss"], out["predicted_ids"]), (stats["recaptures"], stats["captures"])
+
+        captured, recaptured = (0, 1), (1, 2)
+        replayed, prefix = (1, 2), "decoder."
+    old, stats = run(True)
+    assert stats == captured
+    _rebind_first(model, prefix)
+    graph, stats = run(True)
+    assert stats == recaptured
+    eager, _ = run(False)
     assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
-    assert not torch.equal(graph[1], old[1])
-    again = {}
-    decoder.search(inputs, mask, 4, max_length=32, stage_size=8, stats=again)
-    assert not again["recaptured"] and again["warmup_steps"] == 0
+    assert not torch.equal(graph[0], old[0])
+    assert run(True)[1] == replayed
 
 
 def _eval_batch(seed, rows):
@@ -1336,8 +1325,7 @@ def test_graph_eval_step_validate_and_predict_equal_eager(gen, monkeypatch):
     on the graph route (``eval_step`` captured once per batch shape, then
     replayed) against a trainer with ``cuda_graph=False`` on the same
     model: every output bit-equal; an ``eval_step``'s outputs are left as
-    they were by the next; a rebound parameter recaptures the key and gives
-    the eager result."""
+    they were by the next; loss counts take a key of their own."""
     from multimodalanalytical_tpu_torch.training import trainer as trainer_module
 
     monkeypatch.setattr(trainer_module, "PIPELINE_DEPTH", 8)
@@ -1349,7 +1337,7 @@ def test_graph_eval_step_validate_and_predict_equal_eager(gen, monkeypatch):
     assert graph.predict(batches) == eager.predict(batches)
     assert graph.eval_stats["captures"] == 2 and graph.eval_stats["replays"] == 6
     assert eager.eval_stats["eager_steps"] == 6 and not eager.last_decode_stats["graph"]
-    assert graph.last_decode_stats["prologue_graph"]
+    assert graph.last_decode_stats["graph"] and not graph.eval_stats["recaptures"]
 
     def both(batch):
         dev = trainer_module.device_batch(batch, graph.device)
@@ -1368,11 +1356,6 @@ def test_graph_eval_step_validate_and_predict_equal_eager(gen, monkeypatch):
         got, want = graph.eval_step(dev, counts), eager.eval_step(dev, counts)
         assert all(torch.equal(got[k], want[k]) for k in want)
     assert graph.eval_stats["captures"] == 3
-    _rebind_first(model, "decoder.")
-    got, want = both(batches[0])
-    assert graph.eval_stats["recaptures"] == 1
-    assert all(torch.equal(got[k], want[k]) for k in want)
-    assert not torch.equal(got["loss"], kept["loss"])
 
 
 def test_rle_eval_step_graph_equals_eager(gen):
@@ -1631,65 +1614,6 @@ def test_premix_on_the_card_equals_the_cpu(gen):
         assert err <= 1e-6 * want.abs().max().item(), err
 
 
-def test_world_one_nccl_step_is_bit_equal_to_no_group(gen, monkeypatch):
-    """Two train steps (fp32, dropout 0) in a world-1 NCCL process group,
-    joined through ``initialize_multihost`` from torchrun's environment as
-    the CLIs join it, which sums the gradients over one rank by an
-    ``all_reduce``, against the same steps with no group: losses, gradient
-    norms and parameters bit-equal."""
-    import socket
-
-    import numpy as np
-    import torch.distributed as dist
-
-    from multimodalanalytical_tpu_torch.models.config import ModelConfig
-    from multimodalanalytical_tpu_torch.parallel import initialize_multihost
-    from multimodalanalytical_tpu_torch.models.seq2seq import Seq2SeqModel
-    from multimodalanalytical_tpu_torch.training import Trainer
-
-    data_config = {
-        "Formula": {"type": "text", "vocab_size": 32, "target": False},
-        "IR": {"type": "1D_patches", "target": False,
-               "preprocessor_arguments": {"patch_size": 125}},
-        "Smiles": {"type": "text", "vocab_size": 64, "target": True},
-    }
-    cfg = ModelConfig(d_model=64, encoder_layers=1, decoder_layers=1,
-                      encoder_attention_heads=2, decoder_attention_heads=2,
-                      encoder_ffn_dim=128, decoder_ffn_dim=128, vocab_size=64,
-                      dtype="float32", dropout=0.0)
-    inputs, mask = _request(4, 1)
-    dec = np.random.default_rng(1).integers(4, 64, (4, 10))
-    labels = dec.copy()
-    labels[1, 6:] = -100
-    batch = {"encoder_inputs": {k: v.cpu().numpy() for k, v in inputs.items()},
-             "encoder_mask": mask.cpu().numpy(), "decoder_ids": dec,
-             "decoder_mask": (labels != -100).astype(np.int32), "labels": labels}
-
-    def run():
-        model = Seq2SeqModel(cfg, data_config, "Smiles", device="cuda",
-                             generator=torch.Generator(device="cuda").manual_seed(0))
-        trainer = Trainer(model, optimiser="adamw", lr=1e-3, num_steps=10)
-        steps = [trainer.train_step(batch) for _ in range(2)]
-        return ([{k: v.item() for k, v in s.items()} for s in steps],
-                [p.detach().clone() for p in model.parameters()])
-
-    alone = run()
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    for key, value in dict(AFM_MULTIHOST="1", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
-        monkeypatch.setenv(key, value)
-    assert initialize_multihost(torch.device("cuda")) == torch.device("cuda", 0)
-    assert dist.get_backend() == "nccl"
-    try:
-        grouped = run()
-    finally:
-        dist.destroy_process_group()
-    assert grouped[0] == alone[0]
-    assert all(torch.equal(a, b) for a, b in zip(grouped[1], alone[1]))
-
-
 # ------------------------------------------------------ the train step's graph
 TRAIN_DATA_CONFIG = {
     "Formula": {"type": "text", "vocab_size": 32, "target": False},
@@ -1919,9 +1843,13 @@ def test_profile_window_traces_the_replayed_train_step(gen, tmp_path):
     assert trainer.step_stats["replays"] == 7 and trainer.step_stats["host_s"] > 0
 
 
-def test_graph_train_step_in_a_world_one_nccl_group(gen, monkeypatch):
-    """5 steps of the graph route in a world-1 NCCL process group (whose
-    collectives a graph may hold) against the eager route with no group:
+@pytest.mark.parametrize("alone", ["graph", "eager"])
+def test_graph_train_step_in_a_world_one_nccl_group(gen, monkeypatch, alone):
+    """5 steps of the graph route in a world-1 NCCL process group, joined
+    through ``initialize_multihost`` from torchrun's environment as the
+    CLIs join it (a graph may hold NCCL's collectives; one data rank sums
+    nothing), against the same steps with no group on the graph route or
+    the eager route: losses, gradient norms, parameters and Adam moments
     bit-equal; a gloo group would run the step eagerly."""
     import socket
 
@@ -1937,7 +1865,7 @@ def test_graph_train_step_in_a_world_one_nccl_group(gen, monkeypatch):
                           num_steps=10, cuda_graph=graph)
         return _steps(trainer, batches), trainer.step_stats
 
-    alone, _ = run(False)
+    ungrouped, _ = run(alone == "graph")
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1946,11 +1874,12 @@ def test_graph_train_step_in_a_world_one_nccl_group(gen, monkeypatch):
         monkeypatch.setenv(key, value)
     assert initialize_multihost(torch.device("cuda")) == torch.device("cuda", 0)
     try:
+        assert dist.get_backend() == "nccl"
         grouped, stats = run(True)
     finally:
         dist.destroy_process_group()
     assert stats["graph"] and stats["captures"] == 1
-    _require_same_steps(grouped, alone)
+    _require_same_steps(grouped, ungrouped)
 
 
 def test_graph_train_step_captures_an_nccl_all_reduce(gen, monkeypatch):
@@ -1980,22 +1909,19 @@ def test_graph_train_step_captures_an_nccl_all_reduce(gen, monkeypatch):
     try:
         assert dist.get_backend() == "nccl"
         x = torch.zeros(1000, device="cuda")
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            y = x * 2                       # the communicator's setup, before capture
-            dist.all_reduce(y)
-        torch.cuda.current_stream().wait_stream(stream)
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+
+        def body():
             y = x * 2
             dist.all_reduce(y)
-            z = y + 1
+            return y + 1
+
+        graphs = _cuda.GraphSet(torch.device("cuda"))
+        # The warm run sets the communicator up, before the capture.
+        entry = graphs.capture(None, body, warm=True)
         for _ in range(3):
             x.copy_(torch.randn(1000, generator=gen, device="cuda"))
-            graph.replay()
-            assert torch.equal(z, x * 2 + 1)
+            graphs.replay(entry)
+            assert torch.equal(entry.out, x * 2 + 1)
 
         calls = []
         all_reduce = dist.all_reduce

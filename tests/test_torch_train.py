@@ -29,6 +29,7 @@ from multimodalanalytical_tpu_torch.training import optim  # noqa: E402
 from multimodalanalytical_tpu_torch.training.trainer import (  # noqa: E402
     Trainer,
     apply_modality_dropout,
+    modality_keep,
     modality_segments,
 )
 
@@ -122,7 +123,8 @@ def test_modality_dropout_zeroes_segments_and_never_all(n_droppable):
     g = torch.Generator().manual_seed(0)
     dropped_counts = set()
     for _ in range(200):
-        out = apply_modality_dropout(mask, segments, g)
+        keep = torch.as_tensor(modality_keep(n_droppable, g))
+        out = apply_modality_dropout(mask, segments, keep)
         dropped = [bool((out[:, s:e] == 0).all()) for s, e in segments]
         for (s, e), gone in zip(segments, dropped):
             assert torch.equal(out[:, s:e], torch.zeros_like(out[:, s:e]) if gone
@@ -131,7 +133,7 @@ def test_modality_dropout_zeroes_segments_and_never_all(n_droppable):
         assert not all(dropped)
         dropped_counts.add(sum(dropped))
     assert dropped_counts == set(range(n_droppable))
-    assert apply_modality_dropout(mask, [], g) is mask
+    assert apply_modality_dropout(mask, [], torch.ones(0)) is mask
 
 
 # ----------------------------------------------------------------- trainer

@@ -216,7 +216,8 @@ def test_plan_follows_optax_and_the_host_draw_over_12_steps(monkeypatch, acc_bat
         assert drew == _old_draw(len(DROPPED), step_seed), t
         mask = torch.ones(2, 26, dtype=torch.int32)
         drawn = trainer_module.apply_modality_dropout(
-            mask, [(0, 12), (12, 26)], torch.Generator().manual_seed(step_seed))
+            mask, [(0, 12), (12, 26)],
+            torch.as_tensor(keep(2, torch.Generator().manual_seed(step_seed))))
         assert [float(drawn[:, s:e].all()) for s, e in ((0, 12), (12, 26))] == drew
         keeps.clear()
     # The schedule moved through its warm-up and its decay.
